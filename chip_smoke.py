@@ -16,8 +16,25 @@ Phases, none of which catches its own failure:
      save_inference_model -> create_predictor(Config(dir)) -> run, counts
      the kernel launches of those requests, and compares one request's
      logits with the same model on the CPU (Config.disable_gpu());
-  4. prints one {"kernels": [...]} line, then the card's line, then the
+  4. holds the two flash-attention backward kernels (dq and dkv) against
+     their plain version over the same cases plus one with an lse
+     cotangent, times them beside the PyTorch pass that prepares their
+     inputs (delta), the plain backward and SDPA's backward, and checks the autograd Function against autograd of the
+     plain forward;
+  5. trains the same LM (is_test=False, dropout 0) with
+     optimizer.Adam(1e-4).minimize(loss) through Executor.run on the
+     card: one warm-up step, then TRAIN_STEPS (5) counted steps at batch
+     8 on one fixed batch, counting the kernel launches of those steps (12
+     forward, 6 dq, 6 dkv a step), and asserts the loss is finite and
+     falls;
+  6. runs the same program from the same seed at batch 2 on the card and
+     on the CPU: the loss and every parameter grad of step 1, and every
+     parameter after step 2, must agree;
+  7. profiles one training step (device busy share, top kernels);
+  8. prints one {"kernels": [...]} line, then the card's line, then the
      result line {"ok": true, "device": {...}} last.
+
+Takes about 70 s on one H100, the kernels' build included.
 
 Exits non-zero, printing no result line, when no CUDA device is present
 or when any phase fails.
@@ -54,6 +71,29 @@ TOL = {"float32": {"out": 1e-4, "lse": 1e-4},
 # only summation order differs across ~16 f32 reductions of width <= 2048.
 LOGITS_ATOL = LOGITS_RTOL = 2e-3
 ARGMAX_AGREE = 0.999
+# backward kernels vs their plain version, relative to the reference's
+# scale: f32 sums in other orders; bf16 rounds dS to bf16 in both, at
+# points where the f32 sums already differ.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+# training: Adam at this rate on one fixed batch, seq 512
+TRAIN_LR = 1e-4
+TRAIN_STEPS = 5
+CHECK_BATCH = 2
+# GPU vs CPU training step, f32 with TF32 off on both, so sums differ
+# only in order: the loss within LOSS_RTOL, and each grad within
+# GRAD_BULK_RTOL of its own max magnitude in all but GRAD_BULK_SHARE of
+# its elements.  Its max error may be larger: a ReLU whose input lies
+# within rounding of 0 takes the other branch on the other device, and
+# that changes one token's contribution to one hidden unit, about
+# 1/(batch*seq) of a grad's scale (GRAD_FLIP_TOKENS tokens' worth are
+# allowed).  Adam moves a weight by about lr*sign(m1) while m1 is young,
+# so a grad near 0 may flip its step: parameters after two steps agree
+# within 2*lr a step plus 1e-5.
+LOSS_RTOL = 1e-5
+GRAD_BULK_RTOL = 1e-4
+GRAD_BULK_SHARE = 0.01
+GRAD_FLIP_TOKENS = 5
+PARAM_ATOL = 2 * 2 * TRAIN_LR + 1e-5
 
 
 def log(msg):
@@ -104,14 +144,24 @@ FLASH_CASES = [
 MAIN_CASE = FLASH_CASES[-2]
 
 
-def flash_bound_ms(b, h, tq, tk, d, causal, dtype):
+# kernel -> (Tq x Tk x D products, [B,H,Tq,D] tensors moved, [B,H,Tk,D]
+# tensors moved, f32 [B*H,Tq] vectors moved)
+FLASH_WORK = {
+    "fwd": (2, 2, 2, 1),    # QK^T, PV; q, out; k, v; lse
+    "dq": (3, 3, 2, 2),     # S, dP, dQ; q, dO, dq; k, v; lse, delta
+    "dkv": (4, 2, 4, 2),    # S, dP, dV, dK; q, dO; k, v, dk, dv; lse, delta
+}
+
+
+def flash_bound_ms(b, h, tq, tk, d, causal, dtype, kernel="fwd"):
     """Least time for the work: each input read once and each output
-    written once over HBM, or the FLOPs (QK^T and PV, 2 each per
-    multiply-add, halved when causal) at the card's peak for the input
-    type, whichever is larger."""
+    written once over HBM, or the FLOPs (2 per multiply-add of each
+    Tq x Tk x D product, halved when causal) at the card's peak for the
+    input type, whichever is larger."""
+    products, n_q, n_k, n_vec = FLASH_WORK[kernel]
     elem = 4 if dtype == "float32" else 2
-    nbytes = elem * b * h * d * (2 * tq + 2 * tk) + 4 * b * h * tq
-    flops = 4.0 * b * h * tq * tk * d * (0.5 if causal else 1.0)
+    nbytes = elem * b * h * d * (n_q * tq + n_k * tk) + 4 * n_vec * b * h * tq
+    flops = 2.0 * products * b * h * tq * tk * d * (0.5 if causal else 1.0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
@@ -151,11 +201,8 @@ def check_flash(device, seed):
         plain_ms = cuda_ms(
             lambda: fa.flash_attention_fwd_plain(q, k, v, causal, scale),
             iters)
-        mask = None
-        if causal and tq != tk:
-            qpos = torch.arange(tq, device=device)[:, None]
-            kpos = torch.arange(tk, device=device)[None, :]
-            mask = qpos + (tk - tq) >= kpos
+        mask = fa._causal_mask(tq, tk, device) if causal and tq != tk \
+            else None
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             scale=scale), iters)
@@ -175,6 +222,125 @@ def check_flash(device, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 4: the backward kernels (dq, dkv) against their plain version
+# ---------------------------------------------------------------------------
+
+# the forward's cases, plus one with a cotangent of lse (the last flag)
+BWD_CASES = [c + (False,) for c in FLASH_CASES] + [
+    (2, 3, 100, 228, 64, True, "float32", True, True)]
+BWD_MAIN_CASE = BWD_CASES[len(FLASH_CASES) - 2]
+
+
+def sdpa_bwd_ms(q, k, v, do, causal, scale, iters):
+    """SDPA's backward: forward plus autograd.grad through SDPA, less
+    SDPA's forward alone."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    tq, tk = q.shape[2], k.shape[2]
+    mask = fa._causal_mask(tq, tk, q.device) if causal and tq != tk \
+        else None
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def fwd():
+        return F.scaled_dot_product_attention(
+            *leaves, attn_mask=mask, is_causal=causal and mask is None,
+            scale=scale)
+
+    fwd_ms = cuda_ms(fwd, iters)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), leaves, do), iters)
+    return both_ms - fwd_ms
+
+
+def check_flash_bwd(device, seed):
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 3)
+    results = []
+    for (b, h, tq, tk, d, causal, dtype, strided, with_dlse) in BWD_CASES:
+        tdtype = getattr(torch, dtype)
+
+        def make(t):
+            x = torch.from_numpy(rng.standard_normal(
+                (b, t, h, d)).astype(np.float32))
+            x = x.to(device=device, dtype=tdtype).permute(0, 2, 1, 3)
+            return x if strided else x.contiguous()
+
+        q, k, v, do = make(tq), make(tk), make(tk), make(tq)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        dlse = None
+        if with_dlse:
+            dlse = torch.from_numpy(rng.standard_normal(
+                (b * h, tq)).astype(np.float32)).to(device)
+        grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale,
+                                       dlse)
+        torch.cuda.synchronize()
+        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                            scale, dlse)
+        errs, ok = {}, True
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            errs[name] = (g.float() - r.float()).abs().max().item()
+            ref_max = r.float().abs().max().item()
+            ok &= bool(g.float().isfinite().all()) and \
+                errs[name] <= BWD_TOL[dtype] * max(1.0, ref_max)
+        if causal and tq > tk:     # rows that see no key: dq exactly 0
+            ok &= bool((grads[0][:, :, :tq - tk] == 0).all())
+        iters = 10 if tq * tk >= 512 * 512 else 30
+        do_c, lse_c, delta = fa._bwd_prepare(q, k, v, o, lse, do, dlse)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        ms = {
+            "dq": cuda_ms(lambda: fa._bwd_kernel(
+                "dq", q, k, v, do_c, lse_c, delta, (dq,), causal, scale),
+                iters),
+            "dkv": cuda_ms(lambda: fa._bwd_kernel(
+                "dkv", q, k, v, do_c, lse_c, delta, (dk, dv), causal,
+                scale), iters),
+        }
+        # the PyTorch pass outside the kernels: delta = rowsum(dO*O) -
+        # dlse, and a copy of a dO without a unit-stride head dim
+        prepare_ms = cuda_ms(lambda: fa._bwd_prepare(q, k, v, o, lse, do,
+                                                     dlse), iters)
+        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, o, lse, do, causal, scale, dlse), iters)
+        library_ms = sdpa_bwd_ms(q, k, v, do, causal, scale, iters)
+        bounds = {n: flash_bound_ms(b, h, tq, tk, d, causal, dtype, n)
+                  for n in ("dq", "dkv")}
+        row = dict(shape=[b, h, tq, tk, d], causal=causal, dtype=dtype,
+                   strided=strided, dlse=with_dlse, max_abs_err=errs,
+                   ms=ms, prepare_ms=prepare_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms={n: v[0] for n, v in bounds.items()},
+                   bound_by={n: v[1] for n, v in bounds.items()}, ok=ok)
+        log("flash bwd case " + json.dumps(row))
+        if not ok:
+            raise AssertionError(
+                f"flash_attention_bwd disagrees with its plain version: "
+                f"{row}")
+        results.append(row)
+
+    # the autograd Function against autograd of the plain forward
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (2, 4, 96, 64)).astype(np.float32)).to(device) for _ in range(4))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(
+        fa.flash_attention_lse(*leaves, causal=True)[0], leaves, do)
+    want = torch.autograd.grad(
+        fa.flash_attention_fwd_plain(*leaves, True, 1 / 8.0)[0], leaves, do)
+    err = max((g - w).abs().max().item() / max(1.0, w.abs().max().item())
+              for g, w in zip(got, want))
+    log(f"FlashAttention.apply vs autograd of the plain forward: max "
+        f"scaled err {err:.3e}")
+    if err > BWD_TOL["float32"]:
+        raise AssertionError("FlashAttention's grads disagree with "
+                             "autograd of the plain forward")
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path — serving the LM through the Predictor
 # ---------------------------------------------------------------------------
 
@@ -184,7 +350,6 @@ def serve(seed, runs, workdir):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.transformer import \
         transformer_encoder_model
-    from paddle_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     model = transformer_encoder_model(**MODEL)
@@ -205,20 +370,20 @@ def serve(seed, runs, workdir):
                 for _ in range(runs)]
     first, = pred.run([requests[0]])            # warm-up, not counted
 
-    fa.flash_attention_fwd.launches = 0
+    reset_kernel_counts()
     times = []
     for ids in requests:
         t = time.perf_counter()
         logits, = pred.run([ids])
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches}
-    expected = MODEL["n_layer"] * runs
+    launches = kernel_counts()
+    expected = {"flash_attention_fwd": MODEL["n_layer"] * runs,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
     log(f"kernel launches over {runs} requests: {launches}")
-    if launches["flash_attention_fwd"] != expected:
-        raise AssertionError(f"flash_attention_fwd launched "
-                             f"{launches['flash_attention_fwd']} times, "
-                             f"expected {expected}")
+    if launches != expected:
+        raise AssertionError(f"serving launched {launches}, expected "
+                             f"{expected}")
 
     want = (BATCH, MODEL["max_len"], MODEL["vocab_size"])
     if first.shape != want or not np.isfinite(first).all():
@@ -250,13 +415,178 @@ def serve(seed, runs, workdir):
                    tokens_per_s=runs * tokens / total,
                    logits_max_abs_err_vs_cpu=err, argmax_agreement=agree)
     log("serving " + json.dumps(serving))
-    profile(pred, requests[0])
+    profile("request", lambda: pred.run([requests[0]]))
     return launches, serving
 
 
-def profile(pred, ids):
-    """Device time of one request by kernel or copy (torch.profiler),
-    counting only the events that ran on the card."""
+# ---------------------------------------------------------------------------
+# phases 5-7: the main path — training the LM with Adam
+# ---------------------------------------------------------------------------
+
+def build_train_program():
+    """The LM in training mode with Adam appended, in programs of its
+    own.  Returns (model, main, startup, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer_encoder_model(**dict(MODEL, is_test=False))
+        _, params_grads = pt.optimizer.Adam(TRAIN_LR).minimize(
+            model["loss"])
+    return model, main, startup, params_grads
+
+
+def train_batch(seed, batch):
+    rng = np.random.RandomState(seed + 2)
+    shape = (batch, MODEL["max_len"], 1)
+    return {n: rng.randint(0, MODEL["vocab_size"], shape).astype(np.int64)
+            for n in ("src_ids", "tgt_label")}
+
+
+def kernel_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd.launches["dq"],
+            "flash_attention_bwd_dkv":
+                fa.flash_attention_bwd.launches["dkv"]}
+
+
+def reset_kernel_counts():
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+
+
+def train(seed):
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    t0 = time.perf_counter()
+    model, main, startup, params_grads = build_train_program()
+    types = [op.type for op in main.global_block().ops]
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    n_params = sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    log(f"train program: {len(types)} ops ({types.count('adam')} adam, "
+        f"{sum(t.endswith('_grad') for t in types)} grad ops), "
+        f"{n_params} parameters; built and initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    feed = train_batch(seed, BATCH)
+
+    def step():
+        return float(exe.run(main, feed=feed, fetch_list=[model["loss"]],
+                             scope=scope)[0])
+
+    warm_loss = step()                           # warm-up, not counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(step())                    # the fetch synchronises
+        times.append(time.perf_counter() - t)
+    launches = kernel_counts()
+    n = MODEL["n_layer"]
+    expected = {"flash_attention_fwd": 2 * n * TRAIN_STEPS,
+                "flash_attention_bwd_dq": n * TRAIN_STEPS,
+                "flash_attention_bwd_dkv": n * TRAIN_STEPS}
+    log(f"kernel launches over {TRAIN_STEPS} training steps: {launches}")
+    if launches != expected:
+        raise AssertionError(f"training launched {launches}, expected "
+                             f"{expected}")
+    if not (np.isfinite([warm_loss] + losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"loss not finite or not falling: "
+                             f"{[warm_loss] + losses}")
+    leaked = [nm for nm, v in scope.vars.items()
+              if isinstance(v.get(), torch.Tensor) and v.get().requires_grad]
+    if leaked:
+        raise AssertionError(f"scope tensors keep autograd state: "
+                             f"{leaked[:5]}")
+    tokens = BATCH * MODEL["max_len"]
+    training = dict(steps=TRAIN_STEPS, batch=BATCH, seq=MODEL["max_len"],
+                    lr=TRAIN_LR, warmup_loss=warm_loss, losses=losses,
+                    step_ms=[t * 1e3 for t in times],
+                    tokens_per_s=TRAIN_STEPS * tokens / sum(times),
+                    max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                    / 1e9)
+    log("training " + json.dumps(training))
+    profile("training step", step)
+    return launches, training
+
+
+def train_and_fetch(place, seed, model, main, startup, params_grads):
+    """Step 1 (fetching the loss and every parameter grad), then step 2;
+    returns (loss, {grad: ndarray}, {param: ndarray after step 2})."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+
+    exe = pt.Executor(place)
+    scope = pt.Scope()
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    feed = train_batch(seed, CHECK_BATCH)
+    grads = [g.name for _, g in params_grads]
+    out = exe.run(main, feed=feed, fetch_list=[model["loss"]] + grads,
+                  scope=scope)
+    exe.run(main, feed=feed, scope=scope)
+    params = convert.params_to_numpy(scope, [p.name for p, _ in
+                                             params_grads])
+    return float(out[0]), dict(zip(grads, out[1:])), params
+
+
+def train_gpu_vs_cpu(seed):
+    import paddle_tpu_torch as pt
+
+    built = build_train_program()
+    t = time.perf_counter()
+    g_loss, g_grads, g_params = train_and_fetch(pt.CUDAPlace(0), seed,
+                                                *built)
+    gpu_s = time.perf_counter() - t
+    t = time.perf_counter()
+    c_loss, c_grads, c_params = train_and_fetch(pt.CPUPlace(), seed,
+                                                *built)
+    cpu_s = time.perf_counter() - t
+    loss_err = abs(g_loss - c_loss) / abs(c_loss)
+    grad_rows = []
+    for n in c_grads:
+        diff = np.abs(g_grads[n] - c_grads[n])
+        scale = max(float(np.abs(c_grads[n]).max()), 1e-30)
+        grad_rows.append((float(diff.max()) / scale,
+                          float((diff > GRAD_BULK_RTOL * scale).mean()), n))
+    grad_rows.sort(reverse=True)
+    param_err = max(float(np.abs(g_params[n] - c_params[n]).max())
+                    for n in c_params)
+    flip_rtol = GRAD_FLIP_TOKENS / (CHECK_BATCH * MODEL["max_len"])
+    res = dict(batch=CHECK_BATCH, loss_gpu=g_loss, loss_cpu=c_loss,
+               loss_rel_err=loss_err, grads=len(c_grads),
+               worst_grads=[{"name": n, "max_err_rel_to_scale": e,
+                             "share_beyond_bulk_tol": f}
+                            for e, f, n in grad_rows[:4]],
+               max_share_beyond_bulk_tol=max(f for _, f, _ in grad_rows),
+               max_param_abs_err_after_2_steps=param_err,
+               gpu_s=gpu_s, cpu_s=cpu_s)
+    log("training GPU vs CPU " + json.dumps(res))
+    if loss_err > LOSS_RTOL or param_err > PARAM_ATOL or any(
+            e > flip_rtol or f > GRAD_BULK_SHARE for e, f, _ in grad_rows):
+        raise AssertionError("the GPU training step disagrees with the "
+                             "CPU run")
+    return res
+
+
+def profile(what, fn):
+    """Device time of one call of ``fn`` (a request, a training step) by
+    kernel or copy (torch.profiler), counting only the events that ran
+    on the card."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
@@ -264,7 +594,8 @@ def profile(pred, ids):
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        pred.run([ids])
+        fn()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     rows = []
     for e in prof.key_averages():
@@ -277,8 +608,8 @@ def profile(pred, ids):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    log("profile " + json.dumps({
-        "request_wall_ms": wall_ms, "device_ms": device_ms,
+    log(f"profile of one {what} " + json.dumps({
+        "wall_ms": wall_ms, "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "top": [{"ms": ms, "calls": n, "name": name[:80]}
                 for ms, n, name in rows[:12]]}))
@@ -306,28 +637,50 @@ def main(argv=None):
     log(f"card: {card}")
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention_fwd"])
+    logs = _build.build(["flash_attention_fwd", "flash_attention_bwd"])
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
 
     cases = check_flash(device, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, serving = serve(args.seed, args.runs, workdir)
+        serve_launches, _ = serve(args.seed, args.runs, workdir)
+    bwd_cases = check_flash_bwd(device, args.seed)
+    train_launches, _ = train(args.seed)
+    train_gpu_vs_cpu(args.seed)
 
     main_row = next(r for r in cases
                     if r["shape"] == list(MAIN_CASE[:5])
                     and r["dtype"] == MAIN_CASE[6])
+    bwd_row = next(r for r in bwd_cases
+                   if r["shape"] == list(BWD_MAIN_CASE[:5])
+                   and r["dtype"] == BWD_MAIN_CASE[6])
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas_kernels.py:186",
-        "launches": launches["flash_attention_fwd"],
+        "launches": train_launches["flash_attention_fwd"],
+        "launches_by_path": {
+            "serving": serve_launches["flash_attention_fwd"],
+            "training": train_launches["flash_attention_fwd"]},
         "max_abs_err": main_row["max_abs_err_out"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
     }]
+    for name, line, errs in (("dq", 409, ("dq",)),
+                             ("dkv", 458, ("dk", "dv"))):
+        kernels.append({
+            "name": f"flash_attention_bwd_{name}", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"paddle_tpu/ops/pallas_kernels.py:{line}",
+            "launches": train_launches[f"flash_attention_bwd_{name}"],
+            "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
+            "ms": bwd_row["ms"][name], "plain_ms": bwd_row["plain_ms"],
+            "bound_ms": bwd_row["bound_ms"][name],
+            "bound_by": bwd_row["bound_by"][name],
+            "library_ms": bwd_row["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"device: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

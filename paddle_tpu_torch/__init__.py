@@ -1,8 +1,9 @@
 """paddle_tpu_torch — the PyTorch and CUDA port of paddle_tpu.
 
 The same Fluid-style programs (Program/Block/OpDesc IR, the op registry,
-Executor, inference Predictor) run on torch tensors, and the TPU's Pallas
-kernels become kernels written by hand for NVIDIA Hopper (``csrc/``).
+Executor, append_backward and the optimizers, inference Predictor) run
+on torch tensors, and the TPU's Pallas kernels become kernels written by
+hand for NVIDIA Hopper (``csrc/``).
 The port imports no JAX and nothing of ``paddle_tpu``; a program or an
 inference model saved by either package loads in the other.
 
@@ -25,6 +26,12 @@ from paddle_tpu_torch.framework import (  # noqa: F401
 from paddle_tpu_torch import ops  # noqa: F401  (registers every op)
 from paddle_tpu_torch import layers  # noqa: F401
 from paddle_tpu_torch import initializer  # noqa: F401
+from paddle_tpu_torch import optimizer  # noqa: F401
+from paddle_tpu_torch import backward  # noqa: F401
+from paddle_tpu_torch.backward import append_backward, gradients  # noqa: F401,E501
+from paddle_tpu_torch.optimizer import (SGD, Adam, Momentum,  # noqa: F401
+                                        AdamOptimizer, MomentumOptimizer,
+                                        SGDOptimizer)
 from paddle_tpu_torch import io  # noqa: F401
 from paddle_tpu_torch import inference  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401

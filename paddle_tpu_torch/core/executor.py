@@ -5,6 +5,13 @@ interpreter loop, ``:57-267``).  Every op's compute runs eagerly on the
 executor's device; feeds are moved there, fetches come back as numpy
 when ``return_numpy`` is set.
 
+Every op runs under ``torch.no_grad()``: the forward keeps no autograd
+graph and no scope tensor requires grad.  Only a synthesised
+``<op>_grad`` compute turns grad mode on, inside itself
+(``core/registry.py``).  An op's outputs are stored under their own
+names; an optimizer's ``ParamOut`` is named after its ``Param``, so the
+new tensor replaces the old one in the scope (no update in place).
+
 ``Executor()`` with no place means ``CUDAPlace(0)``; resolving it raises
 ``NoCUDADeviceError`` when no CUDA device is present, so nothing runs on
 the CPU unless the caller passed ``CPUPlace()``.
@@ -52,8 +59,9 @@ class Executor:
         if scope is None:
             scope = global_scope()
         self._feed_data(program, feed or {}, scope)
-        for op in program.global_block().ops:
-            self._run_op(op, scope)
+        with torch.no_grad():
+            for op in program.global_block().ops:
+                self._run_op(op, scope)
         return self._fetch(fetch_list or [], scope, return_numpy)
 
     def _feed_data(self, program: Program, feed, scope: Scope):

@@ -343,6 +343,10 @@ class Program:
         for b in self.blocks:
             yield from b.vars.values()
 
+    def all_parameters(self):
+        return [v for v in self.list_vars()
+                if v.trainable and v.persistable]
+
     def persistables(self):
         return [v for v in self.list_vars() if v.persistable]
 

@@ -14,13 +14,24 @@ compute signature: ``compute(ins: dict, attrs: dict, device) -> dict``
   - returns ``{out_slot: tensor_or_list}``.
 
 Shape inference runs the compute on ``meta``-device tensors, where the
-JAX package uses ``jax.eval_shape``.  The generic ``<op>_grad``
-synthesis is not part of the serving slice.
+JAX package uses ``jax.eval_shape``.
+
+Grad ops: ``get_op_def("<op>_grad")`` synthesises a def from the forward
+one, as the JAX package does with ``jax.vjp`` (``_generic_grad_def``).
+Its inputs are the forward inputs plus ``<out>@GRAD`` for each forward
+output, its outputs ``<in>@GRAD`` for each forward input.  The compute
+detaches the float inputs into autograd leaves, re-runs the forward
+compute under ``torch.enable_grad()`` and takes ``torch.autograd.grad``
+of the outputs that received a cotangent; an input the outputs do not
+depend on gets zeros.  The executor runs every op under
+``torch.no_grad()``, so this is the only place a graph is built, and it
+is dropped when the grad op returns.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -28,6 +39,7 @@ import torch
 from paddle_tpu_torch.core.types import dtype_name, to_torch_dtype
 
 META = torch.device("meta")
+GRAD_SUFFIX = "@GRAD"
 
 
 class UnknownOpTypeError(KeyError):
@@ -77,6 +89,10 @@ class OpDef:
     duplicable: frozenset
     optional: frozenset
     differentiable: bool = True
+    # stateful ops (optimizers) write one of their inputs: output slot ->
+    # input slot.  Informational: the executor stores every output under
+    # its own name, which for these ops is the input's name.
+    in_place: dict = dataclasses.field(default_factory=dict)
     # host ops run by an executor handler (saves, loads)
     host_only: bool = False
 
@@ -115,6 +131,7 @@ def register_op(
     duplicable: Sequence[str] = (),
     optional: Sequence[str] = (),
     differentiable: bool = True,
+    in_place: Optional[dict] = None,
     host_only: bool = False,
 ):
     """Decorator registering ``compute`` as op ``type``."""
@@ -131,6 +148,7 @@ def register_op(
             duplicable=frozenset(duplicable),
             optional=frozenset(optional),
             differentiable=differentiable,
+            in_place=dict(in_place or {}),
             host_only=host_only,
         )
         return compute
@@ -142,7 +160,94 @@ def get_op_def(type: str) -> OpDef:
     try:
         return _REGISTRY[type]
     except KeyError:
+        if type.endswith("_grad") and type[: -len("_grad")] in _REGISTRY:
+            return _generic_grad_def(type[: -len("_grad")])
         raise UnknownOpTypeError(type) from None
+
+
+def has_op_def(type: str) -> bool:
+    if type in _REGISTRY:
+        return True
+    return type.endswith("_grad") and type[: -len("_grad")] in _REGISTRY
+
+
+def _slot_is_diff(val) -> bool:
+    leaves = val if isinstance(val, (list, tuple)) else [val]
+    return bool(leaves) and all(
+        isinstance(x, torch.Tensor) and x.is_floating_point()
+        for x in leaves)
+
+
+@functools.lru_cache(maxsize=None)
+def _generic_grad_def(fwd_type: str) -> OpDef:
+    """Synthesize '<fwd>_grad' from the forward compute with autograd.
+
+    The same slots, duplicable and optional sets as the JAX package's
+    vjp-synthesised def (``paddle_tpu/core/registry.py:181-250``).  Like
+    its vjp, the grad recomputes the forward op."""
+    fwd = get_op_def(fwd_type)
+    if not fwd.differentiable:
+        raise KeyError(f"op '{fwd_type}' is not differentiable")
+
+    def grad_compute(ins, attrs, device):
+        fwd_ins = {s: ins[s] for s in fwd.inputs if s in ins}
+        diff = {k: v for k, v in fwd_ins.items() if _slot_is_diff(v)}
+        leaves = {
+            k: [x.detach().requires_grad_() for x in v]
+            if isinstance(v, (list, tuple)) else v.detach().requires_grad_()
+            for k, v in diff.items()}
+        nondiff = {k: v for k, v in fwd_ins.items() if k not in diff}
+        with torch.enable_grad():
+            outs = fwd.compute({**leaves, **nondiff}, attrs, device)
+        ys, cts = [], []
+        for slot in fwd.outputs:
+            g = ins.get(slot + GRAD_SUFFIX)
+            if slot not in outs or g is None:
+                continue         # no upstream grad: a zero cotangent
+            y_list, g_list = outs[slot], g
+            if not isinstance(y_list, (list, tuple)):
+                y_list, g_list = [y_list], [g_list]
+            for y, gy in zip(y_list, g_list):
+                if not (y.is_floating_point() and y.requires_grad):
+                    continue     # no cotangent for int outputs
+                if gy.shape != y.shape and tuple(
+                        d for d in gy.shape if d != 1) == tuple(
+                        d for d in y.shape if d != 1):
+                    # squeeze-compatible mismatches only ([] vs [1],
+                    # [N,1] vs [N]); anything else raises in autograd
+                    gy = gy.reshape(y.shape)
+                ys.append(y)
+                cts.append(gy)
+        flat = [(k, x) for k, v in leaves.items()
+                for x in (v if isinstance(v, list) else [v])]
+        grads = [None] * len(flat)
+        if ys:
+            grads = torch.autograd.grad(ys, [x for _, x in flat], cts,
+                                        allow_unused=True)
+        res = {}
+        for (k, x), g in zip(flat, grads):
+            g = torch.zeros_like(x) if g is None else g
+            if isinstance(leaves[k], list):
+                res.setdefault(k + GRAD_SUFFIX, []).append(g)
+            else:
+                res[k + GRAD_SUFFIX] = g
+        return res
+
+    grad_inputs = tuple(fwd.inputs) + tuple(
+        s + GRAD_SUFFIX for s in fwd.outputs)
+    grad_dup = frozenset(
+        list(fwd.duplicable)
+        + [s + GRAD_SUFFIX for s in fwd.outputs if s in fwd.duplicable])
+    return OpDef(
+        type=fwd_type + "_grad",
+        inputs=grad_inputs,
+        outputs=tuple(s + GRAD_SUFFIX for s in fwd.inputs),
+        compute=grad_compute,
+        attrs=dict(fwd.attrs),
+        duplicable=grad_dup,
+        optional=frozenset(grad_inputs) | frozenset(fwd.optional),
+        differentiable=False,
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,8 @@ class LayerHelper:
             name, shape, dtype)
         main_param.stop_gradient = not attr.trainable
         main_param.trainable = attr.trainable
+        # read by the optimizer, which refuses what it cannot honour
+        main_param.regularizer = attr.regularizer
         init = (attr.initializer or default_initializer
                 or (Constant(0.0) if is_bias else Xavier()))
         startup_block = self.startup_program.global_block()

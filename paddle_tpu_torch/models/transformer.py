@@ -3,10 +3,11 @@
 Counterpart of ``paddle_tpu/models/transformer.py`` (``:18-208``,
 ``:265-268``): ``transformer_encoder_model`` emits the same ops and the
 same parameter names as the JAX package, so parameters carry across by
-name.  Attention is the fused ``flash_attention`` op.  The serving slice
-builds the test-mode graph only: dropout (``is_test=False`` with a
-nonzero ``dropout_rate``) and label smoothing belong to the training
-slice and raise here.
+name.  Attention is the fused ``flash_attention`` op.  With
+``dropout_rate=0.0`` the training graph (``is_test=False``) is the same
+as the test graph, and ``optimizer.Adam(lr).minimize(loss)`` trains it.
+Dropout (``is_test=False`` with a nonzero ``dropout_rate``) and label
+smoothing are not ported yet and raise.
 """
 
 from __future__ import annotations

@@ -5,3 +5,4 @@ from paddle_tpu_torch.ops import nn  # noqa: F401
 from paddle_tpu_torch.ops import fused_ops  # noqa: F401
 from paddle_tpu_torch.ops import io_ops  # noqa: F401
 from paddle_tpu_torch.ops import flash_attention  # noqa: F401
+from paddle_tpu_torch.ops import optim  # noqa: F401

@@ -73,6 +73,27 @@ def assign_value(ins, attrs, device):
     return {"Out": _host_array(arr, device)}
 
 
+@register_op("assign", inputs=("X",), outputs=("Out",))
+def assign(ins, attrs, device):
+    return {"Out": ins["X"]}
+
+
+@register_op("fill_zeros_like", inputs=("X",), outputs=("Out",),
+             differentiable=False)
+def fill_zeros_like(ins, attrs, device):
+    return {"Out": torch.zeros_like(ins["X"])}
+
+
+@register_op("sum", inputs=("X",), outputs=("Out",), duplicable=("X",))
+def sum_op(ins, attrs, device):
+    """Var-arity add, in order; the backward's gradient accumulation."""
+    xs = ins["X"]
+    out = xs[0]
+    for x in xs[1:]:
+        out = out + x
+    return {"Out": out}
+
+
 @register_op("scale", inputs=("X",), outputs=("Out",),
              attrs={"scale": 1.0, "bias": 0.0, "bias_after_scale": True})
 def scale(ins, attrs, device):

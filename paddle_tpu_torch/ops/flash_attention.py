@@ -1,21 +1,34 @@
-"""Flash-attention forward: the CUDA kernel, its plain version, the op.
+"""Flash attention: the CUDA kernels, their plain versions, the op.
 
-Replaces ``paddle_tpu/ops/pallas_kernels.py::_fwd_kernel`` (wrapper
-``_flash_fwd_pallas``): blockwise ``S = Q K^T * scale`` with an online
-softmax, returning ``out [B,H,Tq,D]`` in q's dtype and the per-row
-``lse = m + log l`` as ``[B*H, Tq]`` f32 (unpadded).  Causal masking is
-bottom-right aligned (``q_off = Tk - Tq``); a fully masked row outputs 0
-and gets ``lse = -1e30``.
+Forward: replaces ``paddle_tpu/ops/pallas_kernels.py::_fwd_kernel``
+(wrapper ``_flash_fwd_pallas``): blockwise ``S = Q K^T * scale`` with an
+online softmax, returning ``out [B,H,Tq,D]`` in q's dtype and the
+per-row ``lse = m + log l`` as ``[B*H, Tq]`` f32 (unpadded).  Causal
+masking is bottom-right aligned (``q_off = Tk - Tq``); a fully masked
+row outputs 0 and gets ``lse = -1e30``.
 
-The kernel is ``csrc/flash_attention_fwd.cu``; its header says how it is
-laid out on the card and what bounds it.  On this card the Mosaic-only
-layouts of the TPU kernel (lane-replicated or packed LSE, head packing)
-have no purpose and are gone.
+Backward: replaces ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (wrapper
+``_flash_bwd_pallas``).  P is recomputed from lse,
+``delta = rowsum(dO*O) - dlse`` (computed here in PyTorch, as the JAX
+package computes it in XLA), ``dS = P*(dO V^T - delta)*scale``, and
+``dQ = dS K``, ``dK = dS^T Q``, ``dV = P^T dO`` in f32, written in the
+input dtype.  With bf16 inputs dS is rounded to bf16 before the two
+products with it and P stays f32, as in the Pallas kernels.
 
-``flash_attention_fwd`` dispatches on the device of ``q``: a CUDA tensor
-launches the kernel (a build or launch failure raises), a CPU or meta
-tensor takes ``flash_attention_fwd_plain``.  Its ``launches`` attribute
-counts kernel launches.
+The kernels are ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``; their headers say how they are laid
+out on the card and what bounds them.  The Mosaic-only layouts of the
+TPU kernels (lane-replicated or packed stats, head packing) are gone.
+
+``flash_attention_fwd`` and ``flash_attention_bwd`` dispatch on the
+device of ``q``: a CUDA tensor launches the kernels (a build or launch
+failure raises), a CPU or meta tensor takes the plain version.  Each
+kernel's launches are counted: ``flash_attention_fwd.launches``,
+``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.
+
+``FlashAttention`` is the ``torch.autograd.Function`` over the pair;
+the ``flash_attention`` op's compute goes through it, so the
+synthesised ``flash_attention_grad`` reaches the backward kernels.
 """
 
 from __future__ import annotations
@@ -29,7 +42,16 @@ from paddle_tpu_torch.core.registry import register_op
 
 _NEG_INF = -1e30
 _KERNEL = "flash_attention_fwd"
+_BWD_KERNEL = "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _causal_mask(tq, tk, device):
+    """[Tq, Tk] bool, True where query i may see key j: the causal band
+    aligned bottom-right (``q_off = Tk - Tq``)."""
+    qpos = torch.arange(tq, device=device)[:, None]
+    kpos = torch.arange(tk, device=device)[None, :]
+    return qpos + (tk - tq) >= kpos
 
 
 def flash_attention_fwd_plain(q, k, v, causal, scale):
@@ -42,9 +64,7 @@ def flash_attention_fwd_plain(q, k, v, causal, scale):
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     mask = None
     if causal:
-        qpos = torch.arange(tq, device=q.device)[:, None]
-        kpos = torch.arange(tk, device=q.device)[None, :]
-        mask = qpos + (tk - tq) >= kpos
+        mask = _causal_mask(tq, tk, q.device)
         s = torch.where(mask, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -89,7 +109,7 @@ def _launch(q, k, v, causal, scale):
     lse = torch.empty((b * h, tq), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
-    lib = _library()
+    lib = _load(_KERNEL, {"pt_flash_attention_fwd": 5}, 9)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_flash_attention_fwd(
@@ -106,16 +126,22 @@ def _launch(q, k, v, causal, scale):
     return out, lse
 
 
-def _library():
+def _load(name, n_ptrs, n_strides):
+    """Builds (at first use) and loads kernel library ``name``; declares
+    each ``fn`` of ``n_ptrs`` ({fn: tensor pointers}) as taking those
+    pointers, B, H, Tq, Tk, D, ``n_strides`` int64 strides, the dtype
+    code, the causal flag, the scale and the stream."""
     from paddle_tpu_torch import _build
 
-    lib = _build.load(_KERNEL)
-    fn = lib.pt_flash_attention_fwd
-    if fn.argtypes is None:
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = ([ptr] * 5 + [ctypes.c_int] * 5 + [i64] * 9
-                       + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ptr])
-        fn.restype = ctypes.c_int
+    lib = _build.load(name)
+    ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for fn_name, n in n_ptrs.items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
+            fn.argtypes = ([ptr] * n + [ctypes.c_int] * 5 + [i64] * n_strides
+                           + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ptr])
+            fn.restype = ctypes.c_int
+    if lib.pt_cuda_error_string.argtypes is None:
         lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -139,6 +165,151 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 flash_attention_fwd.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _delta(o, do, dlse):
+    """rowsum(dO*O) - dlse as [B*H, Tq] f32."""
+    b, h, tq, _ = o.shape
+    delta = (do.float() * o.float()).sum(-1).reshape(b * h, tq)
+    if dlse is not None:
+        delta = delta - dlse.float().reshape(b * h, tq)
+    return delta
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                              dlse=None):
+    """Plain PyTorch version of the backward kernels: P recomputed from
+    lse (not autograd of the plain forward), the kernels' masks and
+    rounding.  Returns (dq, dk, dv) in the input dtype."""
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse.reshape(b, h, tq, 1))
+    if causal:
+        # also zeroes fully masked rows, whose lse is -1e30
+        p = torch.where(_causal_mask(tq, tk, q.device), p, 0.0)
+    delta = _delta(o, do, dlse).reshape(b, h, tq, 1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_prepare(q, k, v, o, lse, do, dlse):
+    """Checks the backward's inputs; returns (dO, lse, delta) as the
+    kernels take them."""
+    _check(q, k, v)
+    b, h, tq, _ = q.shape
+    if do.shape != q.shape or o.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and "
+                         f"dO {tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if lse.shape != (b * h, tq) or lse.dtype != torch.float32:
+        raise ValueError("flash_attention_bwd: lse must be [B*H, Tq] f32")
+    if do.dtype != q.dtype:
+        do = do.to(q.dtype)
+    if do.stride(3) != 1:
+        do = do.contiguous()   # the kernels need a unit-stride head dim
+    return do, lse.contiguous(), _delta(o, do, dlse).contiguous()
+
+
+def _bwd_kernel(name, q, k, v, do, lse, delta, outs, causal, scale):
+    """Launches one backward kernel, ``dq`` (outs = (dq,)) or ``dkv``
+    (outs = (dk, dv)), on prepared inputs and contiguous outputs."""
+    b, h, tq, d = q.shape
+    # q, k, v, dO, lse, delta and 1 (dq) or 2 (dk, dv) outputs; q/k/v/dO
+    # strides
+    lib = _load(_BWD_KERNEL, {"pt_flash_attention_bwd_dq": 7,
+                              "pt_flash_attention_bwd_dkv": 8}, 12)
+    strides = (q.stride(0), q.stride(1), q.stride(2),
+               k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2),
+               do.stride(0), do.stride(1), do.stride(2))
+    fn = getattr(lib, f"pt_flash_attention_bwd_{name}")
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), b, h, tq, k.shape[2], d,
+                 *strides, _DTYPE_CODES[q.dtype], int(bool(causal)),
+                 float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd {name} kernel launch "
+                           "failed: "
+                           + lib.pt_cuda_error_string(err).decode())
+    flash_attention_bwd.launches[name] += 1
+
+
+def _bwd_launch(q, k, v, o, lse, do, causal, scale, dlse):
+    do, lse, delta = _bwd_prepare(q, k, v, o, lse, do, dlse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    _bwd_kernel("dq", q, k, v, do, lse, delta, (dq,), causal, scale)
+    _bwd_kernel("dkv", q, k, v, do, lse, delta, (dk, dv), causal, scale)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
+                        dlse=None):
+    """Gradients (dq, dk, dv) of flash attention from the forward's
+    ``o`` and ``lse`` and the output cotangent ``do``; ``dlse`` is the
+    optional cotangent of ``lse``.  CUDA tensors run the dq and dkv
+    kernels; CPU and meta tensors run the plain version."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if q.device.type == "cuda":
+        return _bwd_launch(q, k, v, o, lse, do, causal, scale, dlse)
+    if q.device.type in ("cpu", "meta"):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
+                                         scale, dlse)
+    raise ValueError(f"flash_attention_bwd: no implementation for device "
+                     f"{q.device}")
+
+
+flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+
+
+class FlashAttention(torch.autograd.Function):
+    """(out, lse) = flash attention of (q, k, v), differentiable in both
+    outputs: the forward kernel, and the two backward kernels with the
+    cotangent of lse folded into delta."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:
+            dout = torch.zeros_like(out)
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         ctx.causal, ctx.scale, dlse)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_lse(q, k, v, causal=False, scale=None):
+    """(out [B,H,Tq,D], lse [B*H,Tq]), differentiable in q, k and v
+    through both outputs: the mergeable summary that ring attention
+    combines across chunks (counterpart of ``pallas_kernels.py:697``;
+    the port's lse is not padded to a tile)."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    return FlashAttention.apply(q, k, v, bool(causal), float(scale))
+
+
 @register_op("flash_attention", inputs=("Q", "K", "V"), outputs=("Out",),
              attrs={"causal": False, "scale": 0.0, "block_q": 0,
                     "block_k": 0, "gspmd_batch_axis": "",
@@ -146,7 +317,7 @@ flash_attention_fwd.launches = 0
 def _flash_attention_op(ins, attrs, device):
     """The IR op.  ``scale`` 0.0 means 1/sqrt(D).  The tile sizes and the
     gspmd axes are the JAX package's and change nothing on one card."""
-    out, _ = flash_attention_fwd(ins["Q"], ins["K"], ins["V"],
+    out, _ = flash_attention_lse(ins["Q"], ins["K"], ins["V"],
                                  causal=bool(attrs["causal"]),
                                  scale=attrs["scale"] or None)
     return {"Out": out}

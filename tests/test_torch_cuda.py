@@ -6,9 +6,14 @@ installed.  On a card, from the repository root:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The ``cuda``-marked tests skip where there is no CUDA device: a CUDA
-kernel has no CPU mode.  The kernel is held against its plain PyTorch
-version: f32 within 1e-4 (other summation order), bf16 ``out`` within
-3e-2 (P is rounded to bf16 before P.V), ``lse`` within 1e-3.
+kernel has no CPU mode.  The forward kernel is held against its plain
+PyTorch version: f32 within 1e-4 (other summation order), bf16 ``out``
+within 3e-2 (P is rounded to bf16 before P.V), ``lse`` within 1e-3.  The
+backward kernels are held against ``flash_attention_bwd_plain`` within
+``1e-4 * max(1, max|ref|)`` in f32 and ``3e-2 * max(1, max|ref|)`` in
+bf16 (dS rounded to bf16 in both, at other points of the sum).  A
+training step of the tiny LM on the card matches the CPU within
+rtol=atol=1e-4 in the loss and every parameter grad.
 """
 
 from __future__ import annotations
@@ -88,6 +93,124 @@ def test_gpu_predictor_matches_cpu(cuda, tmp_path):
     assert fa.flash_attention_fwd.launches == launches + TINY_LM["n_layer"]
     ref, = cpu.run([ids.astype(np.int64)])
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+# (B, H, Tq, Tk, D, causal, dtype, strided, with_dlse)
+BWD_CASES = [
+    (1, 2, 40, 40, 32, True, "float32", False, False),
+    (1, 2, 40, 40, 32, False, "float32", False, False),
+    (2, 2, 24, 56, 16, True, "float32", False, False),   # Tq < Tk
+    (1, 2, 56, 24, 16, True, "float32", False, False),   # fully masked rows
+    (1, 3, 37, 45, 32, False, "float32", True, False),   # ragged, strided
+    (2, 2, 130, 130, 128, False, "float32", False, True),
+    (2, 8, 512, 512, 64, True, "float32", True, False),
+    (1, 2, 48, 48, 32, True, "bfloat16", False, False),
+    (1, 2, 37, 61, 16, True, "bfloat16", True, True),
+]
+
+
+def _bwd_inputs(rng, device, b, h, tq, tk, d, dtype, strided):
+    def make(t):
+        x = torch.from_numpy(rng.standard_normal((b, t, h, d))
+                             .astype(np.float32))
+        x = x.to(device, getattr(torch, dtype)).permute(0, 2, 1, 3)
+        return x if strided else x.contiguous()
+
+    return make(tq), make(tk), make(tk), make(tq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype,strided,with_dlse",
+                         BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal,
+                                       dtype, strided, with_dlse):
+    rng = np.random.RandomState(2)
+    q, k, v, do = _bwd_inputs(rng, cuda, b, h, tq, tk, d, dtype, strided)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    dlse = None
+    if with_dlse:
+        dlse = torch.from_numpy(rng.standard_normal((b * h, tq))
+                                .astype(np.float32)).to(cuda)
+    before = dict(fa.flash_attention_bwd.launches)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale, dlse)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == {
+        "dq": before["dq"] + 1, "dkv": before["dkv"] + 1}
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                        dlse)
+    rel = 1e-4 if dtype == "float32" else 3e-2
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        assert g.float().isfinite().all(), name
+        tol = rel * max(1.0, r.float().abs().max().item())
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    if causal and tq > tk:
+        assert (grads[0][:, :, :tq - tk] == 0).all()   # rows that see no key
+
+
+@pytest.mark.cuda
+def test_flash_autograd_matches_grad_of_plain_forward(cuda):
+    rng = np.random.RandomState(3)
+    q, k, v, do = _bwd_inputs(rng, cuda, 2, 4, 96, 96, 64, "float32", True)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    out, _ = fa.flash_attention_lse(*leaves, causal=True)
+    got = torch.autograd.grad(out, leaves, do)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref_out, _ = fa.flash_attention_fwd_plain(*leaves, True, 1 / 8.0)
+    want = torch.autograd.grad(ref_out, leaves, do)
+    for g, w in zip(got, want):
+        tol = 1e-4 * max(1.0, w.abs().max().item())
+        assert (g - w).abs().max().item() <= tol
+
+
+def _train_tiny_lm(place, steps, ids, labels):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    with fresh_port_programs():
+        model = transformer_encoder_model(**dict(TINY_LM, is_test=False))
+        _, params_grads = pt.optimizer.Adam(1e-3).minimize(model["loss"])
+        exe = pt.Executor(place)
+        np.random.seed(0)
+        exe.run(pt.default_startup_program())
+        fetch = [model["loss"]] + [g for _, g in params_grads]
+        first = exe.run(feed={"src_ids": ids, "tgt_label": labels},
+                        fetch_list=fetch)
+        for _ in range(steps - 1):
+            exe.run(feed={"src_ids": ids, "tgt_label": labels})
+        params = convert.params_to_numpy(
+            pt.global_scope(), [p.name for p, _ in params_grads])
+    return first, params
+
+
+@pytest.mark.cuda
+def test_gpu_training_step_matches_cpu(cuda):
+    import paddle_tpu_torch as pt
+
+    rng = np.random.RandomState(4)
+    shape = (2, TINY_LM["max_len"], 1)
+    ids = rng.randint(0, TINY_LM["vocab_size"], shape).astype(np.int64)
+    labels = rng.randint(0, TINY_LM["vocab_size"], shape).astype(np.int64)
+    fwd, dq, dkv = (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd.launches["dq"],
+                    fa.flash_attention_bwd.launches["dkv"])
+    gpu, gpu_params = _train_tiny_lm(pt.CUDAPlace(0), 2, ids, labels)
+    n = TINY_LM["n_layer"]
+    assert fa.flash_attention_fwd.launches == fwd + 2 * 2 * n
+    assert fa.flash_attention_bwd.launches == {"dq": dq + 2 * n,
+                                               "dkv": dkv + 2 * n}
+    cpu, cpu_params = _train_tiny_lm(pt.CPUPlace(), 2, ids, labels)
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+    # Adam's first steps move each weight by about lr: 2 steps of 1e-3
+    for name in cpu_params:
+        np.testing.assert_allclose(gpu_params[name], cpu_params[name],
+                                   rtol=0, atol=2 * 2e-3 + 1e-4,
+                                   err_msg=name)
 
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():

@@ -1,12 +1,15 @@
-"""The port's flash-attention forward against the JAX package's kernel.
+"""The port's flash attention against the JAX package's kernels.
 
-On the CPU the port's wrapper takes its plain version; it is held against
-``paddle_tpu``'s Pallas kernel run in interpret mode (``out`` from
-``flash_attention``, ``lse`` from ``flash_attention_lse`` cut to Tq).
-f32 agrees within atol=rtol=1e-5 (another summation order); bf16 is
-compared in f32 within 2e-2 (the Pallas kernel rounds P to bf16 per
-block, the plain version keeps it in f32).  The CUDA kernel itself is
-held against the plain version in test_torch_cuda.py.
+On the CPU the port's wrappers take their plain versions; they are held
+against ``paddle_tpu``'s Pallas kernels run in interpret mode.  Forward:
+``out`` from ``flash_attention``, ``lse`` from ``flash_attention_lse``
+cut to Tq.  Backward: ``flash_attention_bwd`` (P recomputed from lse)
+against ``jax.vjp`` of the same calls, with an lse cotangent through
+``flash_attention_lse``.  f32 agrees within atol=rtol=1e-5 (another
+summation order); bf16 is compared in f32 within 2e-2 (the Pallas
+forward rounds P to bf16 per block, the plain version keeps it in f32,
+so O and delta differ at bf16 precision).  The CUDA kernels themselves
+are held against the plain versions in test_torch_cuda.py.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas_kernels import (flash_attention,
@@ -77,3 +81,67 @@ def test_wrapper_takes_plain_version_on_meta():
     out, lse = fa.flash_attention_fwd(q, k, k, causal=True)
     assert out.device.type == "meta" and tuple(out.shape) == (2, 4, 10, 32)
     assert tuple(lse.shape) == (8, 10)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype", CASES)
+def test_plain_bwd_matches_pallas_interpret_vjp(b, h, tq, tk, d, causal,
+                                                dtype):
+    q, k, v = _inputs(b, h, tq, tk, d, seed=tq * 5 + tk)
+    do = np.random.RandomState(tk).standard_normal(
+        (b, h, tq, d)).astype(np.float32)
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype=dtype) for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention(
+        a, b_, c, causal=causal, impl="interpret", block_q=16,
+        block_k=16), jq, jk, jv)
+    want = vjp(jdo)
+    tq_, tk_, tv_, tdo = (torch.from_numpy(x).to(getattr(torch, dtype))
+                          for x in (q, k, v, do))
+    launches = dict(fa.flash_attention_bwd.launches)
+    out, lse = fa.flash_attention_fwd(tq_, tk_, tv_, causal=causal)
+    got = fa.flash_attention_bwd(tq_, tk_, tv_, out, lse, tdo,
+                                 causal=causal)
+    assert fa.flash_attention_bwd.launches == launches  # CPU: no kernel
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == tq_.dtype, name
+        np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
+                                   atol=tol, err_msg=name)
+    if causal and tq > tk:
+        assert (got[0][:, :, :tq - tk].float() == 0).all()
+
+
+def test_lse_cotangent_matches_pallas_interpret_vjp():
+    """flash_attention_lse: the autograd Function with an lse cotangent
+    folded into delta (the JAX lse is padded to the 16-row tile)."""
+    b, h, tq, tk, d = 1, 2, 37, 45, 32
+    q, k, v = _inputs(b, h, tq, tk, d, seed=11)
+    rng = np.random.RandomState(12)
+    do = rng.standard_normal((b, h, tq, d)).astype(np.float32)
+    dlse = rng.standard_normal((b * h, tq)).astype(np.float32)
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    (_, jlse), vjp = jax.vjp(lambda a, b_, c: flash_attention_lse(
+        a, b_, c, causal=True, impl="interpret", block_q=16, block_k=16),
+        jq, jk, jv)
+    jdlse = np.zeros(jlse.shape, np.float32)
+    jdlse[:, :tq] = dlse
+    want = vjp((jnp.asarray(do), jnp.asarray(jdlse)))
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+    fwd = fa.flash_attention_fwd.launches
+    out, lse = fa.flash_attention_lse(*leaves, causal=True)
+    got = torch.autograd.grad((out, lse), leaves,
+                              (torch.from_numpy(do), torch.from_numpy(dlse)))
+    assert fa.flash_attention_fwd.launches == fwd
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), to_numpy(w), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_autograd_function_gives_shapes_on_meta():
+    q = torch.empty((2, 4, 10, 32), device="meta", requires_grad=True)
+    k = torch.empty((2, 4, 12, 32), device="meta", requires_grad=True)
+    out, lse = fa.flash_attention_lse(q, k, k, causal=True)
+    assert out.device.type == "meta" and tuple(out.shape) == (2, 4, 10, 32)
+    assert tuple(lse.shape) == (8, 10)
+    dq, dk, _ = fa.flash_attention_bwd(q, k, k, out, lse, out, causal=True)
+    assert tuple(dq.shape) == (2, 4, 10, 32)
+    assert tuple(dk.shape) == (2, 4, 12, 32)

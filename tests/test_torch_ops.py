@@ -219,14 +219,18 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'paddle_tpu'\n"
         "             or m.startswith('paddle_tpu.'))\n"
-        "print(len([m for m in sys.modules\n"
-        "           if m.startswith('paddle_tpu_torch')]), bad)\n")
+        "print(' '.join(m for m in sys.modules\n"
+        "               if m.startswith('paddle_tpu_torch')), '|', bad)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    count, bad = res.stdout.split(" ", 1)
+    mods, bad = res.stdout.split("|", 1)
     assert bad.strip() == "[]"
-    assert int(count) >= 20
+    mods = mods.split()
+    assert len(mods) >= 20
+    for m in ("optimizer", "backward", "ops.optim",
+              "ops.flash_attention"):
+        assert f"paddle_tpu_torch.{m}" in mods
 
     for path in _port_files():
         with open(path) as f:
