@@ -36,3 +36,6 @@ from paddle_tpu_torch import io  # noqa: F401
 from paddle_tpu_torch import inference  # noqa: F401
 from paddle_tpu_torch import unique_name  # noqa: F401
 from paddle_tpu_torch.param_attr import ParamAttr  # noqa: F401
+from paddle_tpu_torch import transpiler  # noqa: F401
+from paddle_tpu_torch import contrib  # noqa: F401
+from paddle_tpu_torch.flags import get_flag, set_flags  # noqa: F401

@@ -1,0 +1,63 @@
+"""Typed flags.
+
+Counterpart of ``paddle_tpu/flags.py`` (``:19-57``): one registry of
+typed flags, each read from the environment variable
+``PADDLE_TPU_<NAME>`` when the module is imported, changed at run time
+with ``set_flags``.  Flags are process-global.
+
+Only the flags that the ported slices read are defined here; the others
+come with the slices that read them.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any
+
+_REGISTRY: dict = {}
+
+
+class _Flag:
+    __slots__ = ("name", "type", "value", "help")
+
+    def __init__(self, name, type_, default, help_):
+        self.name = name
+        self.type = type_
+        self.value = default
+        self.help = help_
+
+
+def _coerce(type_, raw: str):
+    if type_ is bool:
+        return raw.lower() in ("1", "true", "yes", "on")
+    return type_(raw)
+
+
+def define_flag(name: str, default: Any, help_: str = ""):
+    type_ = type(default)
+    env = os.environ.get(f"PADDLE_TPU_{name.upper()}")
+    value = _coerce(type_, env) if env is not None else default
+    _REGISTRY[name] = _Flag(name, type_, value, help_)
+
+
+def get_flag(name: str):
+    return _REGISTRY[name].value
+
+
+def set_flags(flags: dict):
+    for name, value in flags.items():
+        f = _REGISTRY.get(name)
+        if f is None:
+            raise KeyError(f"unknown flag '{name}'")
+        if not isinstance(value, f.type):
+            value = _coerce(f.type, str(value))
+        f.value = value
+
+
+define_flag("fc_epilogue", "off",
+            "the fc_epilogue op (ops/epilogue.py), which "
+            "transpiler.fuse_epilogue emits for mul + bias + residual + "
+            "act chains: 'off' and 'xla' run the unfused chain, "
+            "'interpret' the kernel's plain PyTorch version, 'pallas' "
+            "the CUDA kernel (a CPU tensor raises), 'on' the CUDA kernel "
+            "on a CUDA tensor and the chain on a CPU one")

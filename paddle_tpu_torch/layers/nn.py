@@ -8,18 +8,20 @@ from __future__ import annotations
 
 import numpy as np
 
+from paddle_tpu_torch.core.types import dtype_name
 from paddle_tpu_torch.layers.helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "layer_norm", "elementwise_add", "scale",
     "reshape", "transpose", "flash_attention", "mean",
-    "softmax_with_cross_entropy",
+    "softmax_with_cross_entropy", "relu", "gelu", "elementwise_mul", "cast",
 ]
 
 
-def _single_out(op_type, x, attrs=None, ins_extra=None, in_slot="X"):
+def _single_out(op_type, x, attrs=None, ins_extra=None, in_slot="X",
+                out_dtype=None):
     helper = LayerHelper(op_type)
-    out = helper.create_variable_for_type_inference(x.dtype)
+    out = helper.create_variable_for_type_inference(out_dtype or x.dtype)
     inputs = {in_slot: x}
     inputs.update(ins_extra or {})
     helper.append_op(type=op_type, inputs=inputs, outputs={"Out": out},
@@ -114,6 +116,27 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     helper.append_op(type="elementwise_add", inputs={"X": x, "Y": y},
                      outputs={"Out": out}, attrs={"axis": axis})
     return helper.append_activation(out, act)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper("elementwise_mul")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="elementwise_mul", inputs={"X": x, "Y": y},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return helper.append_activation(out, act)
+
+
+def relu(x, name=None):
+    return _single_out("relu", x)
+
+
+def gelu(x, approximate=False, name=None):
+    return _single_out("gelu", x, {"approximate": approximate})
+
+
+def cast(x, dtype):
+    dtype = dtype_name(dtype)
+    return _single_out("cast", x, {"out_dtype": dtype}, out_dtype=dtype)
 
 
 def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,

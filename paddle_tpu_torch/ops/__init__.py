@@ -6,3 +6,5 @@ from paddle_tpu_torch.ops import fused_ops  # noqa: F401
 from paddle_tpu_torch.ops import io_ops  # noqa: F401
 from paddle_tpu_torch.ops import flash_attention  # noqa: F401
 from paddle_tpu_torch.ops import optim  # noqa: F401
+from paddle_tpu_torch.ops import amp  # noqa: F401
+from paddle_tpu_torch.ops import epilogue  # noqa: F401

@@ -84,6 +84,12 @@ def fill_zeros_like(ins, attrs, device):
     return {"Out": torch.zeros_like(ins["X"])}
 
 
+@register_op("cast", inputs=("X",), outputs=("Out",),
+             attrs={"out_dtype": REQUIRED})
+def cast(ins, attrs, device):
+    return {"Out": ins["X"].to(to_torch_dtype(attrs["out_dtype"]))}
+
+
 @register_op("sum", inputs=("X",), outputs=("Out",), duplicable=("X",))
 def sum_op(ins, attrs, device):
     """Var-arity add, in order; the backward's gradient accumulation."""
@@ -103,11 +109,28 @@ def scale(ins, attrs, device):
     return {"Out": (x + attrs["bias"]) * attrs["scale"]}
 
 
+def _operands(ins, axis):
+    """X and Y of a binary op in their common dtype, Y broadcast.  Both
+    are cast to ``promote_types`` first, as jnp promotes arrays: torch
+    would keep a bf16 X's dtype against a 0-d f32 Y."""
+    x, y = ins["X"], ins["Y"]
+    dt = torch.promote_types(x.dtype, y.dtype)
+    x, y = x.to(dt), y.to(dt)
+    return x, _bcast_y(x, y, axis)
+
+
 @register_op("elementwise_add", inputs=("X", "Y"), outputs=("Out",),
              attrs={"axis": -1})
 def elementwise_add(ins, attrs, device):
-    x, y = ins["X"], ins["Y"]
-    return {"Out": x + _bcast_y(x, y, attrs["axis"])}
+    x, y = _operands(ins, attrs["axis"])
+    return {"Out": x + y}
+
+
+@register_op("elementwise_mul", inputs=("X", "Y"), outputs=("Out",),
+             attrs={"axis": -1})
+def elementwise_mul(ins, attrs, device):
+    x, y = _operands(ins, attrs["axis"])
+    return {"Out": x * y}
 
 
 @register_op("mean", inputs=("X",), outputs=("Out",))
@@ -131,6 +154,22 @@ def mul(ins, attrs, device):
 @register_op("relu", inputs=("X",), outputs=("Out",))
 def relu(ins, attrs, device):
     return {"Out": torch.relu(ins["X"])}
+
+
+def gelu_fn(x, approximate=False):
+    """``jax.nn.gelu``'s formulas, constants in x's dtype: the exact form
+    ``x/2 * erfc(-x/sqrt(2))``, or the tanh approximation."""
+    if approximate:
+        c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype, device=x.device)
+        return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
+    c = torch.tensor(np.sqrt(0.5), dtype=x.dtype, device=x.device)
+    return 0.5 * x * torch.special.erfc(-x * c)
+
+
+@register_op("gelu", inputs=("X",), outputs=("Out",),
+             attrs={"approximate": False})
+def gelu(ins, attrs, device):
+    return {"Out": gelu_fn(ins["X"], attrs["approximate"])}
 
 
 @register_op("softmax_with_cross_entropy", inputs=("Logits", "Label"),

@@ -7,10 +7,12 @@ are created in both the main and the startup program.  Learning-rate
 and accumulator names come from the same ``unique_name`` draws as the
 JAX package's, so a checkpoint of persistables carries across.
 
-Not ported yet, and refused rather than ignored: regularization,
-``grad_clip`` and ``Adam(fuse=True)`` (``fused_adam``).  Not ported
-yet: a learning rate given as a scheduler's variable, and the dygraph
-branch.
+``Adam(fuse=True)`` appends one ``fused_adam`` op over every parameter
+instead of one ``adam`` op each.
+
+Not ported yet, and refused rather than ignored: regularization and
+``grad_clip``.  Not ported yet: a learning rate given as a scheduler's
+variable, and the dygraph branch.
 """
 
 from __future__ import annotations
@@ -73,11 +75,15 @@ class Optimizer:
                  no_grad_set=None):
         return append_backward(loss, parameter_list, no_grad_set)
 
-    def apply_gradients(self, params_grads):
+    @staticmethod
+    def _refuse_regularizers(params_grads):
         for p, _ in params_grads:
             if getattr(p, "regularizer", None) is not None:
                 raise NotImplementedError(
                     f"parameter {p.name}: regularizers are not ported yet")
+
+    def apply_gradients(self, params_grads):
+        self._refuse_regularizers(params_grads)
         block = params_grads[0][0].block.program.global_block()
         self._create_lr_var(block)
         for p, g in params_grads:
@@ -132,12 +138,39 @@ MomentumOptimizer = Momentum
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, fuse=False, **kwargs):
-        if fuse:
-            raise NotImplementedError(
-                "Adam(fuse=True) (the fused_adam op) is not ported yet")
         super().__init__(learning_rate, **kwargs)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._lazy_mode = lazy_mode
+        self._fuse = fuse
+
+    def apply_gradients(self, params_grads):
+        """With ``fuse``, one ``fused_adam`` op over every (param, grad).
+        The moments are named param by param as in the unfused layout, so
+        a checkpoint carries across; the beta pows are shared, anchored
+        on the first parameter (``paddle_tpu/optimizer.py:218-248``)."""
+        if not (self._fuse and params_grads):
+            return super().apply_gradients(params_grads)
+        self._refuse_regularizers(params_grads)
+        block = params_grads[0][0].block.program.global_block()
+        self._create_lr_var(block)
+        ps = [p for p, _ in params_grads]
+        gs = [g for _, g in params_grads]
+        m1s = [self._add_accumulator("moment1", p) for p in ps]
+        m2s = [self._add_accumulator("moment2", p) for p in ps]
+        b1p = self._add_accumulator("beta1_pow", ps[0], self._beta1, [1])
+        b2p = self._add_accumulator("beta2_pow", ps[0], self._beta2, [1])
+        block.append_op(
+            type="fused_adam",
+            inputs={"Param": ps, "Grad": gs, "Moment1": m1s,
+                    "Moment2": m2s, "Beta1Pow": b1p, "Beta2Pow": b2p,
+                    "LearningRate": self._lr_var},
+            outputs={"ParamOut": ps, "Moment1Out": m1s,
+                     "Moment2Out": m2s, "Beta1PowOut": b1p,
+                     "Beta2PowOut": b2p},
+            attrs={"beta1": self._beta1, "beta2": self._beta2,
+                   "epsilon": self._epsilon},
+            op_role=OPTIMIZE, infer_shape=False)
+        return []
 
     def _append_optimize_op(self, block, pg):
         p, g = pg

@@ -14,6 +14,13 @@ backward kernels are held against ``flash_attention_bwd_plain`` within
 bf16 (dS rounded to bf16 in both, at other points of the sum).  A
 training step of the tiny LM on the card matches the CPU within
 rtol=atol=1e-4 in the loss and every parameter grad.
+
+The ``fc_epilogue`` kernel is held against ``fc_epilogue_plain`` over
+every fc stage subset, ragged and aligned shapes, f32 and bf16.  Both
+accumulate the same products in f32 in other orders (f32 within 1e-4 of
+outputs of unit scale); bf16 output is one rounding of that f32 value,
+so the two may differ by one bf16 step where the sums straddle a
+rounding boundary (within 1e-2 + 1e-2 * |ref|).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import torch
 
 from torch_port_helpers import TINY_LM, fresh_port_programs
 
+from paddle_tpu_torch.ops import epilogue as ep
 from paddle_tpu_torch.ops import flash_attention as fa
 
 # (B, H, Tq, Tk, D, causal, dtype)
@@ -45,10 +53,11 @@ CASES = [
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    old = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    mm = torch.backends.cuda.matmul
+    old = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = False
     yield torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = old
+    mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = old
 
 
 @pytest.mark.cuda
@@ -225,3 +234,74 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     s = torch.zeros((1, 1, 32, 8)).transpose(2, 3)
     with pytest.raises(ValueError, match="unit stride"):
         fa._check(s, s, s)
+
+
+# (M, K, N): ragged edges, K and N not multiples of 8 (the masked-load
+# path), and the aligned cp.async path
+FC_SHAPES = [(100, 130, 77), (1, 3, 5), (257, 64, 129), (130, 40, 136),
+             (256, 512, 512), (300, 2048, 40)]
+FC_ACTS = [("", False), ("relu", False), ("gelu", False), ("gelu", True)]
+
+
+def _fc_operands(rng, device, m, k, n, dtype, bias_dtype, res_dtype):
+    def t(shape, scale, dt):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(device,
+                                                        getattr(torch, dt))
+
+    return (t((m, k), 1.0, dtype), t((k, n), k ** -0.5, dtype),
+            t((n,), 1.0, bias_dtype), t((m, n), 1.0, res_dtype))
+
+
+def _fc_close(got, want, dtype):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    got, want = got.float(), want.float()
+    if dtype == "float32":
+        return (got - want).abs().max().item() <= 1e-4
+    return bool(((got - want).abs() <= 1e-2 + 1e-2 * want.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", FC_SHAPES)
+def test_fc_epilogue_kernel_matches_plain(cuda, m, k, n, dtype):
+    rng = np.random.RandomState(m + k + n)
+    other = "bfloat16" if dtype == "float32" else "float32"
+    for bias_dtype, res_dtype in ((dtype, dtype), (other, dtype),
+                                  (dtype, other)):
+        x, w, b, r = _fc_operands(rng, cuda, m, k, n, dtype, bias_dtype,
+                                  res_dtype)
+        for has_b in (False, True):
+            for has_r in (False, True):
+                for act, approx in FC_ACTS:
+                    bias, res = b if has_b else None, r if has_r else None
+                    launches = ep.fc_epilogue.launches
+                    got = ep.fc_epilogue_kernel(x, w, bias, res, act, approx)
+                    torch.cuda.synchronize()
+                    assert ep.fc_epilogue.launches == launches + 1
+                    want = ep.fc_epilogue_plain(x, w, bias, res, act, approx)
+                    assert _fc_close(got, want, dtype), \
+                        (bias_dtype, res_dtype, has_b, has_r, act, approx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fc_epilogue_grads_match_autograd_of_the_chain(cuda, dtype):
+    """The Function launches the kernel forward; its backward is autograd
+    of the chain, so the grads equal the chain's exactly."""
+    rng = np.random.RandomState(7)
+    x, w, b, r = _fc_operands(rng, cuda, 96, 64, 80, dtype, dtype, dtype)
+    g = torch.from_numpy(rng.standard_normal((96, 80)).astype(np.float32)
+                         ).to(cuda, x.dtype)
+    for act, approx in FC_ACTS:
+        leaves = [t.detach().requires_grad_() for t in (x, w, b, r)]
+        launches = ep.fc_epilogue.launches
+        out = ep.fc_epilogue(*leaves, act=act, approximate=approx)
+        assert ep.fc_epilogue.launches == launches + 1
+        got = torch.autograd.grad(out, leaves, g)
+        leaves = [t.detach().requires_grad_() for t in (x, w, b, r)]
+        want = torch.autograd.grad(
+            ep._fc_reference(*leaves, act, approx), leaves, g)
+        for a, e in zip(got, want):
+            assert a.dtype == e.dtype
+            assert torch.equal(a, e), act

@@ -229,7 +229,9 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     mods = mods.split()
     assert len(mods) >= 20
     for m in ("optimizer", "backward", "ops.optim",
-              "ops.flash_attention"):
+              "ops.flash_attention", "flags", "ops.amp", "ops.epilogue",
+              "contrib.mixed_precision.decorator",
+              "transpiler.epilogue_transpiler"):
         assert f"paddle_tpu_torch.{m}" in mods
 
     for path in _port_files():

@@ -206,8 +206,13 @@ def test_optimizer_op_matches_jax(op_type, ins, attrs):
 def test_optimizer_refuses_what_it_cannot_honour():
     with fresh_port_programs():
         model = port_model(**TRAIN_LM)
-        with pytest.raises(NotImplementedError, match="fused_adam"):
-            pt.optimizer.Adam(LR, fuse=True)
+        # Adam(fuse=True) is honoured: one fused_adam op, no adam op
+        with fresh_port_programs():
+            fused = port_model(**TRAIN_LM)
+            pt.optimizer.Adam(LR, fuse=True).minimize(fused["loss"])
+            types = [op.type for op in
+                     pt.default_main_program().global_block().ops]
+        assert types.count("fused_adam") == 1 and "adam" not in types
         with pytest.raises(NotImplementedError, match="regularization"):
             pt.optimizer.SGD(LR, regularization=object())
         with pytest.raises(NotImplementedError, match="grad_clip"):
