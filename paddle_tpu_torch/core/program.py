@@ -92,6 +92,10 @@ class VarDesc:
             f" type={self.type.name}{', persistable' if self.persistable else ''})"
         )
 
+    @property
+    def ndim(self):
+        return None if self.shape is None else len(self.shape)
+
     def to_dict(self):
         return {
             "name": self.name,

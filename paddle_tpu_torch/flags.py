@@ -54,6 +54,27 @@ def set_flags(flags: dict):
         f.value = value
 
 
+define_flag("maxpool_grad_algo", "sas",
+            "max-pool backward: 'sas' routes each output's gradient to the "
+            "first maximum of its window, as XLA's select_and_scatter "
+            "does; 'compare' (route to every tied maximum) is not ported "
+            "and raises")
+define_flag("conv_epilogue", "off",
+            "NHWC conv2d and the conv2d_epilogue op (ops/conv_epilogue.py): "
+            "'off' runs every NHWC conv2d as the plain convolution; any "
+            "other value sends it to conv2d_epilogue, where 'xla' is the "
+            "unfused chain, 'interpret' the kernel's plain PyTorch "
+            "version, 'pallas' the CUDA kernel (a CPU tensor raises) and "
+            "'on' the CUDA kernel on a CUDA tensor and the chain on a CPU "
+            "one")
+define_flag("conv_bn_stats", "off",
+            "the conv2d_bn_train op (ops/conv_epilogue.py), which "
+            "transpiler.fuse_conv_bn_train emits: 'off' and 'xla' run the "
+            "unfused conv -> batch-norm -> residual -> relu composite, "
+            "'interpret' the plain versions of the two kernels (conv with "
+            "Σy/Σy² partials, then normalize + residual + act), 'pallas' "
+            "the CUDA kernels (a CPU tensor raises), 'on' the CUDA "
+            "kernels on a CUDA tensor and the composite on a CPU one")
 define_flag("fc_epilogue", "off",
             "the fc_epilogue op (ops/epilogue.py), which "
             "transpiler.fuse_epilogue emits for mul + bias + residual + "

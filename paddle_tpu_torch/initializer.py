@@ -63,3 +63,22 @@ class Xavier(Initializer):
         limit = float(np.sqrt(6.0 / (fi + fo)))
         Uniform(-limit, limit, self.seed)(var, block)
 
+
+
+class MSRA(Initializer):
+    """Kaiming initialisation, uniform: U(-sqrt(6/fan_in), +...).  The
+    normal form (``uniform=False``) draws from ``gaussian_random``, which
+    is not ported yet, and raises."""
+
+    def __init__(self, uniform=True, fan_in=None, seed=0):
+        if not uniform:
+            raise NotImplementedError(
+                "MSRA(uniform=False) is not ported yet")
+        self.fan_in = fan_in
+        self.seed = seed
+
+    def __call__(self, var, block):
+        fi, _ = _fan_in_out(var.shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        limit = float(np.sqrt(6.0 / fi))
+        Uniform(-limit, limit, self.seed)(var, block)

@@ -1,7 +1,8 @@
 """Layer functions building the IR.
 
 Counterpart of ``paddle_tpu/layers/nn.py``: the layers the Transformer LM
-calls, emitting the same op types, slots and attrs as the JAX package.
+and ResNet call, emitting the same op types, slots, attrs, var names and
+startup ops as the JAX package.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ __all__ = [
     "fc", "embedding", "layer_norm", "elementwise_add", "scale",
     "reshape", "transpose", "flash_attention", "mean",
     "softmax_with_cross_entropy", "relu", "gelu", "elementwise_mul", "cast",
+    "conv2d", "pool2d", "batch_norm", "softmax", "topk", "accuracy",
 ]
 
 
@@ -64,6 +66,102 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
     return out
 
 
+def _pair_attr(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None, name=None,
+           use_cudnn=True, data_format="NCHW"):
+    """``conv2d`` with an OIHW filter (MSRA uniform by default), then a
+    channel-bias ``elementwise_add`` unless ``bias_attr`` is False, then
+    the activation op."""
+    from paddle_tpu_torch.initializer import MSRA
+
+    helper = LayerHelper("conv2d", name=name)
+    c_in = input.shape[1] if data_format == "NCHW" else input.shape[-1]
+    fs = filter_size if isinstance(filter_size, (list, tuple)) else (
+        filter_size, filter_size)
+    w = helper.create_parameter(
+        param_attr, [num_filters, c_in // groups, fs[0], fs[1]],
+        input.dtype, default_initializer=MSRA(uniform=True))
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="conv2d", inputs={"Input": input, "Filter": w},
+        outputs={"Output": out},
+        attrs={"strides": _pair_attr(stride),
+               "paddings": _pair_attr(padding),
+               "dilations": _pair_attr(dilation),
+               "groups": groups, "data_format": data_format})
+    if bias_attr is not False:
+        b = helper.create_parameter(bias_attr, [num_filters], input.dtype,
+                                    is_bias=True)
+        out2 = helper.create_variable_for_type_inference(input.dtype)
+        helper.append_op(
+            type="elementwise_add", inputs={"X": out, "Y": b},
+            outputs={"Out": out2},
+            attrs={"axis": 1 if data_format == "NCHW" else -1})
+        out = out2
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, ceil_mode=False,
+           exclusive=True, adaptive=False, name=None, data_format="NCHW"):
+    attrs = {
+        "pooling_type": pool_type,
+        "ksize": _pair_attr(pool_size),
+        "global_pooling": global_pooling,
+        "strides": _pair_attr(pool_stride),
+        "paddings": _pair_attr(pool_padding),
+        "ceil_mode": ceil_mode, "exclusive": exclusive,
+        "adaptive": adaptive, "data_format": data_format,
+    }
+    return _single_out("pool2d", input, attrs)
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False):
+    """``batch_norm`` with scale (1), bias (0) and the running mean (0)
+    and variance (1) as persistable parameters; the running statistics
+    are not trainable and are updated by wiring MeanOut/VarianceOut back
+    onto the same vars."""
+    from paddle_tpu_torch.initializer import Constant
+    from paddle_tpu_torch.param_attr import ParamAttr
+
+    helper = LayerHelper("batch_norm", name=name)
+    c = input.shape[1] if data_layout == "NCHW" else input.shape[-1]
+    scale = helper.create_parameter(param_attr, [c], input.dtype,
+                                    default_initializer=Constant(1.0))
+    bias = helper.create_parameter(bias_attr, [c], input.dtype,
+                                   is_bias=True)
+    mean = helper.create_parameter(
+        ParamAttr(name=moving_mean_name, trainable=False,
+                  initializer=Constant(0.0)), [c], input.dtype)
+    var = helper.create_parameter(
+        ParamAttr(name=moving_variance_name, trainable=False,
+                  initializer=Constant(1.0)), [c], input.dtype)
+    mean.stop_gradient = True
+    var.stop_gradient = True
+    y = helper.create_variable_for_type_inference(input.dtype)
+    saved_mean = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    saved_var = helper.create_variable_for_type_inference(
+        input.dtype, stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": input, "Scale": scale, "Bias": bias, "Mean": mean,
+                "Variance": var},
+        outputs={"Y": y, "MeanOut": mean, "VarianceOut": var,
+                 "SavedMean": saved_mean, "SavedVariance": saved_var},
+        attrs={"epsilon": epsilon, "momentum": momentum,
+               "is_test": is_test, "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y, act)
+
+
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
                epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
                name=None):
@@ -104,6 +202,35 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax_out
     return loss
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    return _single_out("softmax", input, {"axis": axis})
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k")
+    values = helper.create_variable_for_type_inference(input.dtype)
+    indices = helper.create_variable_for_type_inference("int64")
+    helper.append_op(type="top_k", inputs={"X": input},
+                     outputs={"Out": values, "Indices": indices},
+                     attrs={"k": k})
+    return values, indices
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    """Top-k accuracy of ``input`` against ``label``: a ``top_k`` op, then
+    an ``accuracy`` op (Accuracy f32, Correct and Total int64)."""
+    helper = LayerHelper("accuracy")
+    values, indices = topk(input, k)
+    acc = helper.create_variable_for_type_inference("float32")
+    correct = correct or helper.create_variable_for_type_inference("int64")
+    total = total or helper.create_variable_for_type_inference("int64")
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": values, "Indices": indices, "Label": label},
+        outputs={"Accuracy": acc, "Correct": correct, "Total": total})
+    return acc
 
 
 def mean(x, name=None):

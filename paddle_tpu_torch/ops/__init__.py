@@ -8,3 +8,5 @@ from paddle_tpu_torch.ops import flash_attention  # noqa: F401
 from paddle_tpu_torch.ops import optim  # noqa: F401
 from paddle_tpu_torch.ops import amp  # noqa: F401
 from paddle_tpu_torch.ops import epilogue  # noqa: F401
+from paddle_tpu_torch.ops import conv_epilogue  # noqa: F401
+from paddle_tpu_torch.ops import metrics  # noqa: F401

@@ -235,3 +235,29 @@ def transpose2(ins, attrs, device):
     (``mul``'s reshape) copy, and the flash kernel reads strided q/k/v."""
     x = ins["X"]
     return {"Out": x.permute(*attrs["axis"]), "XShape": _xshape(x)}
+
+
+@register_op("transpose", inputs=("X",), outputs=("Out",),
+             attrs={"axis": REQUIRED})
+def transpose(ins, attrs, device):
+    """The layout pass's transpose (``paddle_tpu/ops/misc.py:117``), made
+    contiguous: the NHWC conv stack behind it reads dense channels-last
+    memory."""
+    return {"Out": ins["X"].permute(*[int(a) for a in attrs["axis"]])
+            .contiguous()}
+
+
+@register_op("softmax", inputs=("X",), outputs=("Out",), attrs={"axis": -1})
+def softmax(ins, attrs, device):
+    return {"Out": torch.softmax(ins["X"], dim=attrs["axis"])}
+
+
+@register_op("top_k", inputs=("X",), outputs=("Out", "Indices"),
+             attrs={"k": 1}, differentiable=False)
+def top_k(ins, attrs, device):
+    """The k largest along the last axis, largest first.  A stable sort
+    puts the lower index first among equal values, as ``lax.top_k``
+    does (``torch.topk`` promises no order between ties)."""
+    vals, idx = torch.sort(ins["X"], dim=-1, descending=True, stable=True)
+    k = attrs["k"]
+    return {"Out": vals[..., :k], "Indices": idx[..., :k]}

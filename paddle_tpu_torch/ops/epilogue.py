@@ -10,7 +10,8 @@ Counterpart of ``paddle_tpu/ops/epilogue.py``:
   ``apply_chain_stages`` is the unfused graph's order: each add in the
   tensor's dtype, the act last.  The chain's relu is ``maximum(y, 0)``,
   whose gradient at ``y == 0`` is 0.5, as ``jnp.maximum``'s is (the
-  ``relu`` op's, ``torch.relu``, is 0).
+  ``relu`` op's, ``torch.relu``, is 0).  ``apply_bn_tail`` is the
+  normalize kernel's tail (``:324-333``).
 - ``fc_epilogue``: ``act(x @ w + bias + residual)`` on ``x [M,K]``,
   ``w [K,N]``, ``bias [N]``, ``residual [M,N]``, in ``promote(x, w)``.
   Its kernel replaces ``_fc_ep_kernel`` (wrapper ``_fc_ep_pallas``,
@@ -263,6 +264,17 @@ def apply_chain_stages(y, *, bias=None, residual=None, act="",
     if residual is not None:
         y = y + residual.to(y.dtype)
     return _act_fn(act, approximate)(y)
+
+
+def apply_bn_tail(t, out_dtype, residual=None, act=""):
+    """The BN-apply tail (``paddle_tpu/ops/epilogue.py:324-333``): cast
+    the f32 normalised value to the conv's dtype first, then the
+    residual add in that dtype, then the act, which are the unfused
+    batch_norm -> elementwise_add -> relu chain's rounding points."""
+    t = t.to(out_dtype)
+    if residual is not None:
+        t = t + residual.to(out_dtype)
+    return _act_fn(act)(t)
 
 
 # ---------------------------------------------------------------------------

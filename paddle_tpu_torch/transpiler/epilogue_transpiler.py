@@ -1,19 +1,26 @@
-"""The epilogue-fusion pass, fc anchor.
+"""The epilogue-fusion pass.
 
 Counterpart of ``paddle_tpu/transpiler/epilogue_transpiler.py``: the same
 walk and guards, so both packages rewrite a program into the same op
-list.  Anchor ``fc``: ``mul`` (+ channel bias add) (+ same-shape residual
-add) (+ relu or gelu) becomes one ``fc_epilogue`` op carrying the matched
-stages in its ``epilogue`` attr (``ops/epilogue.py``).  Every fused
-intermediate is sole-consumed and unprotected.
+list.  Each anchor collapses a producer and its sole-consumed tail into
+one fused op carrying the matched stages in its ``epilogue`` attr
+(``ops/epilogue.py``):
 
-The ``conv`` and ``conv_bn`` anchors emit ops whose kernels the ResNet
-slice ports; asking for them raises ``NotImplementedError``, the default
-``anchors`` included, rather than fusing part of what was asked.  The
-JAX package's IR verifier around the pass (``checked_pass``) and the
-int8 interlayer fold are not ported.
+- ``conv``: conv2d (+ channel bias add) (+ same-shape residual add)
+  (+ relu) -> ``conv2d_epilogue``;
+- ``conv_bn``: conv2d (+ channel bias add) + train-mode batch_norm
+  (+ residual add) (+ relu) -> ``conv2d_bn_train``, which keeps the
+  batch_norm's MeanOut/VarianceOut/SavedMean/SavedVariance outputs;
+- ``fc``: mul (+ bias) (+ residual) (+ relu or gelu) -> ``fc_epilogue``.
 
-Run it before ``minimize``, so the backward derives from the fused ops.
+Every fused intermediate is sole-consumed and unprotected; conv anchors
+take only group-1, undilated convs.  ``fuse_conv_epilogue`` and
+``fuse_conv_bn_train`` run the pass with one conv anchor, as the JAX
+package's wrappers do.  The JAX package's IR verifier around the pass
+(``checked_pass``) and the int8 interlayer fold are not ported.
+
+Run it before ``nhwc_transpile`` and before ``minimize``, so the backward
+derives from the fused ops.
 """
 
 from __future__ import annotations
@@ -23,27 +30,28 @@ from paddle_tpu_torch.ops.epilogue import spec_attr
 from paddle_tpu_torch.transpiler.inference_transpiler import (
     _consumers, _first_consumer)
 
-_FC_ACTS = ("relu", "gelu")
+# anchor name -> the activation stages its kernel implements
+_ANCHOR_ACTS = {"conv": ("relu",), "conv_bn": ("relu",),
+                "fc": ("relu", "gelu")}
 
 
 class EpilogueFusionTranspiler:
     ANCHORS = ("conv", "conv_bn", "fc")
 
     def transpile(self, program, protected=None, anchors=ANCHORS):
-        """Fuses every chain of the given anchors in place; returns the
-        number of chains fused."""
+        """Fuses every chain of the given anchors in place, the first
+        anchor's first chain each round; returns the number of chains
+        fused."""
         for anchor in anchors:
-            if anchor in ("conv", "conv_bn"):
-                raise NotImplementedError(
-                    f"fuse_epilogue: anchor {anchor!r} emits conv ops "
-                    "that the ResNet slice of the port brings; pass "
-                    "anchors=('fc',)")
-            if anchor != "fc":
+            if anchor not in _ANCHOR_ACTS:
                 raise ValueError(f"unknown epilogue anchor {anchor!r}")
         self._protected = frozenset(protected or ())
         block = program.global_block()
+        fuse = {"conv": self._fuse_one_conv,
+                "conv_bn": self._fuse_one_conv_bn,
+                "fc": self._fuse_one_fc}
         n = 0
-        while anchors and self._fuse_one_fc(block):
+        while any(fuse[a](block) for a in anchors):
             n += 1
         return n
 
@@ -94,6 +102,152 @@ class EpilogueFusionTranspiler:
             return other
         return None
 
+    @staticmethod
+    def _conv_anchor(block, op):
+        """(output var, channel count, bias axes) of a group-1, undilated
+        4-D conv2d, else None."""
+        a = op.attrs
+        if op.type != "conv2d" or a.get("groups", 1) != 1 or \
+                list(a.get("dilations", [1, 1])) != [1, 1]:
+            return None
+        out_var = block.var(op.outputs["Output"][0])
+        if out_var.shape is None or len(out_var.shape) != 4:
+            return None
+        nchw = a.get("data_format", "NCHW") == "NCHW"
+        return (out_var, out_var.shape[1 if nchw else -1],
+                (1,) if nchw else (-1, 3))
+
+    @staticmethod
+    def _conv_attrs(op, **extra):
+        a = op.attrs
+        return {"strides": list(a.get("strides", [1, 1])),
+                "paddings": list(a.get("paddings", [0, 0])),
+                "groups": 1, **extra,
+                "data_format": a.get("data_format", "NCHW")}
+
+    def _fuse_one_conv(self, block):
+        for i, op in enumerate(block.ops):
+            anchor = self._conv_anchor(block, op)
+            if anchor is None:
+                continue
+            out_var, cout, bias_axes = anchor
+            consumed = []
+            act = ""
+            cur, j = out_var.name, i
+
+            nj, nxt = self._sole_consumer(block, cur, j)
+            bias_name = self._match_bias(block, nxt, cur, cout, bias_axes)
+            if bias_name is not None:
+                consumed.append(nxt)
+                cur, j = nxt.outputs["Out"][0], nj
+                nj, nxt = self._sole_consumer(block, cur, j)
+            res_name = self._match_residual(block, nxt, cur, out_var.shape)
+            if res_name is not None:
+                consumed.append(nxt)
+                cur, j = nxt.outputs["Out"][0], nj
+                nj, nxt = self._sole_consumer(block, cur, j)
+            if nxt is not None and nxt.type in _ANCHOR_ACTS["conv"]:
+                act = nxt.type
+                consumed.append(nxt)
+                cur = nxt.outputs["Out"][0]
+            if not consumed:
+                continue
+
+            inputs = {"Input": list(op.inputs["Input"]),
+                      "Filter": list(op.inputs["Filter"])}
+            if bias_name is not None:
+                inputs["Bias"] = [bias_name]
+            if res_name is not None:
+                inputs["Residual"] = [res_name]
+            fused = OpDesc(
+                "conv2d_epilogue", inputs, {"Output": [cur]},
+                self._conv_attrs(
+                    op, act=act,
+                    epilogue=spec_attr(bias=bias_name is not None,
+                                       residual=res_name is not None,
+                                       act=act)),
+                op.op_role)
+            self._splice(block, op, consumed, fused)
+            return True
+        return False
+
+    def _fuse_one_conv_bn(self, block):
+        for i, op in enumerate(block.ops):
+            anchor = self._conv_anchor(block, op)
+            if anchor is None:
+                continue
+            out_var, cout, bias_axes = anchor
+            fmt = op.attrs.get("data_format", "NCHW")
+            consumed = []
+            cur, j = out_var.name, i
+
+            nj, nxt = self._sole_consumer(block, cur, j)
+            bias_name = self._match_bias(block, nxt, cur, cout, bias_axes)
+            if bias_name is not None:
+                consumed.append(nxt)
+                cur, j = nxt.outputs["Out"][0], nj
+                nj, nxt = self._sole_consumer(block, cur, j)
+            # the anchor: a train-mode batch_norm of the conv, in its
+            # layout, computing its own statistics
+            if nxt is None or nxt.type != "batch_norm" or \
+                    nxt.inputs["X"][0] != cur:
+                continue
+            bn = nxt
+            ba = bn.attrs
+            if ba.get("is_test", False) or \
+                    ba.get("use_global_stats", False) or \
+                    ba.get("data_layout", "NCHW") != fmt or \
+                    "BatchMean" in bn.inputs or "BatchVariance" in bn.inputs:
+                continue
+            scale_v = block.var(bn.inputs["Scale"][0])
+            if scale_v.shape is None or len(scale_v.shape) != 1 or \
+                    int(scale_v.shape[0]) != int(cout):
+                continue
+            bn_y = bn.outputs["Y"][0]
+            consumed.append(bn)
+            cur, j = bn_y, nj
+            nj, nxt = self._sole_consumer(block, cur, j)
+
+            act = ""
+            res_name = self._match_residual(block, nxt, cur,
+                                            block.var(bn_y).shape)
+            if res_name is not None:
+                consumed.append(nxt)
+                cur, j = nxt.outputs["Out"][0], nj
+                nj, nxt = self._sole_consumer(block, cur, j)
+            if nxt is not None and nxt.type in _ANCHOR_ACTS["conv_bn"]:
+                act = nxt.type
+                consumed.append(nxt)
+                cur = nxt.outputs["Out"][0]
+
+            inputs = {"Input": list(op.inputs["Input"]),
+                      "Filter": list(op.inputs["Filter"]),
+                      "Scale": list(bn.inputs["Scale"]),
+                      "BNBias": list(bn.inputs["Bias"]),
+                      "Mean": list(bn.inputs["Mean"]),
+                      "Variance": list(bn.inputs["Variance"])}
+            if bias_name is not None:
+                inputs["Bias"] = [bias_name]
+            if res_name is not None:
+                inputs["Residual"] = [res_name]
+            outputs = {"Output": [cur]}
+            for slot in ("MeanOut", "VarianceOut", "SavedMean",
+                         "SavedVariance"):
+                outputs[slot] = list(bn.outputs[slot])
+            fused = OpDesc(
+                "conv2d_bn_train", inputs, outputs,
+                self._conv_attrs(
+                    op, act=act, epsilon=ba.get("epsilon", 1e-5),
+                    momentum=ba.get("momentum", 0.9),
+                    epilogue=spec_attr(bias=bias_name is not None,
+                                       stats_tap=True, bn_apply=True,
+                                       residual=res_name is not None,
+                                       act=act)),
+                op.op_role)
+            self._splice(block, op, consumed, fused)
+            return True
+        return False
+
     def _fuse_one_fc(self, block):
         for i, op in enumerate(block.ops):
             if op.type != "mul":
@@ -132,7 +286,7 @@ class EpilogueFusionTranspiler:
                 consumed.append(nxt)
                 cur, j = nxt.outputs["Out"][0], nj
                 nj, nxt = self._sole_consumer(block, cur, j)
-            if nxt is not None and nxt.type in _FC_ACTS:
+            if nxt is not None and nxt.type in _ANCHOR_ACTS["fc"]:
                 act = nxt.type
                 approx = bool(nxt.attrs.get("approximate", False))
                 consumed.append(nxt)
@@ -175,3 +329,16 @@ def fuse_epilogue(program, protected=None,
     anchors; returns the number of chains fused."""
     return EpilogueFusionTranspiler().transpile(program, protected=protected,
                                                 anchors=anchors)
+
+
+def fuse_conv_epilogue(program, protected=None):
+    """Fuses every conv (+bias) (+residual) (+relu) chain of ``program``
+    onto ``conv2d_epilogue``, in place; returns the number fused."""
+    return fuse_epilogue(program, protected=protected, anchors=("conv",))
+
+
+def fuse_conv_bn_train(program, protected=None):
+    """Fuses every conv (+bias) + train-mode batch_norm (+residual)
+    (+relu) chain of ``program`` onto ``conv2d_bn_train``, in place;
+    returns the number fused."""
+    return fuse_epilogue(program, protected=protected, anchors=("conv_bn",))

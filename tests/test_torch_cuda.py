@@ -21,6 +21,15 @@ accumulate the same products in f32 in other orders (f32 within 1e-4 of
 outputs of unit scale); bf16 output is one rounding of that f32 value,
 so the two may differ by one bf16 step where the sums straddle a
 rounding boundary (within 1e-2 + 1e-2 * |ref|).
+
+The conv kernels (``conv_epilogue``, ``conv_stats``) are held against
+their plain versions in the same way, over every conv stage subset,
+1x1/3x3/7x7 filters, strides 1 and 2, Cin 3 and ragged Cout; the
+statistics' mean and var within 1e-4 (f32) and 1e-3 (bf16: y itself may
+sit one bf16 step apart) of their scale.  ``bn_apply`` rounds at the
+plain version's points with no fused multiply-add, so it is held within
+1e-6 of the scale in f32 and one bf16 step in bf16.  TF32 is off for
+cuDNN as well.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import torch
 
 from torch_port_helpers import TINY_LM, fresh_port_programs
 
+from paddle_tpu_torch.ops import conv_epilogue as cep
 from paddle_tpu_torch.ops import epilogue as ep
 from paddle_tpu_torch.ops import flash_attention as fa
 
@@ -54,10 +64,13 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     mm = torch.backends.cuda.matmul
-    old = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    old = (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+           torch.backends.cudnn.allow_tf32)
     mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda", 0)
-    mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = old
+    (mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction,
+     torch.backends.cudnn.allow_tf32) = old
 
 
 @pytest.mark.cuda
@@ -305,3 +318,228 @@ def test_fc_epilogue_grads_match_autograd_of_the_chain(cuda, dtype):
         for a, e in zip(got, want):
             assert a.dtype == e.dtype
             assert torch.equal(a, e), act
+
+
+# (N, H, W, Cin, Cout, K, stride, pad): 1x1, 3x3 and 7x7 filters, strides 1
+# and 2, the 3-channel stem (masked loads), ragged Cout (masked w loads)
+CONV_SHAPES = [(2, 9, 9, 16, 32, 3, 1, 1), (2, 9, 9, 16, 24, 3, 2, 1),
+               (2, 8, 8, 32, 64, 1, 1, 0), (2, 8, 8, 32, 136, 1, 2, 0),
+               (2, 20, 20, 3, 64, 7, 2, 3), (1, 10, 6, 8, 300, 3, 1, 0),
+               (3, 14, 14, 64, 130, 3, 1, 1)]
+
+
+def _conv_operands(rng, device, n, h, w, cin, cout, k, s, p, dtype):
+    oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to(
+                                    device, getattr(torch, dtype))
+
+    return (t((n, h, w, cin), 1.0), t((cout, cin, k, k), (k * k * cin) ** -.5),
+            t((cout,), 1.0), t((n, oh, ow, cout), 1.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,cin,cout,k,s,p", CONV_SHAPES)
+def test_conv_kernels_match_plain(cuda, n, h, w, cin, cout, k, s, p, dtype):
+    rng = np.random.RandomState(n + h + cout)
+    x, wt, b, r = _conv_operands(rng, cuda, n, h, w, cin, cout, k, s, p,
+                                 dtype)
+    pad = ((p, p), (p, p))
+    for spec in cep_specs():
+        bias = b if "bias" in spec else None
+        res = r if "residual" in spec else None
+        launches = cep.conv_epilogue_kernel.launches
+        got = cep.conv_epilogue_kernel(x, wt, bias, res, (s, s), pad, spec.act)
+        torch.cuda.synchronize()
+        assert cep.conv_epilogue_kernel.launches == launches + 1
+        want = cep.conv_epilogue_plain(x, wt, bias, res, (s, s), pad,
+                                       spec.act)
+        assert _fc_close(got, want, dtype), spec
+    for bias in (None, b):
+        launches = cep.conv_stats_kernel.launches
+        y, s1, s2 = cep.conv_stats_kernel(x, wt, bias, (s, s), pad)
+        torch.cuda.synchronize()
+        assert cep.conv_stats_kernel.launches == launches + 1
+        assert s1.shape == (-(-y[..., 0].numel() // cep.stats_tile_m()),
+                            cout)
+        y_ref, r1, r2 = cep.conv_stats_plain(x, wt, bias, (s, s), pad)
+        assert _fc_close(y, y_ref, dtype)
+        m = float(y[..., 0].numel())
+        rel = 1e-4 if dtype == "float32" else 1e-3
+        for got_s, want_s in zip(cep._finalize_stats(s1, s2, m),
+                                 cep._finalize_stats(r1, r2, m)):
+            tol = rel * max(1.0, want_s.abs().max().item())
+            assert (got_s - want_s).abs().max().item() <= tol
+
+
+def cep_specs():
+    return list(ep.enumerate_specs("conv"))
+
+
+@pytest.mark.cuda
+def test_conv_kernels_take_more_than_65535_row_tiles(cuda):
+    """N*OH*OW = 8,405,000 pixels, 65,665 tiles of 128 rows: more than
+    grid.y could hold, so the kernel puts the row tiles on grid.x."""
+    n, h, w, cin, cout = 2, 2050, 2050, 8, 16
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((n, h, w, cin), generator=g, device=cuda).bfloat16()
+    wt = (torch.randn((cout, cin, 1, 1), generator=g, device=cuda)
+          * cin ** -0.5).bfloat16()
+    b = torch.randn((cout,), generator=g, device=cuda)
+    m = n * h * w
+    tiles = -(-m // cep.stats_tile_m())
+    assert tiles > 65535
+    got = cep.conv_epilogue_kernel(x, wt, b, None, act="relu")
+    assert _fc_close(got, cep.conv_epilogue_plain(x, wt, b, None, act="relu"),
+                     "bfloat16")
+    y, s1, s2 = cep.conv_stats_kernel(x, wt, b)
+    y_ref, r1, r2 = cep.conv_stats_plain(x, wt, b)
+    assert s1.shape == s2.shape == (tiles, cout)
+    assert _fc_close(y, y_ref, "bfloat16")
+    for got_s, want_s in zip(cep._finalize_stats(s1, s2, float(m)),
+                             cep._finalize_stats(r1, r2, float(m))):
+        tol = 1e-3 * max(1.0, want_s.abs().max().item())
+        assert (got_s - want_s).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_conv_stats_refuses_partials_of_the_wrong_height(cuda, monkeypatch):
+    """The entry point checks the partials' row count against its grid, so
+    a wrapper that sized them for another tile height raises instead of
+    writing past them."""
+    from paddle_tpu_torch import _build
+
+    cep.stats_tile_m()                       # builds and loads the library
+    monkeypatch.setattr(_build.load("conv_epilogue"), "pt_conv_tile_m",
+                        lambda: 64)
+    rng = np.random.RandomState(1)
+    x, wt, _, _ = _conv_operands(rng, cuda, 2, 16, 16, 16, 32, 3, 1, 1,
+                                 "bfloat16")
+    with pytest.raises(RuntimeError, match="conv_stats kernel launch failed"):
+        cep.conv_stats_kernel(x, wt, None, (1, 1), ((1, 1), (1, 1)))
+
+
+# (N, H, W, C): C a multiple of 8 (16-byte loads) and ragged
+BN_SHAPES = [(2, 7, 7, 64), (3, 5, 4, 24), (2, 3, 3, 13), (128, 7, 7, 2048)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,h,w,c", BN_SHAPES)
+def test_bn_apply_kernel_matches_plain(cuda, n, h, w, c, dtype):
+    rng = np.random.RandomState(c)
+
+    def t(shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, getattr(torch, dt))
+
+    y, res = t((n, h, w, c)), t((n, h, w, c))
+    mean, scale, shift = t((c,), "float32"), t((c,), "float32"), \
+        t((c,), "float32")
+    rstd = torch.rsqrt(t((c,), "float32").abs() + 0.5)
+    for r in (None, res, res.float() if dtype == "bfloat16" else None):
+        for act in ("", "relu"):
+            launches = cep.bn_apply_kernel.launches
+            got = cep.bn_apply_kernel(y, mean, rstd, scale, shift, r, act)
+            torch.cuda.synchronize()
+            assert cep.bn_apply_kernel.launches == launches + 1
+            want = cep.bn_apply_plain(y, mean, rstd, scale, shift, r, act)
+            assert got.dtype == want.dtype == y.dtype
+            scale_ = max(1.0, want.float().abs().max().item())
+            tol = 1e-6 if dtype == "float32" else 1e-2
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= tol * scale_, (r is None, act, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv_functions_grads_on_the_card(cuda, dtype):
+    """The Functions' backwards are the same PyTorch code whichever
+    forward ran, so the kernel's grads match the plain version's within
+    the forward's own difference."""
+    rng = np.random.RandomState(5)
+    x, w, b, r = _conv_operands(rng, cuda, 2, 9, 9, 16, 24, 3, 2, 1, dtype)
+    g = torch.from_numpy(rng.standard_normal(tuple(r.shape)).astype(
+        np.float32)).to(cuda, x.dtype)
+    scale = torch.ones(24, device=cuda) * 1.5
+    shift = torch.zeros(24, device=cuda) + 0.1
+    tol = 1e-4 if dtype == "float32" else 5e-2
+
+    def grads(fn, impl, *ts):
+        leaves = [t.detach().requires_grad_() for t in ts]
+        out = fn(leaves, impl)
+        return torch.autograd.grad(out, leaves, g)
+
+    def ep_fn(ls, impl):
+        return cep.conv2d_epilogue(*ls, strides=(2, 2), paddings=(1, 1),
+                                   act="relu", impl=impl)
+
+    def bn_fn(ls, impl):
+        return cep.conv2d_bn_act(ls[0], ls[1], ls[2], ls[3],
+                                 residual=ls[4], strides=(2, 2),
+                                 paddings=(1, 1), act="relu", impl=impl)[0]
+
+    for fn, ts in ((ep_fn, (x, w, b, r)), (bn_fn, (x, w, scale, shift, r))):
+        for a, e in zip(grads(fn, "pallas", *ts), grads(fn, "interpret", *ts)):
+            assert a.dtype == e.dtype
+            err = (a.float() - e.float()).abs().max().item()
+            assert err <= tol * max(1.0, e.float().abs().max().item())
+
+
+@pytest.mark.cuda
+def test_gpu_resnet_step_matches_cpu(cuda):
+    """A tiny ResNet (stem, max pool, two bottlenecks) under
+    fuse_conv_bn_train, f32: the card with the kernels (flag on) against
+    the CPU with their plain versions (flag interpret)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.models import resnet as rn
+
+    def run(place, mode):
+        pt.set_flags({"conv_bn_stats": mode})
+        try:
+            with fresh_port_programs():
+                layers = pt.layers
+                image = layers.data("image", shape=[3, 32, 32])
+                label = layers.data("label", shape=[1], dtype="int64")
+                x = rn._conv_bn(image, 16, 7, stride=2, act="relu")
+                x = layers.pool2d(x, pool_size=3, pool_stride=2,
+                                  pool_padding=1, pool_type="max")
+                x = rn._bottleneck(x, 8, 2)
+                x = rn._bottleneck(x, 8, 1)
+                pool = layers.pool2d(x, pool_type="avg", global_pooling=True)
+                loss = layers.mean(layers.softmax_with_cross_entropy(
+                    layers.fc(pool, size=10), label))
+                main = pt.default_main_program()
+                pt.transpiler.fuse_conv_bn_train(main, protected=[loss.name])
+                pt.transpiler.nhwc_transpile(main)
+                _, pg = pt.optimizer.Momentum(0.1, 0.9).minimize(loss)
+                exe = pt.Executor(place)
+                np.random.seed(0)
+                exe.run(pt.default_startup_program())
+                rng = np.random.RandomState(1)
+                feed = {"image": rng.rand(4, 3, 32, 32).astype(np.float32),
+                        "label": rng.randint(0, 10, (4, 1))}
+                out = exe.run(feed=feed, fetch_list=[loss] + [
+                    g for _, g in pg])
+                exe.run(feed=feed)
+                return out, convert.params_to_numpy(
+                    pt.global_scope(), [p.name for p, _ in pg])
+        finally:
+            pt.set_flags({"conv_bn_stats": "off"})
+
+    launches = cep.conv_stats_kernel.launches, cep.bn_apply_kernel.launches
+    gpu, gpu_params = run(pt.CUDAPlace(0), "on")
+    # 8 fused convs, each run forward and again in its grad, 2 steps
+    assert (cep.conv_stats_kernel.launches - launches[0],
+            cep.bn_apply_kernel.launches - launches[1]) == (32, 32)
+    cpu, cpu_params = run(pt.CPUPlace(), "interpret")
+    np.testing.assert_allclose(gpu[0], cpu[0], rtol=1e-4)
+    for g, c in zip(gpu[1:], cpu[1:]):
+        assert np.abs(g - c).max() <= 1e-3 * max(1.0, np.abs(c).max())
+    for name in cpu_params:
+        np.testing.assert_allclose(gpu_params[name], cpu_params[name],
+                                   rtol=0, atol=1e-3, err_msg=name)

@@ -331,7 +331,9 @@ def test_fuse_epilogue_matches_jax_and_keeps_the_result(act, residual):
 
 def test_fuse_epilogue_skips_what_it_cannot_fuse_and_refuses_conv():
     """A bare mul fuses nothing; an intermediate with a second consumer
-    never fuses; the conv anchors, the default included, raise."""
+    never fuses; the conv anchors (ported with the ResNet slice), the
+    default included, find no conv here and change nothing; an unknown
+    anchor is refused before anything changes."""
     with fresh_port_programs():
         x = pt.layers.data("x", shape=[8], dtype="float32")
         h = pt.layers.fc(x, size=8, bias_attr=False)
@@ -345,8 +347,9 @@ def test_fuse_epilogue_skips_what_it_cannot_fuse_and_refuses_conv():
         assert _canon(prog) == before
         for anchors in (("conv",), ("fc", "conv_bn"),
                         pt.transpiler.EpilogueFusionTranspiler.ANCHORS):
-            with pytest.raises(NotImplementedError, match="ResNet"):
-                pt.transpiler.fuse_epilogue(prog, anchors=anchors)
-        with pytest.raises(NotImplementedError, match="ResNet"):
-            pt.transpiler.fuse_epilogue(prog)
+            assert pt.transpiler.fuse_epilogue(
+                prog, protected=[pred.name], anchors=anchors) == 0
+        assert pt.transpiler.fuse_epilogue(prog, protected=[pred.name]) == 0
+        with pytest.raises(ValueError, match="unknown epilogue anchor"):
+            pt.transpiler.fuse_epilogue(prog, anchors=("fc", "conv3d"))
         assert _canon(prog) == before
