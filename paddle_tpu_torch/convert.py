@@ -44,3 +44,26 @@ def params_from_dir(dirname, params_filename="__params__") -> dict:
         path += ".npz"
     with np.load(path, allow_pickle=False) as data:
         return {n: data[n] for n in data.files}
+
+
+def tiny_decode_lm_from_numpy(params, device="cuda", dtype=None):
+    """A ``serving.TinyDecodeLM`` holding the JAX package's weights:
+    ``params`` maps ``embed``, ``wq``, ``wk``, ``wv`` and ``wo`` to numpy
+    arrays (``np.asarray`` of the JAX model's attributes).  The head
+    count is not in the weights: it comes from ``params["num_heads"]``
+    (default 4, the JAX model's)."""
+    from paddle_tpu_torch.serving.decode_engine import TinyDecodeLM
+
+    embed = np.asarray(params["embed"])
+    wq = np.asarray(params["wq"])
+    num_heads = int(params.get("num_heads", 4))
+    model = TinyDecodeLM(vocab=embed.shape[0], d_model=embed.shape[1],
+                         num_heads=num_heads,
+                         head_dim=wq.shape[1] // num_heads, device=device,
+                         dtype=dtype)
+    with torch.no_grad():
+        for name in ("embed", "wq", "wk", "wv", "wo"):
+            w = getattr(model, name)
+            w.copy_(torch.from_numpy(
+                np.array(params[name], np.float32)).to(w.dtype))
+    return model

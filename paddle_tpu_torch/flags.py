@@ -82,3 +82,52 @@ define_flag("fc_epilogue", "off",
             "'interpret' the kernel's plain PyTorch version, 'pallas' "
             "the CUDA kernel (a CPU tensor raises), 'on' the CUDA kernel "
             "on a CUDA tensor and the chain on a CPU one")
+define_flag("tracing", False,
+            "request-scoped structured tracing (observability/tracing.py): "
+            "False = off (default; every span site reduces to one "
+            "module-global None check); True = spans with trace-id/span-id "
+            "propagation are recorded into a bounded ring, and decode "
+            "sequences span submit -> join -> step -> retire")
+define_flag("paged_decode", False,
+            "LLM decode KV-cache strategy of decode.py beam_search / "
+            "greedy_search: False = the dense full-max_len loop (default), "
+            "True = the host-stepped paged loop with an early "
+            "all-finished exit, so the step fn may carry a paged KV-cache "
+            "(ops/paged_kv.PagedKVCache) and attend via flash_decode")
+define_flag("kv_int8", False,
+            "paged KV-cache storage dtype: False = the model dtype "
+            "(f32/bf16; default), True = int8 pages with per-channel "
+            "(head, dim) scales (q = clip(round(x/s*127)), dequantized "
+            "as x_hat = q*s/127): 2-4x less memory per cached token and "
+            "2-4x less decode-step K/V traffic")
+define_flag("prefill_chunk", 0,
+            "chunked prefill for the continuous-decode engine: 0 = "
+            "whole-prompt prefill (default), N > 0 = prompts longer than "
+            "N tokens prefill in fixed N-token chunks interleaved with "
+            "decode iterations (one chunk per iteration, the chunk "
+            "always padded to exactly N), so a long join does not "
+            "stretch the running streams' inter-token time.  Chunked "
+            "output is token-identical to whole-prompt prefill")
+define_flag("kv_share", False,
+            "copy-on-write prefix sharing in the paged KV-cache: False = "
+            "every sequence owns its pages (default), True = per-page "
+            "refcounts plus a radix tree over full pages, so beams "
+            "(PagedKVCache.fork) and requests with a common token prefix "
+            "share physical pages; an append into a shared page copies "
+            "it first.  The zero-leak invariant becomes free + "
+            "unique(in_use) == num_pages")
+define_flag("spec_k", 0,
+            "lossless speculative decoding for the continuous-decode "
+            "engine: 0 = one token per decode iteration (default), k > 0 "
+            "= a small draft model proposes k tokens per iteration, one "
+            "batched q-len-(k+1) flash_decode verify step scores them, "
+            "greedy acceptance takes the longest agreeing prefix "
+            "(decode.spec_accept_length), and rejection is a page-pointer "
+            "rewind through PagedKVCache.truncate, so speculative greedy "
+            "output is token-for-token identical to plain greedy")
+define_flag("disagg_prefill", False,
+            "disaggregated prefill/decode serving tiers (a prefill pool "
+            "handing page lists to the decode pool).  False = the "
+            "single-tier continuous-decode engine (default); True is "
+            "not ported yet and raises NotImplementedError in "
+            "serving.DecodeConfig")

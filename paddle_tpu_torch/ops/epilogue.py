@@ -12,6 +12,8 @@ Counterpart of ``paddle_tpu/ops/epilogue.py``:
   whose gradient at ``y == 0`` is 0.5, as ``jnp.maximum``'s is (the
   ``relu`` op's, ``torch.relu``, is 0).  ``apply_bn_tail`` is the
   normalize kernel's tail (``:324-333``).
+- ``greedy_logits_tail`` (``:346``), the argmax stage the decode engine
+  samples with.
 - ``fc_epilogue``: ``act(x @ w + bias + residual)`` on ``x [M,K]``,
   ``w [K,N]``, ``bias [N]``, ``residual [M,N]``, in ``promote(x, w)``.
   Its kernel replaces ``_fc_ep_kernel`` (wrapper ``_fc_ep_pallas``,
@@ -275,6 +277,14 @@ def apply_bn_tail(t, out_dtype, residual=None, act=""):
     if residual is not None:
         t = t + residual.to(out_dtype)
     return _act_fn(act)(t)
+
+
+def greedy_logits_tail(logits, axis=-1):
+    """The argmax stage (``paddle_tpu/ops/epilogue.py:346``): the decode
+    engine's greedy sampling tail over the model's logits, for its
+    step, draft and verify sweeps.  The first maximum wins, as
+    ``jnp.argmax``'s does."""
+    return torch.argmax(logits, dim=axis)
 
 
 # ---------------------------------------------------------------------------

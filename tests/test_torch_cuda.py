@@ -30,6 +30,14 @@ sit one bf16 step apart) of their scale.  ``bn_apply`` rounds at the
 plain version's points with no fused multiply-add, so it is held within
 1e-6 of the scale in f32 and one bf16 step in bf16.  TF32 is off for
 cuDNN as well.
+
+``flash_decode`` is held against ``flash_decode_plain`` over ragged
+lengths (zero-length rows among them), page sizes 4 to 128, strided
+block tables, d 16 to 128, 1 to 20 query rows and f32, bf16 and int8
+pools: within ``1e-5 * max(1, max|ref|)`` in f32 and over int8 pools
+(f32 sums in another order) and one bf16 step in bf16.  Its verify rows
+are array_equal to q-len-1 launches, and a small decode server on the
+card emits the CPU server's tokens.
 """
 
 from __future__ import annotations
@@ -543,3 +551,142 @@ def test_gpu_resnet_step_matches_cpu(cuda):
     for name in cpu_params:
         np.testing.assert_allclose(gpu_params[name], cpu_params[name],
                                    rtol=0, atol=1e-3, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# flash_decode: the paged decode kernel
+# ---------------------------------------------------------------------------
+
+# (lens, R, d, page size, dtype, strided tables)
+DECODE_CASES = [
+    ([5, 33, 16, 1], 1, 64, 16, "float32", False),
+    ([5, 33, 16, 0], 5, 128, 16, "float32", False),   # a zero-length row
+    ([40, 7, 129], 9, 16, 4, "float32", True),        # many tiny pages
+    ([200, 3], 1, 128, 128, "float32", True),
+    ([30, 64, 65], 20, 64, 32, "float32", False),
+    ([5, 33, 16, 1], 1, 64, 16, "bfloat16", False),
+    ([17, 90], 5, 128, 48, "bfloat16", True),         # ragged chunks
+    ([5, 33, 64], 1, 64, 32, "int8", False),
+    ([70, 9], 5, 128, 16, "int8", True),
+]
+# relative to max(1, |ref|): f32 sums in another order; bf16 output is
+# one rounding of those sums, so one bf16 step apart at most
+DECODE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -8, "int8": 1e-5}
+
+
+def _decode_inputs(seed, lens, r, d, ps, dtype, strided, device, h=2):
+    """Random pools, block tables over distinct pages (column-major
+    round robin when ``strided``), padded entries at page 0, and q."""
+    rng = np.random.RandomState(seed)
+    b = len(lens)
+    mp = max(1, max(-(-n // ps) for n in lens))
+    n_pages = b * mp + 1
+    if dtype == "int8":
+        k, v = (torch.from_numpy(rng.randint(-127, 128, (n_pages, h, ps, d))
+                                 .astype(np.int8)) for _ in range(2))
+        scales = tuple(torch.from_numpy(rng.uniform(0.5, 2.0, (h, d))
+                                        .astype(np.float32)).to(device)
+                       for _ in range(2))
+        qdt = torch.float32
+    else:
+        qdt = getattr(torch, dtype)
+        k, v = (torch.from_numpy(rng.standard_normal((n_pages, h, ps, d))
+                                 .astype(np.float32)).to(qdt)
+                for _ in range(2))
+        scales = None
+    pages = 1 + rng.permutation(b * mp)
+    tables = pages.reshape(mp, b).T if strided else pages.reshape(b, mp)
+    tables = np.ascontiguousarray(tables).astype(np.int32)
+    for i, n in enumerate(lens):
+        tables[i, -(-n // ps):] = 0
+    shape = (b, h, d) if r == 1 else (b, r, h, d)
+    q = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return (q.to(device, qdt), k.to(device), v.to(device),
+            torch.from_numpy(tables).to(device),
+            torch.tensor(lens, dtype=torch.int32, device=device), scales)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lens,r,d,ps,dtype,strided", DECODE_CASES)
+def test_flash_decode_kernel_matches_plain(cuda, lens, r, d, ps, dtype,
+                                           strided):
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    q, k, v, tab, ln, scales = _decode_inputs(3, lens, r, d, ps, dtype,
+                                              strided, cuda)
+    before = fd.flash_decode.launches
+    out = fd.flash_decode(q, k, v, tab, ln, kv_scales=scales)
+    torch.cuda.synchronize()
+    assert fd.flash_decode.launches == before + 1
+    ref = fd.flash_decode_plain(q, k, v, tab, ln, kv_scales=scales)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= DECODE_TOL[dtype] * max(1.0, ref.float().abs().max().item())
+    zero = [i for i, n in enumerate(lens) if n == 0]
+    if zero:
+        assert torch.equal(out[zero], torch.zeros_like(out[zero]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_flash_decode_verify_rows_bit_equal_qlen1(cuda, dtype):
+    """Verify row r is array_equal to a q-len-1 launch at length
+    len - R + 1 + r: the numerical half of lossless speculation."""
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    r = 6
+    q, k, v, tab, ln, scales = _decode_inputs(
+        4, [9, 33, 70, 128], r, 128, 32, dtype, True, cuda)
+    out = fd.flash_decode(q, k, v, tab, ln, kv_scales=scales)
+    for i in range(r):
+        one = fd.flash_decode(q[:, i].contiguous(), k, v, tab,
+                              ln - (r - 1 - i), kv_scales=scales)
+        assert torch.equal(one, out[:, i]), i
+
+
+@pytest.mark.cuda
+def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    q, k, v, tab, ln, _ = _decode_inputs(5, [5], 1, 64, 16, "float32",
+                                         False, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fd.flash_decode(q[..., :60], k[..., :60].contiguous(),
+                        v[..., :60].contiguous(), tab, ln)
+    with pytest.raises(ValueError, match="query rows"):
+        qr = q[:, None].expand(1, 65, 2, 64)
+        fd.flash_decode(qr, k, v, tab, ln)
+    with pytest.raises(TypeError):
+        fd.flash_decode(q.bfloat16(), k, v, tab, ln)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob", [{}, {"spec_k": 2}, {"kv_int8": True}])
+def test_gpu_decode_server_matches_cpu(cuda, knob):
+    """The tiny decode server on the card and on the CPU emit the same
+    tokens; every decode step launched the kernel ((k+1) launches a
+    speculative round)."""
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(2, 128, size=int(rng.randint(1, 40)))
+               for _ in range(8)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        before = fd.flash_decode.launches
+        srv = serving.DecodeServer(config=serving.DecodeConfig(
+            max_batch=4, max_new_tokens=10, page_size=16, num_pages=60,
+            device=device, **knob)).start()
+        try:
+            futs = [srv.submit(p) for p in prompts]
+            outs[device] = [list(f.result(timeout=120.0)[0]) for f in futs]
+        finally:
+            srv.stop()
+        ok, detail = srv.page_accounting()
+        assert ok, detail
+        if device == "cuda":
+            per = knob.get("spec_k", 0) + 1
+            assert fd.flash_decode.launches - before == \
+                per * srv.stats()["decode"]["iterations"]
+    assert outs["cuda"] == outs["cpu"]
