@@ -6,12 +6,17 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 Phases, none of which catches its own failure:
-  1. prints the card (nvidia-smi name and power limit) and builds every
-     CUDA kernel from csrc/, one nvcc per source, all started together;
+  1. prints the card (nvidia-smi name and power limit), builds every
+     CUDA kernel from csrc/, one nvcc per source, all started together,
+     and runs the card tests (tests/test_torch_cuda.py) in a process of
+     their own;
   2. holds the flash-attention forward kernel against its plain PyTorch
      version on the card over a set of cases (the main paths' full-width
-     shapes among them), and times the kernel, the plain version and one
-     PyTorch library call;
+     shapes among them, and the bench's two 32768-token long-context
+     shapes, held on their last 1024 query rows, also at a tolerance
+     that a planted fault, one zeroed V tile, must break), and times the
+     kernel, the plain version and one PyTorch library call; no case may
+     copy its inputs (bf16 rows not 16-byte aligned);
   3. serves the Transformer-base LM (vocab 32000, d_model 512, 8 heads,
      d_inner 2048, 6 layers, seq 512, random weights from --seed) through
      save_inference_model -> create_predictor(Config(dir)) -> run, counts
@@ -97,6 +102,7 @@ Phases, none of which catches its own failure:
      line, then the result line {"ok": true, "device": {...}} last.
 
 Takes about five minutes on one H100, the kernels' build included.
+Every main path also holds the flash forward's input copies at 0.
 
 Exits non-zero, printing no result line, when no CUDA device is present
 or when any phase fails.
@@ -249,6 +255,23 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def card_tests():
+    """Runs the card tests, tests/test_torch_cuda.py, in a process of
+    their own (it imports no JAX; hence --noconftest) on the libraries
+    just built; fails unless every test passes."""
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-q", "tests/test_torch_cuda.py"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    tail = proc.stdout.strip().splitlines()[-1:] or [proc.stderr.strip()]
+    log(f"card tests: {tail[0]} ({time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        raise AssertionError("card tests failed:\n" + proc.stdout[-8000:]
+                             + proc.stderr[-2000:])
+
+
 def cuda_ms(fn, iters, warmup=3):
     import torch
 
@@ -312,6 +335,21 @@ FLASH_CASES = [
 ]
 MAIN_CASE = FLASH_CASES[-3]
 AMP_CASE = FLASH_CASES[-1]
+# the bench's longctx and longctx_d128 legs (bench.py:998-1104), causal at
+# 32768 tokens: timed whole, and held against the plain version on their
+# last LONG_CHECK_ROWS query rows, which the plain version computes exactly
+# under bottom-right alignment (a whole 32768^2 f32 score matrix is 34 GB)
+LONG_CASES = [(1, 8, 32768, 32768, 64, True, "bfloat16", True),
+              (1, 8, 32768, 32768, 128, True, "bfloat16", True)]
+LONG_CHECK_ROWS = 1024
+# Those rows average ~32768 unit-normal values each, so |out| is about
+# 0.01 and TOL's 3e-2 cannot see a fault in a few K/V tiles.  They are also
+# held to LONG_TOL: max |out - ref| (1e-3, four bf16 steps of max |ref| ~
+# 0.04) and ||out - ref|| / ||ref|| (1e-2; bf16 rounding alone gives ~2.5e-3).
+# The same statistics of the plain version with one 64-key V tile zeroed
+# (LONG_FAULT_KEY..+63), a planted fault, must break both limits.
+LONG_TOL = {"out": 1e-3, "out_rel": 1e-2}
+LONG_FAULT_KEY = 16384
 
 
 # kernel -> (Tq x Tk x D products, [B,H,Tq,D] tensors moved, [B,H,Tk,D]
@@ -346,7 +384,8 @@ def check_flash(device, seed):
 
     rng = np.random.RandomState(seed)
     results = []
-    for (b, h, tq, tk, d, causal, dtype, strided) in FLASH_CASES:
+    for (b, h, tq, tk, d, causal, dtype, strided) in FLASH_CASES + \
+            LONG_CASES:
         tdtype = getattr(torch, dtype)
 
         def make(t):
@@ -358,30 +397,63 @@ def check_flash(device, seed):
 
         q, k, v = make(tq), make(tk), make(tk)
         scale = 1.0 / math.sqrt(d)
+        copies = fa.flash_attention_fwd.copies
         out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
         torch.cuda.synchronize()
-        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal,
-                                                        scale)
-        err_out = (out.float() - ref_out.float()).abs().max().item()
-        err_lse = (lse - ref_lse).abs().max().item()
-        ok = err_out <= TOL[dtype]["out"] and err_lse <= TOL[dtype]["lse"]
-        iters = 20 if tq * tk >= 512 * 512 else 50
-        ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal, scale),
-                     iters)
-        plain_ms = cuda_ms(
-            lambda: fa.flash_attention_fwd_plain(q, k, v, causal, scale),
-            iters)
+        rows = min(tq, LONG_CHECK_ROWS) if tq > 4096 else tq
+        q_rows = q[:, :, tq - rows:]
+
+        def plain():
+            return fa.flash_attention_fwd_plain(q_rows, k, v, causal, scale)
+
+        ref_out, ref_lse = plain()
+        ref_out = ref_out.float()
+        err_out = (out[:, :, tq - rows:].float()
+                   - ref_out).abs().max().item()
+        err_lse = (lse.reshape(b, h, tq)[:, :, tq - rows:].reshape(
+            b * h, rows) - ref_lse).abs().max().item()
+        ok = err_out <= TOL[dtype]["out"] and err_lse <= TOL[dtype]["lse"] \
+            and fa.flash_attention_fwd.copies == copies
+        long = {}
+        if rows < tq:
+            def errs(got):
+                diff = got.float() - ref_out
+                return {"out": diff.abs().max().item(),
+                        "out_rel": (diff.norm() / ref_out.norm()).item()}
+
+            v_fault = v.clone()
+            v_fault[:, :, LONG_FAULT_KEY:LONG_FAULT_KEY + 64] = 0
+            long = {"long_errs": errs(out[:, :, tq - rows:]),
+                    "planted_fault_errs": errs(fa.flash_attention_fwd_plain(
+                        q_rows, k, v_fault, causal, scale)[0])}
+            del v_fault
+            ok = ok and all(
+                long["long_errs"][key] <= LONG_TOL[key]
+                < long["planted_fault_errs"][key] for key in LONG_TOL)
+        del ref_out, ref_lse
+        # device times from CUDA-graph replay: the wrapper's host time to
+        # issue a call is above the kernel's at the smaller shapes.
+        # event_ms times the calls as issued (cuda_ms), the yardstick of
+        # the kernel's times before graph replay
+        iters = 5 if tq > 4096 else 20 if tq * tk >= 512 * 512 else 50
+        ms = graph_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, causal, scale), iters)
+        event_ms = cuda_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, causal, scale), iters)
+        plain_ms = graph_ms(plain, iters)
         mask = fa._causal_mask(tq, tk, device) if causal and tq != tk \
             else None
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             scale=scale), iters)
         bound_ms, bound_by = flash_bound_ms(b, h, tq, tk, d, causal, dtype)
         row = dict(shape=[b, h, tq, tk, d], causal=causal, dtype=dtype,
                    strided=strided, max_abs_err_out=err_out,
-                   max_abs_err_lse=err_lse, ms=ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, ok=ok)
+                   max_abs_err_lse=err_lse, checked_rows=rows, **long,
+                   ms=ms, event_ms=event_ms, plain_ms=plain_ms,
+                   library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   copies=fa.flash_attention_fwd.copies - copies, ok=ok)
         log("flash case " + json.dumps(row))
         if not ok:
             raise AssertionError(
@@ -1099,6 +1171,9 @@ def train_batch(seed, batch):
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fc_epilogue", "conv_epilogue",
            "conv_stats", "bn_apply", "flash_decode")
+# beside the launches: the bf16 flash forward's contiguous copies of q, k
+# or v whose rows were not 16-byte aligned, 0 on every main path
+COPIES = "flash_attention_fwd_copies"
 
 
 def kernel_counts():
@@ -1115,7 +1190,8 @@ def kernel_counts():
             "conv_epilogue": cep.conv_epilogue_kernel.launches,
             "conv_stats": cep.conv_stats_kernel.launches,
             "bn_apply": cep.bn_apply_kernel.launches,
-            "flash_decode": fd.flash_decode.launches}
+            "flash_decode": fd.flash_decode.launches,
+            COPIES: fa.flash_attention_fwd.copies}
 
 
 def reset_kernel_counts():
@@ -1125,6 +1201,7 @@ def reset_kernel_counts():
     from paddle_tpu_torch.ops import flash_decode as fd
 
     fa.flash_attention_fwd.launches = 0
+    fa.flash_attention_fwd.copies = 0
     fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
     ep.fc_epilogue.launches = 0
     cep.conv_epilogue_kernel.launches = 0
@@ -1134,8 +1211,9 @@ def reset_kernel_counts():
 
 
 def expected_counts(**per_run):
-    """Every kernel's expected launch count: 0 unless given."""
-    return {k: per_run.get(k, 0) for k in KERNELS}
+    """Every kernel's expected launch count, and the flash forward's
+    expected copies: 0 unless given."""
+    return {k: per_run.get(k, 0) for k in KERNELS + (COPIES,)}
 
 
 def lm_expected(types, steps):
@@ -1834,7 +1912,12 @@ def profile(what, fn):
         "wall_ms": wall_ms, "device_ms": device_ms,
         "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
         "top": [{"ms": ms, "calls": n, "name": name[:80]}
-                for ms, n, name in rows[:12]]}))
+                for ms, n, name in rows[:12]],
+        # the port's own kernels: csrc/ puts each in a file-level
+        # anonymous namespace (a few of PyTorch's print the same way)
+        "port_kernels": [{"ms": ms, "calls": n, "name": name[:name.find(
+            "(", 30)]} for ms, n, name in rows
+            if name.startswith("void (anonymous namespace)::")]}))
     return out
 
 
@@ -1867,6 +1950,7 @@ def main(argv=None):
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    card_tests()
 
     cases = check_flash(device, args.seed)
     with tempfile.TemporaryDirectory() as workdir:
@@ -1960,12 +2044,22 @@ def main(argv=None):
         "launches": train_launches["flash_attention_fwd"],
         "launches_by_path": by_path("flash_attention_fwd"),
         "max_abs_err": main_row["max_abs_err_out"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+        "ms": main_row["ms"], "event_ms": main_row["event_ms"],
+        "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "design": "mma.sync bf16",
+        "f32_design": "CUDA cores",
+        "copies_by_path": by_path(COPIES),
         "amp_path": {k: amp_row[k] for k in (
-            "shape", "dtype", "max_abs_err_out", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")},
+            "shape", "dtype", "max_abs_err_out", "ms", "event_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "copies")},
+        "long_context": [{k: r[k] for k in (
+            "shape", "dtype", "max_abs_err_out", "max_abs_err_lse",
+            "checked_rows", "long_errs", "planted_fault_errs", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "copies")}
+            for r in cases
+            if r["shape"][2] > 4096],
     }]
     for name, line, errs in (("dq", 409, ("dq",)),
                              ("dkv", 458, ("dk", "dv"))):

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<digest>.so``, where the
-digest covers the source and the flags, and is loaded with ``ctypes``.
+digest covers the source, the headers beside it (``csrc/*.cuh``) and
+the flags, and is loaded with ``ctypes``.
 Nothing is built at import: the first call of a kernel's wrapper on a
 CUDA tensor builds it, or ``build()`` builds several at once, one
 ``nvcc`` process per source, all started together.
@@ -38,8 +39,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``; its digest covers the source,
+    every header under ``csrc/`` and the flags, so an edited header
+    never reuses a stale library."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

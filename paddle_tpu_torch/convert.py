@@ -14,13 +14,14 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.scope import Scope
+from paddle_tpu_torch.core.types import from_numpy, to_numpy
 
 
 def params_from_numpy(named: dict, scope: Scope, device) -> Scope:
     """Put ``{name: ndarray}`` into ``scope`` as tensors on ``device``."""
     device = torch.device(device)
     for name, arr in named.items():
-        scope.var(name).set(torch.tensor(np.asarray(arr), device=device))
+        scope.var(name).set(from_numpy(np.array(arr), name).to(device))
     return scope
 
 
@@ -32,7 +33,7 @@ def params_to_numpy(scope: Scope, names) -> dict:
         var = scope.find_var(name)
         if var is None or var.get() is None:
             raise KeyError(f"scope has no value for '{name}'")
-        out[name] = var.get().detach().cpu().numpy()
+        out[name] = to_numpy(var.get(), name)
     return out
 
 

@@ -3,7 +3,8 @@
 Counterpart of ``paddle_tpu/core/executor.py`` (``Executor.run`` and the
 interpreter loop, ``:57-267``).  Every op's compute runs eagerly on the
 executor's device; feeds are moved there, fetches come back as numpy
-when ``return_numpy`` is set.
+when ``return_numpy`` is set (bfloat16 as ``ml_dtypes`` bfloat16
+arrays, as the JAX package returns them).
 
 Every op runs under ``torch.no_grad()``: the forward keeps no autograd
 graph and no scope tensor requires grad.  Only a synthesised
@@ -19,13 +20,13 @@ the CPU unless the caller passed ``CPUPlace()``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from paddle_tpu_torch.core.program import Program
 from paddle_tpu_torch.core.registry import get_op_def
 from paddle_tpu_torch.core.scope import Scope, global_scope
-from paddle_tpu_torch.core.types import CUDAPlace, Place, to_torch_dtype
+from paddle_tpu_torch.core.types import (CUDAPlace, Place, from_numpy,
+                                         to_numpy, to_torch_dtype)
 
 # op types executed by a python handler instead of a registry compute
 # (host IO: save/load of parameters)
@@ -68,7 +69,7 @@ class Executor:
         block = program.global_block()
         for name, value in feed.items():
             if not isinstance(value, torch.Tensor):
-                value = torch.from_numpy(np.ascontiguousarray(value))
+                value = from_numpy(value, name)
             if block.has_var(name) and block.var(name).dtype is not None:
                 value = value.to(to_torch_dtype(block.var(name).dtype))
             scope.var(name).set(value.to(self.device, non_blocking=True))
@@ -125,6 +126,5 @@ class Executor:
             if var is None or var.get() is None:
                 raise RuntimeError(f"fetch variable '{name}' has no value")
             val = var.get()
-            results.append(val.detach().cpu().numpy() if return_numpy
-                           else val)
+            results.append(to_numpy(val, name) if return_numpy else val)
         return results

@@ -8,7 +8,9 @@ asked for ``CPUPlace``.
 
 Dtypes travel through the IR as strings (``"float32"``, ``"int64"``,
 ``"bfloat16"``), exactly as the JAX package writes them, and map to
-torch dtypes here.
+torch dtypes here.  ``to_numpy`` and ``from_numpy`` carry tensors across
+the numpy boundary (fetch, feed, save, load); bfloat16 crosses as the
+``ml_dtypes`` bfloat16 arrays the JAX package hands out, bit for bit.
 """
 
 from __future__ import annotations
@@ -105,3 +107,38 @@ def to_torch_dtype(dtype) -> torch.dtype:
     if isinstance(dtype, torch.dtype):
         return dtype
     return _TORCH_DTYPES[dtype_name(dtype)]
+
+
+class BFloat16NumpyError(TypeError):
+    """A bfloat16 value has to become a numpy array and ``ml_dtypes``,
+    which gives numpy its bfloat16 type, is not installed."""
+
+
+def to_numpy(t: torch.Tensor, name: str) -> np.ndarray:
+    """A host numpy copy of tensor ``t`` (the var ``name``).  bfloat16
+    becomes an ``ml_dtypes.bfloat16`` array of the same bits, through a
+    16-bit integer view (numpy has no bfloat16 of its own)."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        import ml_dtypes
+    except ImportError as e:
+        raise BFloat16NumpyError(
+            f"var '{name}' is bfloat16: numpy needs the ml_dtypes package "
+            "to hold it") from e
+    return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+
+
+def from_numpy(a, name: str) -> torch.Tensor:
+    """A tensor of array ``a`` (the var ``name``) sharing its memory.  An
+    ``ml_dtypes.bfloat16`` array, or the ``|V2`` records ``np.savez``
+    stores one as, becomes a bfloat16 tensor of the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.dtype("V2") or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    try:
+        return torch.from_numpy(a)
+    except TypeError as e:
+        raise TypeError(f"var '{name}': numpy dtype {a.dtype} has no "
+                        "torch counterpart") from e

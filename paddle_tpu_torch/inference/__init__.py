@@ -5,10 +5,14 @@ Counterpart of ``paddle_tpu/inference/__init__.py`` (``:30-279``,
 ``Config.disable_gpu()`` selects the CPU.  With no CUDA device and no
 ``disable_gpu()``, ``create_predictor`` raises ``NoCUDADeviceError``.
 
-The Predictor loads the parameters onto its device once, runs the two
-ported fusion passes when ``ir_optim`` is on, validates every feed
+The Predictor loads the parameters onto its device once, runs the
+analysis passes when ``ir_optim`` is on (in the JAX order: the conv+bn
+fold, the fc fusion, the elementwise-add + act fusion), casts the
+program to bf16 after ``enable_mkldnn_bfloat16``, validates every feed
 against the program's feed targets, and interprets the program op by
-op on its device.
+op on its device.  The knobs that map to TensorRT, MKLDNN, feed/fetch
+ops, memory optimisation and glog are recorded and change nothing, as
+in the JAX package, so reference config scripts run unchanged.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ class Config:
         self._params_file = params_file
         self._use_gpu = True
         self._gpu_device_id = 0
+        self._use_feed_fetch_ops = False
+        self._memory_optim = True
+        self._glog_info = True
+        self._bf16 = False
 
     def set_model(self, model_dir_or_prog, params_file=None):
         if params_file is None:
@@ -59,8 +67,30 @@ class Config:
         self._use_gpu = False
 
     def switch_ir_optim(self, enable=True):
-        """Toggle the fusion passes run on load (on by default)."""
+        """Toggle the analysis passes run on load (on by default): the
+        conv+bn fold, the fc fusion, the elementwise-add + act fusion."""
         self._ir_optim = bool(enable)
+
+    def enable_mkldnn_bfloat16(self):
+        """Fold the parameters to bfloat16 and run the program in bf16
+        (``contrib.float16.bf16_transpile``), as the JAX package does."""
+        self._bf16 = True
+
+    # -- recorded no-ops for API parity ----------------------------------
+    def enable_tensorrt_engine(self, *args, **kwargs):
+        pass
+
+    def enable_mkldnn(self):
+        pass
+
+    def switch_use_feed_fetch_ops(self, enable=True):
+        self._use_feed_fetch_ops = enable
+
+    def enable_memory_optim(self, enable=True):
+        self._memory_optim = enable
+
+    def disable_glog_info(self):
+        self._glog_info = False
 
     def place(self):
         from paddle_tpu_torch.core.types import CPUPlace, CUDAPlace
@@ -121,13 +151,20 @@ class Predictor:
                 io.load_inference_model(model_dir, self._exe, **kwargs)
         if config._ir_optim:
             from paddle_tpu_torch.transpiler import (
-                FuseElewiseAddActTranspiler, FuseFCTranspiler)
+                FuseElewiseAddActTranspiler, FuseFCTranspiler,
+                InferenceTranspiler)
 
             protected = set(self._feed_names) | {
                 v.name for v in self._fetch_vars}
+            InferenceTranspiler().transpile(self._program, scope=self._scope,
+                                            protected=protected)
             FuseFCTranspiler().transpile(self._program, protected=protected)
             FuseElewiseAddActTranspiler().transpile(self._program,
                                                     protected=protected)
+        if config._bf16:
+            from paddle_tpu_torch.contrib.float16 import bf16_transpile
+
+            bf16_transpile(self._program, scope=self._scope)
         self._compiled = CompiledProgram(self._program) \
             .with_inference_optimize(config)
         self._inputs = {n: PaddleTensor(n) for n in self._feed_names}

@@ -24,7 +24,11 @@ TPU kernels (lane-replicated or packed stats, head packing) are gone.
 device of ``q``: a CUDA tensor launches the kernels (a build or launch
 failure raises), a CPU or meta tensor takes the plain version.  Each
 kernel's launches are counted: ``flash_attention_fwd.launches``,
-``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.
+``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The bf16
+forward copies its tiles 16 bytes at a time, so a bf16 q, k or v whose
+rows are not 16-byte aligned is copied to a contiguous tensor first and
+counted in ``flash_attention_fwd.copies`` (the model's permuted
+``[B,T,H,D]`` views are aligned).
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair;
 the ``flash_attention`` op's compute goes through it, so the
@@ -101,8 +105,19 @@ def _check(q, k, v):
                          "unit stride")
 
 
+def _aligned(x):
+    """Whether every row of ``x`` starts on 16 bytes, as the bf16
+    kernel's 16-byte cp.async copies need: the base pointer and each B,
+    H and T stride (of a dim longer than 1)."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st * x.element_size() % 16 == 0
+        for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
 def _launch(q, k, v, causal, scale):
     _check(q, k, v)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_aligned_copy(x) for x in (q, k, v))
     b, h, tq, d = q.shape
     tk = k.shape[2]
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
@@ -124,6 +139,15 @@ def _launch(q, k, v, causal, scale):
                            + lib.pt_cuda_error_string(err).decode())
     flash_attention_fwd.launches += 1
     return out, lse
+
+
+def _aligned_copy(x):
+    """``x``, or a contiguous copy of it when a row is not 16-byte
+    aligned; each copy is counted in ``flash_attention_fwd.copies``."""
+    if _aligned(x):
+        return x
+    flash_attention_fwd.copies += 1
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _load(name, n_ptrs, n_strides):
@@ -163,6 +187,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.copies = 0
 
 
 # ---------------------------------------------------------------------------

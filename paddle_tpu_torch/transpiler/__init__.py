@@ -1,5 +1,5 @@
 from paddle_tpu_torch.transpiler.inference_transpiler import (  # noqa: F401
-    FuseElewiseAddActTranspiler, FuseFCTranspiler)
+    FuseElewiseAddActTranspiler, FuseFCTranspiler, InferenceTranspiler)
 from paddle_tpu_torch.transpiler.epilogue_transpiler import (  # noqa: F401
     EpilogueFusionTranspiler, fuse_conv_bn_train, fuse_conv_epilogue,
     fuse_epilogue)

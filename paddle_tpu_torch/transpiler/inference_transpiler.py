@@ -1,16 +1,33 @@
-"""Inference fusion passes over the Program IR.
+"""Inference passes over the Program IR.
 
 Counterpart of ``paddle_tpu/transpiler/inference_transpiler.py``
-(``:177-321``): ``FuseFCTranspiler`` (mul + bias add [+ act] -> ``fc``)
-and ``FuseElewiseAddActTranspiler`` (elementwise_add + act ->
+(``:50-321``): ``InferenceTranspiler`` (conv2d [+ bias add] + test-mode
+batch_norm -> conv2d with the statistics folded into its filter, plus a
+bias add), ``FuseFCTranspiler`` (mul + bias add [+ act] -> ``fc``) and
+``FuseElewiseAddActTranspiler`` (elementwise_add + act ->
 ``fused_elemwise_activation``), with the same guards, so both packages
-rewrite a program into the same op list.  Both are pure IR rewrites.
+rewrite a program into the same op list.  The fold also rewrites the
+filter and bias values in the scope, computed in numpy in f32 as the
+JAX package computes them; the two fusions are pure IR rewrites.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
 from paddle_tpu_torch import unique_name
 from paddle_tpu_torch.core.program import OpDesc
+from paddle_tpu_torch.core.types import from_numpy, to_numpy
+
+
+def _producer(block, name, before_idx):
+    """(index, op) of the last op writing ``name`` before before_idx,
+    else (None, None)."""
+    for j in range(before_idx - 1, -1, -1):
+        op = block.ops[j]
+        if any(name in names for names in op.outputs.values()):
+            return j, op
+    return None, None
 
 
 def _consumers(block, name):
@@ -28,6 +45,109 @@ def _first_consumer(block, name, after_idx):
         if any(name in names for names in op.inputs.values()):
             return j, op
     return -1, None
+
+
+class InferenceTranspiler:
+    """Folds each test-mode ``batch_norm`` into the ``conv2d`` before it
+    (directly, or through a per-channel bias add):
+    ``W' = W * gamma / sqrt(var + eps)`` per output channel, and the bias
+    ``(b - mean) * gamma / sqrt(var + eps) + beta`` (``b`` 0 without a
+    bias add, which is then appended).
+
+    Guards, as the JAX pass: the bias add's Y is a 1-D persistable on
+    axis 1 (a residual add is never folded); the conv output and the bn
+    input each feed one op; the bn input is not in ``protected`` (the
+    fold erases it); the filter is a scope-resident parameter."""
+
+    def transpile(self, program, place=None, scope=None, protected=None):
+        """Folds every qualifying chain of ``program``; mutates it and the
+        scope's filter and bias values.  ``place`` is accepted for the
+        reference signature and unused."""
+        from paddle_tpu_torch.core.scope import global_scope
+
+        scope = scope or global_scope()
+        protected = frozenset(protected or ())
+        block = program.global_block()
+        while self._fuse_one(block, scope, protected):
+            pass
+        return program
+
+    def _fuse_one(self, block, scope, protected):
+        for i, op in enumerate(block.ops):
+            if op.type != "batch_norm" or not op.attrs.get("is_test"):
+                continue
+            x_name = op.inputs["X"][0]
+            j, prev = _producer(block, x_name, i)
+            if prev is None:
+                continue
+            bias_op = None
+            if prev.type == "elementwise_add":
+                y_in = prev.inputs["Y"][0]
+                try:
+                    y_var = block.var(y_in)
+                except KeyError:
+                    continue
+                if (not y_var.persistable or y_var.shape is None
+                        or len(y_var.shape) != 1
+                        or prev.attrs.get("axis", -1) != 1):
+                    continue
+                _, conv = _producer(block, prev.inputs["X"][0], j)
+                if conv is None or conv.type != "conv2d":
+                    continue
+                if _consumers(block, prev.inputs["X"][0]) != 1:
+                    continue
+                bias_op = prev
+            elif prev.type == "conv2d":
+                conv = prev
+            else:
+                continue
+            if _consumers(block, x_name) != 1 or x_name in protected:
+                continue
+            if scope.find_var(conv.inputs["Filter"][0]) is None:
+                continue
+            y_name = op.outputs["Y"][0]
+            self._fold(block, scope, conv, bias_op, op, x_name, y_name)
+            if bias_op is not None:
+                # the bias add becomes the chain's tail, writing bn's output
+                for slot, names in bias_op.outputs.items():
+                    bias_op.outputs[slot] = [y_name if n == x_name else n
+                                             for n in names]
+            block.ops.remove(op)
+            return True
+        return False
+
+    @staticmethod
+    def _fold(block, scope, conv, bias_op, bn, x_name, y_name):
+        eps = bn.attrs.get("epsilon", 1e-5)
+
+        def get(name):
+            return to_numpy(scope.find_var(name).get(), name)
+
+        def put(name, value):
+            device = scope.find_var(name).get().device
+            scope.var(name).set(from_numpy(value, name).to(device))
+
+        gamma = get(bn.inputs["Scale"][0])
+        beta = get(bn.inputs["Bias"][0])
+        mean = get(bn.inputs["Mean"][0])
+        var = get(bn.inputs["Variance"][0])
+        factor = gamma / np.sqrt(var + eps)          # [C_out]
+        w_name = conv.inputs["Filter"][0]
+        put(w_name, get(w_name) * factor[:, None, None, None])
+        if bias_op is not None:
+            b_name = bias_op.inputs["Y"][0]
+            put(b_name, (get(b_name) - mean) * factor + beta)
+            return
+        # a new bias var and an elementwise_add writing bn's output
+        b_name = unique_name.generate(w_name + ".bn_folded_bias")
+        block.create_var(name=b_name, shape=beta.shape,
+                         dtype=str(beta.dtype), persistable=True)
+        device = scope.find_var(w_name).get().device
+        scope.var(b_name).set(from_numpy(beta - mean * factor,
+                                         b_name).to(device))
+        add = OpDesc("elementwise_add", {"X": [x_name], "Y": [b_name]},
+                     {"Out": [y_name]}, {"axis": 1})
+        block.ops.insert(block.ops.index(conv) + 1, add)
 
 
 class FuseFCTranspiler:

@@ -64,6 +64,18 @@ CASES = [
     (2, 8, 512, 512, 64, True, "float32"),
     (1, 2, 48, 48, 32, True, "bfloat16"),
     (1, 2, 37, 61, 16, True, "bfloat16"),
+    # the tensor-core path at every head dim it takes, causal and not,
+    # with Tk off the 64-key tile and Tq off the 128-row tile
+    (1, 2, 200, 200, 16, True, "bfloat16"),
+    (2, 2, 130, 190, 48, False, "bfloat16"),
+    (1, 3, 300, 300, 64, True, "bfloat16"),
+    (1, 2, 77, 141, 80, True, "bfloat16"),
+    (1, 2, 150, 150, 96, False, "bfloat16"),
+    (1, 2, 129, 257, 112, True, "bfloat16"),
+    (1, 2, 256, 256, 128, True, "bfloat16"),
+    (1, 2, 200, 70, 64, True, "bfloat16"),    # Tq > Tk: fully masked rows
+    (1, 2, 150, 40, 128, True, "bfloat16"),   # the same at d 128
+    (2, 2, 100, 97, 64, False, "bfloat16"),   # ragged T
 ]
 
 
@@ -96,6 +108,40 @@ def test_flash_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, dtype):
         q, k, v, causal, 1.0 / math.sqrt(d))
     tol = 1e-4 if dtype == "float32" else 3e-2
     assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    if causal and tq > tk:
+        assert (out[:, :, :tq - tk] == 0).all()
+        assert (lse.reshape(b, h, tq)[:, :, :tq - tk] == -1e30).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_flash_kernel_takes_views(cuda, layout):
+    """bf16 q/k/v as views: permuted [B,T,H,D] tensors (the model's
+    layout, 16-byte aligned rows, no copy), and views whose rows start
+    2 bytes into a 16-byte chunk, which the wrapper copies (counted)."""
+    b, h, tq, tk, d = 2, 4, 150, 150, 64
+    rng = np.random.RandomState(3)
+
+    def view(t):
+        if layout == "strided":
+            x = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+                np.float32)).to(cuda, torch.bfloat16)
+            return x.permute(0, 2, 1, 3)
+        x = torch.from_numpy(rng.standard_normal((b, h, t, d + 8)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        return x[..., 1:d + 1]
+
+    q, k, v = view(tq), view(tk), view(tk)
+    copies = fa.flash_attention_fwd.copies
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.copies == copies + (
+        3 if layout == "unaligned" else 0)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(
+        q, k, v, True, 1.0 / math.sqrt(d))
+    assert out.is_contiguous()
+    assert (out.float() - ref_out.float()).abs().max().item() <= 3e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 

@@ -38,6 +38,10 @@ CASES = [
     (1, 3, 37, 45, 32, False, "float32"),     # ragged T
     (1, 2, 48, 48, 32, True, "bfloat16"),
     (1, 2, 37, 61, 16, True, "bfloat16"),
+    (1, 2, 40, 40, 64, True, "bfloat16"),
+    (1, 2, 33, 50, 128, False, "bfloat16"),   # D 128, Tq != Tk
+    (1, 2, 56, 24, 64, True, "bfloat16"),     # Tq > Tk: fully masked rows
+    (1, 3, 37, 45, 32, False, "bfloat16"),    # ragged T
 ]
 
 
@@ -73,6 +77,22 @@ def test_plain_matches_pallas_interpret(b, h, tq, tk, d, causal, dtype):
         assert (out[:, :, :dead].float() == 0).all()
         assert (lse.reshape(b, h, tq)[:, :, :dead] == -1e30).all()
     assert out.float().isfinite().all() and not lse.isnan().any()
+
+
+def test_bf16_rows_must_start_on_16_bytes():
+    """The rule the bf16 kernel's 16-byte copies need, and the wrapper
+    checks before a launch: the model's permuted [B,T,H,D] views pass,
+    a view 2 bytes into a chunk or with an odd row stride does not."""
+    x = torch.zeros((2, 7, 4, 64), dtype=torch.bfloat16)
+    assert fa._aligned(x.permute(0, 2, 1, 3))
+    assert fa._aligned(x[:1].permute(0, 2, 1, 3))
+    wide = torch.zeros((2, 4, 7, 72), dtype=torch.bfloat16)
+    assert not fa._aligned(wide[..., 1:65])
+    assert fa._aligned(wide[..., 8:72])
+    odd = torch.zeros((2, 4, 7, 68), dtype=torch.bfloat16)
+    assert not fa._aligned(odd[..., :64])
+    # a dim of extent 1 never steps its stride
+    assert fa._aligned(odd[:1, :1, :1, :64])
 
 
 def test_wrapper_takes_plain_version_on_meta():

@@ -9,6 +9,9 @@ summation order).
 
 from __future__ import annotations
 
+import json
+
+import ml_dtypes
 import numpy as np
 import pytest
 
@@ -167,3 +170,135 @@ def test_ir_optim_off_keeps_the_unfused_graph(tmp_path):
     ids = _ids(2, 8)
     np.testing.assert_allclose(plain.run([ids])[0], fused.run([ids])[0],
                                rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the analysis passes: the conv+bn fold, and the Config knobs
+# ---------------------------------------------------------------------------
+
+RN_BATCH = 2
+# the fold rewrites the filters in numpy exactly as the JAX package does;
+# the logits of 20 convs then differ only in summation order (f32)
+RN_TOL = 1e-4
+# bf16 logits (8 significant bits, rounded at every one of ~60 ops)
+# against each other and against f32, as a share of the logits' scale:
+# about 8 bf16 steps (2^-8); the two packages measured 0.7 % apart
+BF16_LOGITS_TOL = 0.03
+
+
+def _save_jax_resnet20(dirname):
+    """ResNet-20 (cifar) in test mode, saved by the JAX package, with
+    every batch_norm's running statistics and affine terms drawn away
+    from 0 and 1 so the fold has something to fold."""
+    import importlib
+
+    from paddle_tpu.core.scope import global_scope as jax_scope
+
+    model = importlib.import_module(
+        "paddle_tpu.models.resnet").resnet_cifar10(depth=20, is_test=True)
+    exe = fluid.Executor(fluid.CPUPlace())
+    np.random.seed(0)
+    exe.run(fluid.default_startup_program())
+    rng = np.random.RandomState(1)
+    bns = [op for op in fluid.default_main_program().global_block().ops
+           if op.type == "batch_norm"]
+    for op in bns:
+        for slot, lo, hi in (("Mean", -0.5, 0.5), ("Variance", 0.5, 2.0),
+                             ("Scale", 0.5, 1.5), ("Bias", -0.5, 0.5)):
+            name = op.inputs[slot][0]
+            shape = np.asarray(jax_scope().find_var(name).get()).shape
+            jax_scope().find_var(name).set(
+                rng.uniform(lo, hi, shape).astype(np.float32))
+    fluid.io.save_inference_model(dirname, ["image"], [model["logits"]],
+                                  exe)
+    return len(bns)
+
+
+def _image(seed):
+    return np.random.RandomState(seed).standard_normal(
+        (RN_BATCH, 3, 32, 32)).astype(np.float32)
+
+
+def test_predictor_folds_conv_bn_as_the_jax_predictor(tmp_path):
+    d = str(tmp_path)
+    n_bn = _save_jax_resnet20(d)
+    assert n_bn == 21   # stem, 9 blocks x 2, two projection shortcuts
+    jpred = jax_inference.create_predictor(jax_inference.Config(d))
+    with fresh_port_programs():
+        ppred = _port_cpu_predictor(d)
+    assert "batch_norm" not in _op_types(ppred._program)
+    assert _op_types(ppred._program).count("conv2d") == n_bn
+    assert json.dumps(ppred._program.to_dict(), sort_keys=True) == \
+        json.dumps(jpred._program.to_dict(), sort_keys=True)
+    # the folded filters and biases, var for var
+    folded = [v.name for v in ppred._program.list_vars()
+              if v.persistable and ("bn_folded_bias" in v.name
+                                    or v.name.startswith("conv2d"))]
+    assert len(folded) == 2 * n_bn
+    for name in folded:
+        np.testing.assert_allclose(
+            ppred._scope.find_var(name).get().numpy(),
+            np.asarray(jpred._scope.find_var(name).get()),
+            rtol=1e-6, atol=1e-6, err_msg=name)
+    for seed in (2, 3):
+        image = _image(seed)
+        pout, = ppred.run([image])
+        jout, = jpred.run([image])
+        np.testing.assert_allclose(pout, np.asarray(jout), rtol=RN_TOL,
+                                   atol=RN_TOL)
+    # unfolded, the same model gives the same logits
+    cfg = pt.inference.Config(d)
+    cfg.disable_gpu()
+    cfg.switch_ir_optim(False)
+    with fresh_port_programs():
+        plain = pt.inference.create_predictor(cfg)
+    assert _op_types(plain._program).count("batch_norm") == n_bn
+    np.testing.assert_allclose(plain.run([image])[0], pout, rtol=RN_TOL,
+                               atol=RN_TOL)
+
+
+def test_reference_config_script_runs_unchanged(tmp_path):
+    """Every knob of the JAX package's Config exists on the port's; the
+    recorded no-ops change nothing, and enable_mkldnn_bfloat16 runs the
+    program in bf16 as the JAX Predictor does."""
+    d = str(tmp_path)
+    _save_jax_resnet20(d)
+
+    def configure(cfg):
+        cfg.enable_tensorrt_engine(workspace_size=1 << 20, max_batch_size=4)
+        cfg.enable_mkldnn()
+        cfg.switch_use_feed_fetch_ops(False)
+        cfg.enable_memory_optim()
+        cfg.disable_glog_info()
+        cfg.switch_ir_optim(True)
+        return cfg
+
+    image = _image(4)
+    base = _port_cpu_predictor(d).run([image])[0]
+    cfg = configure(pt.inference.Config(d))
+    cfg.disable_gpu()
+    with fresh_port_programs():
+        knobs = pt.inference.create_predictor(cfg)
+    np.testing.assert_array_equal(knobs.run([image])[0], base)
+
+    jcfg = configure(jax_inference.Config(d))
+    jcfg.enable_mkldnn_bfloat16()
+    jpred = jax_inference.create_predictor(jcfg)
+    cfg.enable_mkldnn_bfloat16()
+    with fresh_port_programs():
+        ppred = pt.inference.create_predictor(cfg)
+    assert json.dumps(ppred._program.to_dict(), sort_keys=True) == \
+        json.dumps(jpred._program.to_dict(), sort_keys=True)
+    assert ppred.feed_specs()["image"][1] == "bfloat16"
+    bf16 = image.astype(ml_dtypes.bfloat16)
+    pout, = ppred.run([bf16])
+    jout = np.asarray(jpred.run([bf16])[0])
+    assert pout.dtype == jout.dtype == ml_dtypes.bfloat16
+    # bf16 rounds at every op in both packages, at other points: held
+    # to the f32 logits' scale, at a few bf16 steps of it
+    scale = float(np.abs(base).max())
+    np.testing.assert_allclose(pout.astype(np.float32),
+                               jout.astype(np.float32), rtol=0,
+                               atol=BF16_LOGITS_TOL * scale)
+    np.testing.assert_allclose(pout.astype(np.float32), base, rtol=0,
+                               atol=BF16_LOGITS_TOL * scale)

@@ -268,9 +268,15 @@ def test_detach_adopt_release_move_no_bytes():
     assert ok, detail
 
 
-def test_page_pool_gauges_exported():
+def test_page_pool_gauges_exported(monkeypatch):
     from paddle_tpu_torch.observability import metrics as obs_metrics
+    from paddle_tpu_torch.ops import paged_kv as pkv
 
+    # each gauge keeps at most 64 caches' series, for the process's
+    # life: start from none, whatever caches the worker made before
+    for gauge in (pkv._G_FREE, pkv._G_IN_USE, pkv._G_SHARED, pkv._G_FRAG,
+                  pkv._G_TRANSIT):
+        monkeypatch.setattr(gauge, "_series", {})
     c = _cache(num_pages=8, page_size=4, num_heads=1, head_dim=8)
     c.prefill(*_kv(np.random.RandomState(6), 5, h=1))
     snap = obs_metrics.registry().snapshot()
