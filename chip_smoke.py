@@ -24,9 +24,14 @@ Phases, none of which catches its own failure:
      logits with the same model on the CPU (Config.disable_gpu());
   4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
-     cotangent, times them beside the PyTorch pass that prepares their
-     inputs (delta), the plain backward and SDPA's backward, and checks
-     the autograd Function against autograd of the plain forward;
+     cotangent, and at the two 32768-token shapes against the sliced
+     plain version (dq's last 1024 rows, dk/dv's keys 16384-17407, also
+     at a tolerance that a planted fault, one zeroed dO tile, must
+     break); times them by CUDA-graph replay and by events beside the
+     PyTorch pass that prepares their inputs (delta), the plain backward
+     and SDPA's backward (forward+backward less forward, both timers);
+     no case may copy its inputs; checks the autograd Function against
+     autograd of the plain forward;
   5. trains the same LM (is_test=False, dropout 0) in f32 with
      optimizer.Adam(1e-4).minimize(loss) through Executor.run on the
      card: one warm-up step, then TRAIN_STEPS (5) counted steps at batch
@@ -102,7 +107,7 @@ Phases, none of which catches its own failure:
      line, then the result line {"ok": true, "device": {...}} last.
 
 Takes about five minutes on one H100, the kernels' build included.
-Every main path also holds the flash forward's input copies at 0.
+Every main path also holds the flash kernels' input copies at 0.
 
 Exits non-zero, printing no result line, when no CUDA device is present
 or when any phase fails.
@@ -365,8 +370,12 @@ def flash_bound_ms(b, h, tq, tk, d, causal, dtype, kernel="fwd"):
     """Least time for the work: each input read once and each output
     written once over HBM, or the FLOPs (2 per multiply-add of each
     Tq x Tk x D product, halved when causal) at the card's peak for the
-    input type, whichever is larger."""
+    input type, whichever is larger.  In bf16, dV = P^T dO with P kept
+    in f32 is two bf16 products (P's high and low halves), so dkv counts
+    five."""
     products, n_q, n_k, n_vec = FLASH_WORK[kernel]
+    if kernel == "dkv" and dtype == "bfloat16":
+        products += 1
     elem = 4 if dtype == "float32" else 2
     nbytes = elem * b * h * d * (n_q * tq + n_k * tk) + 4 * n_vec * b * h * tq
     flops = 2.0 * products * b * h * tq * tk * d * (0.5 if causal else 1.0)
@@ -472,11 +481,31 @@ BWD_CASES = [c + (False,) for c in FLASH_CASES] + [
     (2, 3, 100, 228, 64, True, "float32", True, True)]
 BWD_MAIN_CASE = BWD_CASES[len(FLASH_CASES) - 3]
 BWD_AMP_CASE = BWD_CASES[len(FLASH_CASES) - 1]
+# the bench's longctx legs (training steps, fwd+bwd): the kernels run
+# whole and are held against the sliced plain version on dq's last
+# LONG_CHECK_ROWS rows and dk/dv's keys LONG_BWD_KEYS (a full plain
+# backward would need four 34 GB score matrices), summed LONG_BWD_CHUNK
+# keys or rows at a time
+LONG_BWD_CASES = [c + (False,) for c in LONG_CASES]
+LONG_BWD_KEYS = (16384, 16384 + 1024)
+LONG_BWD_CHUNK = 4096
+# Each output is also held to LONG_BWD_TOL, max |err| / max |ref| and
+# ||err|| / ||ref||, and the plain version with one 64-row dO tile zeroed
+# (rows LONG_BWD_FAULT_ROW..+63, inside dq's rows and the q sweep of the
+# checked keys), a planted fault, must break both limits of every output.
+# On the H100 the kernels read at most 4.7e-3 and 4.8e-4 (one bf16 step of
+# an output), the planted fault at least 0.107 and 0.046 (dk, dv; dq 0.64
+# and 0.25): the limits sit ~3x and ~8x above the first, 7x and 11x below
+# the second
+LONG_BWD_TOL = {"max": 1.5e-2, "rel": 4e-3}
+LONG_BWD_FAULT_ROW = 32768 - 512
 
 
 def sdpa_bwd_ms(q, k, v, do, causal, scale, iters):
-    """SDPA's backward: forward plus autograd.grad through SDPA, less
-    SDPA's forward alone."""
+    """SDPA's backward, as (graph replay, events): SDPA's forward plus
+    autograd.grad through it, less SDPA's forward alone, each timed the
+    same way (the forward is captured with the backward, as the autograd
+    graph must be built inside the capture)."""
     import torch
     import torch.nn.functional as F
 
@@ -492,9 +521,46 @@ def sdpa_bwd_ms(q, k, v, do, causal, scale, iters):
             *leaves, attn_mask=mask, is_causal=causal and mask is None,
             scale=scale)
 
-    fwd_ms = cuda_ms(fwd, iters)
-    both_ms = cuda_ms(lambda: torch.autograd.grad(fwd(), leaves, do), iters)
-    return both_ms - fwd_ms
+    def both():
+        return torch.autograd.grad(fwd(), leaves, do)
+
+    return (graph_ms(both, iters) - graph_ms(fwd, iters),
+            cuda_ms(both, iters) - cuda_ms(fwd, iters))
+
+
+def bwd_kernel_ms(q, k, v, o, lse, do, causal, scale, dlse, iters):
+    """Each backward kernel alone on prepared inputs, as {name: ms} by
+    graph replay and by events, and the PyTorch pass that prepares their
+    inputs (delta = rowsum(dO*O) - dlse) by events."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do_c, lse_c, delta = fa._bwd_prepare(q, k, v, o, lse, do, dlse)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    calls = {
+        "dq": lambda: fa._bwd_kernel("dq", q, k, v, do_c, lse_c, delta,
+                                     (dq,), causal, scale),
+        "dkv": lambda: fa._bwd_kernel("dkv", q, k, v, do_c, lse_c, delta,
+                                      (dk, dv), causal, scale),
+    }
+    ms = {n: graph_ms(fn, iters) for n, fn in calls.items()}
+    event_ms = {n: cuda_ms(fn, iters) for n, fn in calls.items()}
+    prepare_ms = cuda_ms(lambda: fa._bwd_prepare(q, k, v, o, lse, do, dlse),
+                         iters)
+    return ms, event_ms, prepare_ms
+
+
+def grad_errs(got, want):
+    """max |err| / max |ref| and ||err|| / ||ref|| of each of (dq, dk,
+    dv)."""
+    out = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = g.float() - w.float()
+        out[name] = {
+            "max": diff.abs().max().item() / w.float().abs().max().item(),
+            "rel": (diff.norm() / w.float().norm()).item()}
+    return out
 
 
 def check_flash_bwd(device, seed):
@@ -504,8 +570,10 @@ def check_flash_bwd(device, seed):
 
     rng = np.random.RandomState(seed + 3)
     results = []
-    for (b, h, tq, tk, d, causal, dtype, strided, with_dlse) in BWD_CASES:
+    for (b, h, tq, tk, d, causal, dtype, strided, with_dlse) in \
+            BWD_CASES + LONG_BWD_CASES:
         tdtype = getattr(torch, dtype)
+        long = tq > 4096
 
         def make(t):
             x = torch.from_numpy(rng.standard_normal(
@@ -520,44 +588,66 @@ def check_flash_bwd(device, seed):
         if with_dlse:
             dlse = torch.from_numpy(rng.standard_normal(
                 (b * h, tq)).astype(np.float32)).to(device)
+        copies = fa.flash_attention_bwd.copies
         grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale,
                                        dlse)
         torch.cuda.synchronize()
-        refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal,
-                                            scale, dlse)
-        errs, ok = {}, True
+        sliced = dict(rows=(tq - LONG_CHECK_ROWS, tq), keys=LONG_BWD_KEYS,
+                      chunk=LONG_BWD_CHUNK) if long else {}
+
+        def plain(dout=do):
+            return fa.flash_attention_bwd_plain(q, k, v, o, lse, dout, causal,
+                                                scale, dlse, **sliced)
+
+        refs = plain()
+        if long:
+            rows, keys = sliced["rows"], sliced["keys"]
+            grads = (grads[0][:, :, rows[0]:rows[1]],
+                     grads[1][:, :, keys[0]:keys[1]],
+                     grads[2][:, :, keys[0]:keys[1]])
+        errs, ref_max, ok = {}, {}, fa.flash_attention_bwd.copies == copies
         for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
             errs[name] = (g.float() - r.float()).abs().max().item()
-            ref_max = r.float().abs().max().item()
+            ref_max[name] = r.float().abs().max().item()
             ok &= bool(g.float().isfinite().all()) and \
-                errs[name] <= BWD_TOL[dtype] * max(1.0, ref_max)
+                errs[name] <= BWD_TOL[dtype] * max(1.0, ref_max[name])
         if causal and tq > tk:     # rows that see no key: dq exactly 0
             ok &= bool((grads[0][:, :, :tq - tk] == 0).all())
-        iters = 10 if tq * tk >= 512 * 512 else 30
-        do_c, lse_c, delta = fa._bwd_prepare(q, k, v, o, lse, do, dlse)
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        ms = {
-            "dq": cuda_ms(lambda: fa._bwd_kernel(
-                "dq", q, k, v, do_c, lse_c, delta, (dq,), causal, scale),
-                iters),
-            "dkv": cuda_ms(lambda: fa._bwd_kernel(
-                "dkv", q, k, v, do_c, lse_c, delta, (dk, dv), causal,
-                scale), iters),
-        }
-        # the PyTorch pass outside the kernels: delta = rowsum(dO*O) -
-        # dlse, and a copy of a dO without a unit-stride head dim
-        prepare_ms = cuda_ms(lambda: fa._bwd_prepare(q, k, v, o, lse, do,
-                                                     dlse), iters)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, causal, scale, dlse), iters)
-        library_ms = sdpa_bwd_ms(q, k, v, do, causal, scale, iters)
+        extra = {}
+        if long:
+            do_fault = do.clone()
+            do_fault[:, :, LONG_BWD_FAULT_ROW:LONG_BWD_FAULT_ROW + 64] = 0
+            extra = {"checked": sliced,
+                     "long_errs": grad_errs(grads, refs),
+                     "planted_fault_errs": grad_errs(plain(do_fault), refs)}
+            del do_fault
+            ok &= all(extra["long_errs"][n][key] <= LONG_BWD_TOL[key]
+                      < extra["planted_fault_errs"][n][key]
+                      for n in ("dq", "dk", "dv") for key in LONG_BWD_TOL)
+        del grads, refs
+        # device times from CUDA-graph replay (ms), with the calls as
+        # issued timed by events beside them (event_ms), the yardstick of
+        # the times before graph replay; no plain timing at 32768 tokens
+        iters = 3 if long else 10 if tq * tk >= 512 * 512 else 30
+        ms, event_ms, prepare_ms = bwd_kernel_ms(
+            q, k, v, o, lse, do, causal, scale, dlse, iters)
+        plain_ms = plain_event_ms = None
+        if not long:
+            plain_ms = graph_ms(plain, iters)
+            plain_event_ms = cuda_ms(plain, iters)
+        library_ms, library_event_ms = sdpa_bwd_ms(q, k, v, do, causal,
+                                                   scale, iters)
         bounds = {n: flash_bound_ms(b, h, tq, tk, d, causal, dtype, n)
                   for n in ("dq", "dkv")}
         row = dict(shape=[b, h, tq, tk, d], causal=causal, dtype=dtype,
                    strided=strided, dlse=with_dlse, max_abs_err=errs,
-                   ms=ms, prepare_ms=prepare_ms, plain_ms=plain_ms,
-                   library_ms=library_ms, bound_ms={n: v[0] for n, v in bounds.items()},
-                   bound_by={n: v[1] for n, v in bounds.items()}, ok=ok)
+                   ref_max=ref_max, **extra,
+                   ms=ms, event_ms=event_ms, prepare_ms=prepare_ms,
+                   plain_ms=plain_ms, plain_event_ms=plain_event_ms,
+                   library_ms=library_ms, library_event_ms=library_event_ms,
+                   bound_ms={n: v[0] for n, v in bounds.items()},
+                   bound_by={n: v[1] for n, v in bounds.items()},
+                   copies=fa.flash_attention_bwd.copies - copies, ok=ok)
         log("flash bwd case " + json.dumps(row))
         if not ok:
             raise AssertionError(
@@ -1171,9 +1261,10 @@ def train_batch(seed, batch):
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fc_epilogue", "conv_epilogue",
            "conv_stats", "bn_apply", "flash_decode")
-# beside the launches: the bf16 flash forward's contiguous copies of q, k
-# or v whose rows were not 16-byte aligned, 0 on every main path
+# beside the launches: the bf16 flash kernels' contiguous copies of q, k,
+# v (or dO) whose rows were not 16-byte aligned, 0 on every main path
 COPIES = "flash_attention_fwd_copies"
+BWD_COPIES = "flash_attention_bwd_copies"
 
 
 def kernel_counts():
@@ -1191,7 +1282,8 @@ def kernel_counts():
             "conv_stats": cep.conv_stats_kernel.launches,
             "bn_apply": cep.bn_apply_kernel.launches,
             "flash_decode": fd.flash_decode.launches,
-            COPIES: fa.flash_attention_fwd.copies}
+            COPIES: fa.flash_attention_fwd.copies,
+            BWD_COPIES: fa.flash_attention_bwd.copies}
 
 
 def reset_kernel_counts():
@@ -1203,6 +1295,7 @@ def reset_kernel_counts():
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_fwd.copies = 0
     fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+    fa.flash_attention_bwd.copies = 0
     ep.fc_epilogue.launches = 0
     cep.conv_epilogue_kernel.launches = 0
     cep.conv_stats_kernel.launches = 0
@@ -1211,9 +1304,9 @@ def reset_kernel_counts():
 
 
 def expected_counts(**per_run):
-    """Every kernel's expected launch count, and the flash forward's
+    """Every kernel's expected launch count, and the flash kernels'
     expected copies: 0 unless given."""
-    return {k: per_run.get(k, 0) for k in KERNELS + (COPIES,)}
+    return {k: per_run.get(k, 0) for k in KERNELS + (COPIES, BWD_COPIES)}
 
 
 def lm_expected(types, steps):
@@ -2061,6 +2154,15 @@ def main(argv=None):
             for r in cases
             if r["shape"][2] > 4096],
     }]
+    def bwd_summary(row, name, errs):
+        return {"shape": row["shape"], "dtype": row["dtype"],
+                "max_abs_err": max(row["max_abs_err"][e] for e in errs),
+                **{k: row[k][name] for k in (
+                    "ms", "event_ms", "bound_ms", "bound_by")},
+                **{k: row.get(k) for k in (
+                    "plain_ms", "library_ms", "library_event_ms",
+                    "long_errs", "planted_fault_errs")}}
+
     for name, line, errs in (("dq", 409, ("dq",)),
                              ("dkv", 458, ("dk", "dv"))):
         kernels.append({
@@ -2070,17 +2172,17 @@ def main(argv=None):
             "launches": train_launches[f"flash_attention_bwd_{name}"],
             "launches_by_path": by_path(f"flash_attention_bwd_{name}"),
             "max_abs_err": max(bwd_row["max_abs_err"][e] for e in errs),
-            "ms": bwd_row["ms"][name], "plain_ms": bwd_row["plain_ms"],
+            "ms": bwd_row["ms"][name], "event_ms": bwd_row["event_ms"][name],
+            "plain_ms": bwd_row["plain_ms"],
             "bound_ms": bwd_row["bound_ms"][name],
             "bound_by": bwd_row["bound_by"][name],
             "library_ms": bwd_row["library_ms"],
-            "amp_path": {
-                "shape": bwd_amp["shape"], "dtype": bwd_amp["dtype"],
-                "max_abs_err": max(bwd_amp["max_abs_err"][e] for e in errs),
-                "ms": bwd_amp["ms"][name], "plain_ms": bwd_amp["plain_ms"],
-                "bound_ms": bwd_amp["bound_ms"][name],
-                "bound_by": bwd_amp["bound_by"][name],
-                "library_ms": bwd_amp["library_ms"]},
+            "design": "mma.sync bf16",
+            "f32_design": "CUDA cores",
+            "copies_by_path": by_path(BWD_COPIES),
+            "amp_path": bwd_summary(bwd_amp, name, errs),
+            "long_context": [bwd_summary(r, name, errs) for r in bwd_cases
+                             if r["shape"][2] > 4096],
         })
     # fc_epilogue: one layer's three calls on the AMP path, summed; the
     # library route is the flag-off chain (no one PyTorch call adds a

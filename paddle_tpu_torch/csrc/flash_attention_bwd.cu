@@ -17,9 +17,47 @@
 //   stays f32, exactly as the Pallas kernels round.
 //
 // Design.  Two deterministic kernels, as Pallas splits them, with no
-// atomics.  Both use CTAs of 256 threads in which four threads share one
-// row of a 64-row tile, and stage tiles in shared memory as f32 with rows
-// padded by one word (the 8 rows a warp reads fall in 8 banks).
+// atomics: each output element is summed by one CTA in a fixed order.
+//
+// bf16: tensor cores, FlashAttention-2's shape on mma.sync.m16n8k16 (bf16
+// in, f32 accumulate), with the forward kernel's building blocks
+// (tensor_core.cuh).  Tiles arrive by cp.async into XOR-swizzled shared
+// memory (Tile), zero-filled past Tq and Tk, and are read by ldmatrix;
+// every product's result stays in registers, and a C fragment rounded to
+// bf16 pairs is register for register the A fragment of the next product.
+//   dq:  one CTA of 8 warps per (b*h, 128-row q tile), each warp 16 rows;
+//        q tiles launched longest first.  The Q and dO tiles stay in shared
+//        memory (their A fragments in registers at D <= 64), lse (in log2
+//        units) and delta of the warp's rows in registers.  64-key K/V
+//        tiles are double-buffered.  Per tile: S = Q K^T and dP = dO V^T,
+//        P = 2^(S scale log2e - lse log2e), dS = P (dP - delta) scale
+//        rounded to bf16, dQ += dS K (K's B fragments by ldmatrix.trans).
+//        The epilogue stages dQ through the warp's rows of the Q tile for
+//        16-byte stores.
+//   dkv: one CTA of 8 warps per (b*h, 128-key tile), each warp 16 keys; the
+//        low key tiles, which see the most q tiles, launched first.  The K
+//        and V tiles stay in shared memory (their A fragments in registers
+//        at D <= 64); 64-row Q/dO tiles, with their lse and delta, are
+//        double-buffered.  Per tile, transposed so a warp's rows are keys:
+//        S^T = K Q^T and dP^T = V dO^T, P^T and dS^T with lse and delta
+//        indexed by the C fragment's columns, dV += P^T dO and dK += dS^T
+//        Q (dO's and Q's B fragments by ldmatrix.trans).  P stays f32 in
+//        dV, as the Pallas kernel keeps it: P = hi + lo with hi = bf16(P)
+//        and lo = bf16(P - hi) (about 16 bits of P), two products into one
+//        accumulator that share dO's B fragments: dkv issues five
+//        products a tile on the ldmatrix loads of four.  At D > 64 a warp
+//        scores 32 q rows at a time instead of 64.
+//   Tiles wholly above the causal diagonal are never loaded; a warp skips
+//   the math of a tile none of its rows (keys) can see; tiles inside the
+//   band and the bounds skip the mask, as _bwd_interior's blocks do.  A
+//   fully masked row (lse -1e30) never has an unmasked entry, so its P is 0.
+//   Registers: at D 128 the dk and dv accumulators alone take 128 a lane,
+//   so the A fragments of Q/dO (dq) and K/V (dkv) are read from shared
+//   memory again each tile where D > 64 rather than held.
+// f32: CUDA cores in full f32, with CTAs of 256 threads in which four
+// threads share one row of a 64-row tile, and tiles staged in shared
+// memory as f32 with rows padded by one word (the 8 rows a warp reads fall
+// in 8 banks).
 //   dq:  one CTA per (b*h, 64-row q tile).  Q and dO stay in shared
 //        memory, lse and delta in registers; the CTA walks the K/V tiles,
 //        recomputes its rows' S and dO V^T, writes dS to shared memory and
@@ -28,27 +66,33 @@
 //        memory; the CTA walks the q tiles, recomputes P and dS for its
 //        keys (transposed: a thread's row is a key), and accumulates
 //        P^T dO and dS^T Q into register accumulators for dv and dk.
-// Tiles wholly above the causal diagonal are skipped in both sweeps.
 //
-// What bounds it.  At the training shape ([8,8,512,64], causal, f32) dq
-// does three Tq x Tk x D products (S, dP, dQ), 3.22 GFLOP after the causal
-// halving, and dkv four (S, dP, dV, dK), 4.29 GFLOP: in full f32 on the
-// CUDA cores (67 TFLOP/s) they are bound by operations, 0.048 and
-// 0.064 ms; the bytes (about 42 and 51 MB) take 0.013 and 0.015 ms.  Like
-// the forward kernel, this first version spends about one shared-memory
-// read per fused multiply-add, so shared-memory bandwidth holds it several
-// times above that bound; register tiling (and wgmma for bf16) is the next
-// step.
+// What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s
+// f32 outside the tensor cores; inputs read and outputs written once; dq
+// does three Tq x Tk x D products, dkv four, or five in bf16 with P split
+// in two; halved when causal):
+//   [32,8,512,64] bf16 causal, the AMP training step: dq 0.0254 ms and
+//     dkv 0.0304 ms, bytes (the products take 0.013 and 0.022 ms);
+//   [1,8,32768,64] bf16 causal, long context: dq 1.67 ms and dkv 2.78 ms,
+//     operations ([1,8,32768,128]: 3.34 and 5.56 ms);
+//   [8,8,512,64] f32 causal, the f32 training step: dq 0.048 ms and dkv
+//     0.064 ms, operations on the CUDA cores.
+// The bf16 kernels read each K/V (Q/dO) tile once per 128 rows (keys) and
+// keep every product on the tensor cores; like the forward, the
+// elementwise work between a warp's products (exp2, masks, dS, packing)
+// is hidden only by the other warps of the SM.  The f32 kernels spend
+// about one shared-memory read per fused multiply-add, so shared-memory
+// bandwidth holds them several times above their bound.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const void* q;
@@ -66,37 +110,25 @@ struct Params {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// dS as the products see it: rounded to the input dtype.
-template <typename T>
-__device__ __forceinline__ float round_to_input(float x) {
-  return to_f32(from_f32<T>(x));
-}
+constexpr int kBlockQ = 64;
+constexpr int kBlockK = 64;
+constexpr int kThreadsPerRow = 4;
+constexpr int kThreads = kBlockQ * kThreadsPerRow;
 
 // Rows [r0, r0 + 64) of a [len, D] slice with row stride st, into shared
-// memory as f32 with row stride D + 1; rows past len are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
-                                          long long st, int r0, int len) {
+// memory with row stride D + 1; rows past len are zero.
+template <int D>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long st, int r0,
+                                              int len) {
   for (int e = threadIdx.x; e < kBlockQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     const int gr = r0 + r;
-    dst[r * (D + 1) + c] = gr < len ? to_f32(src[gr * st + c]) : 0.f;
+    dst[r * (D + 1) + c] = gr < len ? src[gr * st + c] : 0.f;
   }
 }
 
@@ -111,8 +143,8 @@ constexpr size_t dkv_smem_bytes() {
          (4 * kBlockK * (D + 1) + 2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockK + 1;
   constexpr int NC = D / kThreadsPerRow;        // dq columns a thread owns
@@ -131,10 +163,11 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const int q0 = blockIdx.y * kBlockQ;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
   const int q_off = p.causal ? p.Tk - p.Tq : 0;
   const int qr = q0 + row;
   const int qpos = qr + q_off;
@@ -143,8 +176,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const float lse = row_ok ? p.lse[stat] : 0.f;
   const float delta = row_ok ? p.delta[stat] : 0.f;
 
-  load_tile<T, D>(q_s, q, p.sqt, q0, p.Tq);
-  load_tile<T, D>(do_s, dout, p.sot, q0, p.Tq);
+  load_tile_f32<D>(q_s, q, p.sqt, q0, p.Tq);
+  load_tile_f32<D>(do_s, dout, p.sot, q0, p.Tq);
 
   float acc[NC];
 #pragma unroll
@@ -154,8 +187,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBlockQ) : p.Tk;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's K and dS reads are done
-    load_tile<T, D>(k_s, k, p.skt, k0, p.Tk);
-    load_tile<T, D>(v_s, v, p.svt, k0, p.Tk);
+    load_tile_f32<D>(k_s, k, p.skt, k0, p.Tk);
+    load_tile_f32<D>(v_s, v, p.svt, k0, p.Tk);
     __syncthreads();
 
     float s[NS], dp[NS];
@@ -178,7 +211,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
           row_ok && kpos < p.Tk && (!p.causal || qpos >= kpos);
       const float pv = valid ? expf(s[t] * p.scale - lse) : 0.f;
       ds_s[row * PP + sub + kThreadsPerRow * t] =
-          round_to_input<T>(pv * (dp[t] - delta) * p.scale);
+          pv * (dp[t] - delta) * p.scale;
     }
     // the four threads of a row are lanes of one warp
     __syncwarp();
@@ -191,15 +224,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(Params p) {
   }
 
   if (row_ok) {
-    T* dq = static_cast<T*>(p.dq) + stat * D;
+    float* dq = static_cast<float*>(p.dq) + stat * D;
 #pragma unroll
-    for (int i = 0; i < NC; ++i)
-      dq[sub + kThreadsPerRow * i] = from_f32<T>(acc[i]);
+    for (int i = 0; i < NC; ++i) dq[sub + kThreadsPerRow * i] = acc[i];
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_f32_kernel(Params p) {
   constexpr int DP = D + 1;
   constexpr int PP = kBlockQ + 1;
   constexpr int NC = D / kThreadsPerRow;        // dk/dv columns a thread owns
@@ -221,18 +254,19 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
   const int k0 = blockIdx.y * kBlockK;
   const int b = bh / p.H;
   const int h = bh % p.H;
-  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
-  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
-  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
   const float* lse = p.lse + static_cast<long long>(bh) * p.Tq;
   const float* delta = p.delta + static_cast<long long>(bh) * p.Tq;
   const int q_off = p.causal ? p.Tk - p.Tq : 0;
   const int kr = k0 + row;
   const bool key_ok = kr < p.Tk;
 
-  load_tile<T, D>(k_s, k, p.skt, k0, p.Tk);
-  load_tile<T, D>(v_s, v, p.svt, k0, p.Tk);
+  load_tile_f32<D>(k_s, k, p.skt, k0, p.Tk);
+  load_tile_f32<D>(v_s, v, p.svt, k0, p.Tk);
 
   float dk_acc[NC], dv_acc[NC];
 #pragma unroll
@@ -243,8 +277,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
       p.causal ? (max(0, k0 - q_off) / kBlockQ) * kBlockQ : 0;
   for (int q0 = q_begin; q0 < p.Tq; q0 += kBlockQ) {
     __syncthreads();  // the previous tile's Q, dO, P and dS reads are done
-    load_tile<T, D>(q_s, q, p.sqt, q0, p.Tq);
-    load_tile<T, D>(do_s, dout, p.sot, q0, p.Tq);
+    load_tile_f32<D>(q_s, q, p.sqt, q0, p.Tq);
+    load_tile_f32<D>(do_s, dout, p.sot, q0, p.Tq);
     if (tid < kBlockQ) {
       const bool ok = q0 + tid < p.Tq;
       lse_s[tid] = ok ? lse[q0 + tid] : 0.f;
@@ -273,8 +307,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
           key_ok && qi < p.Tq && (!p.causal || qi + q_off >= kr);
       const float pv = valid ? expf(s[t] * p.scale - lse_s[i]) : 0.f;
       p_s[row * PP + i] = pv;
-      ds_s[row * PP + i] =
-          round_to_input<T>(pv * (dp[t] - delta_s[i]) * p.scale);
+      ds_s[row * PP + i] = pv * (dp[t] - delta_s[i]) * p.scale;
     }
     __syncwarp();
     for (int i = 0; i < kBlockQ; ++i) {
@@ -291,46 +324,467 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(Params p) {
 
   if (key_ok) {
     const long long off = (static_cast<long long>(bh) * p.Tk + kr) * D;
-    T* dk = static_cast<T*>(p.dk) + off;
-    T* dv = static_cast<T*>(p.dv) + off;
+    float* dk = static_cast<float*>(p.dk) + off;
+    float* dv = static_cast<float*>(p.dv) + off;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[sub + kThreadsPerRow * c] = from_f32<T>(dk_acc[c]);
-      dv[sub + kThreadsPerRow * c] = from_f32<T>(dv_acc[c]);
+      dk[sub + kThreadsPerRow * c] = dk_acc[c];
+      dv[sub + kThreadsPerRow * c] = dv_acc[c];
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_dq(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = dq_smem_bytes<D>();
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+// 8 warps a CTA, each owning 16 rows of the CTA's tile (q rows in dq,
+// keys in dkv), against 64-row tiles of the other side.
+constexpr int kTcWarps = 8;
+constexpr int kTcRows = 16 * kTcWarps;  // the CTA's own tile
+constexpr int kTcSweep = 64;            // the tiles it walks over
+constexpr int kTcThreads = 32 * kTcWarps;
+
+// Both kernels hold two kTcRows-row tiles (Q and dO, or K and V) and two
+// stages of two kTcSweep-row tiles (K and V, or Q and dO); dkv adds two
+// stages of kTcSweep lse and delta values.
+template <int D>
+constexpr size_t tc_smem_bytes(bool stats) {
+  return sizeof(bf16) * Tile<D>::kStride * (2 * kTcRows + 4 * kTcSweep) +
+         (stats ? sizeof(float) * 4 * kTcSweep : 0);
+}
+
+// The A fragment of rows [r0, r0 + 16) at d columns [16 kk, 16 kk + 16) of
+// a tile of layout L.
+template <class L>
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const bf16* tile,
+                                       int r0, int kk) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + L::at(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              2 * kk + (lane >> 4)));
+}
+
+// c[j] += A . B^T for the 16-row A fragments a[kk] (kk < D / 16) and the
+// rows [r0, r0 + 8 kN) of a tile of layout L as B: c[j] holds the 16 x 8
+// block of B rows r0 + 8 j.  With kHold false the A fragments are read
+// from a_tile's rows [a_r0, a_r0 + 16) instead of a.
+template <class L, int D, int kN, bool kHold>
+__device__ __forceinline__ void mma_abt(float (&c)[kN][4],
+                                        const uint32_t (&a)[D / 16][4],
+                                        const bf16* a_tile, int a_r0,
+                                        const bf16* b_tile, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    if constexpr (kHold) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) af[e] = a[kk][e];
+    } else {
+      a_frag<L>(af, a_tile, a_r0, kk);
+    }
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      // matrices: B rows r0+8j..+7 at d 16kk.. and 16kk+8.., then rows
+      // r0+8j+8..+15 at the same two d halves
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b_tile + L::at(r0 + 8 * j + (lane & 7) +
+                                         ((lane >> 4) << 3),
+                                     2 * kk + ((lane >> 3) & 1)));
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+      mma_bf16(c[j], af, b0);
+      mma_bf16(c[j + 1], af, b1);
+    }
+  }
+}
+
+// acc += A_i . B for each of the kNA sets of 16-row A fragments a[i][kk]
+// (kk < kK, over B rows r0 + 16 kk..) and B = rows [r0, r0 + 16 kK) of a
+// tile of layout L, transposed into B fragments by ldmatrix.trans once
+// for all kNA products: acc[n] holds d columns 8n..8n+7.
+template <class L, int D, int kK, int kNA>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4],
+                                       const uint32_t (&a)[kNA][kK][4],
+                                       const bf16* b_tile, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < kK; ++kk)
+#pragma unroll
+    for (int n = 0; n < D / 8; n += 2) {
+      // matrices: rows r0+16kk..+7 and +8..+15 at d block n, then the same
+      // at d block n+1
+      uint32_t bf[4];
+      ldmatrix_x4_trans(bf, b_tile + L::at(r0 + 16 * kk + (lane & 7) +
+                                               ((lane >> 3) & 1) * 8,
+                                           n + (lane >> 4)));
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+#pragma unroll
+      for (int i = 0; i < kNA; ++i) {
+        mma_bf16(acc[n], a[i][kk], b0);
+        mma_bf16(acc[n + 1], a[i][kk], b1);
+      }
+    }
+}
+
+// The C fragments c[2kk] and c[2kk+1] (16 x 8 each) rounded to bf16 pairs
+// are the A fragment kk of a 16 x 16 block.
+template <int kN>
+__device__ __forceinline__ void c_to_a(uint32_t (&a)[kN / 2][4],
+                                       const float (&c)[kN][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 2; ++kk) {
+    a[kk][0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+  }
+}
+
+// Rounds the 16 x D accumulator to bf16 into the warp's rows [r0, r0 + 16)
+// of a tile of layout L, then stores those rows whose index row0 + r is
+// below n_rows to dst (row-major, row stride D) in 16-byte chunks.
+template <class L, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4],
+                                           bf16* tile, int r0, bf16* dst,
+                                           int row0, int n_rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();  // the warp's last ldmatrix reads of these rows are done
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<__nv_bfloat162*>(tile + L::at(r0 + g + 8 * r, n) +
+                                         2 * t) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * L::kChunks; i += 32) {
+    const int r = i / L::kChunks, c = i % L::kChunks;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<uint4*>(dst + static_cast<long long>(row0 + r) * D +
+                                c * 8) =
+          *reinterpret_cast<const uint4*>(tile + L::at(r0 + r, c));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dq_bf16_kernel(Params p) {
+  using L = Tile<D>;
+  constexpr int kBQ = kTcRows, kBK = kTcSweep;
+  constexpr bool kHold = D <= 64;  // Q/dO A fragments kept in registers
+  constexpr int kTileElems = kBK * L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* do_s = q_s + kBQ * L::kStride;
+  bf16* kv_s = do_s + kBQ * L::kStride;  // [stage][K tile, V tile]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.sqb + h * p.sqh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.skb + h * p.skh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.svb + h * p.svh;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.sob + h * p.soh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // keys past the last row of this q tile are masked for every row
+  const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBQ) : p.Tk;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int wr0 = 16 * warp;     // the warp's first row in the tile
+  const int wq0 = q0 + wr0;      // its first query row
+  const int wpos = q_off + wq0;  // and that row's causal position
+  const float scale_log2 = p.scale * kLog2e;
+
+  // lse (log2 units) and delta of rows g and g + 8; padded rows have
+  // zero Q and dO, so their P is finite and their dS 0
+  float neg_lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = wq0 + g + 8 * r;
+    const long long stat = static_cast<long long>(bh) * p.Tq + qr;
+    neg_lse[r] = qr < p.Tq ? -p.lse[stat] * kLog2e : 0.f;
+    delta[r] = qr < p.Tq ? p.delta[stat] : 0.f;
+  }
+
+  uint32_t qf[D / 16][4], df[D / 16][4];  // with kHold
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile<L, kBQ, kTcThreads>(q_s, q, p.sqt, q0, p.Tq);
+    load_tile<L, kBQ, kTcThreads>(do_s, dout, p.sot, q0, p.Tq);
+    load_tile<L, kBK, kTcThreads>(kv_s, k, p.skt, 0, p.Tk);
+    load_tile<L, kBK, kTcThreads>(kv_s + kTileElems, v, p.svt, 0, p.Tk);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile `it` has landed, and every warp is done with tile it - 1,
+    // whose buffers the copy of tile it + 1 now reuses
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      bf16* next = kv_s + ((it + 1) & 1) * 2 * kTileElems;
+      const int k1 = (it + 1) * kBK;
+      load_tile<L, kBK, kTcThreads>(next, k, p.skt, k1, p.Tk);
+      load_tile<L, kBK, kTcThreads>(next + kTileElems, v, p.svt, k1, p.Tk);
+      cp_async_commit();
+    }
+    if (kHold && it == 0) {
+      // the Q and dO tiles landed with the first K/V tile
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        a_frag<L>(qf[kk], q_s, wr0, kk);
+        a_frag<L>(df[kk], do_s, wr0, kk);
+      }
+    }
+    const int k0 = it * kBK;
+    // no row of this warp exists or sees any key of the tile
+    if (wq0 >= p.Tq || (p.causal && k0 > wpos + 15)) continue;
+    const bf16* k_s = kv_s + (it & 1) * 2 * kTileElems;
+    const bf16* v_s = k_s + kTileElems;
+
+    // s[j][e], dp[j][e]: row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+    float s[kBK / 8][4], dp[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt<L, D, kBK / 8, kHold>(s, qf, q_s, wr0, k_s, 0);
+    mma_abt<L, D, kBK / 8, kHold>(dp, df, do_s, wr0, v_s, 0);
+
+    const bool interior =
+        k0 + kBK <= p.Tk && (!p.causal || k0 + kBK - 1 <= wpos);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool valid =
+            interior ||
+            (kpos < p.Tk && (!p.causal || wpos + g + 8 * r >= kpos));
+        const float pv =
+            valid ? fast_exp2(fmaf(s[j][e], scale_log2, neg_lse[r])) : 0.f;
+        s[j][e] = pv * (dp[j][e] - delta[r]) * p.scale;  // dS
+      }
+    uint32_t dsa[1][kBK / 16][4];  // dS rounded to bf16, as A fragments
+    c_to_a<kBK / 8>(dsa[0], s);
+    mma_ab<L, D, kBK / 16, 1>(acc, dsa, k_s, 0);
+  }
+
+  store_rows<L, D>(acc, q_s, wr0,
+                   static_cast<bf16*>(p.dq) +
+                       static_cast<long long>(bh) * p.Tq * D,
+                   wq0, p.Tq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+    flash_bwd_dkv_bf16_kernel(Params p) {
+  using L = Tile<D>;
+  constexpr int kBK = kTcRows, kBQ = kTcSweep;
+  constexpr bool kHold = D <= 64;      // K/V A fragments kept in registers
+  constexpr int kSub = kHold ? 64 : 32;  // q rows a warp scores at once
+  constexpr int kTileElems = kBQ * L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* v_s = k_s + kBK * L::kStride;
+  bf16* qo_s = v_s + kBK * L::kStride;  // [stage][Q tile, dO tile]
+  // [stage][-lse log2e, delta] of the stage's kBQ rows
+  float* stat_s = reinterpret_cast<float*>(qo_s + 4 * kTileElems);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBK;  // low key tiles, the longest, first
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const bf16* q = static_cast<const bf16*>(p.q) + b * p.sqb + h * p.sqh;
+  const bf16* k = static_cast<const bf16*>(p.k) + b * p.skb + h * p.skh;
+  const bf16* v = static_cast<const bf16*>(p.v) + b * p.svb + h * p.svh;
+  const bf16* dout =
+      static_cast<const bf16*>(p.dout) + b * p.sob + h * p.soh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.Tq;
+  const float* dlt = p.delta + static_cast<long long>(bh) * p.Tq;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // q rows before k0 - q_off see none of this tile's keys
+  const int q_begin = p.causal ? (max(0, k0 - q_off) / kBQ) * kBQ : 0;
+  const int n_tiles = q_begin < p.Tq ? (p.Tq - q_begin + kBQ - 1) / kBQ : 0;
+  const int wr0 = 16 * warp;  // the warp's first key in the tile
+  const int wk0 = k0 + wr0;   // and in the sequence
+  const float scale_log2 = p.scale * kLog2e;
+
+  // The stage's statistics by plain loads (rows of lse are not 16-byte
+  // aligned); padded rows are masked
+  auto load_stats = [&](int stage, int q0) {
+    if (threadIdx.x < 2 * kBQ) {
+      const int i = threadIdx.x % kBQ, qi = q0 + i;
+      const bool is_lse = threadIdx.x < kBQ;
+      stat_s[stage * 2 * kBQ + threadIdx.x] =
+          qi >= p.Tq ? 0.f : is_lse ? -lse[qi] * kLog2e : dlt[qi];
+    }
+  };
+
+  uint32_t kf[D / 16][4], vf[D / 16][4];  // with kHold
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile<L, kBK, kTcThreads>(k_s, k, p.skt, k0, p.Tk);
+    load_tile<L, kBK, kTcThreads>(v_s, v, p.svt, k0, p.Tk);
+    load_tile<L, kBQ, kTcThreads>(qo_s, q, p.sqt, q_begin, p.Tq);
+    load_tile<L, kBQ, kTcThreads>(qo_s + kTileElems, dout, p.sot, q_begin,
+                                  p.Tq);
+    cp_async_commit();
+    load_stats(0, q_begin);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile `it` has landed (its statistics too), and every warp is done
+    // with tile it - 1, whose buffers the copy of tile it + 1 now reuses
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      const int stage = (it + 1) & 1, q1 = q_begin + (it + 1) * kBQ;
+      bf16* next = qo_s + stage * 2 * kTileElems;
+      load_tile<L, kBQ, kTcThreads>(next, q, p.sqt, q1, p.Tq);
+      load_tile<L, kBQ, kTcThreads>(next + kTileElems, dout, p.sot, q1,
+                                    p.Tq);
+      cp_async_commit();
+      load_stats(stage, q1);
+    }
+    if (kHold && it == 0) {
+      // the K and V tiles landed with the first Q/dO tile
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        a_frag<L>(kf[kk], k_s, wr0, kk);
+        a_frag<L>(vf[kk], v_s, wr0, kk);
+      }
+    }
+    if (wk0 >= p.Tk) continue;  // the warp has no key
+    const int q0 = q_begin + it * kBQ;
+    const bf16* q_s = qo_s + (it & 1) * 2 * kTileElems;
+    const bf16* do_s = q_s + kTileElems;
+    const float* neg_lse_s = stat_s + (it & 1) * 2 * kBQ;
+    const float* delta_s = neg_lse_s + kBQ;
+
+#pragma unroll
+    for (int sub = 0; sub < kBQ; sub += kSub) {
+      const int qs0 = q0 + sub;  // the first q row scored
+      // no row exists, or none sees the warp's first key
+      if (qs0 >= p.Tq || (p.causal && qs0 + kSub - 1 + q_off < wk0)) continue;
+      // st[j][e], dpt[j][e]: key wk0 + g + 8 (e / 2), q row
+      // qs0 + 8 j + 2 t + e % 2
+      float st[kSub / 8][4], dpt[kSub / 8][4];
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma_abt<L, D, kSub / 8, kHold>(st, kf, k_s, wr0, q_s, sub);
+      mma_abt<L, D, kSub / 8, kHold>(dpt, vf, v_s, wr0, do_s, sub);
+
+      const bool interior = qs0 + kSub <= p.Tq && wk0 + 16 <= p.Tk &&
+                            (!p.causal || qs0 + q_off >= wk0 + 15);
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j) {
+        const int col = sub + 8 * j + 2 * t;  // row of the Q tile
+        const float2 nl = *reinterpret_cast<const float2*>(neg_lse_s + col);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = wk0 + g + 8 * (e >> 1), qi = q0 + col + (e & 1);
+          const bool valid =
+              interior || (key < p.Tk && qi < p.Tq &&
+                           (!p.causal || qi + q_off >= key));
+          const float pv =
+              valid ? fast_exp2(fmaf(st[j][e], scale_log2,
+                                     e & 1 ? nl.y : nl.x))
+                    : 0.f;
+          st[j][e] = pv;
+          dpt[j][e] = pv * (dpt[j][e] - (e & 1 ? dl.y : dl.x)) * p.scale;
+        }
+      }
+      // dS^T rounded to bf16, and P^T = hi + lo, each rounded to bf16, as
+      // A fragments
+      uint32_t dsa[1][kSub / 16][4], p2[2][kSub / 16][4];
+      c_to_a<kSub / 8>(dsa[0], dpt);
+      c_to_a<kSub / 8>(p2[0], st);
+#pragma unroll
+      for (int kk = 0; kk < kSub / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float (&c)[4] = st[2 * kk + (i >> 1)];
+          const int e = 2 * (i & 1);
+          const float2 hi = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&p2[0][kk][i]));
+          p2[1][kk][i] = pack_bf16(c[e] - hi.x, c[e + 1] - hi.y);
+        }
+      mma_ab<L, D, kSub / 16, 2>(dv, p2, do_s, sub);  // hi and lo
+      mma_ab<L, D, kSub / 16, 1>(dk, dsa, q_s, sub);
+    }
+  }
+
+  const long long out0 = static_cast<long long>(bh) * p.Tk * D;
+  store_rows<L, D>(dk, k_s, wr0, static_cast<bf16*>(p.dk) + out0, wk0,
+                   p.Tk);
+  store_rows<L, D>(dv, v_s, wr0, static_cast<bf16*>(p.dv) + out0, wk0,
+                   p.Tk);
+}
+
+template <int D>
+cudaError_t launch_dq(const Params& p, int bh, int dtype,
+                      cudaStream_t stream) {
+  const bool f32 = dtype == 0;
+  auto kernel = f32 ? flash_bwd_dq_f32_kernel<D> : flash_bwd_dq_bf16_kernel<D>;
+  const size_t smem = f32 ? dq_smem_bytes<D>() : tc_smem_bytes<D>(false);
+  const int rows = f32 ? kBlockQ : kTcRows;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tq + kBlockQ - 1) / kBlockQ);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(bh, (p.Tq + rows - 1) / rows);
+  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = dkv_smem_bytes<D>();
+template <int D>
+cudaError_t launch_dkv(const Params& p, int bh, int dtype,
+                       cudaStream_t stream) {
+  const bool f32 = dtype == 0;
+  auto kernel =
+      f32 ? flash_bwd_dkv_f32_kernel<D> : flash_bwd_dkv_bf16_kernel<D>;
+  const size_t smem = f32 ? dkv_smem_bytes<D>() : tc_smem_bytes<D>(true);
+  const int rows = f32 ? kBlockK : kTcRows;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tk + kBlockK - 1) / kBlockK);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  const dim3 grid(bh, (p.Tk + rows - 1) / rows);
+  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T>
-cudaError_t dispatch_d(const Params& p, int bh, int d, cudaStream_t s) {
-#define PT_CASE(DIM)                                                  \
-  case DIM:                                                           \
-    return kDq ? launch_dq<T, DIM>(p, bh, s) : launch_dkv<T, DIM>(p, bh, s);
-  switch (d) {
+template <bool kDq>
+int run(Params p, int B, int D, int dtype, void* stream) {
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  const int bh = B * p.H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define PT_CASE(DIM)                                  \
+  case DIM:                                           \
+    return kDq ? launch_dq<DIM>(p, bh, dtype, s)      \
+               : launch_dkv<DIM>(p, bh, dtype, s);
+  switch (D) {
     PT_CASE(16)
     PT_CASE(32)
     PT_CASE(48)
@@ -345,20 +799,12 @@ cudaError_t dispatch_d(const Params& p, int bh, int d, cudaStream_t s) {
 #undef PT_CASE
 }
 
-template <bool kDq>
-int run(Params p, int B, int D, int dtype, void* stream) {
-  const int bh = B * p.H;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<kDq, float>(p, bh, D, s);
-  if (dtype == 1) return dispatch_d<kDq, __nv_bfloat16>(p, bh, D, s);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  bf16 rows (base pointers and the B,
+// H and T strides) must be 16-byte aligned.  Each returns a cudaError_t.
 int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int H, int Tq,

@@ -19,9 +19,10 @@
 // the most K/V tiles).
 //   - Q, K and V tiles arrive by cp.async, 16 bytes a thread, zero-filled
 //     past Tq and Tk, into shared memory laid out in 16-byte chunks,
-//     XOR-swizzled by row (Tile below), so every ldmatrix is free of bank
-//     conflicts.  K/V tiles of 64 keys are double-buffered: the copy of
-//     tile j+1 runs while tile j computes, one __syncthreads a tile.
+//     XOR-swizzled by row (Tile, in tensor_core.cuh), so every ldmatrix
+//     is free of bank conflicts.  K/V tiles of 64 keys are
+//     double-buffered: the copy of tile j+1 runs while tile j computes,
+//     one __syncthreads a tile.
 //   - Each warp takes its Q fragments by ldmatrix once and keeps them in
 //     registers for the whole K/V sweep.  S = Q K^T and P.V are
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate), K and V fragments by
@@ -238,58 +239,11 @@ constexpr int kTcBlockQ = 16 * kTcWarps;
 constexpr int kTcBlockK = 64;
 constexpr int kTcThreads = 32 * kTcWarps;
 
-// A [rows][D] bf16 tile in shared memory, addressed in 16-byte chunks of 8
-// elements.  Where a row holds a multiple of 8 chunks (D 64, 128), chunk c
-// of row r sits at c ^ (r % 8); other D pad each row by one chunk (an odd
-// number of chunks a row).  Either way the eight rows an ldmatrix phase
-// reads at one chunk index fall in eight different bank groups.
-template <int D>
-struct Tile {
-  static constexpr int kChunks = D / 8;
-  static constexpr bool kSwizzle = kChunks % 8 == 0;
-  static constexpr int kStride = kSwizzle ? D : D + 8;  // elements a row
-  __device__ static __forceinline__ int at(int row, int chunk) {
-    return row * kStride + (kSwizzle ? chunk ^ (row & 7) : chunk) * 8;
-  }
-};
-
 template <int D>
 constexpr size_t bf16_smem_bytes() {
   // the Q tile, then two stages of (K tile, V tile)
   return sizeof(__nv_bfloat16) * Tile<D>::kStride *
          (kTcBlockQ + 4 * kTcBlockK);
-}
-
-// Issues the cp.async copies of rows [r0, r0 + kRows) of a [n_rows][D]
-// matrix with row stride `stride` into a tile of layout L; rows past
-// n_rows are zero-filled.
-template <class L, int kRows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int r0,
-                                          int n_rows) {
-  constexpr int kCopies = kRows * L::kChunks;
-#pragma unroll
-  for (int i = 0; i < (kCopies + kTcThreads - 1) / kTcThreads; ++i) {
-    const int idx = threadIdx.x + i * kTcThreads;
-    if (kCopies % kTcThreads != 0 && idx >= kCopies) break;
-    const int r = idx / L::kChunks, c = idx % L::kChunks;
-    const bool ok = r0 + r < n_rows;
-    cp_async16(dst + L::at(r, c), ok ? src + (r0 + r) * stride + c * 8 : src,
-               ok ? 16 : 0);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x in one MUFU instruction (results below 2^-126 flush to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One tile's online-softmax step on a warp's S accumulator: s[j][e] holds
@@ -383,9 +337,9 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_bf16_kernel(Params p) {
   float l[2] = {0.f, 0.f};
 
   if (n_tiles > 0) {
-    load_tile<L, kBQ>(q_s, q, p.sqt, q0, p.Tq);
-    load_tile<L, kBK>(kv_s, k, p.skt, 0, p.Tk);
-    load_tile<L, kBK>(kv_s + kTileElems, v, p.svt, 0, p.Tk);
+    load_tile<L, kBQ, kTcThreads>(q_s, q, p.sqt, q0, p.Tq);
+    load_tile<L, kBK, kTcThreads>(kv_s, k, p.skt, 0, p.Tk);
+    load_tile<L, kBK, kTcThreads>(kv_s + kTileElems, v, p.svt, 0, p.Tk);
     cp_async_commit();
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -396,8 +350,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_fwd_bf16_kernel(Params p) {
     if (it + 1 < n_tiles) {
       bf16* next = kv_s + ((it + 1) & 1) * 2 * kTileElems;
       const int k1 = (it + 1) * kBK;
-      load_tile<L, kBK>(next, k, p.skt, k1, p.Tk);
-      load_tile<L, kBK>(next + kTileElems, v, p.svt, k1, p.Tk);
+      load_tile<L, kBK, kTcThreads>(next, k, p.skt, k1, p.Tk);
+      load_tile<L, kBK, kTcThreads>(next + kTileElems, v, p.svt, k1, p.Tk);
       cp_async_commit();
     }
     if (it == 0) {

@@ -1,6 +1,7 @@
 // Tensor-core building blocks shared by the bf16 kernels: cp.async copies
 // from global to shared memory, ldmatrix fragment loads and the
-// mma.sync.m16n8k16 bf16 product with an f32 accumulator.
+// mma.sync.m16n8k16 bf16 product with an f32 accumulator, and the
+// swizzled shared-memory tile that cp.async fills and ldmatrix reads.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4):
@@ -73,6 +74,53 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]),
         "r"(b[1]));
+}
+
+// A [rows][D] bf16 tile in shared memory, addressed in 16-byte chunks of 8
+// elements.  Where a row holds a multiple of 8 chunks (D 64, 128), chunk c
+// of row r sits at c ^ (r % 8); other D pad each row by one chunk (an odd
+// number of chunks a row).  Either way the eight rows an ldmatrix phase
+// reads at one chunk index fall in eight different bank groups.
+template <int D>
+struct Tile {
+  static constexpr int kChunks = D / 8;
+  static constexpr bool kSwizzle = kChunks % 8 == 0;
+  static constexpr int kStride = kSwizzle ? D : D + 8;  // elements a row
+  __device__ static __forceinline__ int at(int row, int chunk) {
+    return row * kStride + (kSwizzle ? chunk ^ (row & 7) : chunk) * 8;
+  }
+};
+
+// Issues the cp.async copies of rows [r0, r0 + kRows) of a [n_rows][D]
+// matrix with row stride `stride` into a tile of layout L, spread over the
+// kThreads threads of the CTA; rows past n_rows are zero-filled.
+template <class L, int kRows, int kThreads>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long stride, int r0,
+                                          int n_rows) {
+  constexpr int kCopies = kRows * L::kChunks;
+#pragma unroll
+  for (int i = 0; i < (kCopies + kThreads - 1) / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    if (kCopies % kThreads != 0 && idx >= kCopies) break;
+    const int r = idx / L::kChunks, c = idx % L::kChunks;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(dst + L::at(r, c), ok ? src + (r0 + r) * stride + c * 8 : src,
+               ok ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x in one MUFU instruction (results below 2^-126 flush to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace

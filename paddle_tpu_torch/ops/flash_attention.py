@@ -25,10 +25,13 @@ device of ``q``: a CUDA tensor launches the kernels (a build or launch
 failure raises), a CPU or meta tensor takes the plain version.  Each
 kernel's launches are counted: ``flash_attention_fwd.launches``,
 ``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The bf16
-forward copies its tiles 16 bytes at a time, so a bf16 q, k or v whose
-rows are not 16-byte aligned is copied to a contiguous tensor first and
-counted in ``flash_attention_fwd.copies`` (the model's permuted
-``[B,T,H,D]`` views are aligned).
+kernels copy their tiles 16 bytes at a time, so a bf16 q, k, v (or dO)
+whose rows are not 16-byte aligned is copied to a contiguous tensor
+first and counted in ``flash_attention_fwd.copies`` or
+``flash_attention_bwd.copies`` (the model's permuted ``[B,T,H,D]``
+views are aligned).  The plain backward also runs sliced (dq of some q
+rows, dk/dv of some keys, summed in chunks), which checks the kernels
+at 32768 tokens.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair;
 the ``flash_attention`` op's compute goes through it, so the
@@ -117,7 +120,7 @@ def _aligned(x):
 def _launch(q, k, v, causal, scale):
     _check(q, k, v)
     if q.dtype == torch.bfloat16:
-        q, k, v = (_aligned_copy(x) for x in (q, k, v))
+        q, k, v = (_aligned_copy(x, flash_attention_fwd) for x in (q, k, v))
     b, h, tq, d = q.shape
     tk = k.shape[2]
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
@@ -141,12 +144,12 @@ def _launch(q, k, v, causal, scale):
     return out, lse
 
 
-def _aligned_copy(x):
+def _aligned_copy(x, counted_in):
     """``x``, or a contiguous copy of it when a row is not 16-byte
-    aligned; each copy is counted in ``flash_attention_fwd.copies``."""
+    aligned; each copy is counted in ``counted_in.copies``."""
     if _aligned(x):
         return x
-    flash_attention_fwd.copies += 1
+    counted_in.copies += 1
     return x.clone(memory_format=torch.contiguous_format)
 
 
@@ -203,31 +206,81 @@ def _delta(o, do, dlse):
     return delta
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
-                              dlse=None):
-    """Plain PyTorch version of the backward kernels: P recomputed from
-    lse (not autograd of the plain forward), the kernels' masks and
-    rounding.  Returns (dq, dk, dv) in the input dtype."""
-    b, h, tq, _ = q.shape
-    tk = k.shape[2]
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    p = torch.exp(s - lse.reshape(b, h, tq, 1))
+def _bwd_block(q, k, v, do, lse, delta, rows, keys, causal, scale):
+    """P and dS (f32) of the q rows ``rows`` against the keys ``keys``
+    (``(start, stop)`` pairs), with the kernels' masks and rounding:
+    dS rounded to the input dtype, P left in f32.  ``lse`` and
+    ``delta`` are [B, H, Tq]."""
+    (r0, r1), (c0, c1) = rows, keys
+    tq, tk = q.shape[2], k.shape[2]
+    s = torch.matmul(q[:, :, r0:r1].float(),
+                     k[:, :, c0:c1].float().transpose(-1, -2)) * scale
+    p = torch.exp(s - lse[:, :, r0:r1, None])
     if causal:
         # also zeroes fully masked rows, whose lse is -1e30
-        p = torch.where(_causal_mask(tq, tk, q.device), p, 0.0)
-    delta = _delta(o, do, dlse).reshape(b, h, tq, 1)
-    dp = torch.matmul(dof, vf.transpose(-1, -2))
-    ds = (p * (dp - delta) * scale).to(q.dtype).float()
-    dq = torch.matmul(ds, kf)
-    dk = torch.matmul(ds.transpose(-1, -2), qf)
-    dv = torch.matmul(p.transpose(-1, -2), dof)
+        qpos = torch.arange(r0, r1, device=q.device)[:, None] + (tk - tq)
+        p = torch.where(qpos >= torch.arange(c0, c1, device=q.device),
+                        p, 0.0)
+    dp = torch.matmul(do[:, :, r0:r1].float(),
+                      v[:, :, c0:c1].float().transpose(-1, -2))
+    ds = (p * (dp - delta[:, :, r0:r1, None]) * scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                              dlse=None, rows=None, keys=None, chunk=None):
+    """Plain PyTorch version of the backward kernels: P recomputed from
+    lse (not autograd of the plain forward), the kernels' masks and
+    rounding.  Returns (dq, dk, dv) in the input dtype.
+
+    Sliced: ``rows`` (a ``(start, stop)`` pair) limits dq to those q
+    rows and ``keys`` dk/dv to those keys; the sums over the other axis
+    then run ``chunk`` keys (for dq) or q rows (for dk/dv) at a time,
+    skipping chunks the causal band hides, so a 32768-token backward
+    is checked without its 32768^2 score matrices."""
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    lse = lse.reshape(b, h, tq)
+    delta = _delta(o, do, dlse).reshape(b, h, tq)
+    if rows is None and keys is None and chunk is None:
+        p, ds = _bwd_block(q, k, v, do, lse, delta, (0, tq), (0, tk),
+                           causal, scale)
+        dq = torch.matmul(ds, k.float())
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+        dv = torch.matmul(p.transpose(-1, -2), do.float())
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    rows = rows or (0, tq)
+    keys = keys or (0, tk)
+    step = chunk or max(tq, tk)
+    q_off = tk - tq if causal else 0
+    dq = torch.zeros((b, h, rows[1] - rows[0], q.shape[3]),
+                     dtype=torch.float32, device=q.device)
+    for c0 in range(0, tk, step):
+        c1 = min(c0 + step, tk)
+        if causal and rows[1] - 1 + q_off < c0:
+            break                      # no row sees these keys
+        _, ds = _bwd_block(q, k, v, do, lse, delta, rows, (c0, c1),
+                           causal, scale)
+        dq += torch.matmul(ds, k[:, :, c0:c1].float())
+    dk = torch.zeros((b, h, keys[1] - keys[0], k.shape[3]),
+                     dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, tq, step):
+        r1 = min(r0 + step, tq)
+        if causal and r1 - 1 + q_off < keys[0]:
+            continue                   # these rows see none of the keys
+        p, ds = _bwd_block(q, k, v, do, lse, delta, (r0, r1), keys,
+                           causal, scale)
+        dk += torch.matmul(ds.transpose(-1, -2), q[:, :, r0:r1].float())
+        dv += torch.matmul(p.transpose(-1, -2), do[:, :, r0:r1].float())
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _bwd_prepare(q, k, v, o, lse, do, dlse):
-    """Checks the backward's inputs; returns (dO, lse, delta) as the
-    kernels take them."""
+    """Checks the backward's inputs; returns (q, k, v, dO, lse, delta) as
+    the kernels take them: bf16 rows 16-byte aligned (a copy where not,
+    counted in ``flash_attention_bwd.copies``), dO in q's dtype with a
+    unit-stride head dim."""
     _check(q, k, v)
     b, h, tq, _ = q.shape
     if do.shape != q.shape or o.shape != q.shape:
@@ -240,7 +293,11 @@ def _bwd_prepare(q, k, v, o, lse, do, dlse):
         do = do.to(q.dtype)
     if do.stride(3) != 1:
         do = do.contiguous()   # the kernels need a unit-stride head dim
-    return do, lse.contiguous(), _delta(o, do, dlse).contiguous()
+    delta = _delta(o, do, dlse).contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_aligned_copy(x, flash_attention_bwd)
+                       for x in (q, k, v, do))
+    return q, k, v, do, lse.contiguous(), delta
 
 
 def _bwd_kernel(name, q, k, v, do, lse, delta, outs, causal, scale):
@@ -271,7 +328,7 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, outs, causal, scale):
 
 
 def _bwd_launch(q, k, v, o, lse, do, causal, scale, dlse):
-    do, lse, delta = _bwd_prepare(q, k, v, o, lse, do, dlse)
+    q, k, v, do, lse, delta = _bwd_prepare(q, k, v, o, lse, do, dlse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
@@ -300,6 +357,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,
 
 
 flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
+flash_attention_bwd.copies = 0
 
 
 class FlashAttention(torch.autograd.Function):

@@ -11,7 +11,11 @@ PyTorch version: f32 within 1e-4 (other summation order), bf16 ``out``
 within 3e-2 (P is rounded to bf16 before P.V), ``lse`` within 1e-3.  The
 backward kernels are held against ``flash_attention_bwd_plain`` within
 ``1e-4 * max(1, max|ref|)`` in f32 and ``3e-2 * max(1, max|ref|)`` in
-bf16 (dS rounded to bf16 in both, at other points of the sum).  A
+bf16 (dS rounded to bf16 in both, at other points of the sum), over
+every bf16 head dim, ragged and one-key lengths, strided and misaligned
+views (the latter copied and counted); two launches give the same bits,
+and the bf16 dV is nearer the plain version than dV with P rounded to
+bf16 is (P stays f32, as in the Pallas kernel).  A
 training step of the tiny LM on the card matches the CPU within
 rtol=atol=1e-4 in the loss and every parameter grad.
 
@@ -180,8 +184,26 @@ BWD_CASES = [
     (1, 3, 37, 45, 32, False, "float32", True, False),   # ragged, strided
     (2, 2, 130, 130, 128, False, "float32", False, True),
     (2, 8, 512, 512, 64, True, "float32", True, False),
+    (1, 2, 20, 1, 32, True, "float32", False, False),    # one key
     (1, 2, 48, 48, 32, True, "bfloat16", False, False),
     (1, 2, 37, 61, 16, True, "bfloat16", True, True),
+    # the tensor-core kernels at every head dim they take, causal and
+    # not, Tq and Tk off the 64- and 128-row tiles, with several tiles
+    # on both sides
+    (1, 2, 200, 200, 16, True, "bfloat16", False, False),
+    (2, 2, 130, 190, 32, False, "bfloat16", True, False),
+    (1, 2, 77, 141, 48, True, "bfloat16", False, True),  # Tq < Tk, dlse
+    (1, 3, 300, 300, 64, True, "bfloat16", True, False),
+    (1, 2, 150, 150, 80, False, "bfloat16", False, False),
+    (1, 2, 129, 257, 96, True, "bfloat16", False, False),
+    (1, 2, 260, 100, 112, True, "bfloat16", True, False),  # Tq > Tk
+    (1, 2, 256, 256, 128, True, "bfloat16", False, True),
+    (1, 2, 200, 70, 64, True, "bfloat16", False, False),  # fully masked
+    (1, 2, 150, 40, 128, True, "bfloat16", True, False),  # the same, d 128
+    (2, 2, 100, 97, 64, False, "bfloat16", False, False),  # ragged T
+    (1, 2, 33, 1, 64, False, "bfloat16", False, False),   # one key
+    (1, 2, 33, 1, 128, True, "bfloat16", False, False),   # one key, causal
+    (4, 8, 512, 512, 64, True, "bfloat16", True, False),  # the AMP layout
 ]
 
 
@@ -224,6 +246,78 @@ def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal,
         assert err <= tol, (name, err, tol)
     if causal and tq > tk:
         assert (grads[0][:, :, :tq - tk] == 0).all()   # rows that see no key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_flash_bwd_kernels_take_views(cuda, layout):
+    """bf16 q/k/v/dO as views: permuted [B,T,H,D] tensors (aligned, no
+    copy), and views whose rows start 2 bytes into a 16-byte chunk, which
+    the backward copies (counted in flash_attention_bwd.copies)."""
+    b, h, tq, tk, d = 2, 4, 150, 170, 64
+    rng = np.random.RandomState(4)
+
+    def view(t):
+        if layout == "strided":
+            x = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+                np.float32)).to(cuda, torch.bfloat16)
+            return x.permute(0, 2, 1, 3)
+        x = torch.from_numpy(rng.standard_normal((b, h, t, d + 8)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        return x[..., 1:d + 1]
+
+    q, k, v, do = view(tq), view(tk), view(tk), view(tq)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    copies = fa.flash_attention_bwd.copies
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.copies == copies + (
+        4 if layout == "unaligned" else 0)
+    refs = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True,
+                                        1.0 / math.sqrt(d))
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.is_contiguous(), name
+        tol = 3e-2 * max(1.0, r.float().abs().max().item())
+        assert (g.float() - r.float()).abs().max().item() <= tol, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
+                                     ("float32", 64)])
+def test_flash_bwd_kernels_are_deterministic(cuda, dtype, d):
+    """No atomics: two launches on the same inputs give the same bits."""
+    rng = np.random.RandomState(5)
+    q, k, v, do = _bwd_inputs(rng, cuda, 2, 4, 300, 300, d, dtype, True)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    second = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_flash_bwd_keeps_p_in_f32_for_dv(cuda):
+    """dV = P^T dO with P in f32, as the Pallas kernel keeps it: at the
+    AMP training shape the kernel's dV is nearer the plain version than
+    the same product with P rounded to bf16 (FlashAttention-2's
+    convention) is."""
+    b, h, t, d = 32, 8, 512, 64
+    rng = np.random.RandomState(6)
+    q, k, v, do = _bwd_inputs(rng, cuda, b, h, t, t, d, "bfloat16", True)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    _, _, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    _, _, want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True,
+                                              scale)
+    p, _ = fa._bwd_block(q, k, v, do, lse.reshape(b, h, t),
+                         fa._delta(o, do, None).reshape(b, h, t), (0, t),
+                         (0, t), True, scale)
+    rounded = torch.matmul(p.to(torch.bfloat16).float().transpose(-1, -2),
+                           do.float()).to(torch.bfloat16)
+    err = (dv.float() - want.float()).norm().item()
+    err_rounded = (rounded.float() - want.float()).norm().item()
+    assert err < err_rounded, (err, err_rounded)
 
 
 @pytest.mark.cuda

@@ -165,3 +165,79 @@ def test_autograd_function_gives_shapes_on_meta():
     dq, dk, _ = fa.flash_attention_bwd(q, k, k, out, lse, out, causal=True)
     assert tuple(dq.shape) == (2, 4, 10, 32)
     assert tuple(dk.shape) == (2, 4, 12, 32)
+
+
+# (B, H, Tq, Tk, D, causal, dtype, rows, keys, chunk): the sliced plain
+# backward (dq of `rows`, dk/dv of `keys`, summed `chunk` at a time)
+SLICED_CASES = [
+    (1, 2, 70, 70, 32, True, "float32", (40, 70), (10, 30), 16),
+    (1, 2, 90, 40, 16, True, "float32", (0, 90), (0, 40), 32),    # Tq > Tk
+    (2, 2, 40, 100, 64, True, "float32", (5, 40), (60, 100), 24),  # Tq < Tk
+    (1, 3, 37, 45, 128, False, "float32", (0, 37), (7, 45), 8),
+    (1, 2, 70, 70, 32, True, "bfloat16", (40, 70), (10, 30), None),
+    (1, 2, 90, 40, 64, True, "bfloat16", (50, 90), (0, 40), None),
+    (2, 2, 40, 100, 128, False, "bfloat16", (0, 40), (60, 100), None),
+]
+
+
+def _bwd_torch_inputs(b, h, tq, tk, d, dtype, seed):
+    q, k, v = _inputs(b, h, tq, tk, d, seed)
+    do = np.random.RandomState(seed + 1).standard_normal(
+        (b, h, tq, d)).astype(np.float32)
+    return [torch.from_numpy(x).to(getattr(torch, dtype))
+            for x in (q, k, v, do)]
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype,rows,keys,chunk",
+                         SLICED_CASES)
+def test_sliced_plain_bwd_matches_full(b, h, tq, tk, d, causal, dtype, rows,
+                                       keys, chunk):
+    """The sliced plain backward (how phase 4 of chip_smoke.py checks the
+    kernels at 32768 tokens) gives the full plain version's rows and keys:
+    f32 within 1e-6 of the scale (the chunks add in another order), bf16
+    exactly where it sums in one chunk, as the full version does."""
+    q, k, v, do = _bwd_torch_inputs(b, h, tq, tk, d, dtype, seed=tq + tk)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    full = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    got = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                       rows=rows, keys=keys, chunk=chunk)
+    want = (full[0][:, :, rows[0]:rows[1]], full[1][:, :, keys[0]:keys[1]],
+            full[2][:, :, keys[0]:keys[1]])
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if dtype == "bfloat16":
+            assert torch.equal(g, w), name
+        else:
+            tol = 1e-6 * max(1.0, w.abs().max().item())
+            assert (g - w).abs().max().item() <= tol, name
+    if causal and tq > tk and rows[0] < tq - tk:
+        assert (got[0][:, :, :tq - tk - rows[0]] == 0).all()
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,dtype,rows,keys,chunk",
+                         SLICED_CASES)
+def test_sliced_plain_bwd_matches_pallas_interpret_vjp(
+        b, h, tq, tk, d, causal, dtype, rows, keys, chunk):
+    """The same slices against jax.vjp of the JAX package's kernel in
+    interpret mode, within the tolerances of the full comparison above
+    (f32 1e-5, bf16 2e-2)."""
+    q, k, v, do = _bwd_torch_inputs(b, h, tq, tk, d, "float32", seed=tq + tk)
+    jq, jk, jv, jdo = (jnp.asarray(x.numpy(), dtype=dtype)
+                       for x in (q, k, v, do))
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention(
+        a, b_, c, causal=causal, impl="interpret", block_q=16,
+        block_k=16), jq, jk, jv)
+    jdq, jdk, jdv = vjp(jdo)
+    q, k, v, do = (x.to(getattr(torch, dtype)) for x in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    got = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
+                                       rows=rows, keys=keys, chunk=chunk)
+    want = (to_numpy(jdq)[:, :, rows[0]:rows[1]],
+            to_numpy(jdk)[:, :, keys[0]:keys[1]],
+            to_numpy(jdv)[:, :, keys[0]:keys[1]])
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(to_numpy(g), w, rtol=tol, atol=tol,
+                                   err_msg=name)
