@@ -55,8 +55,9 @@ Phases, none of which catches its own failure:
      plain versions over every conv stage subset at small ragged shapes
      (1x1, 3x3, 7x7, strides 1 and 2, Cin 3, ragged Cout), f32 and bf16,
      and at every distinct conv shape of ResNet-50 at batch 128 in bf16,
-     timing each there beside the plain version and cuDNN (plus
-     torch.sum of y and y*y for conv_stats); holds bn_apply against its
+     timing each there by CUDA-graph replay and by events beside the
+     plain version and cuDNN (plus torch.sum of y and y*y for
+     conv_stats); holds bn_apply against its
      plain version at every batch-norm shape of that path, with the
      residual and relu it has there, timed beside F.batch_norm + add +
      relu;
@@ -212,11 +213,14 @@ STATS_TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 # f32 to within 1e-6 of the scale, bf16 within one bf16 step.
 BN_TOL = {"float32": 1e-6, "bfloat16": 1e-2}
 # every conv stage subset at small ragged shapes (N, H, W, Cin, Cout, K,
-# stride, pad): 1x1/3x3/7x7, strides 1 and 2, the 3-channel stem (masked
-# loads), Cout not a multiple of 8 (masked w loads)
+# stride, pad): 1x1/3x3/7x7, strides 1 and 2, the 3-channel stem (channels
+# padded to 8), Cin 24 (K off the 64-deep step), Cout not a multiple of 8
+# (masked w loads, element stores), and each bf16 tile shape (Cout 64,
+# 128, 256 and two tiles of 256 at 300)
 CONV_ODD_SHAPES = [(2, 9, 9, 16, 32, 3, 1, 1), (2, 9, 9, 16, 24, 3, 2, 1),
                    (2, 8, 8, 32, 136, 1, 2, 0), (2, 20, 20, 3, 64, 7, 2, 3),
-                   (1, 10, 6, 8, 300, 3, 1, 0)]
+                   (1, 10, 6, 8, 300, 3, 1, 0), (2, 9, 9, 24, 24, 3, 2, 1),
+                   (4, 12, 12, 64, 128, 3, 1, 1), (2, 8, 8, 64, 256, 1, 1, 0)]
 # ResNet-50 GPU vs CPU at batch 2 (TF32 off for cuDNN and cuBLAS).  The
 # loss is well conditioned (two f32 CPU runs agree to ~1e-6), the step's
 # grads are not: at batch 2 the last stage's features vary mostly between
@@ -810,12 +814,15 @@ def check_fc_epilogue(device, seed):
 # ---------------------------------------------------------------------------
 
 def conv_times(n, h, w, cin, cout, k, s, p, stats=False):
-    """(bytes ms, operations ms) of one bf16 conv: x, w read once and y
-    written once (and the f32 statistics partials' worth of two [Cout]
-    vectors) over HBM; 2*M*Cout*K operations at the dense bf16 peak."""
+    """(bytes ms, operations ms) of one bf16 conv: the pixels of x that
+    its windows touch (a filter narrower than its stride skips the
+    rest), w read once and y written once (and the f32 statistics
+    partials' worth of two [Cout] vectors) over HBM; 2*M*Cout*K
+    operations at the dense bf16 peak."""
     oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
     m, kk = n * oh * ow, k * k * cin
-    nbytes = 2 * (n * h * w * cin + cout * kk + m * cout) + 8 * cout * stats
+    pixels = n * h * w if k >= s else n * min(h, oh * k) * min(w, ow * k)
+    nbytes = 2 * (pixels * cin + cout * kk + m * cout) + 8 * cout * stats
     return (nbytes / PEAK_BYTES_PER_S * 1e3,
             2.0 * m * cout * kk / PEAK_FLOPS["bfloat16"] * 1e3)
 
@@ -963,21 +970,28 @@ def check_conv_kernels(device, seed, convs):
                                                            dim=(0, 2, 3))
 
         iters = 10
+        calls = {"conv_epilogue": lambda: cep.conv_epilogue_kernel(
+                     x, wt, None, None, (s, s), pad),
+                 "conv_stats": lambda: cep.conv_stats_kernel(
+                     x, wt, None, (s, s), pad)}
+        library = {"conv_epilogue": lambda: F.conv2d(xn, w_cl, stride=s,
+                                                     padding=p),
+                   "conv_stats": library_stats}
+        # graph replay times the card; events also time each call's issue
         row = dict(
             shape=[n, h, w, cin, cout, k, s, p], per_step=count,
             max_abs_err={"conv_epilogue": abs_ep, "conv_stats": err_st},
-            ms={"conv_epilogue": cuda_ms(lambda: cep.conv_epilogue_kernel(
-                    x, wt, None, None, (s, s), pad), iters),
-                "conv_stats": cuda_ms(lambda: cep.conv_stats_kernel(
-                    x, wt, None, (s, s), pad), iters)},
+            ms={name: graph_ms(fn, iters) for name, fn in calls.items()},
+            event_ms={name: cuda_ms(fn, iters) for name, fn in calls.items()},
             plain_ms={"conv_epilogue": cuda_ms(
                 lambda: cep.conv_epilogue_plain(x, wt, None, None, (s, s),
                                                 pad), 2, warmup=1),
                 "conv_stats": cuda_ms(lambda: cep.conv_stats_plain(
                     x, wt, None, (s, s), pad), 2, warmup=1)},
-            library_ms={"conv_epilogue": cuda_ms(lambda: F.conv2d(
-                xn, w_cl, stride=s, padding=p), iters),
-                "conv_stats": cuda_ms(library_stats, iters)})
+            library_ms={name: graph_ms(fn, iters)
+                        for name, fn in library.items()},
+            library_event_ms={name: cuda_ms(fn, iters)
+                              for name, fn in library.items()})
         for name, stats in (("conv_epilogue", False), ("conv_stats", True)):
             row.setdefault("bound_ms", {})[name], \
                 row.setdefault("bound_by", {})[name] = bound_of(
@@ -2225,15 +2239,19 @@ def main(argv=None):
             "launches_by_path": by_path(name),
             "max_abs_err": max(r["max_abs_err"][name] for r in conv_rows),
             "ms": per_step(conv_rows, "ms", name),
+            "event_ms": per_step(conv_rows, "event_ms", name),
             "plain_ms": per_step(conv_rows, "plain_ms", name),
             "bound_ms": per_step(conv_rows, "bound_ms", name),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": per_step(conv_rows, "library_ms", name),
-            "per": "one ResNet-50 training step at batch 128, bf16",
+            "library_event_ms": per_step(conv_rows, "library_event_ms",
+                                         name),
+            "per": "one ResNet-50 training step at batch 128, bf16; ms by "
+                   "CUDA-graph replay, event_ms by events",
             "shapes": [{k: r[k] if not isinstance(r[k], dict) else r[k][name]
-                        for k in ("shape", "per_step", "ms", "plain_ms",
-                                  "library_ms", "bound_ms", "bound_by",
-                                  "tflops")} for r in conv_rows],
+                        for k in ("shape", "per_step", "ms", "event_ms",
+                                  "plain_ms", "library_ms", "bound_ms",
+                                  "bound_by", "tflops")} for r in conv_rows],
         })
     t_bytes, t_ops = (
         sum(r["per_step"] * bn_times(int(np.prod(r["shape"][:3])),

@@ -8,16 +8,18 @@
 //     y = conv(x, w) + bias, plus per-channel partial sums of y and y*y
 //     taken from y after its cast to the output dtype.
 // Contract, read from the Pallas kernels: x is NHWC [N,H,W,Cin], the filter
-// arrives as [KH,KW,Cin,Cout] (row-major, i.e. the GEMM's [K, Cout]
-// operand), out is NHWC [N,OH,OW,Cout].  x and w are both f32 or both
-// bf16; bias [Cout] and residual [N,OH,OW,Cout] optional, each f32 or bf16.
-// The products are accumulated in f32; bias, residual and act (0 none,
-// 1 relu) are applied to the f32 accumulator in that order
-// (apply_acc_stages), and the result is cast once to x's dtype.  Padding
-// is (PH, PW) on the top and left; taps that fall outside the input read
-// 0, so any bottom/right padding follows from OH and OW.  Every shape is
-// taken: the Pallas wrappers' pad of x, VMEM-budget fall-backs, replicated
-// statistics blocks and 256-wide Cout blocks were TPU rules and are gone.
+// arrives as [Cout,KH,KW,Cin] (OHWI, row-major: the GEMM's [Cout, K]
+// operand, K-major, k = (kh * KW + kw) * Cin + c), out is NHWC
+// [N,OH,OW,Cout].  x and w are both f32 or both bf16; bias [Cout] and
+// residual [N,OH,OW,Cout] optional, each f32 or bf16.  The products are
+// accumulated in f32; bias, residual and act (0 none, 1 relu) are applied
+// to the f32 accumulator in that order (apply_acc_stages), and the result
+// is cast once to x's dtype.  Padding is (PH, PW) on the top and left;
+// taps that fall outside the input read 0, so any bottom/right padding
+// follows from OH and OW.  In bf16, Cin must be a multiple of 8 and x and
+// w 16-byte aligned (the wrapper pads Cin with zero channels, as the
+// 3-channel stem needs, and copies a misaligned view); f32 takes any
+// shape.
 //
 // Statistics (s1, s2 non-null): the kernel writes, for each 128-row tile
 // of the output (rows = N*OH*OW pixels), the sum over its rows of y and of
@@ -27,50 +29,96 @@
 // pt_conv_tile_m() gives the tile height, and the entry point refuses
 // partials whose row count is not the number of tiles.
 //
-// Design: an implicit GEMM, M = N*OH*OW, N = Cout, K = KH*KW*Cin, with the
-// mainloop of fc_epilogue.cu.  One CTA of 256 threads owns a 128x128 output
-// tile (M tiles on grid.x, whose limit is 2^31-1, Cout tiles on grid.y) and
-// walks K in steps staged through shared memory.  The x tile is
-// gathered from the input (im2col without materialising it): each thread
-// keeps the input coordinates of its two rows, and a K index k maps to the
-// tap (k / Cin) and channel (k % Cin).
-//   bf16: mma.sync.m16n8k16 with an f32 accumulator, K steps of 32, two
-//   stages.  When Cin and Cout are multiples of 8 and x and w are 16-byte
-//   aligned, 8 consecutive channels of one tap arrive by one 16-byte
-//   cp.async (zero-filled outside the input); otherwise each element is
-//   loaded and masked (the 3-channel stem).
-//   f32: full f32 on the CUDA cores (TF32 off), K steps of 8, each thread
-//   an 8x8 register micro-tile.
-// The epilogue runs on the accumulator registers; each output element is
-// written once.
+// Design: an implicit GEMM, M = N*OH*OW, N = Cout, K = KH*KW*Cin.
+//   bf16 (the training path): a persistent, warp-specialised wgmma kernel.
+//   One CTA an SM walks output tiles; producer warpgroups fill a ring of
+//   128-byte-swizzled shared-memory stages, K steps of 64: one thread
+//   loads the w tile by TMA (a 2D tensor map over [Cout, K], encoded on
+//   the host with the driver's cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint, so the library links no libcuda), and the x
+//   tile of a 1x1 stride-1 conv, whose rows are x's pixels; otherwise
+//   the producers gather the x tile (im2col without materialising it)
+//   with 16-byte cp.async (zero-filled outside the input and past K).
+//   Each stage's "full" mbarrier takes the TMA bytes and every producer's
+//   cp.async.mbarrier.arrive.noinc; two consumer warpgroups wait on it,
+//   fence the async proxy, run wgmma.m64nNk16 with both operands read from
+//   shared memory through descriptors, and release the stage on its
+//   "empty" mbarrier once the products that read it have completed.
+//   Each gathering producer thread owns one 16-byte chunk (8 channels) of
+//   its rows and advances that chunk's (tap, channel) and the x offset by
+//   increments, so the K loop does no division (the per-tile row
+//   coordinates use a multiply-high).  The
+//   tile follows Cout: 256 rows x 64 or 128 columns (the two warpgroups
+//   split M) for Cout <= 64 or <= 128, 128 x 256 (they split N) above, so
+//   a Cout = 64 conv computes no idle columns; each warpgroup holds 128
+//   rows x 64 or 128 columns of f32 accumulator.  A Cout <= 64 tile has
+//   two producer warpgroups (512 threads), the others one (384 threads,
+//   168 registers each, no spill).  The epilogue applies the stages to
+//   the accumulator with no per-element branch, casts, writes the tile to
+//   a shared-memory staging buffer of its warpgroup (a bf16 residual tile
+//   is first staged there by 16-byte cp.async) and stores it with 16-byte
+//   coalesced writes, while the producers already fill the ring for the
+//   next tile.  Statistics are summed from the cast values in registers,
+//   then across lanes by shuffles and across warps in a fixed order: one
+//   partial row per warpgroup and 128 rows.  The 3-channel stem arrives
+//   from the wrapper as pixel pairs of 4 channels at half the stride
+//   (ops/conv_epilogue.py _kernel_operands), so one 16-byte copy carries
+//   two taps.
+//   f32 (batch-2 checks only): full f32 on the CUDA cores (TF32 off), 128x128
+//   tiles, K steps of 8, each thread an 8x8 register micro-tile.
 //
-// What bounds it.  At ResNet-50's bf16 shapes on the training path the
-// convolutions are operation-bound at the card's dense bf16 rate, except
-// the 1x1 convolutions of the first stage and the stem, whose bytes
-// dominate; chip_smoke.py computes both bounds at every distinct shape.
-// mma.sync with two stages and a gathered x tile does not approach the
-// dense rate (that takes wgmma fed by TMA, with the im2col done by TMA's
-// im2col mode); that and a persistent grid are the next steps.
+// What bounds it.  At ResNet-50's bf16 shapes on the training path the 3x3
+// convolutions and the deep 1x1 ones are operation-bound at the card's
+// dense bf16 rate (989 TFLOP/s); the 1x1 convolutions of the first stages
+// and the stem are bound by their bytes (the output dominates: 205 MB of
+// the 257 MB of 64->256 at 56x56, batch 128).  chip_smoke.py computes
+// both bounds at every distinct shape.  Against the operation bound the
+// design keeps the tensor cores fed from shared memory by wgmma with loads
+// two or three stages ahead; against the byte bound it writes each output
+// once in 16-byte stores and overlaps one tile's epilogue with the next
+// tile's loads.  What holds it now (PERF.md): x's cp.async gather on the
+// operation-bound 3x3 shapes, the epilogue on the 1x1 shapes with
+// Cout >= 256 and few K steps.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
+// Output rows (pixels) a statistics partial covers.
+constexpr int kTileM = 128;
+
+// f32 path
 constexpr int kBM = 128;
 constexpr int kBN = 128;
 constexpr int kThreads = 256;
-
-// bf16 path
-constexpr int kBK = 32;
-constexpr int kAStride = kBK + 8;  // bf16 elements a row of the x tile
-constexpr int kBStride = kBN + 8;  // bf16 elements a row of the w tile
-
-// f32 path
 constexpr int kFBK = 8;
+
+// bf16 path: two consumer warpgroups and one or two producer warpgroups
+constexpr int kBK = 64;  // one 128-byte swizzled row of bf16
+constexpr int kWg = 128;
+
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift (the divisor's
+// magic number is computed on the host): the per-tile index arithmetic.
+struct FastDiv {
+  uint32_t mul, shift;
+  __device__ __forceinline__ int operator()(int n) const {
+    const uint32_t u = static_cast<uint32_t>(n);
+    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
+  }
+};
+
+FastDiv make_fastdiv(uint32_t d) {
+  uint32_t shift = 0;
+  while ((uint64_t(1) << shift) < d) ++shift;
+  const uint64_t mul = ((uint64_t(1) << 32) * ((uint64_t(1) << shift) - d)) / d + 1;
+  return FastDiv{static_cast<uint32_t>(mul), shift};
+}
 
 struct Params {
   const void* x;
@@ -85,7 +133,477 @@ struct Params {
   int M, K;             // GEMM sizes: N*OH*OW and KH*KW*C
   int bias_dtype, res_dtype;  // 0 f32, 1 bf16; unused for a null pointer
   int act;
+  int vec_out;          // bf16: Cout % 8 == 0, out 16-byte aligned
+  int res_staged;       // bf16: the residual arrives by 16-byte cp.async
+  FastDiv div_ohw, div_ow, div_ntiles;  // bf16: by OH*OW, OW, Cout tiles
+  int tma_x;            // bf16: x arrives by TMA (1x1, stride 1, no pad)
 };
+
+__device__ __forceinline__ float load_f32(const void* p, int dtype,
+                                          long long i) {
+  return dtype == 0 ? static_cast<const float*>(p)[i]
+                    : __bfloat162float(
+                          static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: wgmma tensor cores
+// ---------------------------------------------------------------------------
+
+// The tile of one configuration: each consumer warpgroup owns 128 rows x
+// kBNW columns; kSplitN puts the two side by side along N (a 128 x 2kBNW
+// tile), otherwise one above the other (256 x kBNW).
+template <int kBNW, bool kSplitN>
+struct Cfg {
+  static constexpr int BM = kSplitN ? 128 : 256;
+  static constexpr int BN = kSplitN ? 2 * kBNW : kBNW;
+  static constexpr int kStages = kBNW == 128 ? 3 : 4;
+  // producer threads: a Cout <= 64 tile gathers 256 rows for 64 columns of
+  // products, so its gather gets two warpgroups (its consumers need 118
+  // registers, within the 128 that 512 threads leave)
+  static constexpr int kProducers = kBNW == 64 ? 2 * kWg : kWg;
+  static constexpr int kThreads = 2 * kWg + kProducers;
+  static constexpr int kABytes = BM * kBK * 2;
+  static constexpr int kStageBytes = kABytes + BN * kBK * 2;
+  static constexpr int kStagingBytes = kWg * kBNW * 2;  // a warpgroup's
+  static constexpr int kRedBytes = 2 * 4 * kBNW * 4;    // a warpgroup's
+  static constexpr int kSmemBytes = kStages * kStageBytes +
+                                    2 * kStagingBytes + 2 * kRedBytes +
+                                    2 * kStages * 8 + 1024;
+  static_assert(kStageBytes % 1024 == 0, "stages stay 1024-byte aligned");
+};
+
+// Element offset of 8-column chunk `chunk` of row `row` in a warpgroup's
+// staging tile ([128][kBNW] bf16); the chunk index is XORed with row % 8,
+// so the accumulator fragments (8 rows at one chunk) and the row-wise
+// 16-byte reads both reach 32 different banks.
+template <int kBNW>
+__device__ __forceinline__ int staged(int row, int chunk) {
+  return row * kBNW + ((chunk ^ (row & 7)) << 3);
+}
+
+// The producer warpgroups: fill stage after stage for every tile of this
+// CTA.  Thread pt copies chunk pt % 8 of tile rows pt / 8 + kStep i.
+template <int kBNW, bool kSplitN>
+__device__ __forceinline__ void produce(const Params& p, char* smem,
+                                        uint64_t* full, uint64_t* empty,
+                                        int n_tiles, int tiles,
+                                        const CUtensorMap* map_w,
+                                        const CUtensorMap* map_x) {
+  using C = Cfg<kBNW, kSplitN>;
+  constexpr int kStep = C::kProducers / 8;  // rows a pass
+  constexpr int kARows = C::BM / kStep;
+  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+  const int pt = threadIdx.x - 2 * kWg;
+  const int chunk = pt & 7, r0 = pt >> 3;
+  const uint32_t dst0 = swz128(r0, chunk);  // rows r0 + kStep i
+  const int ohw = p.OH * p.OW;
+  const int nk = (p.K + kBK - 1) / kBK;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int mt = p.div_ntiles(tile);
+    const int m0 = mt * C::BM, n0 = (tile - mt * n_tiles) * C::BN;
+    // each row's window: x offset of its top-left tap (may lie outside x)
+    // and its top-left input position; rows past M never pass the check
+    int row_off[kARows], ih0[kARows], iw0[kARows];
+#pragma unroll
+    for (int i = 0; i < kARows; ++i) {
+      const int m = m0 + r0 + kStep * i;
+      if (m < p.M) {
+        const int n = p.div_ohw(m), rem = m - n * ohw;
+        const int oh = p.div_ow(rem), ow = rem - oh * p.OW;
+        ih0[i] = oh * p.SH - p.PH;
+        iw0[i] = ow * p.SW - p.PW;
+        row_off[i] = ((n * p.H + ih0[i]) * p.W + iw0[i]) * p.C;
+      } else {
+        ih0[i] = -(1 << 30);
+        iw0[i] = 0;
+        row_off[i] = 0;
+      }
+    }
+    // this thread's chunk at K step 0: channel c of tap (ti, tj), at x
+    // offset off from a row's top-left tap
+    int c = chunk * 8, ti = 0, tj = 0, off = chunk * 8;
+    while (c >= p.C) {
+      c -= p.C;
+      if (++tj == p.KW) {
+        tj = 0;
+        ++ti;
+        off += (p.W - p.KW) * p.C;
+      }
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      mbar_wait(&empty[stage], phase ^ 1);
+      char* a_s = smem + stage * C::kStageBytes;
+      char* b_s = a_s + C::kABytes;
+      // one thread loads the w tile (and, for a 1x1 stride-1 conv, the x
+      // tile) by TMA; the others gather x
+      if (pt == 0) {
+        mbar_arrive_expect_tx(&full[stage],
+                              (p.tma_x ? C::kABytes : 0) + C::BN * kBK * 2);
+        tma_load_2d(b_s, map_w, &full[stage], kt * kBK, n0);
+        if (p.tma_x) tma_load_2d(a_s, map_x, &full[stage], kt * kBK, m0);
+      }
+      if (!p.tma_x) {
+        const bool tap_ok = ti < p.KH;
+#pragma unroll
+        for (int i = 0; i < kARows; ++i) {
+          const bool ok = tap_ok &&
+                          static_cast<unsigned>(ih0[i] + ti) <
+                              static_cast<unsigned>(p.H) &&
+                          static_cast<unsigned>(iw0[i] + tj) <
+                              static_cast<unsigned>(p.W);
+          cp_async16(a_s + dst0 + kStep * 128 * i,
+                     ok ? x + (row_off[i] + off) : x, ok ? 16 : 0);
+        }
+      }
+      cp_async_arrive_noinc(&full[stage]);
+      // the next K step: 64 channels on, across taps by increments
+      c += kBK;
+      off += kBK;
+      while (c >= p.C) {
+        c -= p.C;
+        if (++tj == p.KW) {
+          tj = 0;
+          ++ti;
+          off += (p.W - p.KW) * p.C;
+        }
+      }
+      if (++stage == C::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+  cp_async_wait_all();
+}
+
+// A consumer warpgroup's epilogue of one tile: bias, residual and act on
+// the f32 accumulator, one cast, the tile staged in shared memory and
+// stored in 16-byte rows; the statistics of the stored values.  kRes: 0 no
+// residual, 1 a bf16 residual staged by 16-byte cp.async, 2 one read in
+// place (f32, or not 16-byte aligned).  The per-element code has no branch.
+template <int kBNW, int kRes>
+__device__ __forceinline__ void epilogue(const Params& p,
+                                         float (&acc)[2][kBNW / 2],
+                                         __nv_bfloat16* st, float* red,
+                                         int wg, int m0, int n0) {
+  constexpr int kChunks = kBNW / 8;
+  const int wt = threadIdx.x & (kWg - 1);
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+  // relu as a select that keeps NaN, as jnp.maximum; no act: -inf
+  const float lo = p.act == 1 ? 0.f : -__int_as_float(0x7f800000);
+  // this thread's rows: 64 mi + 16 warp + g + 8 h, all with row % 8 == g
+  bool in[2][2];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      in[mi][h] = m0 + 64 * mi + 16 * warp + g + 8 * h < p.M;
+  __nv_bfloat16* st_t = st + (16 * warp + g) * kBNW + 2 * t;
+  // the previous tile's reads of st and red are done
+  named_barrier(1 + wg, kWg);
+  if constexpr (kRes == 1) {
+    const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.res);
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int idx = wt + i * kWg;
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const int row = m0 + r, col = n0 + ch * 8;
+      const bool ok = row < p.M && col < p.Cout;
+      cp_async16(st + staged<kBNW>(r, ch),
+                 ok ? res + static_cast<long long>(row) * p.Cout + col : res,
+                 ok ? 16 : 0);
+    }
+    cp_async_wait_all();
+    named_barrier(1 + wg, kWg);
+  }
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int col = n0 + 8 * j + 2 * t;
+    const int sw = (j ^ g) << 3;
+    float bias[2] = {0.f, 0.f};
+    if (p.bias) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (col + e < p.Cout) bias[e] = load_f32(p.bias, p.bias_dtype, col + e);
+    }
+    __nv_bfloat162 y[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* slot = reinterpret_cast<__nv_bfloat162*>(
+            st_t + (64 * mi + 8 * h) * kBNW + sw);
+        float v0 = acc[mi][4 * j + 2 * h] + bias[0];
+        float v1 = acc[mi][4 * j + 2 * h + 1] + bias[1];
+        if constexpr (kRes == 1) {
+          const float2 r = __bfloat1622float2(*slot);
+          v0 += r.x;
+          v1 += r.y;
+        }
+        if constexpr (kRes == 2) {
+          const long long idx =
+              static_cast<long long>(m0 + 64 * mi + 16 * warp + g + 8 * h) *
+                  p.Cout + col;
+          if (in[mi][h] && col < p.Cout)
+            v0 += load_f32(p.res, p.res_dtype, idx);
+          if (in[mi][h] && col + 1 < p.Cout)
+            v1 += load_f32(p.res, p.res_dtype, idx + 1);
+        }
+        v0 = v0 < lo ? lo : v0;
+        v1 = v1 < lo ? lo : v1;
+        y[mi][h] = __floats2bfloat162_rn(v0, v1);
+        *slot = y[mi][h];
+      }
+    if (p.s1) {
+      // column sums of the stored values over this thread's rows, then
+      // over the 8 lanes that share t, then (below) over the four warps,
+      // in a fixed order
+      float t1[2] = {0.f, 0.f}, t2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 yf = __bfloat1622float2(y[mi][h]);
+          const float a = in[mi][h] && col < p.Cout ? yf.x : 0.f;
+          const float b = in[mi][h] && col + 1 < p.Cout ? yf.y : 0.f;
+          t1[0] += a;
+          t2[0] += a * a;
+          t1[1] += b;
+          t2[1] += b * b;
+        }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          t1[e] += __shfl_xor_sync(0xffffffffu, t1[e], o);
+          t2[e] += __shfl_xor_sync(0xffffffffu, t2[e], o);
+        }
+        if (g == 0) {
+          red[warp * kBNW + 8 * j + 2 * t + e] = t1[e];
+          red[(4 + warp) * kBNW + 8 * j + 2 * t + e] = t2[e];
+        }
+      }
+    }
+  }
+  named_barrier(1 + wg, kWg);
+  if (p.vec_out && m0 + kWg <= p.M && n0 + kBNW <= p.Cout) {
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int idx = wt + i * kWg;
+      const int r = idx / kChunks, ch = idx % kChunks;
+      *reinterpret_cast<uint4*>(out + static_cast<long long>(m0 + r) *
+                                          p.Cout + n0 + ch * 8) =
+          *reinterpret_cast<const uint4*>(st + staged<kBNW>(r, ch));
+    }
+  } else {
+    for (int idx = wt; idx < kWg * kChunks; idx += kWg) {
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const int row = m0 + r, col = n0 + ch * 8;
+      if (row >= p.M || col >= p.Cout) continue;
+      const __nv_bfloat16* src = st + staged<kBNW>(r, ch);
+      __nv_bfloat16* dst = out + static_cast<long long>(row) * p.Cout + col;
+      if (p.vec_out) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && col + e < p.Cout; ++e) dst[e] = src[e];
+      }
+    }
+  }
+  // a 256-row tile past M's end leaves its second partial row unwritten
+  if (p.s1 && wt < kBNW && n0 + wt < p.Cout && m0 < p.M) {
+    float a = 0.f, b = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      a += red[w * kBNW + wt];
+      b += red[(4 + w) * kBNW + wt];
+    }
+    const long long i = static_cast<long long>(m0 / kTileM) * p.Cout + n0 + wt;
+    p.s1[i] = a;
+    p.s2[i] = b;
+  }
+}
+
+template <int kBNW, bool kSplitN>
+__global__ void __launch_bounds__(Cfg<kBNW, kSplitN>::kThreads, 1)
+    conv_wgmma_kernel(const Params p, int n_tiles, int tiles,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const __grid_constant__ CUtensorMap map_x) {
+  using C = Cfg<kBNW, kSplitN>;
+  extern __shared__ char smem_raw[];
+  char* smem = reinterpret_cast<char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __nv_bfloat16* staging =
+      reinterpret_cast<__nv_bfloat16*>(smem + C::kStages * C::kStageBytes);
+  float* red = reinterpret_cast<float*>(
+      reinterpret_cast<char*>(staging) + 2 * C::kStagingBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<char*>(red) + 2 * C::kRedBytes);
+  uint64_t* empty = full + C::kStages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      // every producer's copies, and the TMA thread's expected bytes
+      mbar_init(&full[s], C::kProducers + 1);
+      mbar_init(&empty[s], 8);      // one arrival a consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / kWg;
+  if (wg >= 2) {
+    produce<kBNW, kSplitN>(p, smem, full, empty, n_tiles, tiles, &map_w,
+                           &map_x);
+  } else {
+    const int lane = threadIdx.x & 31;
+    // rows and columns of this warpgroup within the tile and its stages
+    const int a_row0 = kSplitN ? 0 : 128 * wg;
+    const int b_row0 = kSplitN ? kBNW * wg : 0;
+    const uint32_t smem_base = smem_addr(smem);
+    __nv_bfloat16* st = staging + wg * (C::kStagingBytes / 2);
+    float* wred = red + wg * (C::kRedBytes / 4);
+    const int nk = (p.K + kBK - 1) / kBK;
+    int stage = 0;
+    uint32_t phase = 0;
+    float acc[2][kBNW / 2];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int mt = p.div_ntiles(tile);
+      const int m0 = mt * C::BM, n0 = (tile - mt * n_tiles) * C::BN;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int i = 0; i < kBNW / 2; ++i) acc[mi][i] = 0.f;
+      int prev = -1;
+      for (int kt = 0; kt < nk; ++kt) {
+        mbar_wait(&full[stage], phase);
+        // the stage was written by cp.async (generic proxy); wgmma reads
+        // it through the async proxy
+        fence_proxy_async();
+        fence_operand(acc[0]);
+        fence_operand(acc[1]);
+        wgmma_fence();
+        const uint32_t a_s = smem_base + stage * C::kStageBytes;
+        const uint32_t b_s = a_s + C::kABytes;
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          const uint64_t bd = wgmma_desc(b_s + b_row0 * 128 + kk * 32);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const uint64_t ad =
+                wgmma_desc(a_s + (a_row0 + 64 * mi) * 128 + kk * 32);
+            if constexpr (kBNW == 128)
+              wgmma_m64n128k16(acc[mi], ad, bd);
+            else
+              wgmma_m64n64k16(acc[mi], ad, bd);
+          }
+        }
+        wgmma_commit();
+        // keep this step's products in flight; the previous step's have
+        // completed, so its stage goes back to the producer
+        wgmma_wait<1>();
+        fence_operand(acc[0]);
+        fence_operand(acc[1]);
+        if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+        prev = stage;
+        if (++stage == C::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      fence_operand(acc[0]);
+      fence_operand(acc[1]);
+      if (lane == 0) mbar_arrive(&empty[prev]);
+      const int em = m0 + a_row0, en = n0 + b_row0;
+      if (!p.res)
+        epilogue<kBNW, 0>(p, acc, st, wred, wg, em, en);
+      else if (p.res_staged)
+        epilogue<kBNW, 1>(p, acc, st, wred, wg, em, en);
+      else
+        epilogue<kBNW, 2>(p, acc, st, wred, wg, em, en);
+    }
+  }
+}
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// library does not link libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// A map of the row-major bf16 matrix [rows, cols] at `base`, in boxes of
+// `box_rows` x 64 columns, 128-byte swizzled as the wgmma tiles are, zero
+// outside the matrix.
+cudaError_t encode_tile_map(EncodeTiled encode, CUtensorMap* map,
+                            const void* base, long long rows, int cols,
+                            int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
+}
+
+template <int kBNW, bool kSplitN>
+cudaError_t launch_wgmma(Params p, cudaStream_t s) {
+  using C = Cfg<kBNW, kSplitN>;
+  static int sms = 0;
+  static EncodeTiled encode = nullptr;
+  if (sms == 0) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+    if (e == cudaSuccess && found != cudaDriverEntryPointSuccess)
+      e = cudaErrorNotSupported;
+    if (e != cudaSuccess) return e;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+    int dev = 0;
+    e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    e = cudaFuncSetAttribute(conv_wgmma_kernel<kBNW, kSplitN>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             C::kSmemBytes);
+    if (e != cudaSuccess) return e;
+  }
+  const long long m_tiles = (static_cast<long long>(p.M) + C::BM - 1) / C::BM;
+  const long long n_tiles = (p.Cout + C::BN - 1) / C::BN;
+  const long long tiles = m_tiles * n_tiles;
+  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  p.div_ntiles = make_fastdiv(static_cast<uint32_t>(n_tiles));
+  // w as [Cout, K]; x as [N*H*W, C] when its rows are the output rows
+  CUtensorMap map_w, map_x;
+  cudaError_t e = encode_tile_map(encode, &map_w, p.w, p.Cout, p.K, C::BN);
+  p.tma_x = p.KH == 1 && p.KW == 1 && p.SH == 1 && p.SW == 1 && p.PH == 0 &&
+            p.PW == 0 && p.OH == p.H && p.OW == p.W;
+  map_x = map_w;
+  if (e == cudaSuccess && p.tma_x)
+    e = encode_tile_map(encode, &map_x, p.x, p.M, p.C, C::BM);
+  if (e != cudaSuccess) return e;
+  conv_wgmma_kernel<kBNW, kSplitN><<<grid, C::kThreads, C::kSmemBytes, s>>>(
+      p, static_cast<int>(n_tiles), static_cast<int>(tiles), map_w, map_x);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores, full f32
+// ---------------------------------------------------------------------------
 
 // The input coordinates of one output row (pixel).
 struct Row {
@@ -123,96 +641,18 @@ __device__ __forceinline__ long long x_offset(const Params& p, const Row& r,
   return r.base + (static_cast<long long>(ih) * p.W + iw) * p.C + c;
 }
 
-__device__ __forceinline__ float load_f32(const void* p, int dtype,
-                                          long long i) {
-  return dtype == 0 ? static_cast<const float*>(p)[i]
-                    : __bfloat162float(
-                          static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 // The epilogue of one output element: bias, residual, act on the f32
-// accumulator, one cast, one store.  Returns the stored value as f32 (0
-// outside the output), which the statistics sum.
-template <typename T>
-__device__ __forceinline__ float epilogue_store(const Params& p, int row,
-                                                int col, float acc) {
+// accumulator, one store.  Returns the stored value (0 outside the
+// output), which the statistics sum.
+__device__ __forceinline__ float epilogue_store_f32(const Params& p, int row,
+                                                    int col, float acc) {
   if (row >= p.M || col >= p.Cout) return 0.f;
   const long long idx = static_cast<long long>(row) * p.Cout + col;
   if (p.bias) acc += load_f32(p.bias, p.bias_dtype, col);
   if (p.res) acc += load_f32(p.res, p.res_dtype, idx);
   if (p.act == 1 && acc < 0.f) acc = 0.f;  // keeps NaN, as jnp.maximum
-  const T v = from_f32<T>(acc);
-  static_cast<T*>(p.out)[idx] = v;
-  return to_f32(v);
-}
-
-// ---------------------------------------------------------------------------
-// bf16: mma.sync tensor cores
-// ---------------------------------------------------------------------------
-
-// Stages the gathered x tile [m0:m0+128, k0:k0+32] and the w tile
-// [k0:k0+32, n0:n0+128] into shared memory; out-of-range elements are 0.
-// rows[i] is the row of chunk threadIdx.x + i*256 (row tid/4 + 64 i).
-template <bool kVec>
-__device__ __forceinline__ void load_tiles_bf16(const Params& p,
-                                                const Row (&rows)[2],
-                                                __nv_bfloat16* As,
-                                                __nv_bfloat16* Bs, int n0,
-                                                int k0) {
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int kc = (threadIdx.x & 3) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = (threadIdx.x >> 2) + 64 * i;
-    __nv_bfloat16* dst = As + row * kAStride + kc;
-    if (kVec) {
-      // Cin % 8 == 0: the 8 channels share one tap and are contiguous
-      const long long off = x_offset(p, rows[i], k0 + kc);
-      cp_async16(dst, off >= 0 ? x + off : x, off >= 0 ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const long long off = x_offset(p, rows[i], k0 + kc + e);
-        dst[e] = off >= 0 ? x[off] : zero;
-      }
-    }
-  }
-#pragma unroll
-  for (int c = threadIdx.x; c < kBK * kBN / 8; c += kThreads) {
-    const int row = c >> 4, nc = (c & 15) * 8;
-    const int gk = k0 + row, gn = n0 + nc;
-    __nv_bfloat16* dst = Bs + row * kBStride + nc;
-    if (kVec) {
-      const bool ok = gk < p.K && gn < p.Cout;
-      cp_async16(dst,
-                 ok ? w + static_cast<long long>(gk) * p.Cout + gn : w,
-                 ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (gk < p.K && gn + e < p.Cout)
-                     ? w[static_cast<long long>(gk) * p.Cout + gn + e]
-                     : zero;
-    }
-  }
+  static_cast<float*>(p.out)[idx] = acc;
+  return acc;
 }
 
 // The CTA's partial statistics of column col (0..127 within the tile) are
@@ -228,131 +668,6 @@ __device__ __forceinline__ void store_partials(const Params& p,
     p.s2[i] = red2[col];
   }
 }
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-    conv_bf16_kernel(const Params p) {
-  __shared__ __align__(16) __nv_bfloat16 As[2][kBM * kAStride];
-  __shared__ __align__(16) __nv_bfloat16 Bs[2][kBK * kBStride];
-  __shared__ float red1[2][kBN], red2[2][kBN];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 2;  // 2 warps down M, 64 rows each
-  const int warp_n = warp & 3;   // 4 warps across N, 32 columns each
-  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * kBN;
-  const Row rows[2] = {make_row(p, m0 + (threadIdx.x >> 2)),
-                       make_row(p, m0 + (threadIdx.x >> 2) + 64)};
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  const int nk = (p.K + kBK - 1) / kBK;
-  if (nk > 0) {
-    load_tiles_bf16<kVec>(p, rows, As[0], Bs[0], n0, 0);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      const int nxt = (kt + 1) & 1;
-      load_tiles_bf16<kVec>(p, rows, As[nxt], Bs[nxt], n0, (kt + 1) * kBK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* as = As[kt & 1];
-    const __nv_bfloat16* bs = Bs[kt & 1];
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        // lanes 0-15 point at rows 0-15, k 0-7; lanes 16-31 at k 8-15
-        const int row = warp_m * 64 + mi * 16 + (lane & 15);
-        ldmatrix_x4(a[mi], as + row * kAStride + kk + (lane >> 4) * 8);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        // matrix j = lane / 8: k half (j & 1), n half (j >> 1); the
-        // transposed load gives each thread a (k, k+1) pair at one n
-        uint32_t r[4];
-        const int k = kk + ((lane >> 3) & 1) * 8 + (lane & 7);
-        const int n = warp_n * 32 + np * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(r, bs + k * kBStride + n);
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
-  }
-
-  // accumulator fragment: c0, c1 at (lane/4, 2*(lane%4) + {0,1}), c2, c3
-  // eight rows below
-  float t1[4][2], t2[4][2];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) t1[ni][e] = t2[ni][e] = 0.f;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + warp_m * 64 + mi * 16 + (lane >> 2) + h * 8;
-        const int col = n0 + warp_n * 32 + ni * 8 + (lane & 3) * 2;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float v = epilogue_store<__nv_bfloat16>(
-              p, row, col + e, acc[mi][ni][2 * h + e]);
-          t1[ni][e] += v;
-          t2[ni][e] += v * v;
-        }
-      }
-  if (p.s1 == nullptr) return;
-
-  // column sums: over the 8 lanes that share (lane % 4), then over the
-  // two warps down M, in a fixed order
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        t1[ni][e] += __shfl_xor_sync(0xffffffffu, t1[ni][e], off);
-        t2[ni][e] += __shfl_xor_sync(0xffffffffu, t2[ni][e], off);
-      }
-      if ((lane >> 2) == 0) {
-        const int col = warp_n * 32 + ni * 8 + lane * 2 + e;
-        red1[warp_m][col] = t1[ni][e];
-        red2[warp_m][col] = t2[ni][e];
-      }
-    }
-  __syncthreads();
-  if (threadIdx.x < kBN) {
-    const int col = threadIdx.x;
-    red1[0][col] += red1[1][col];
-    red2[0][col] += red2[1][col];
-  }
-  __syncthreads();
-  store_partials(p, red1[0], red2[0], n0);
-}
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores, full f32
-// ---------------------------------------------------------------------------
 
 __global__ void __launch_bounds__(kThreads) conv_f32_kernel(const Params p) {
   // x is stored transposed ([k][m]) so a thread reads its rows as float4
@@ -373,7 +688,7 @@ __global__ void __launch_bounds__(kThreads) conv_f32_kernel(const Params p) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   const int a_row = tid >> 1, a_k = (tid & 1) * 4;
-  const int b_row = tid >> 5, b_col = (tid & 31) * 4;
+  const int b_col = tid >> 1, b_k = (tid & 1) * 4;
   const Row row = make_row(p, m0 + a_row);
   for (int k0 = 0; k0 < p.K; k0 += kFBK) {
 #pragma unroll
@@ -381,13 +696,13 @@ __global__ void __launch_bounds__(kThreads) conv_f32_kernel(const Params p) {
       const long long off = x_offset(p, row, k0 + a_k + e);
       As[a_k + e][a_row] = off >= 0 ? x[off] : 0.f;
     }
-    const int gk = k0 + b_row;
+    const int gn = n0 + b_col;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int gn = n0 + b_col + e;
-      Bs[b_row][b_col + e] =
+      const int gk = k0 + b_k + e;
+      Bs[b_k + e][b_col] =
           (gk < p.K && gn < p.Cout)
-              ? w[static_cast<long long>(gk) * p.Cout + gn]
+              ? w[static_cast<long long>(gn) * p.K + gk]
               : 0.f;
     }
     __syncthreads();
@@ -421,7 +736,7 @@ __global__ void __launch_bounds__(kThreads) conv_f32_kernel(const Params p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-      const float v = epilogue_store<float>(p, r, col, acc[i][j]);
+      const float v = epilogue_store_f32(p, r, col, acc[i][j]);
       t1[j] += v;
       t2[j] += v * v;
     }
@@ -449,16 +764,22 @@ __global__ void __launch_bounds__(kThreads) conv_f32_kernel(const Params p) {
   store_partials(p, red1[0], red2[0], n0);
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// x NHWC [N,H,W,C], w [KH,KW,C,Cout], bias [Cout] or null, res
+// x NHWC [N,H,W,C], w OHWI [Cout,KH,KW,C], bias [Cout] or null, res
 // [N,OH,OW,Cout] or null, out [N,OH,OW,Cout]; s1 and s2 null, or both
 // [s_rows, Cout] f32 for the statistics, where s_rows must be
 // ceil(N*OH*OW / pt_conv_tile_m()).  dtype: 0 = float32, 1 = bfloat16 (x, w
-// and out); bias_dtype and res_dtype the same codes, ignored for a null
-// pointer.  act: 0 none, 1 relu.  Returns a cudaError_t.
+// and out; bf16 also needs C % 8 == 0, x and w 16-byte aligned and x of
+// fewer than 2^31 elements); bias_dtype and res_dtype the same codes,
+// ignored for a null pointer.  act: 0 none, 1 relu.  Returns a
+// cudaError_t.
 int pt_conv_epilogue(const void* x, const void* w, const void* bias,
                      const void* res, void* out, void* s1, void* s2, int N,
                      int H, int W, int C, int Cout, int KH, int KW, int SH,
@@ -474,34 +795,35 @@ int pt_conv_epilogue(const void* x, const void* w, const void* bias,
   const long long M = static_cast<long long>(N) * OH * OW;
   const long long K = static_cast<long long>(KH) * KW * C;
   if (M > 0x7fffffffLL || K > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const dim3 grid(static_cast<unsigned>((M + kBM - 1) / kBM),
-                  (Cout + kBN - 1) / kBN);
-  if (grid.y > 65535 || (s1 && s_rows != static_cast<long long>(grid.x)))
-    return cudaErrorInvalidValue;
-  if (M == 0 || Cout == 0) return cudaSuccess;
-  const Params p{x,  w,  bias, res, out, static_cast<float*>(s1),
-                 static_cast<float*>(s2), N, H, W, C, Cout, KH, KW, SH,
-                 SW, PH, PW, OH, OW, static_cast<int>(M),
-                 static_cast<int>(K), bias_dtype, res_dtype, act};
+  const long long m_tiles = (M + kTileM - 1) / kTileM;
+  if (s1 && s_rows != m_tiles) return cudaErrorInvalidValue;
+  Params p{x,  w,  bias, res, out, static_cast<float*>(s1),
+           static_cast<float*>(s2), N, H, W, C, Cout, KH, KW, SH,
+           SW, PH, PW, OH, OW, static_cast<int>(M),
+           static_cast<int>(K), bias_dtype, res_dtype, act, 0, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
+    const dim3 grid(static_cast<unsigned>(m_tiles), (Cout + kBN - 1) / kBN);
+    if (grid.y > 65535) return cudaErrorInvalidValue;
+    if (M == 0 || Cout == 0) return cudaSuccess;
     conv_f32_kernel<<<grid, kThreads, 0, s>>>(p);
-  } else if (dtype == 1) {
-    const bool vec = C % 8 == 0 && Cout % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    if (vec)
-      conv_bf16_kernel<true><<<grid, kThreads, 0, s>>>(p);
-    else
-      conv_bf16_kernel<false><<<grid, kThreads, 0, s>>>(p);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  if (dtype != 1 || C % 8 != 0 || !aligned16(x) || !aligned16(w) ||
+      static_cast<long long>(N) * H * W * C > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (M == 0 || Cout == 0) return cudaSuccess;
+  p.vec_out = Cout % 8 == 0 && aligned16(out);
+  p.div_ohw = make_fastdiv(static_cast<uint32_t>(OH) * OW);
+  p.div_ow = make_fastdiv(static_cast<uint32_t>(OW));
+  p.res_staged = res && res_dtype == 1 && Cout % 8 == 0 && aligned16(res);
+  if (Cout <= 64) return launch_wgmma<64, false>(p, s);
+  if (Cout <= 128) return launch_wgmma<128, false>(p, s);
+  return launch_wgmma<128, true>(p, s);
 }
 
-// The output rows (pixels) of one tile: one row of statistics partials.
-int pt_conv_tile_m() { return kBM; }
+// The output rows (pixels) of one statistics partial.
+int pt_conv_tile_m() { return kTileM; }
 
 const char* pt_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -7,9 +7,11 @@ written for Hopper:
 
 - ``_conv_ep_kernel`` (``:99``): ``act(conv(x, w) + bias + residual)``,
   one f32 accumulator, one cast.  Here ``csrc/conv_epilogue.cu``
-  (``pt_conv_epilogue``), an implicit GEMM; wrapper
+  (``pt_conv_epilogue``), an implicit GEMM (bf16 on wgmma); wrapper
   ``conv_epilogue_kernel``, launches counted in
-  ``conv_epilogue_kernel.launches``.
+  ``conv_epilogue_kernel.launches``.  The wrapper hands the kernel the
+  filter as OHWI, the GEMM's K-major ``[Cout, K]`` operand, and in bf16
+  x with whole 16-byte chunks (``_kernel_operands``).
 - ``_conv_stats_kernel`` (``:311``): the same conv (+ bias) that also
   returns per-channel partial sums of y and y*y of the output after its
   cast.  The same source with the statistics enabled; wrapper
@@ -253,6 +255,46 @@ def _check_vector(name, t, c, device):
                          f"{tuple(t.shape)} {t.dtype} on {t.device}")
 
 
+def _aligned(t):
+    """t, or a copy of it where its data does not start on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _kernel_operands(x, w, strides, padding, out_w):
+    """(x, w, strides, (ph, pw)) as the kernel takes them: x NHWC
+    contiguous; w OHWI ``[Cout, KH, KW, Cin]``, the GEMM's K-major
+    ``[Cout, K]`` operand with k = (kh * KW + kw) * Cin + c (for a 1x1
+    filter OIHW already is that layout, so no copy); the top and left
+    padding.  In bf16 the kernel copies 8 channels of one tap at a time,
+    so Cin is padded with zero channels to a multiple of 8, and a
+    misaligned view is copied.  A narrow input with an even horizontal
+    stride (the 3-channel stem, 7x7 stride 2) instead gets 4 channels,
+    its left padding made explicit, and is read as pixels of 8 channels
+    that pair each even column with the next: the stride halves, KW rounds
+    up to even with a zero tap, and each 16-byte copy carries two taps.
+    Zero channels and taps add zero products, so neither y nor its
+    statistics change."""
+    x = x.contiguous()
+    w = w.permute(0, 2, 3, 1)
+    (ph0, _), (pw0, _) = padding
+    sh, sw = strides
+    if x.dtype != torch.bfloat16:
+        return x, w.contiguous(), (sh, sw), (ph0, pw0)
+    n, h, wd, cin = x.shape
+    cout, kh, kw, _ = w.shape
+    if cin <= 4 and sw % 2 == 0:
+        kw2 = kw + kw % 2
+        wp = max(wd + pw0, (out_w - 1) * sw + kw2)
+        wp += wp % 2
+        x = F.pad(x, (0, 4 - cin, pw0, wp - wd - pw0)).view(n, h, wp // 2, 8)
+        w = F.pad(w, (0, 4 - cin, 0, kw2 - kw)).reshape(cout, kh, kw2 // 2, 8)
+        return x, w, (sh, sw // 2), (ph0, 0)
+    pad = -cin % 8
+    if pad:
+        x, w = F.pad(x, (0, pad)), F.pad(w, (0, pad))
+    return _aligned(x), _aligned(w.contiguous()), (sh, sw), (ph0, pw0)
+
+
 def _conv_launch(x, w, bias, residual, strides, padding, act, stats):
     ct = torch.promote_types(x.dtype, w.dtype)
     if ct not in _DTYPE_CODES:
@@ -261,16 +303,16 @@ def _conv_launch(x, w, bias, residual, strides, padding, act, stats):
     if x.dim() != 4 or w.dim() != 4 or x.shape[3] != w.shape[1]:
         raise ValueError(f"conv kernel: x {tuple(x.shape)} is not NHWC "
                          f"for the OIHW filter {tuple(w.shape)}")
-    x = x.to(ct).contiguous()
-    # [KH, KW, Cin, Cout]: the GEMM's [K, Cout] operand, row-major
-    w_k = w.to(ct).permute(2, 3, 1, 0).contiguous()
-    n, h, wd, cin = x.shape
+    n, h, wd, _ = x.shape
     cout, _, kh, kw = w.shape
-    sh, sw = strides
-    oh, ow = _out_spatial(h, wd, kh, kw, sh, sw, padding)
+    oh, ow = _out_spatial(h, wd, kh, kw, *strides, padding)
     if oh <= 0 or ow <= 0:
         raise ValueError("conv kernel: the padded input is smaller than "
                          "the filter")
+    x, w_k, (sh, sw), (ph0, pw0) = _kernel_operands(
+        x.to(ct), w.to(ct), strides, padding, ow)
+    _, h, wd, cin = x.shape
+    _, kh, kw, _ = w_k.shape
     _check_vector("bias", bias, cout, x.device)
     if residual is not None:
         if tuple(residual.shape) != (n, oh, ow, cout) or \
@@ -291,7 +333,6 @@ def _conv_launch(x, w, bias, residual, strides, padding, act, stats):
         s2 = torch.empty_like(s1)
     if out.numel() == 0:
         return out, s1, s2
-    (ph0, _), (pw0, _) = padding
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.pt_conv_epilogue(

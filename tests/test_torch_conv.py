@@ -492,6 +492,87 @@ def test_nhwc_conv2d_follows_the_conv_epilogue_flag(mode):
         _ir_op_outputs("conv2d", ins, attrs)
 
 
+# (n, h, w, cin, cout, k, stride, pad, bias, residual, act): CONV_CASES
+# (the 3-channel 7x7/2 stem among them) plus Cin 24 (K off the kernel's
+# 64-deep step) at stride 2, more than 256 output pixels (several 128-row
+# partials, a ragged last one) and two more narrow inputs
+KERNEL_CONTRACT_CASES = CONV_CASES + [
+    (2, 9, 9, 24, 64, 3, 2, 1, True, True, "relu"),
+    (3, 10, 11, 16, 40, 3, 1, 1, True, False, None),
+    # narrow inputs: stride 1 (channels padded to 8), and 4 channels with
+    # an odd width and KW at stride 2 (column pairs, like the stem's)
+    (2, 9, 9, 3, 24, 3, 1, 1, True, True, "relu"),
+    (1, 12, 13, 4, 16, 5, 2, 2, True, False, None),
+]
+
+
+def _kernel_contract(x, w, b, r, strides, padding, act):
+    """What the CUDA kernel computes, written plainly from the operands
+    and geometry as the wrapper hands them to it (``_kernel_operands``: x
+    NHWC, in bf16 its channels padded to a multiple of 8 or, for the
+    stem, column pairs of 4 channels at half the stride; w ``[Cout, KH,
+    KW, Cin]``, read as the K-major ``[Cout, K]``; the top and left
+    padding): the im2col matrix of x with k = (kh * KW + kw) * Cin + c,
+    times w^T in f32, the stages, one cast.
+    Returns (y, s1, s2), the partials one row per ``stats_tile_m()``
+    output pixels as the kernel writes them."""
+    import torch.nn.functional as F
+
+    n, h, wd, _ = x.shape
+    oh, ow = cep._out_spatial(h, wd, w.shape[2], w.shape[3], *strides,
+                              padding)
+    xk, wk, (sh, sw), (ph0, pw0) = cep._kernel_operands(x, w, strides,
+                                                        padding, ow)
+    assert xk.shape[3] == wk.shape[3] and wk.shape[0] == w.shape[0]
+    if x.dtype == torch.bfloat16:
+        assert xk.shape[3] % 8 == 0 and xk.is_contiguous()
+    n, h, wd, cin = xk.shape
+    cout, kh, kw, _ = wk.shape
+    hp, wp = (oh - 1) * sh + kh, (ow - 1) * sw + kw
+    xp = F.pad(xk.float(), (0, 0, pw0, max(wp - wd - pw0, 0),
+                            ph0, max(hp - h - ph0, 0)))
+    cols = torch.stack([xp[:, i:i + (oh - 1) * sh + 1:sh,
+                           j:j + (ow - 1) * sw + 1:sw]
+                        for i in range(kh) for j in range(kw)], dim=3)
+    acc = cols.reshape(n * oh * ow, kh * kw * cin) @ \
+        wk.float().reshape(cout, -1).T
+    acc = cep.apply_acc_stages(
+        acc, bias=b, residual=None if r is None else r.reshape(acc.shape),
+        act=act)
+    y = acc.to(x.dtype)
+    tile = 128
+    yf = F.pad(y.float(), (0, 0, 0, -y.shape[0] % tile))
+    yf = yf.reshape(-1, tile, cout)
+    return (y.reshape(n, oh, ow, cout), yf.sum(dim=1),
+            (yf * yf).sum(dim=1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", KERNEL_CONTRACT_CASES, ids=[
+    f"case{i}" for i in range(len(KERNEL_CONTRACT_CASES))])
+def test_kernel_operand_contract_matches_the_plain_versions(case, dtype):
+    """The filter layout, the K order and the channel padding that the
+    CUDA kernel's gather now walks by increments, held on the CPU: the
+    plain im2col product over the operands as the wrapper hands them
+    over equals ``conv_epilogue_plain``, and its 128-row partials
+    finalise to ``conv_stats_plain``'s mean and var."""
+    (x, w, b, r), strides, padding, act = _conv_case(case, dtype)
+    x, w, b, r = map(_t, (x, w, b, r))
+    y, _, _ = _kernel_contract(x, w, b, r, strides, padding, act)
+    _assert_close(y, cep.conv_epilogue_plain(x, w, b, r, strides, padding,
+                                             act), dtype)
+    y, s1, s2 = _kernel_contract(x, w, b, None, strides, padding, "")
+    y_ref, r1, r2 = cep.conv_stats_plain(x, w, b, strides, padding)
+    _assert_close(y, y_ref, dtype)
+    assert s1.shape == (-(-y[..., 0].numel() // 128), w.shape[0])
+    m = float(y[..., 0].numel())
+    for got, want in zip(cep._finalize_stats(s1, s2, m),
+                         cep._finalize_stats(r1, r2, m)):
+        scale = max(1.0, want.abs().max().item())
+        tol = 1e-5 if dtype == "float32" else 1e-3
+        assert (got - want).abs().max().item() <= tol * scale
+
+
 def test_kernel_wrappers_take_the_plain_version_on_the_cpu():
     (x, w, b, r), strides, padding, act = _conv_case(CONV_CASES[0],
                                                      "float32")

@@ -27,10 +27,12 @@ so the two may differ by one bf16 step where the sums straddle a
 rounding boundary (within 1e-2 + 1e-2 * |ref|).
 
 The conv kernels (``conv_epilogue``, ``conv_stats``) are held against
-their plain versions in the same way, over every conv stage subset,
-1x1/3x3/7x7 filters, strides 1 and 2, Cin 3 and ragged Cout; the
-statistics' mean and var within 1e-4 (f32) and 1e-3 (bf16: y itself may
-sit one bf16 step apart) of their scale.  ``bn_apply`` rounds at the
+their plain versions in the same way, over every conv stage subset with
+bias and residual in either dtype, 1x1/3x3/5x5/7x7 filters, strides 1
+and 2, Cin 3, 4, 16 and 24, every bf16 tile shape, ragged Cout and M,
+and misaligned views; the statistics' mean and var within 1e-4 (f32)
+and 1e-3 (bf16: y itself may sit one bf16 step apart) of their scale,
+and two launches give the same bits.  ``bn_apply`` rounds at the
 plain version's points with no fused multiply-add, so it is held within
 1e-6 of the scale in f32 and one bf16 step in bf16.  TF32 is off for
 cuDNN as well.
@@ -468,12 +470,19 @@ def test_fc_epilogue_grads_match_autograd_of_the_chain(cuda, dtype):
             assert torch.equal(a, e), act
 
 
-# (N, H, W, Cin, Cout, K, stride, pad): 1x1, 3x3 and 7x7 filters, strides 1
-# and 2, the 3-channel stem (masked loads), ragged Cout (masked w loads)
+# (N, H, W, Cin, Cout, K, stride, pad): 1x1, 3x3, 5x5 and 7x7 filters,
+# strides 1 and 2, the 3-channel stem and a 4-channel 5x5/2 (column pairs
+# of 4 channels), Cin 3 at stride 1 (padded to 8), Cin 16 and 24 (K off
+# the 64-deep step), every bf16 tile shape (Cout <= 64: 256 x 64; <= 128:
+# 256 x 128; above: 128 x 256, two Cout tiles at 300), ragged Cout (24,
+# 130, 136: masked w loads and element stores), M off the tile, and
+# 256-row tiles that write two partial rows (Cout 64 and 128 at M 576)
 CONV_SHAPES = [(2, 9, 9, 16, 32, 3, 1, 1), (2, 9, 9, 16, 24, 3, 2, 1),
                (2, 8, 8, 32, 64, 1, 1, 0), (2, 8, 8, 32, 136, 1, 2, 0),
                (2, 20, 20, 3, 64, 7, 2, 3), (1, 10, 6, 8, 300, 3, 1, 0),
-               (3, 14, 14, 64, 130, 3, 1, 1)]
+               (3, 14, 14, 64, 130, 3, 1, 1), (4, 12, 12, 24, 64, 3, 1, 1),
+               (4, 12, 12, 64, 128, 3, 1, 1), (2, 8, 8, 64, 256, 1, 1, 0),
+               (2, 9, 9, 3, 24, 3, 1, 1), (2, 11, 13, 4, 40, 5, 2, 2)]
 
 
 def _conv_operands(rng, device, n, h, w, cin, cout, k, s, p, dtype):
@@ -492,20 +501,26 @@ def _conv_operands(rng, device, n, h, w, cin, cout, k, s, p, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,h,w,cin,cout,k,s,p", CONV_SHAPES)
 def test_conv_kernels_match_plain(cuda, n, h, w, cin, cout, k, s, p, dtype):
+    """Every stage subset, with bias and residual in x's dtype and in the
+    other one (an f32 residual is read in place, a bf16 one staged by
+    16-byte copies)."""
     rng = np.random.RandomState(n + h + cout)
     x, wt, b, r = _conv_operands(rng, cuda, n, h, w, cin, cout, k, s, p,
                                  dtype)
+    other = torch.bfloat16 if dtype == "float32" else torch.float32
     pad = ((p, p), (p, p))
-    for spec in cep_specs():
-        bias = b if "bias" in spec else None
-        res = r if "residual" in spec else None
-        launches = cep.conv_epilogue_kernel.launches
-        got = cep.conv_epilogue_kernel(x, wt, bias, res, (s, s), pad, spec.act)
-        torch.cuda.synchronize()
-        assert cep.conv_epilogue_kernel.launches == launches + 1
-        want = cep.conv_epilogue_plain(x, wt, bias, res, (s, s), pad,
-                                       spec.act)
-        assert _fc_close(got, want, dtype), spec
+    for bt, rt in ((b, r), (b.to(other), r), (b, r.to(other))):
+        for spec in cep_specs():
+            bias = bt if "bias" in spec else None
+            res = rt if "residual" in spec else None
+            launches = cep.conv_epilogue_kernel.launches
+            got = cep.conv_epilogue_kernel(x, wt, bias, res, (s, s), pad,
+                                           spec.act)
+            torch.cuda.synchronize()
+            assert cep.conv_epilogue_kernel.launches == launches + 1
+            want = cep.conv_epilogue_plain(x, wt, bias, res, (s, s), pad,
+                                           spec.act)
+            assert _fc_close(got, want, dtype), (spec, bt.dtype, rt.dtype)
     for bias in (None, b):
         launches = cep.conv_stats_kernel.launches
         y, s1, s2 = cep.conv_stats_kernel(x, wt, bias, (s, s), pad)
@@ -529,8 +544,9 @@ def cep_specs():
 
 @pytest.mark.cuda
 def test_conv_kernels_take_more_than_65535_row_tiles(cuda):
-    """N*OH*OW = 8,405,000 pixels, 65,665 tiles of 128 rows: more than
-    grid.y could hold, so the kernel puts the row tiles on grid.x."""
+    """N*OH*OW = 8,405,000 pixels, 65,665 partials of 128 rows: more
+    than grid.y could hold; the bf16 kernel walks its row tiles in a
+    persistent loop, the f32 kernel puts them on grid.x."""
     n, h, w, cin, cout = 2, 2050, 2050, 8, 16
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn((n, h, w, cin), generator=g, device=cuda).bfloat16()
@@ -551,6 +567,57 @@ def test_conv_kernels_take_more_than_65535_row_tiles(cuda):
                              cep._finalize_stats(r1, r2, float(m))):
         tol = 1e-3 * max(1.0, want_s.abs().max().item())
         assert (got_s - want_s).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 64), (3, 128), (64, 256)])
+def test_conv_kernels_take_misaligned_views(cuda, cin, cout):
+    """x and the residual as views whose data starts 2 bytes past a
+    16-byte boundary: the wrapper copies x, the kernel reads the residual
+    in place; the result is the plain version's."""
+    rng = np.random.RandomState(cin + cout)
+    x, wt, b, r = _conv_operands(rng, cuda, 2, 10, 10, cin, cout, 3, 1, 1,
+                                 "bfloat16")
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    xv, rv = shifted(x), shifted(r)
+    pad = ((1, 1), (1, 1))
+    got = cep.conv_epilogue_kernel(xv, wt, b, rv, (1, 1), pad, "relu")
+    assert _fc_close(got, cep.conv_epilogue_plain(x, wt, b, r, (1, 1), pad,
+                                                  "relu"), "bfloat16")
+    y, s1, s2 = cep.conv_stats_kernel(xv, wt, b, (1, 1), pad)
+    y_ref, r1, r2 = cep.conv_stats_plain(x, wt, b, (1, 1), pad)
+    assert _fc_close(y, y_ref, "bfloat16")
+    m = float(y[..., 0].numel())
+    for got_s, want_s in zip(cep._finalize_stats(s1, s2, m),
+                             cep._finalize_stats(r1, r2, m)):
+        tol = 1e-3 * max(1.0, want_s.abs().max().item())
+        assert (got_s - want_s).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cout", [64, 128, 256])
+def test_conv_stats_is_deterministic(cuda, cout, dtype):
+    """No atomics: two launches give the same bits in y, s1 and s2, at
+    every tile shape."""
+    rng = np.random.RandomState(cout)
+    x, wt, b, _ = _conv_operands(rng, cuda, 8, 14, 14, 64, cout, 3, 1, 1,
+                                 dtype)
+    pad = ((1, 1), (1, 1))
+    first = cep.conv_stats_kernel(x, wt, b, (1, 1), pad)
+    second = cep.conv_stats_kernel(x, wt, b, (1, 1), pad)
+    for a, e in zip(first, second):
+        assert torch.equal(a, e)
+    out = [cep.conv_epilogue_kernel(x, wt, b, None, (1, 1), pad, "relu")
+           for _ in range(2)]
+    assert torch.equal(out[0], out[1])
 
 
 @pytest.mark.cuda
