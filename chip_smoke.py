@@ -24,7 +24,9 @@ Phases, none of which catches its own failure:
      logits with the same model on the CPU (Config.disable_gpu());
   4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
-     cotangent, and at the two 32768-token shapes against the sliced
+     cotangent and two f32 ones at head dims 48 and 96 (each case's max
+     error scaled as BWD_TOL reads it is printed), and at the two
+     32768-token shapes against the sliced
      plain version (dq's last 1024 rows, dk/dv's keys 16384-17407, also
      at a tolerance that a planted fault, one zeroed dO tile, must
      break); times them by CUDA-graph replay and by events beside the
@@ -134,21 +136,30 @@ MODEL = dict(vocab_size=32000, max_len=512, d_model=512, n_head=8,
              d_inner=2048, n_layer=6, dropout_rate=0.0, is_test=True)
 BATCH = 8
 # H100 SXM peaks at the full 700 W (NVIDIA data sheet): HBM bytes/s and
-# dense FLOP/s by input type.  The flash kernel keeps f32 inputs in full
-# f32 (TF32 off), so its f32 peak is the non-tensor-core rate.
+# dense FLOP/s by input type; float32 is the rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# f32 work at f32 accuracy on the tensor cores: split TF32, each product
+# three TF32 products (each operand's high and low halves; the f32 flash
+# backward kernels compute so, csrc/tensor_core.cuh) at the dense TF32 rate
+PEAK_TF32_FLOPS = 494.7e12
+SPLIT_TF32_PRODUCTS = 3
 # f32 kernel vs plain version (both f32 accumulation, other orders);
 # bf16 out carries the bf16 rounding of P and of the output.
 TOL = {"float32": {"out": 1e-4, "lse": 1e-4},
        "bfloat16": {"out": 3e-2, "lse": 1e-3}}
-# GPU vs CPU logits of the full model: f32 throughout with TF32 off, so
-# only summation order differs across ~16 f32 reductions of width <= 2048.
+# GPU vs CPU logits of the full model: f32 throughout (cuBLAS with TF32
+# off; the flash forward's f32 path on the CUDA cores), so only summation
+# order differs across ~16 f32 reductions of width <= 2048.
 LOGITS_ATOL = LOGITS_RTOL = 2e-3
 ARGMAX_AGREE = 0.999
 # backward kernels vs their plain version, relative to the reference's
-# scale: f32 sums in other orders; bf16 rounds dS to bf16 in both, at
-# points where the f32 sums already differ.
+# scale.  f32: the kernels' products are split TF32 (about 21 bits of each
+# operand, f32 sums), the plain version's cuBLAS products full f32, and
+# the sums run in other orders; on the H100 the f32 cases read 1.5e-6 to
+# 8.8e-6, so 1e-4 still holds with an order of magnitude to spare, while
+# single-pass TF32 (about 11 bits) would read near 1e-3.  bf16 rounds dS
+# to bf16 in both, at points where the f32 sums already differ.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 # training: Adam at this rate on one fixed batch, seq 512
 TRAIN_LR = 1e-4
@@ -158,16 +169,18 @@ TRAIN_LR = 1e-4
 AMP_BATCH = 32
 TRAIN_STEPS = 5
 CHECK_BATCH = 2
-# GPU vs CPU training step, f32 with TF32 off on both, so sums differ
-# only in order: the loss within LOSS_RTOL, and each grad within
-# GRAD_BULK_RTOL of its own max magnitude in all but GRAD_BULK_SHARE of
-# its elements.  Its max error may be larger: a ReLU whose input lies
-# within rounding of 0 takes the other branch on the other device, and
-# that changes one token's contribution to one hidden unit, about
-# 1/(batch*seq) of a grad's scale (GRAD_FLIP_TOKENS tokens' worth are
-# allowed).  Adam moves a weight by about lr*sign(m1) while m1 is young,
-# so a grad near 0 may flip its step: parameters after two steps agree
-# within 2*lr a step plus 1e-5.
+# GPU vs CPU training step, f32 with TF32 off for cuBLAS on the card;
+# the flash backward's split-TF32 products differ from f32 products by at
+# most about 1e-5 of a grad's scale (phase 4), below these bounds, so the
+# sums differ in order and little else: the loss within LOSS_RTOL, and
+# each grad within GRAD_BULK_RTOL of its own max magnitude in all but
+# GRAD_BULK_SHARE of its elements.  Its max error may be larger: a ReLU
+# whose input lies within rounding of 0 takes the other branch on the
+# other device, and that changes one token's contribution to one hidden
+# unit, about 1/(batch*seq) of a grad's scale (GRAD_FLIP_TOKENS tokens'
+# worth are allowed).  Adam moves a weight by about lr*sign(m1) while m1
+# is young, so a grad near 0 may flip its step: parameters after two
+# steps agree within 2*lr a step plus 1e-5.
 LOSS_RTOL = 1e-5
 GRAD_BULK_RTOL = 1e-4
 GRAD_BULK_SHARE = 0.01
@@ -371,12 +384,15 @@ FLASH_WORK = {
 
 
 def flash_bound_ms(b, h, tq, tk, d, causal, dtype, kernel="fwd"):
-    """Least time for the work: each input read once and each output
-    written once over HBM, or the FLOPs (2 per multiply-add of each
-    Tq x Tk x D product, halved when causal) at the card's peak for the
-    input type, whichever is larger.  In bf16, dV = P^T dO with P kept
-    in f32 is two bf16 products (P's high and low halves), so dkv counts
-    five."""
+    """Least time for the work, as (ms, "bytes" or "operations", the
+    CUDA-core ms): each input read once and each output written once over
+    HBM, or the FLOPs (2 per multiply-add of each Tq x Tk x D product,
+    halved when causal) at the card's peak for the input type, whichever
+    is larger.  In bf16, dV = P^T dO with P kept in f32 is two bf16
+    products (P's high and low halves), so dkv counts five.  f32 work
+    takes the lesser of two bounds at f32 accuracy: three TF32 products
+    each (split TF32) at the TF32 rate, or the CUDA cores' rate; the
+    latter is also returned on its own (None in bf16)."""
     products, n_q, n_k, n_vec = FLASH_WORK[kernel]
     if kernel == "dkv" and dtype == "bfloat16":
         products += 1
@@ -384,9 +400,17 @@ def flash_bound_ms(b, h, tq, tk, d, causal, dtype, kernel="fwd"):
     nbytes = elem * b * h * d * (n_q * tq + n_k * tk) + 4 * n_vec * b * h * tq
     flops = 2.0 * products * b * h * tq * tk * d * (0.5 if causal else 1.0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
-        "operations"
+
+    def bound(rate):
+        t_ops = flops / rate * 1e3
+        return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+            "operations"
+
+    if dtype == "bfloat16":
+        return (*bound(PEAK_FLOPS[dtype]), None)
+    cuda_core = bound(PEAK_FLOPS[dtype])
+    split = bound(PEAK_TF32_FLOPS / SPLIT_TF32_PRODUCTS)
+    return (*min(split, cuda_core), cuda_core[0])
 
 
 def check_flash(device, seed):
@@ -459,13 +483,15 @@ def check_flash(device, seed):
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, is_causal=causal and mask is None,
             scale=scale), iters)
-        bound_ms, bound_by = flash_bound_ms(b, h, tq, tk, d, causal, dtype)
+        bound_ms, bound_by, bound_cuda_core_ms = flash_bound_ms(
+            b, h, tq, tk, d, causal, dtype)
         row = dict(shape=[b, h, tq, tk, d], causal=causal, dtype=dtype,
                    strided=strided, max_abs_err_out=err_out,
                    max_abs_err_lse=err_lse, checked_rows=rows, **long,
                    ms=ms, event_ms=event_ms, plain_ms=plain_ms,
                    library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by,
+                   bound_cuda_core_ms=bound_cuda_core_ms,
                    copies=fa.flash_attention_fwd.copies - copies, ok=ok)
         log("flash case " + json.dumps(row))
         if not ok:
@@ -481,8 +507,12 @@ def check_flash(device, seed):
 # ---------------------------------------------------------------------------
 
 # the forward's cases, plus one with a cotangent of lse (the last flag)
+# and the f32 kernels at two more head dims, with several tiles on both
+# sides
 BWD_CASES = [c + (False,) for c in FLASH_CASES] + [
-    (2, 3, 100, 228, 64, True, "float32", True, True)]
+    (2, 3, 100, 228, 64, True, "float32", True, True),
+    (2, 4, 200, 330, 48, True, "float32", True, False),
+    (1, 4, 300, 300, 96, False, "float32", False, True)]
 BWD_MAIN_CASE = BWD_CASES[len(FLASH_CASES) - 3]
 BWD_AMP_CASE = BWD_CASES[len(FLASH_CASES) - 1]
 # the bench's longctx legs (training steps, fwd+bwd): the kernels run
@@ -615,6 +645,8 @@ def check_flash_bwd(device, seed):
             ref_max[name] = r.float().abs().max().item()
             ok &= bool(g.float().isfinite().all()) and \
                 errs[name] <= BWD_TOL[dtype] * max(1.0, ref_max[name])
+        # the error BWD_TOL holds, in its units
+        scaled_err = max(errs[n] / max(1.0, ref_max[n]) for n in errs)
         if causal and tq > tk:     # rows that see no key: dq exactly 0
             ok &= bool((grads[0][:, :, :tq - tk] == 0).all())
         extra = {}
@@ -645,12 +677,13 @@ def check_flash_bwd(device, seed):
                   for n in ("dq", "dkv")}
         row = dict(shape=[b, h, tq, tk, d], causal=causal, dtype=dtype,
                    strided=strided, dlse=with_dlse, max_abs_err=errs,
-                   ref_max=ref_max, **extra,
+                   ref_max=ref_max, max_scaled_err=scaled_err, **extra,
                    ms=ms, event_ms=event_ms, prepare_ms=prepare_ms,
                    plain_ms=plain_ms, plain_event_ms=plain_event_ms,
                    library_ms=library_ms, library_event_ms=library_event_ms,
                    bound_ms={n: v[0] for n, v in bounds.items()},
                    bound_by={n: v[1] for n, v in bounds.items()},
+                   bound_cuda_core_ms={n: v[2] for n, v in bounds.items()},
                    copies=fa.flash_attention_bwd.copies - copies, ok=ok)
         log("flash bwd case " + json.dumps(row))
         if not ok:
@@ -2154,6 +2187,7 @@ def main(argv=None):
         "ms": main_row["ms"], "event_ms": main_row["event_ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "bound_cuda_core_ms": main_row["bound_cuda_core_ms"],
         "library_ms": main_row["library_ms"],
         "design": "mma.sync bf16",
         "f32_design": "CUDA cores",
@@ -2172,7 +2206,8 @@ def main(argv=None):
         return {"shape": row["shape"], "dtype": row["dtype"],
                 "max_abs_err": max(row["max_abs_err"][e] for e in errs),
                 **{k: row[k][name] for k in (
-                    "ms", "event_ms", "bound_ms", "bound_by")},
+                    "ms", "event_ms", "bound_ms", "bound_by",
+                    "bound_cuda_core_ms")},
                 **{k: row.get(k) for k in (
                     "plain_ms", "library_ms", "library_event_ms",
                     "long_errs", "planted_fault_errs")}}
@@ -2190,9 +2225,10 @@ def main(argv=None):
             "plain_ms": bwd_row["plain_ms"],
             "bound_ms": bwd_row["bound_ms"][name],
             "bound_by": bwd_row["bound_by"][name],
+            "bound_cuda_core_ms": bwd_row["bound_cuda_core_ms"][name],
             "library_ms": bwd_row["library_ms"],
             "design": "mma.sync bf16",
-            "f32_design": "CUDA cores",
+            "f32_design": "split TF32 on mma.sync.m16n8k8",
             "copies_by_path": by_path(BWD_COPIES),
             "amp_path": bwd_summary(bwd_amp, name, errs),
             "long_context": [bwd_summary(r, name, errs) for r in bwd_cases

@@ -4,7 +4,7 @@
 // _bwd_dkv_kernel (wrapper _flash_bwd_pallas).  Contract, read from the
 // Pallas kernels and _bwd_p_ds_block:
 //   q [B,H,Tq,D], k/v [B,H,Tk,D], dO [B,H,Tq,D] in f32 or bf16 (any
-//   strides over B, H and T; unit stride over D).  lse [B*H,Tq] f32 from
+//   16-byte aligned strides over B, H and T; unit stride over D).  lse [B*H,Tq] f32 from
 //   the forward kernel, delta [B*H,Tq] f32 = rowsum(dO*O) - dlse, computed
 //   by the caller.  dq [B,H,Tq,D], dk/dv [B,H,Tk,D] contiguous, in the
 //   input dtype, accumulated in f32.
@@ -54,35 +54,52 @@
 //   Registers: at D 128 the dk and dv accumulators alone take 128 a lane,
 //   so the A fragments of Q/dO (dq) and K/V (dkv) are read from shared
 //   memory again each tile where D > 64 rather than held.
-// f32: CUDA cores in full f32, with CTAs of 256 threads in which four
-// threads share one row of a 64-row tile, and tiles staged in shared
-// memory as f32 with rows padded by one word (the 8 rows a warp reads fall
-// in 8 banks).
-//   dq:  one CTA per (b*h, 64-row q tile).  Q and dO stay in shared
-//        memory, lse and delta in registers; the CTA walks the K/V tiles,
-//        recomputes its rows' S and dO V^T, writes dS to shared memory and
-//        accumulates dS K into the D/4 columns each thread owns.
-//   dkv: one CTA per (b*h, 64-row k tile).  K and V stay in shared
-//        memory; the CTA walks the q tiles, recomputes P and dS for its
-//        keys (transposed: a thread's row is a key), and accumulates
-//        P^T dO and dS^T Q into register accumulators for dv and dk.
+// f32: tensor cores at f32 accuracy, as split TF32 (tensor_core.cuh): each
+// operand x as hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
+// (ties away, as cvt.rna rounds, in integer operations), each product
+// three mma.sync.m16n8k8 TF32 products, lo.hi + hi.lo + hi.hi, into one f32
+// accumulator (about 21 bits of each operand, PyTorch's memory-efficient
+// attention's OpMultiplyAddFastF32; single-pass TF32 keeps about 11).  The
+// same shape as bf16: 8 warps x 16 rows, tiles by 16-byte cp.async into
+// f32 tiles whose rows are padded by 4 words (TileF32), double-buffered,
+// zero-filled past Tq and Tk; the same order, skips and epilogue.
+//   dq:  Q/dO A fragments by ldmatrix (an 8 x 4 f32 block is an 8 x 8 b16
+//        matrix) from shared memory each tile; S = Q K^T and dP = dO V^T
+//        (K's and V's B fragments by ldmatrix too), P and dS = P
+//        (dP - delta) scale in f32 from the f32 accumulators, then dQ += dS
+//        K with dS's C fragments as A fragments: k permuted alike on both
+//        sides (tensor_core.cuh), K's B fragments by scalar loads, rows 2t
+//        and 2t + 1 at column g, which hit 32 banks.
+//   dkv: transposed as in bf16: S^T = K Q^T and dP^T = V dO^T over 32 q
+//        rows at a time, then dV += P^T dO and dK += dS^T Q with dO's and
+//        Q's B fragments by scalar loads.  P stays f32 (split, not rounded).
+//   Shared memory: two 128-row tiles and two stages of two sweep tiles,
+//   64 rows up to D 96 (204,800 bytes at D 96), 32 at D 112 and 128.
+//   Registers: one CTA an SM (its shared memory allows no second), so the
+//   launch bounds name 1 CTA an SM: ptxas then takes the registers it
+//   wants (about 200), and the kernels ran 5-10 % faster than under
+//   256 threads alone (about 170).  The CTA's own A fragments (Q/dO,
+//   K/V) are read from shared memory again each tile and split again at
+//   every D: holding them in registers at D <= 64, as bf16 does, ran
+//   slower.
 //
-// What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s
-// f32 outside the tensor cores; inputs read and outputs written once; dq
-// does three Tq x Tk x D products, dkv four, or five in bf16 with P split
-// in two; halved when causal):
+// What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 494.7
+// TFLOP/s dense TF32, 67 TFLOP/s f32 outside the tensor cores; inputs read
+// and outputs written once; dq does three Tq x Tk x D products, dkv four,
+// or five in bf16 with P split in two; halved when causal; three TF32
+// products each in f32):
 //   [32,8,512,64] bf16 causal, the AMP training step: dq 0.0254 ms and
 //     dkv 0.0304 ms, bytes (the products take 0.013 and 0.022 ms);
 //   [1,8,32768,64] bf16 causal, long context: dq 1.67 ms and dkv 2.78 ms,
 //     operations ([1,8,32768,128]: 3.34 and 5.56 ms);
-//   [8,8,512,64] f32 causal, the f32 training step: dq 0.048 ms and dkv
-//     0.064 ms, operations on the CUDA cores.
-// The bf16 kernels read each K/V (Q/dO) tile once per 128 rows (keys) and
-// keep every product on the tensor cores; like the forward, the
-// elementwise work between a warp's products (exp2, masks, dS, packing)
-// is hidden only by the other warps of the SM.  The f32 kernels spend
-// about one shared-memory read per fused multiply-add, so shared-memory
-// bandwidth holds them several times above their bound.
+//   [8,8,512,64] f32 causal, the f32 training step: dq 0.0195 ms and dkv
+//     0.0260 ms, operations as split TF32 (bytes 0.0126 and 0.0151; on
+//     the CUDA cores the same work would take 0.048 and 0.064 ms).
+// The kernels read each K/V (Q/dO) tile once per 128 rows (keys) and keep
+// every product on the tensor cores; like the forward, the elementwise
+// work between a warp's products (exp2, masks, dS, packing, and in f32
+// the splits, four instructions an element of every fragment) is hidden
+// only by the other warps of the SM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,230 +126,6 @@ struct Params {
   int causal;
   float scale;
 };
-
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
-
-// Rows [r0, r0 + 64) of a [len, D] slice with row stride st, into shared
-// memory with row stride D + 1; rows past len are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long st, int r0,
-                                              int len) {
-  for (int e = threadIdx.x; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int gr = r0 + r;
-    dst[r * (D + 1) + c] = gr < len ? src[gr * st + c] : 0.f;
-  }
-}
-
-template <int D>
-constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * kBlockQ * (D + 1) + kBlockQ * (kBlockK + 1));
-}
-
-template <int D>
-constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) *
-         (4 * kBlockK * (D + 1) + 2 * kBlockK * (kBlockQ + 1) + 2 * kBlockQ);
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kBlockK + 1;
-  constexpr int NC = D / kThreadsPerRow;        // dq columns a thread owns
-  constexpr int NS = kBlockK / kThreadsPerRow;  // keys a thread scores
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kBlockQ * DP;
-  float* k_s = do_s + kBlockQ * DP;
-  float* v_s = k_s + kBlockK * DP;
-  float* ds_s = v_s + kBlockK * DP;
-
-  const int tid = threadIdx.x;
-  const int row = tid / kThreadsPerRow;
-  const int sub = tid % kThreadsPerRow;
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
-  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
-  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
-  const int q_off = p.causal ? p.Tk - p.Tq : 0;
-  const int qr = q0 + row;
-  const int qpos = qr + q_off;
-  const bool row_ok = qr < p.Tq;
-  const long long stat = static_cast<long long>(bh) * p.Tq + qr;
-  const float lse = row_ok ? p.lse[stat] : 0.f;
-  const float delta = row_ok ? p.delta[stat] : 0.f;
-
-  load_tile_f32<D>(q_s, q, p.sqt, q0, p.Tq);
-  load_tile_f32<D>(do_s, dout, p.sot, q0, p.Tq);
-
-  float acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
-
-  // keys past the last row of this q tile are masked for every row
-  const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBlockQ) : p.Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K and dS reads are done
-    load_tile_f32<D>(k_s, k, p.skt, k0, p.Tk);
-    load_tile_f32<D>(v_s, v, p.svt, k0, p.Tk);
-    __syncthreads();
-
-    float s[NS], dp[NS];
-#pragma unroll
-    for (int t = 0; t < NS; ++t) s[t] = dp[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = q_s[row * DP + d];
-      const float od = do_s[row * DP + d];
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const int kk = (sub + kThreadsPerRow * t) * DP + d;
-        s[t] += qd * k_s[kk];
-        dp[t] += od * v_s[kk];
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      const int kpos = k0 + sub + kThreadsPerRow * t;
-      const bool valid =
-          row_ok && kpos < p.Tk && (!p.causal || qpos >= kpos);
-      const float pv = valid ? expf(s[t] * p.scale - lse) : 0.f;
-      ds_s[row * PP + sub + kThreadsPerRow * t] =
-          pv * (dp[t] - delta) * p.scale;
-    }
-    // the four threads of a row are lanes of one warp
-    __syncwarp();
-    for (int j = 0; j < kBlockK; ++j) {
-      const float dsj = ds_s[row * PP + j];
-#pragma unroll
-      for (int i = 0; i < NC; ++i)
-        acc[i] += dsj * k_s[j * DP + sub + kThreadsPerRow * i];
-    }
-  }
-
-  if (row_ok) {
-    float* dq = static_cast<float*>(p.dq) + stat * D;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) dq[sub + kThreadsPerRow * i] = acc[i];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_f32_kernel(Params p) {
-  constexpr int DP = D + 1;
-  constexpr int PP = kBlockQ + 1;
-  constexpr int NC = D / kThreadsPerRow;        // dk/dv columns a thread owns
-  constexpr int NS = kBlockQ / kThreadsPerRow;  // q rows a thread scores
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + kBlockK * DP;
-  float* q_s = v_s + kBlockK * DP;
-  float* do_s = q_s + kBlockQ * DP;
-  float* p_s = do_s + kBlockQ * DP;
-  float* ds_s = p_s + kBlockK * PP;
-  float* lse_s = ds_s + kBlockK * PP;
-  float* delta_s = lse_s + kBlockQ;
-
-  const int tid = threadIdx.x;
-  const int row = tid / kThreadsPerRow;  // a key of this tile
-  const int sub = tid % kThreadsPerRow;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kBlockK;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
-  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
-  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
-  const float* lse = p.lse + static_cast<long long>(bh) * p.Tq;
-  const float* delta = p.delta + static_cast<long long>(bh) * p.Tq;
-  const int q_off = p.causal ? p.Tk - p.Tq : 0;
-  const int kr = k0 + row;
-  const bool key_ok = kr < p.Tk;
-
-  load_tile_f32<D>(k_s, k, p.skt, k0, p.Tk);
-  load_tile_f32<D>(v_s, v, p.svt, k0, p.Tk);
-
-  float dk_acc[NC], dv_acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-
-  // q rows before k0 - q_off see none of this tile's keys
-  const int q_begin =
-      p.causal ? (max(0, k0 - q_off) / kBlockQ) * kBlockQ : 0;
-  for (int q0 = q_begin; q0 < p.Tq; q0 += kBlockQ) {
-    __syncthreads();  // the previous tile's Q, dO, P and dS reads are done
-    load_tile_f32<D>(q_s, q, p.sqt, q0, p.Tq);
-    load_tile_f32<D>(do_s, dout, p.sot, q0, p.Tq);
-    if (tid < kBlockQ) {
-      const bool ok = q0 + tid < p.Tq;
-      lse_s[tid] = ok ? lse[q0 + tid] : 0.f;
-      delta_s[tid] = ok ? delta[q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NS], dp[NS];
-#pragma unroll
-    for (int t = 0; t < NS; ++t) s[t] = dp[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float kd = k_s[row * DP + d];
-      const float vd = v_s[row * DP + d];
-#pragma unroll
-      for (int t = 0; t < NS; ++t) {
-        const int qq = (sub + kThreadsPerRow * t) * DP + d;
-        s[t] += q_s[qq] * kd;
-        dp[t] += do_s[qq] * vd;
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      const int i = sub + kThreadsPerRow * t;
-      const int qi = q0 + i;
-      const bool valid =
-          key_ok && qi < p.Tq && (!p.causal || qi + q_off >= kr);
-      const float pv = valid ? expf(s[t] * p.scale - lse_s[i]) : 0.f;
-      p_s[row * PP + i] = pv;
-      ds_s[row * PP + i] = pv * (dp[t] - delta_s[i]) * p.scale;
-    }
-    __syncwarp();
-    for (int i = 0; i < kBlockQ; ++i) {
-      const float pi = p_s[row * PP + i];
-      const float dsi = ds_s[row * PP + i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = i * DP + sub + kThreadsPerRow * c;
-        dv_acc[c] += pi * do_s[col];
-        dk_acc[c] += dsi * q_s[col];
-      }
-    }
-  }
-
-  if (key_ok) {
-    const long long off = (static_cast<long long>(bh) * p.Tk + kr) * D;
-    float* dk = static_cast<float*>(p.dk) + off;
-    float* dv = static_cast<float*>(p.dv) + off;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[sub + kThreadsPerRow * c] = dk_acc[c];
-      dv[sub + kThreadsPerRow * c] = dv_acc[c];
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -742,19 +535,380 @@ __global__ void __launch_bounds__(kTcThreads)
                    p.Tk);
 }
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores, split TF32
+// ---------------------------------------------------------------------------
+
+constexpr size_t kMaxSmem = 232448;  // a CTA's dynamic shared memory
+
+// The rows of the tiles the f32 kernels walk over: 64, or 32 where two
+// stages of 64-row tiles would not fit beside the CTA's own two 128-row
+// tiles (D 112 and 128).
+template <int D>
+__host__ __device__ constexpr int f32_sweep() {
+  return sizeof(float) * (TileF32<D>::kStride * (2 * kTcRows + 4 * 64) +
+                          4 * 64) <= kMaxSmem
+             ? 64
+             : 32;
+}
+
+// As tc_smem_bytes, in f32 tiles.
+template <int D>
+constexpr size_t f32_smem_bytes(bool stats) {
+  return sizeof(float) * (TileF32<D>::kStride *
+                              (2 * kTcRows + 4 * f32_sweep<D>()) +
+                          (stats ? 4 * f32_sweep<D>() : 0));
+}
+
+// The A fragment (f32 bits, unsplit) of rows [r0, r0 + 16) at columns
+// [8 kk, 8 kk + 8) of an f32 tile of layout L, by ldmatrix: blocks rows
+// 0-7 and 8-15 at columns 0-3, then the same at columns 4-7.
+template <class L>
+__device__ __forceinline__ void a_frag_f32(uint32_t (&a)[4],
+                                           const float* tile, int r0,
+                                           int kk) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + L::at(r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
+                              8 * kk + (lane >> 4) * 4));
+}
+
+// c[j] += A . B^T at f32 accuracy for A = rows [a_r0, a_r0 + 16) of an f32
+// tile of layout L and B = rows [r0, r0 + 8 kN) of another: c[j] holds the
+// 16 x 8 block of B rows r0 + 8 j.  Each A fragment is split once for the
+// kN blocks, each B fragment once.
+template <class L, int D, int kN>
+__device__ __forceinline__ void mma_abt_f32(float (&c)[kN][4],
+                                            const float* a_tile, int a_r0,
+                                            const float* b_tile, int r0) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t af[4], a_hi[4], a_lo[4];
+    a_frag_f32<L>(af, a_tile, a_r0, kk);
+    split_tf32(af, a_hi, a_lo);
+#pragma unroll
+    for (int j = 0; j < kN; j += 2) {
+      // blocks: B rows r0+8j..+7 at columns 8kk.. and 8kk+4.., then rows
+      // r0+8j+8..+15 at the same two columns: b0, b1 of block j, then of
+      // block j + 1
+      uint32_t bf[4], b_hi[4], b_lo[4];
+      ldmatrix_x4(bf, b_tile + L::at(r0 + 8 * j + (lane & 7) +
+                                         ((lane >> 4) << 3),
+                                     8 * kk + ((lane >> 3) & 1) * 4));
+      split_tf32(bf, b_hi, b_lo);
+      mma_split_tf32(c[j], a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
+      mma_split_tf32(c[j + 1], a_hi, a_lo, b_hi[2], b_hi[3], b_lo[2],
+                     b_lo[3]);
+    }
+  }
+}
+
+// acc += A . B at f32 accuracy, A the 16 x 8 kK C fragments c[j] (16 rows
+// against B rows r0 + 8 j..), B rows [r0, r0 + 8 kK) of an f32 tile of
+// layout L: acc[n] holds columns 8n..8n+7.  k is permuted alike on both
+// sides (tensor_core.cuh): A's (t, t+4) are C's columns (2t, 2t+1) and B's
+// rows (t, t+4) are tile rows 2t and 2t+1, read by scalar loads.
+template <class L, int D, int kK>
+__device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 8][4],
+                                           const float (&c)[kK][4],
+                                           const float* b_tile, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kK; ++j) {
+    const uint32_t af[4] = {__float_as_uint(c[j][0]),
+                            __float_as_uint(c[j][2]),
+                            __float_as_uint(c[j][1]),
+                            __float_as_uint(c[j][3])};
+    uint32_t a_hi[4], a_lo[4];
+    split_tf32(af, a_hi, a_lo);
+    const float* b = b_tile + L::at(r0 + 8 * j + 2 * t, g);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const uint32_t bf[2] = {__float_as_uint(b[8 * n]),
+                              __float_as_uint(b[L::kStride + 8 * n])};
+      uint32_t b_hi[2], b_lo[2];
+      split_tf32(bf, b_hi, b_lo);
+      mma_split_tf32(acc[n], a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0],
+                     b_lo[1]);
+    }
+  }
+}
+
+// Writes the 16 x D accumulator into the warp's rows [r0, r0 + 16) of an
+// f32 tile of layout L, then stores those rows whose index row0 + r is
+// below n_rows to dst (row-major, row stride D) in 16-byte chunks.
+template <class L, int D>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[D / 8][4],
+                                               float* tile, int r0,
+                                               float* dst, int row0,
+                                               int n_rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  __syncwarp();  // the warp's last reads of these rows are done
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(tile + L::at(r0 + g + 8 * r, 8 * n + 2 * t)) =
+          make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * L::kChunks; i += 32) {
+    const int r = i / L::kChunks, c = i % L::kChunks;
+    if (row0 + r < n_rows)
+      *reinterpret_cast<float4*>(dst + static_cast<long long>(row0 + r) * D +
+                                 4 * c) =
+          *reinterpret_cast<const float4*>(tile + L::at(r0 + r, 4 * c));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_f32_kernel(Params p) {
+  using L = TileF32<D>;
+  constexpr int kBQ = kTcRows, kBK = f32_sweep<D>();
+  constexpr int kTileElems = kBK * L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_s = reinterpret_cast<float*>(smem_raw);
+  float* do_s = q_s + kBQ * L::kStride;
+  float* kv_s = do_s + kBQ * L::kStride;  // [stage][K tile, V tile]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // keys past the last row of this q tile are masked for every row
+  const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBQ) : p.Tk;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int wr0 = 16 * warp;     // the warp's first row in the tile
+  const int wq0 = q0 + wr0;      // its first query row
+  const int wpos = q_off + wq0;  // and that row's causal position
+  const float scale_log2 = p.scale * kLog2e;
+
+  // lse (log2 units) and delta of rows g and g + 8; padded rows have
+  // zero Q and dO, so their P is finite and their dS 0
+  float neg_lse[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qr = wq0 + g + 8 * r;
+    const long long stat = static_cast<long long>(bh) * p.Tq + qr;
+    neg_lse[r] = qr < p.Tq ? -p.lse[stat] * kLog2e : 0.f;
+    delta[r] = qr < p.Tq ? p.delta[stat] : 0.f;
+  }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile_f32<L, kBQ, kTcThreads>(q_s, q, p.sqt, q0, p.Tq);
+    load_tile_f32<L, kBQ, kTcThreads>(do_s, dout, p.sot, q0, p.Tq);
+    load_tile_f32<L, kBK, kTcThreads>(kv_s, k, p.skt, 0, p.Tk);
+    load_tile_f32<L, kBK, kTcThreads>(kv_s + kTileElems, v, p.svt, 0, p.Tk);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile `it` has landed, and every warp is done with tile it - 1,
+    // whose buffers the copy of tile it + 1 now reuses
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      float* next = kv_s + ((it + 1) & 1) * 2 * kTileElems;
+      const int k1 = (it + 1) * kBK;
+      load_tile_f32<L, kBK, kTcThreads>(next, k, p.skt, k1, p.Tk);
+      load_tile_f32<L, kBK, kTcThreads>(next + kTileElems, v, p.svt, k1,
+                                        p.Tk);
+      cp_async_commit();
+    }
+    const int k0 = it * kBK;
+    // no row of this warp exists or sees any key of the tile
+    if (wq0 >= p.Tq || (p.causal && k0 > wpos + 15)) continue;
+    const float* k_s = kv_s + (it & 1) * 2 * kTileElems;
+    const float* v_s = k_s + kTileElems;
+
+    // s[j][e], dp[j][e]: row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2
+    float s[kBK / 8][4], dp[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    mma_abt_f32<L, D, kBK / 8>(s, q_s, wr0, k_s, 0);
+    mma_abt_f32<L, D, kBK / 8>(dp, do_s, wr0, v_s, 0);
+
+    const bool interior =
+        k0 + kBK <= p.Tk && (!p.causal || k0 + kBK - 1 <= wpos);
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+        const bool valid =
+            interior ||
+            (kpos < p.Tk && (!p.causal || wpos + g + 8 * r >= kpos));
+        const float pv =
+            valid ? fast_exp2(fmaf(s[j][e], scale_log2, neg_lse[r])) : 0.f;
+        s[j][e] = pv * (dp[j][e] - delta[r]) * p.scale;  // dS, in f32
+      }
+    mma_ab_f32<L, D, kBK / 8>(acc, s, k_s, 0);
+  }
+
+  store_rows_f32<L, D>(acc, q_s, wr0,
+                       static_cast<float*>(p.dq) +
+                           static_cast<long long>(bh) * p.Tq * D,
+                       wq0, p.Tq);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkv_f32_kernel(Params p) {
+  using L = TileF32<D>;
+  constexpr int kBK = kTcRows, kBQ = f32_sweep<D>();
+  constexpr int kSub = 32;  // q rows a warp scores at once
+  constexpr int kTileElems = kBQ * L::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* k_s = reinterpret_cast<float*>(smem_raw);
+  float* v_s = k_s + kBK * L::kStride;
+  float* qo_s = v_s + kBK * L::kStride;  // [stage][Q tile, dO tile]
+  // [stage][-lse log2e, delta] of the stage's kBQ rows
+  float* stat_s = qo_s + 4 * kTileElems;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBK;  // low key tiles, the longest, first
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const float* dout =
+      static_cast<const float*>(p.dout) + b * p.sob + h * p.soh;
+  const float* lse = p.lse + static_cast<long long>(bh) * p.Tq;
+  const float* dlt = p.delta + static_cast<long long>(bh) * p.Tq;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // q rows before k0 - q_off see none of this tile's keys
+  const int q_begin = p.causal ? (max(0, k0 - q_off) / kBQ) * kBQ : 0;
+  const int n_tiles = q_begin < p.Tq ? (p.Tq - q_begin + kBQ - 1) / kBQ : 0;
+  const int wr0 = 16 * warp;  // the warp's first key in the tile
+  const int wk0 = k0 + wr0;   // and in the sequence
+  const float scale_log2 = p.scale * kLog2e;
+
+  // The stage's statistics by plain loads; padded rows are masked
+  auto load_stats = [&](int stage, int q0) {
+    if (threadIdx.x < 2 * kBQ) {
+      const int i = threadIdx.x % kBQ, qi = q0 + i;
+      const bool is_lse = threadIdx.x < kBQ;
+      stat_s[stage * 2 * kBQ + threadIdx.x] =
+          qi >= p.Tq ? 0.f : is_lse ? -lse[qi] * kLog2e : dlt[qi];
+    }
+  };
+
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  if (n_tiles > 0) {
+    load_tile_f32<L, kBK, kTcThreads>(k_s, k, p.skt, k0, p.Tk);
+    load_tile_f32<L, kBK, kTcThreads>(v_s, v, p.svt, k0, p.Tk);
+    load_tile_f32<L, kBQ, kTcThreads>(qo_s, q, p.sqt, q_begin, p.Tq);
+    load_tile_f32<L, kBQ, kTcThreads>(qo_s + kTileElems, dout, p.sot,
+                                      q_begin, p.Tq);
+    cp_async_commit();
+    load_stats(0, q_begin);
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile `it` has landed (its statistics too), and every warp is done
+    // with tile it - 1, whose buffers the copy of tile it + 1 now reuses
+    cp_async_wait<0>();
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      const int stage = (it + 1) & 1, q1 = q_begin + (it + 1) * kBQ;
+      float* next = qo_s + stage * 2 * kTileElems;
+      load_tile_f32<L, kBQ, kTcThreads>(next, q, p.sqt, q1, p.Tq);
+      load_tile_f32<L, kBQ, kTcThreads>(next + kTileElems, dout, p.sot, q1,
+                                        p.Tq);
+      cp_async_commit();
+      load_stats(stage, q1);
+    }
+    if (wk0 >= p.Tk) continue;  // the warp has no key
+    const int q0 = q_begin + it * kBQ;
+    const float* q_s = qo_s + (it & 1) * 2 * kTileElems;
+    const float* do_s = q_s + kTileElems;
+    const float* neg_lse_s = stat_s + (it & 1) * 2 * kBQ;
+    const float* delta_s = neg_lse_s + kBQ;
+
+#pragma unroll
+    for (int sub = 0; sub < kBQ; sub += kSub) {
+      const int qs0 = q0 + sub;  // the first q row scored
+      // no row exists, or none sees the warp's first key
+      if (qs0 >= p.Tq || (p.causal && qs0 + kSub - 1 + q_off < wk0)) continue;
+      // st[j][e], dpt[j][e]: key wk0 + g + 8 (e / 2), q row
+      // qs0 + 8 j + 2 t + e % 2
+      float st[kSub / 8][4], dpt[kSub / 8][4];
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      mma_abt_f32<L, D, kSub / 8>(st, k_s, wr0, q_s, sub);
+      mma_abt_f32<L, D, kSub / 8>(dpt, v_s, wr0, do_s, sub);
+
+      const bool interior = qs0 + kSub <= p.Tq && wk0 + 16 <= p.Tk &&
+                            (!p.causal || qs0 + q_off >= wk0 + 15);
+#pragma unroll
+      for (int j = 0; j < kSub / 8; ++j) {
+        const int col = sub + 8 * j + 2 * t;  // row of the Q tile
+        const float2 nl = *reinterpret_cast<const float2*>(neg_lse_s + col);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = wk0 + g + 8 * (e >> 1), qi = q0 + col + (e & 1);
+          const bool valid =
+              interior || (key < p.Tk && qi < p.Tq &&
+                           (!p.causal || qi + q_off >= key));
+          const float pv =
+              valid ? fast_exp2(fmaf(st[j][e], scale_log2,
+                                     e & 1 ? nl.y : nl.x))
+                    : 0.f;
+          st[j][e] = pv;                                       // P^T
+          dpt[j][e] = pv * (dpt[j][e] - (e & 1 ? dl.y : dl.x)) * p.scale;
+        }
+      }
+      mma_ab_f32<L, D, kSub / 8>(dv, st, do_s, sub);
+      mma_ab_f32<L, D, kSub / 8>(dk, dpt, q_s, sub);
+    }
+  }
+
+  const long long out0 = static_cast<long long>(bh) * p.Tk * D;
+  store_rows_f32<L, D>(dk, k_s, wr0, static_cast<float*>(p.dk) + out0, wk0,
+                       p.Tk);
+  store_rows_f32<L, D>(dv, v_s, wr0, static_cast<float*>(p.dv) + out0, wk0,
+                       p.Tk);
+}
+
 template <int D>
 cudaError_t launch_dq(const Params& p, int bh, int dtype,
                       cudaStream_t stream) {
   const bool f32 = dtype == 0;
   auto kernel = f32 ? flash_bwd_dq_f32_kernel<D> : flash_bwd_dq_bf16_kernel<D>;
-  const size_t smem = f32 ? dq_smem_bytes<D>() : tc_smem_bytes<D>(false);
-  const int rows = f32 ? kBlockQ : kTcRows;
+  const size_t smem = f32 ? f32_smem_bytes<D>(false) : tc_smem_bytes<D>(false);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tq + rows - 1) / rows);
-  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, stream>>>(p);
+  const dim3 grid(bh, (p.Tq + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -764,14 +918,13 @@ cudaError_t launch_dkv(const Params& p, int bh, int dtype,
   const bool f32 = dtype == 0;
   auto kernel =
       f32 ? flash_bwd_dkv_f32_kernel<D> : flash_bwd_dkv_bf16_kernel<D>;
-  const size_t smem = f32 ? dkv_smem_bytes<D>() : tc_smem_bytes<D>(true);
-  const int rows = f32 ? kBlockK : kTcRows;
+  const size_t smem = f32 ? f32_smem_bytes<D>(true) : tc_smem_bytes<D>(true);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tk + rows - 1) / rows);
-  kernel<<<grid, f32 ? kThreads : kTcThreads, smem, stream>>>(p);
+  const dim3 grid(bh, (p.Tk + kTcRows - 1) / kTcRows);
+  kernel<<<grid, kTcThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -803,8 +956,8 @@ int run(Params p, int B, int D, int dtype, void* stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  bf16 rows (base pointers and the B,
-// H and T strides) must be 16-byte aligned.  Each returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  Rows (base pointers and the B, H
+// and T strides) must be 16-byte aligned.  Each returns a cudaError_t.
 int pt_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int B, int H, int Tq,

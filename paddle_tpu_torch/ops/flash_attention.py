@@ -25,9 +25,10 @@ device of ``q``: a CUDA tensor launches the kernels (a build or launch
 failure raises), a CPU or meta tensor takes the plain version.  Each
 kernel's launches are counted: ``flash_attention_fwd.launches``,
 ``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The bf16
-kernels copy their tiles 16 bytes at a time, so a bf16 q, k, v (or dO)
-whose rows are not 16-byte aligned is copied to a contiguous tensor
-first and counted in ``flash_attention_fwd.copies`` or
+forward kernel and both backward kernels copy their tiles 16 bytes at a
+time, so a q, k, v (or dO) whose rows are not 16-byte aligned (bf16 for
+the forward, either dtype for the backward) is copied to a contiguous
+tensor first and counted in ``flash_attention_fwd.copies`` or
 ``flash_attention_bwd.copies`` (the model's permuted ``[B,T,H,D]``
 views are aligned).  The plain backward also runs sliced (dq of some q
 rows, dk/dv of some keys, summed in chunks), which checks the kernels
@@ -109,8 +110,8 @@ def _check(q, k, v):
 
 
 def _aligned(x):
-    """Whether every row of ``x`` starts on 16 bytes, as the bf16
-    kernel's 16-byte cp.async copies need: the base pointer and each B,
+    """Whether every row of ``x`` starts on 16 bytes, as the kernels'
+    16-byte cp.async copies need: the base pointer and each B,
     H and T stride (of a dim longer than 1)."""
     return x.data_ptr() % 16 == 0 and all(
         n == 1 or st * x.element_size() % 16 == 0
@@ -278,7 +279,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
 
 def _bwd_prepare(q, k, v, o, lse, do, dlse):
     """Checks the backward's inputs; returns (q, k, v, dO, lse, delta) as
-    the kernels take them: bf16 rows 16-byte aligned (a copy where not,
+    the kernels take them: rows 16-byte aligned (a copy where not,
     counted in ``flash_attention_bwd.copies``), dO in q's dtype with a
     unit-stride head dim."""
     _check(q, k, v)
@@ -294,9 +295,8 @@ def _bwd_prepare(q, k, v, o, lse, do, dlse):
     if do.stride(3) != 1:
         do = do.contiguous()   # the kernels need a unit-stride head dim
     delta = _delta(o, do, dlse).contiguous()
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = (_aligned_copy(x, flash_attention_bwd)
-                       for x in (q, k, v, do))
+    q, k, v, do = (_aligned_copy(x, flash_attention_bwd)
+                   for x in (q, k, v, do))
     return q, k, v, do, lse.contiguous(), delta
 
 

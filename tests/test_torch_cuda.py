@@ -12,10 +12,12 @@ within 3e-2 (P is rounded to bf16 before P.V), ``lse`` within 1e-3.  The
 backward kernels are held against ``flash_attention_bwd_plain`` within
 ``1e-4 * max(1, max|ref|)`` in f32 and ``3e-2 * max(1, max|ref|)`` in
 bf16 (dS rounded to bf16 in both, at other points of the sum), over
-every bf16 head dim, ragged and one-key lengths, strided and misaligned
+every head dim, ragged and one-key lengths, strided and misaligned
 views (the latter copied and counted); two launches give the same bits,
-and the bf16 dV is nearer the plain version than dV with P rounded to
-bf16 is (P stays f32, as in the Pallas kernel).  A
+the bf16 dV is nearer the plain version than dV with P rounded to bf16
+is (P stays f32, as in the Pallas kernel), and the f32 grads (split
+TF32) are at least 10x nearer the plain version than the plain version
+on TF32-rounded inputs is.  A
 training step of the tiny LM on the card matches the CPU within
 rtol=atol=1e-4 in the loss and every parameter grad.
 
@@ -187,6 +189,14 @@ BWD_CASES = [
     (2, 2, 130, 130, 128, False, "float32", False, True),
     (2, 8, 512, 512, 64, True, "float32", True, False),
     (1, 2, 20, 1, 32, True, "float32", False, False),    # one key
+    # the f32 kernels (split TF32) at the other head dims, several tiles
+    # on both sides, and non-square at 16, 48 and 128, whose products
+    # permute k on both sides
+    (1, 2, 77, 141, 48, True, "float32", False, True),   # Tq < Tk, dlse
+    (1, 2, 150, 150, 80, False, "float32", True, False),  # strided
+    (1, 2, 129, 257, 96, True, "float32", False, False),
+    (1, 2, 260, 100, 112, True, "float32", False, False),  # fully masked
+    (1, 2, 150, 40, 128, True, "float32", True, False),  # the same, d 128
     (1, 2, 48, 48, 32, True, "bfloat16", False, False),
     (1, 2, 37, 61, 16, True, "bfloat16", True, True),
     # the tensor-core kernels at every head dim they take, causal and
@@ -285,7 +295,7 @@ def test_flash_bwd_kernels_take_views(cuda, layout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 128),
-                                     ("float32", 64)])
+                                     ("float32", 64), ("float32", 128)])
 def test_flash_bwd_kernels_are_deterministic(cuda, dtype, d):
     """No atomics: two launches on the same inputs give the same bits."""
     rng = np.random.RandomState(5)
@@ -320,6 +330,36 @@ def test_flash_bwd_keeps_p_in_f32_for_dv(cuda):
     err = (dv.float() - want.float()).norm().item()
     err_rounded = (rounded.float() - want.float()).norm().item()
     assert err < err_rounded, (err, err_rounded)
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as cvt.rna rounds: half a TF32 step added to the magnitude's
+    bits, then the 13 bits below it cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_f32_is_not_single_pass_tf32(cuda):
+    """The f32 kernels' products are split TF32, three TF32 products on
+    each operand's high and low halves (about 21 bits of each), not one
+    TF32 product (about 11): their dq, dk and dv are at least 10x nearer
+    the plain version than the plain version on TF32-rounded q, k, v and
+    dO is."""
+    b, h, t, d = 2, 4, 300, 64
+    rng = np.random.RandomState(7)
+    q, k, v, do = _bwd_inputs(rng, cuda, b, h, t, t, d, "float32", True)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, True, scale)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True, scale)
+    tf32 = fa.flash_attention_bwd_plain(_tf32(q), _tf32(k), _tf32(v), o,
+                                        lse, _tf32(do), True, scale)
+    for name, g, w, r in zip(("dq", "dk", "dv"), got, want, tf32):
+        err = (g - w).norm().item()
+        err_tf32 = (r - w).norm().item()
+        assert 10 * err <= err_tf32, (name, err, err_tf32)
 
 
 @pytest.mark.cuda

@@ -8,9 +8,9 @@ source tree on one NVIDIA GPU, by CUDA-graph replay and by CUDA events.
 this one), so two versions of the kernels are compared on one card in
 one call, in turns: ``--root old``, then this tree twice, then ``old``
 again.  The timers are ``chip_smoke.py``'s.  Shapes: the LM's AMP step
-(``[32,8,512,64]`` bf16), its f32 step (``[8,8,512,64]``) and the
-bench's two 32768-token long-context shapes (bf16, d 64 and 128), all
-causal over permuted ``[B,T,H,D]`` views.  Prints one JSON line per
+(``[32,8,512,64]`` bf16), its f32 step (``[8,8,512,64]``, and the same
+at d 128) and the bench's two 32768-token long-context shapes (bf16,
+d 64 and 128), all causal over permuted ``[B,T,H,D]`` views.  Prints one JSON line per
 shape, then the card's name and power limit.
 """
 
@@ -29,6 +29,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # (B, H, T, D, dtype, graph-replay and event iterations)
 SHAPES = [(32, 8, 512, 64, "bfloat16", 10),
           (8, 8, 512, 64, "float32", 10),
+          (8, 8, 512, 128, "float32", 10),
           (1, 8, 32768, 64, "bfloat16", 2),
           (1, 8, 32768, 128, "bfloat16", 2)]
 
