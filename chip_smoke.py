@@ -15,8 +15,10 @@ Phases, none of which catches its own failure:
      shapes among them, and the bench's two 32768-token long-context
      shapes, held on their last 1024 query rows, also at a tolerance
      that a planted fault, one zeroed V tile, must break), and times the
-     kernel, the plain version and one PyTorch library call; no case may
-     copy its inputs (bf16 rows not 16-byte aligned);
+     kernel (by CUDA-graph replay and by events; the f32 step's shape at
+     d 64 and 128 among the cases), the plain version and one PyTorch
+     library call (SDPA); no case may copy its inputs (rows not 16-byte
+     aligned, or a head dim padded to a multiple of 16);
   3. serves the Transformer-base LM (vocab 32000, d_model 512, 8 heads,
      d_inner 2048, 6 layers, seq 512, random weights from --seed) through
      save_inference_model -> create_predictor(Config(dir)) -> run, counts
@@ -45,13 +47,16 @@ Phases, none of which catches its own failure:
   6. holds the fc_epilogue kernel against its plain version over every
      fc stage subset (and the tanh gelu) at ragged shapes in f32 and
      bf16, and at the AMP path's three shapes (M 16384: out-proj, fc1,
-     fc2), times it there beside the plain version, the flag-off chain
-     and torch.addmm, and checks its autograd Function;
+     fc2), which must take the wgmma path, times it there by CUDA-graph
+     replay and by events beside the plain version, the flag-off chain
+     and torch.addmm, logs each call's path and TFLOP/s, and checks its
+     autograd Function;
   7. trains the LM in the bench's AMP configuration (fuse_epilogue
      anchors=("fc",), bf16 AMP with static loss scaling 1.0,
      Adam(1e-4, fuse=True), flag fc_epilogue "on") at batch 32: one
-     warm-up and 5 counted steps, 36 fc_epilogue and 12/6/6 flash
-     launches a step, loss finite and falling; then the batch-2 step on
+     warm-up and 5 counted steps, 36 fc_epilogue (all on its wgmma path)
+     and 12/6/6 flash launches a step, loss finite and falling; then the
+     batch-2 step on
      the card against the CPU (flag "interpret");
   8. holds the conv kernels (conv_epilogue, conv_stats) against their
      plain versions over every conv stage subset at small ragged shapes
@@ -149,8 +154,9 @@ SPLIT_TF32_PRODUCTS = 3
 TOL = {"float32": {"out": 1e-4, "lse": 1e-4},
        "bfloat16": {"out": 3e-2, "lse": 1e-3}}
 # GPU vs CPU logits of the full model: f32 throughout (cuBLAS with TF32
-# off; the flash forward's f32 path on the CUDA cores), so only summation
-# order differs across ~16 f32 reductions of width <= 2048.
+# off; the flash forward's f32 products split TF32, about 21 bits of each
+# operand), so little but summation order differs across ~16 f32
+# reductions of width <= 2048.
 LOGITS_ATOL = LOGITS_RTOL = 2e-3
 ARGMAX_AGREE = 0.999
 # backward kernels vs their plain version, relative to the reference's
@@ -351,12 +357,14 @@ FLASH_CASES = [
     (1, 2, 64, 96, 32, False, "float32", True),
     (2, 4, 128, 256, 64, True, "bfloat16", False),
     (1, 2, 97, 97, 128, False, "bfloat16", False),
+    (BATCH, 8, 512, 512, 128, True, "float32", True),
     (BATCH, 8, 512, 512, 64, True, "float32", True),
     (BATCH, 8, 512, 512, 64, True, "bfloat16", True),
     (AMP_BATCH, 8, 512, 512, 64, True, "bfloat16", True),
 ]
 MAIN_CASE = FLASH_CASES[-3]
 AMP_CASE = FLASH_CASES[-1]
+F32_D128_CASE = FLASH_CASES[-4]
 # the bench's longctx and longctx_d128 legs (bench.py:998-1104), causal at
 # 32768 tokens: timed whole, and held against the plain version on their
 # last LONG_CHECK_ROWS query rows, which the plain version computes exactly
@@ -791,32 +799,49 @@ def check_fc_epilogue(device, seed):
         act = ep.EpilogueSpec.from_attr(attr).act
         for dtype in ("float32", "bfloat16"):
             x, w, b, r = fc_operands(rng, device, m, k, n, attr, dtype)
+            before = dict(ep.fc_epilogue.launches_by_path)
             got = ep.fc_epilogue_kernel(x, w, b, r, act)
             torch.cuda.synchronize()
+            path = next(p for p, c in ep.fc_epilogue.launches_by_path.items()
+                        if c != before[p])
             want = ep.fc_epilogue_plain(x, w, b, r, act, False)
             err = fc_err(got, want)
             if err > FC_TOL[dtype]:
                 raise AssertionError(f"fc_epilogue disagrees with its plain "
                                      f"version at {name} {dtype}: {err:.3e}")
+
+            def kernel():
+                return ep.fc_epilogue_kernel(x, w, b, r, act)
+
             if dtype == "float32":     # the f32 kernel, off the AMP path
-                ms = cuda_ms(lambda: ep.fc_epilogue_kernel(x, w, b, r, act),
-                             20)
-                log(f"fc_epilogue {name} f32: scaled err {err:.3e}, "
-                    f"ms {ms:.4f}")
+                ms = cuda_ms(kernel, 20)
+                log(f"fc_epilogue {name} f32 ({path} path): scaled err "
+                    f"{err:.3e}, ms {ms:.4f}")
                 continue
+            if path != "wgmma":
+                raise AssertionError(f"fc_epilogue {name} took the {path} "
+                                     "path, not wgmma")
             addend = r if b is None else b
             bound_ms, bound_by = fc_bound_ms(m, k, n, attr, dtype)
+
+            def chain():
+                return ep._fc_reference(x, w, b, r, act, False)
+
+            def addmm():
+                return torch.addmm(addend, x, w)
+
+            # device times by CUDA-graph replay; event_ms times the calls
+            # as issued (how fc_epilogue was timed before graph replay)
             row = dict(
                 name=name, shape=[m, k, n], epilogue=attr, dtype=dtype,
+                path=path,
                 max_abs_err=(got.float() - want.float()).abs().max().item(),
-                scaled_err=err,
-                ms=cuda_ms(lambda: ep.fc_epilogue_kernel(x, w, b, r, act),
-                           50),
-                plain_ms=cuda_ms(lambda: ep.fc_epilogue_plain(
+                scaled_err=err, ms=graph_ms(kernel, 50),
+                event_ms=cuda_ms(kernel, 50),
+                plain_ms=graph_ms(lambda: ep.fc_epilogue_plain(
                     x, w, b, r, act, False), 20),
-                chain_ms=cuda_ms(lambda: ep._fc_reference(
-                    x, w, b, r, act, False), 50),
-                addmm_ms=cuda_ms(lambda: torch.addmm(addend, x, w), 50),
+                chain_ms=graph_ms(chain, 50), chain_event_ms=cuda_ms(chain, 50),
+                addmm_ms=graph_ms(addmm, 50), addmm_event_ms=cuda_ms(addmm, 50),
                 bound_ms=bound_ms, bound_by=bound_by)
             row["tflops"] = 2.0 * m * k * n / row["ms"] / 1e9
             log("fc_epilogue case " + json.dumps(row))
@@ -1312,6 +1337,8 @@ KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
 # v (or dO) whose rows were not 16-byte aligned, 0 on every main path
 COPIES = "flash_attention_fwd_copies"
 BWD_COPIES = "flash_attention_bwd_copies"
+# beside them: the fc_epilogue launches that took the wgmma path
+FC_WGMMA = "fc_epilogue_wgmma"
 
 
 def kernel_counts():
@@ -1330,7 +1357,8 @@ def kernel_counts():
             "bn_apply": cep.bn_apply_kernel.launches,
             "flash_decode": fd.flash_decode.launches,
             COPIES: fa.flash_attention_fwd.copies,
-            BWD_COPIES: fa.flash_attention_bwd.copies}
+            BWD_COPIES: fa.flash_attention_bwd.copies,
+            FC_WGMMA: ep.fc_epilogue.launches_by_path["wgmma"]}
 
 
 def reset_kernel_counts():
@@ -1344,6 +1372,7 @@ def reset_kernel_counts():
     fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
     fa.flash_attention_bwd.copies = 0
     ep.fc_epilogue.launches = 0
+    ep.fc_epilogue.launches_by_path = dict.fromkeys(ep.FC_PATHS, 0)
     cep.conv_epilogue_kernel.launches = 0
     cep.conv_stats_kernel.launches = 0
     cep.bn_apply_kernel.launches = 0
@@ -1351,20 +1380,23 @@ def reset_kernel_counts():
 
 
 def expected_counts(**per_run):
-    """Every kernel's expected launch count, and the flash kernels'
-    expected copies: 0 unless given."""
-    return {k: per_run.get(k, 0) for k in KERNELS + (COPIES, BWD_COPIES)}
+    """Every kernel's expected launch count, the flash kernels' expected
+    copies and fc_epilogue's expected wgmma-path launches: 0 unless
+    given."""
+    return {k: per_run.get(k, 0)
+            for k in KERNELS + (COPIES, BWD_COPIES, FC_WGMMA)}
 
 
 def lm_expected(types, steps):
     """The LM's launches over ``steps`` steps: per step 12 flash forward
     (6 recomputed in the grads), 6 dq, 6 dkv, and each fc_epilogue op
-    twice (once more in its grad)."""
+    twice (once more in its grad), every one of them on the wgmma path."""
     n = MODEL["n_layer"]
+    fc = 2 * types.count("fc_epilogue") * steps
     return expected_counts(
         flash_attention_fwd=2 * n * steps,
         flash_attention_bwd_dq=n * steps, flash_attention_bwd_dkv=n * steps,
-        fc_epilogue=2 * types.count("fc_epilogue") * steps)
+        fc_epilogue=fc, **{FC_WGMMA: fc})
 
 
 def train(seed, built, feed, what, expected, steps=TRAIN_STEPS,
@@ -2165,6 +2197,7 @@ def main(argv=None):
                     and r["dtype"] == case[6])
 
     main_row, amp_row = row_of(cases, MAIN_CASE), row_of(cases, AMP_CASE)
+    f32_d128 = row_of(cases, F32_D128_CASE)
     bwd_row = row_of(bwd_cases, BWD_MAIN_CASE)
     bwd_amp = row_of(bwd_cases, BWD_AMP_CASE)
 
@@ -2190,8 +2223,11 @@ def main(argv=None):
         "bound_cuda_core_ms": main_row["bound_cuda_core_ms"],
         "library_ms": main_row["library_ms"],
         "design": "mma.sync bf16",
-        "f32_design": "CUDA cores",
+        "f32_design": "split TF32 on mma.sync.m16n8k8",
         "copies_by_path": by_path(COPIES),
+        "f32_d128": {k: f32_d128[k] for k in (
+            "shape", "dtype", "max_abs_err_out", "max_abs_err_lse", "ms",
+            "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "amp_path": {k: amp_row[k] for k in (
             "shape", "dtype", "max_abs_err_out", "ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "copies")},
@@ -2245,14 +2281,22 @@ def main(argv=None):
         "replaces": "paddle_tpu/ops/epilogue.py:370",
         "launches": amp_launches["fc_epilogue"],
         "launches_by_path": by_path("fc_epilogue"),
+        "wgmma_launches_by_path": by_path(FC_WGMMA),
         "max_abs_err": max(r["max_abs_err"] for r in fc_rows),
         "ms": sum(r["ms"] for r in fc_rows),
+        "event_ms": sum(r["event_ms"] for r in fc_rows),
         "plain_ms": sum(r["plain_ms"] for r in fc_rows),
         "bound_ms": sum(r["bound_ms"] for r in fc_rows),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": sum(r["chain_ms"] for r in fc_rows),
+        "library_event_ms": sum(r["chain_event_ms"] for r in fc_rows),
+        "design": "wgmma, TMA ring, persistent (bf16 rows TMA can address); "
+                  "mma.sync otherwise",
+        "per": "one layer's three calls of the AMP step, bf16; ms by "
+               "CUDA-graph replay, event_ms by events",
         "shapes": {r["name"]: {k: r[k] for k in (
-            "shape", "epilogue", "ms", "plain_ms", "chain_ms", "addmm_ms",
+            "shape", "epilogue", "path", "ms", "event_ms", "plain_ms",
+            "chain_ms", "chain_event_ms", "addmm_ms", "addmm_event_ms",
             "bound_ms", "bound_by", "tflops")} for r in fc_rows},
     })
     # the conv kernels and bn_apply: each shape's numbers weighted by its

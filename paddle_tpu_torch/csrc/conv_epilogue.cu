@@ -528,51 +528,13 @@ __global__ void __launch_bounds__(Cfg<kBNW, kSplitN>::kThreads, 1)
   }
 }
 
-// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
-// library does not link libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// A map of the row-major bf16 matrix [rows, cols] at `base`, in boxes of
-// `box_rows` x 64 columns, 128-byte swizzled as the wgmma tiles are, zero
-// outside the matrix.
-cudaError_t encode_tile_map(EncodeTiled encode, CUtensorMap* map,
-                            const void* base, long long rows, int cols,
-                            int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {kBK, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 template <int kBNW, bool kSplitN>
 cudaError_t launch_wgmma(Params p, cudaStream_t s) {
   using C = Cfg<kBNW, kSplitN>;
   static int sms = 0;
-  static EncodeTiled encode = nullptr;
   if (sms == 0) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                            cudaEnableDefault, &found);
-    if (e == cudaSuccess && found != cudaDriverEntryPointSuccess)
-      e = cudaErrorNotSupported;
-    if (e != cudaSuccess) return e;
-    encode = reinterpret_cast<EncodeTiled>(fn);
     int dev = 0;
-    e = cudaGetDevice(&dev);
+    cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
@@ -589,12 +551,12 @@ cudaError_t launch_wgmma(Params p, cudaStream_t s) {
   p.div_ntiles = make_fastdiv(static_cast<uint32_t>(n_tiles));
   // w as [Cout, K]; x as [N*H*W, C] when its rows are the output rows
   CUtensorMap map_w, map_x;
-  cudaError_t e = encode_tile_map(encode, &map_w, p.w, p.Cout, p.K, C::BN);
+  cudaError_t e = encode_tile_map(&map_w, p.w, p.Cout, p.K, C::BN);
   p.tma_x = p.KH == 1 && p.KW == 1 && p.SH == 1 && p.SW == 1 && p.PH == 0 &&
             p.PW == 0 && p.OH == p.H && p.OW == p.W;
   map_x = map_w;
   if (e == cudaSuccess && p.tma_x)
-    e = encode_tile_map(encode, &map_x, p.x, p.M, p.C, C::BM);
+    e = encode_tile_map(&map_x, p.x, p.M, p.C, C::BM);
   if (e != cudaSuccess) return e;
   conv_wgmma_kernel<kBNW, kSplitN><<<grid, C::kThreads, C::kSmemBytes, s>>>(
       p, static_cast<int>(n_tiles), static_cast<int>(tiles), map_w, map_x);

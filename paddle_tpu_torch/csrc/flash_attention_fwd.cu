@@ -3,8 +3,9 @@
 // Replaces paddle_tpu/ops/pallas_kernels.py::_fwd_kernel (wrapper
 // _flash_fwd_pallas, pallas_call at :328).  Contract, read from the Pallas
 // kernel:
-//   q [B,H,Tq,D], k/v [B,H,Tk,D] in f32 or bf16 (any strides over B, H
-//   and T; unit stride over D).  out [B,H,Tq,D] in q's dtype (contiguous),
+//   q [B,H,Tq,D], k/v [B,H,Tk,D] in f32 or bf16 (any 16-byte aligned
+//   strides over B, H and T; unit stride over D; D a multiple of 16 up to
+//   128, which the wrapper pads to).  out [B,H,Tq,D] in q's dtype (contiguous),
 //   lse [B*H,Tq] f32 with lse = m + log(l).
 //   Causal masking is bottom-right aligned (query row i sees keys
 //   k <= i + Tk - Tq).  Masked scores are -1e30 and their probabilities an
@@ -40,13 +41,50 @@
 //   - The epilogue divides by the clamped l, stages O through the warp's
 //     own rows of the Q tile's shared memory and stores it in 16-byte
 //     coalesced chunks; one lane of each quad writes lse.
-// f32 design: CUDA cores in full f32 (no TF32, so the serving path's
-// logits agree with the CPU).  One CTA of 256 threads owns one (b*h,
-// 64-row q tile); four threads share a query row.  The CTA stages each
-// 64-key K/V tile in shared memory and keeps the online softmax state in
-// registers; rows of Q and K are padded by one word so the 8 rows a warp
-// reads at once fall in 8 different banks.
-//
+// f32 design: tensor cores at f32 accuracy, as split TF32 (tensor_core.cuh,
+// as in the f32 backward): each operand x as hi = tf32(x) and lo =
+// tf32(x - hi), rounded to nearest (ties away, as cvt.rna rounds, in
+// integer operations), each product three mma.sync.m16n8k8 TF32 products,
+// lo.hi + hi.lo + hi.hi, into one f32 accumulator (about 21 bits of each
+// operand; single-pass TF32 keeps about 11, and the serving path's
+// logits are held to 2e-3 of the CPU).  The bf16 design's shape: 8 warps
+// x 16 rows, the longest q tiles first, the online softmax in log2 units
+// (exp as ex2.approx.ftz), causal tiles skipped and interior ones
+// unmasked, the fully-masked-row rule, O staged through the warp's Q rows
+// for 16-byte stores.  What differs:
+//   - Splits once per CTA.  K and V tiles land by cp.async in raw f32
+//     tiles (RawF32, rows padded by 8 words), and after each tile's first
+//     barrier the CTA splits them into hi and lo tiles (TileF32, rows
+//     padded by 4 words); the next tile's copies then start into the raw
+//     tiles and run under this tile's products.  The Q tile is split in
+//     place once, into a second (lo) tile, where shared memory allows.
+//     No warp splits a B fragment it loads; only P, which lives in
+//     registers, is split per tile.
+//   - S = Q K^T: A and B fragments by ldmatrix from the split tiles (an
+//     8 x 4 f32 block is an 8 x 8 b16 matrix); the three passes run over
+//     every key block in turn, so consecutive products are independent.
+//   - O += P V: P's C fragment is the A fragment with k permuted alike
+//     on both sides (keys 2t, 2t + 1 at k positions t, t + 4).  V is
+//     split into V^T tiles whose keys are stored in that permuted order
+//     (0 2 4 6 1 3 5 7 in each group of 8), so its B fragments come by
+//     ldmatrix too, with no scalar loads; a warp splits 16 keys x 2
+//     chunks at a time, so the transposed writes hit 32 banks.
+//   - Short chains on the tensor cores.  They truncate as they
+//     accumulate, so a long chain of products into one accumulator is
+//     biased toward zero: with S over D / 8 k steps and O over every
+//     tile's products on them, the output read 2.4e-6 to 3.6e-6 from the
+//     plain version at [8,8,512,64] and the f32 step's batch-2 grads
+//     (layer-norm biases among them) drifted from the CPU's coherently,
+//     past their bounds.  So each k step of S and each key block of P V
+//     (three products) goes to a fresh accumulator, which is added to S
+//     or O by FADD, rounding to nearest.
+//   - Shared memory (232,448 bytes a CTA): the Q tile(s), the raw K/V
+//     tiles, the K hi/lo and V^T hi/lo tiles.  Sweep per D (f32_sweep,
+//     f32_q_split): 64 keys a tile up to D 80 with Q split (176,128 bytes
+//     at D 64, 217,600 at D 80), 32 keys at D 96 and 112 with Q split
+//     (182,272 and 211,456), 32 keys at D 128 with Q's A fragments split
+//     each tile (173,056; Q's split tiles would need 240,640).  One CTA
+//     an SM, hence __launch_bounds__(256, 1).
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s
 // f32 outside the tensor cores; q, k, v, out and lse each moved once, two
 // Tq x Tk x D products, halved when causal):
@@ -54,8 +92,9 @@
 //     bytes (8.6 GFLOP take 0.0087 ms);
 //   [1,8,32768,64] bf16 causal, long context: 1.10 TFLOP, 1.11 ms,
 //     operations ([1,8,32768,128]: 2.20 TFLOP, 2.22 ms);
-//   [8,8,512,64] f32 causal, serving: 2.15 GFLOP on the CUDA cores,
-//     0.032 ms, operations.
+//   [8,8,512,64] f32 causal, serving and the f32 step: 2.15 GFLOP as
+//     three TF32 products each, 0.0130 ms at 494.7 TFLOP/s, operations
+//     (bytes 0.0101 ms; on the CUDA cores the same work takes 0.032 ms).
 // The bf16 design reads each K/V tile once per 128 query rows and keeps
 // every product on the tensor cores, so both bf16 shapes are bound by its
 // arithmetic rate, not by bytes.  mma.sync issues from the warp's own
@@ -64,9 +103,10 @@
 // products instead of under them; only the other warps of the SM hide it.
 // wgmma fed by TMA from a producer warp, with two warpgroups in ping-pong
 // so one's softmax runs under the other's products, is the next step;
-// PERF.md has the times.  The f32 design spends about one shared-memory
-// read per fused multiply-add, so shared-memory bandwidth holds it several
-// times above its bound.
+// PERF.md has the times.  The f32 design moves four times bf16's bytes
+// through shared memory (hi and lo of f32): every warp reads every K and
+// V fragment, 72 KB a warp a 64-key tile against 384 mma.sync, and the
+// split phase between a tile's two barriers runs no products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -93,141 +133,6 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreadsPerRow = 4;
-constexpr int kThreads = kBlockQ * kThreadsPerRow;
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * (D + 1) + kBlockK * (D + 1) +
-                          kBlockK * D + kBlockQ * (kBlockK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Params p) {
-  constexpr int DP = D + 1;                     // padded Q/K row stride
-  constexpr int PP = kBlockK + 1;               // padded P row stride
-  constexpr int NC = D / kThreadsPerRow;        // output columns a thread owns
-  constexpr int NS = kBlockK / kThreadsPerRow;  // scores a thread owns
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kBlockQ * DP;
-  float* v_s = k_s + kBlockK * DP;
-  float* p_s = v_s + kBlockK * D;
-
-  const int tid = threadIdx.x;
-  const int row = tid / kThreadsPerRow;
-  const int sub = tid % kThreadsPerRow;
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBlockQ;
-  const int b = bh / p.H;
-  const int h = bh % p.H;
-  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
-  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
-  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
-  const int q_off = p.causal ? p.Tk - p.Tq : 0;
-  const int qpos = q0 + row + q_off;
-
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    const int qr = q0 + r;
-    q_s[r * DP + c] = qr < p.Tq ? q[qr * p.sqt + c] : 0.f;
-  }
-
-  float acc[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) acc[i] = 0.f;
-  float m = kNegInf;
-  float l = 0.f;
-
-  // keys past the last row of this q tile are masked for every row
-  const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBlockQ) : p.Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      const int kr = k0 + r;
-      const bool ok = kr < p.Tk;
-      k_s[r * DP + c] = ok ? k[kr * p.skt + c] : 0.f;
-      v_s[r * D + c] = ok ? v[kr * p.svt + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[NS];
-#pragma unroll
-    for (int t = 0; t < NS; ++t) s[t] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float qd = q_s[row * DP + d];
-#pragma unroll
-      for (int t = 0; t < NS; ++t)
-        s[t] += qd * k_s[(sub + kThreadsPerRow * t) * DP + d];
-    }
-    float tile_max = kNegInf;
-    unsigned valid_bits = 0;
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      const int kpos = k0 + sub + kThreadsPerRow * t;
-      const bool valid = kpos < p.Tk && (!p.causal || qpos >= kpos);
-      valid_bits |= (valid ? 1u : 0u) << t;
-      s[t] = valid ? s[t] * p.scale : kNegInf;
-      tile_max = fmaxf(tile_max, s[t]);
-    }
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 1));
-    tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, 2));
-    const float m_next = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_next);
-    float psum = 0.f;
-#pragma unroll
-    for (int t = 0; t < NS; ++t) {
-      const float pv = (valid_bits >> t) & 1u ? expf(s[t] - m_next) : 0.f;
-      psum += pv;
-      p_s[row * PP + sub + kThreadsPerRow * t] = pv;
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-    l = l * alpha + psum;
-    m = m_next;
-    // the four threads of a row are lanes of one warp
-    __syncwarp();
-#pragma unroll
-    for (int i = 0; i < NC; ++i) acc[i] *= alpha;
-    for (int j = 0; j < kBlockK; ++j) {
-      const float pj = p_s[row * PP + j];
-#pragma unroll
-      for (int i = 0; i < NC; ++i)
-        acc[i] += pj * v_s[j * D + sub + kThreadsPerRow * i];
-    }
-  }
-
-  const int qr = q0 + row;
-  if (qr < p.Tq) {
-    const float lc = l == 0.f ? 1.f : l;
-    float* o = static_cast<float*>(p.out) +
-               (static_cast<long long>(bh) * p.Tq + qr) * D;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) o[sub + kThreadsPerRow * i] = acc[i] / lc;
-    if (sub == 0)
-      p.lse[static_cast<long long>(bh) * p.Tq + qr] = m + logf(lc);
-  }
-}
-
-template <int D>
-cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tq + kBlockQ - 1) / kBlockQ);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
 
@@ -246,22 +151,23 @@ constexpr size_t bf16_smem_bytes() {
          (kTcBlockQ + 4 * kTcBlockK);
 }
 
-// One tile's online-softmax step on a warp's S accumulator: s[j][e] holds
-// row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2 of the warp's 16 rows
+// One tile's online-softmax step on a warp's S accumulator of kN 8-key
+// blocks: s[j][e] holds row g + 8 (e / 2), key k0 + 8 j + 2 t + e % 2 of
+// the warp's 16 rows
 // (g = lane / 4, t = lane % 4; qpos0 is the causal position of row 0).
 // Masks S where kMasked, updates the running max m (log2 units: scaled by
 // scale * log2 e) and this thread's share of the running sum l, leaves p =
 // 2^(s * scale_log2 - m) in s and returns each row's rescale factor in
 // alpha.
-template <bool kMasked>
+template <bool kMasked, int kN>
 __device__ __forceinline__ void online_softmax(
-    float (&s)[kTcBlockK / 8][4], float (&m)[2], float (&l)[2],
+    float (&s)[kN][4], float (&m)[2], float (&l)[2],
     float (&alpha)[2], const Params& p, float scale_log2, int k0,
     int qpos0) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int j = 0; j < kTcBlockK / 8; ++j)
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       if (kMasked) {
@@ -283,7 +189,7 @@ __device__ __forceinline__ void online_softmax(
   }
   float rs[2] = {0.f, 0.f};
 #pragma unroll
-  for (int j = 0; j < kTcBlockK / 8; ++j)
+  for (int j = 0; j < kN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       // a masked entry is an explicit 0: in a row that has seen no key
@@ -476,6 +382,377 @@ cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// f32: tensor cores, split TF32
+// ---------------------------------------------------------------------------
+
+constexpr size_t kMaxSmem = 232448;  // a CTA's dynamic shared memory
+
+// The tiles cp.async lands K and V in before they are split: rows padded
+// by 8 words, so the transposed V split's reads (4 rows of 2 chunks a
+// phase) hit 32 banks.
+template <int D>
+struct RawF32 {
+  static constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  static constexpr int kStride = D + 8;  // words a row
+  __device__ static __forceinline__ int at(int row, int col) {
+    return row * kStride + col;
+  }
+};
+
+// Shared memory of the f32 kernel at head dim D and kSweep keys a tile:
+// the Q tile (hi and lo when kQSplit), the raw K and V tiles, K's hi and
+// lo tiles and V^T's hi and lo tiles.
+template <int D, int kSweep, bool kQSplit>
+__host__ __device__ constexpr size_t f32_smem_bytes() {
+  return sizeof(float) *
+         ((kQSplit ? 2 : 1) * kTcBlockQ * TileF32<D>::kStride +
+          2 * kSweep * RawF32<D>::kStride + 2 * kSweep * TileF32<D>::kStride +
+          2 * D * TileF32<kSweep>::kStride);
+}
+
+// 64 keys a tile where that fits beside Q's split tiles, else 32; Q is
+// split once per CTA where its two tiles fit beside them, else its A
+// fragments are split each tile (D 128).
+template <int D>
+__host__ __device__ constexpr int f32_sweep() {
+  return f32_smem_bytes<D, 64, true>() <= kMaxSmem ? 64 : 32;
+}
+
+template <int D>
+__host__ __device__ constexpr bool f32_q_split() {
+  return f32_smem_bytes<D, f32_sweep<D>(), true>() <= kMaxSmem;
+}
+
+// hi and lo (tensor_core.cuh's split) of the four f32 values at src.
+__device__ __forceinline__ void split4(const float* src, uint4& hi,
+                                       uint4& lo) {
+  const uint4 x = *reinterpret_cast<const uint4*>(src);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  uint32_t h[4], l[4];
+  split_tf32(xs, h, l);
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
+}
+
+// The CTA splits rows [0, kRows) of `raw` (layout R) into hi and lo tiles
+// of layout L, a 16-byte chunk a thread at a time; raw may be hi itself.
+template <class R, class L, int kRows>
+__device__ __forceinline__ void split_rows(const float* raw, float* hi,
+                                           float* lo) {
+  constexpr int kCopies = kRows * L::kChunks;
+#pragma unroll
+  for (int i = 0; i < (kCopies + kTcThreads - 1) / kTcThreads; ++i) {
+    const int idx = threadIdx.x + i * kTcThreads;
+    if (kCopies % kTcThreads != 0 && idx >= kCopies) break;
+    const int r = idx / L::kChunks, c = idx % L::kChunks;
+    uint4 h, l;
+    split4(raw + R::at(r, 4 * c), h, l);
+    *reinterpret_cast<uint4*>(hi + L::at(r, 4 * c)) = h;
+    *reinterpret_cast<uint4*>(lo + L::at(r, 4 * c)) = l;
+  }
+}
+
+// The CTA splits the raw V tile (kSweep keys x D) into the hi and lo
+// tiles of V^T (D rows of kSweep keys, layout TileF32<kSweep>), the keys
+// of each group of 8 stored in the order 0 2 4 6 1 3 5 7: position t
+// holds key 2t and position t + 4 key 2t + 1, so ldmatrix hands lane
+// (g, t) the B fragment whose k rows (t, t + 4) are keys (2t, 2t + 1),
+// the k order of a C fragment used as an A fragment (tensor_core.cuh).
+// A warp splits 16 keys x 2 chunks at a time, so its raw reads and its
+// transposed writes each hit 32 banks.
+template <int D, int kSweep>
+__device__ __forceinline__ void split_v_t(const float* raw, float* vt_hi,
+                                          float* vt_lo) {
+  using R = RawF32<D>;
+  using LT = TileF32<kSweep>;
+  constexpr int kPairs = D / 8;                   // chunk pairs a row
+  constexpr int kUnits = kSweep / 16 * kPairs;    // warp-sized pieces
+  constexpr int kWarps = kTcThreads / 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < (kUnits + kWarps - 1) / kWarps; ++i) {
+    const int u = warp + i * kWarps;
+    if (kUnits % kWarps != 0 && u >= kUnits) break;
+    const int r = (u / kPairs) * 16 + (lane >> 1);
+    const int c = (u % kPairs) * 2 + (lane & 1);
+    uint4 h, l;
+    split4(raw + R::at(r, 4 * c), h, l);
+    const int pos = (r & ~7) | ((r & 1) << 2) | ((r >> 1) & 3);
+    const uint32_t hs[4] = {h.x, h.y, h.z, h.w}, ls[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      vt_hi[LT::at(4 * c + e, pos)] = __uint_as_float(hs[e]);
+      vt_lo[LT::at(4 * c + e, pos)] = __uint_as_float(ls[e]);
+    }
+  }
+}
+
+// The hi and lo A fragments of the warp's 16 Q rows from r0 at columns
+// [8 kk, 8 kk + 8): ldmatrix from Q's split tiles, or from the raw Q tile
+// and split here.
+template <int D, bool kQSplit>
+__device__ __forceinline__ void q_frag_f32(uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4],
+                                           const float* q_hi,
+                                           const float* q_lo, int r0,
+                                           int kk) {
+  using L = TileF32<D>;
+  const int lane = threadIdx.x & 31;
+  const int off =
+      L::at(r0 + (lane & 7) + ((lane >> 3) & 1) * 8, 8 * kk + (lane >> 4) * 4);
+  if constexpr (kQSplit) {
+    ldmatrix_x4(hi, q_hi + off);
+    ldmatrix_x4(lo, q_lo + off);
+  } else {
+    uint32_t f[4];
+    ldmatrix_x4(f, q_hi + off);
+    split_tf32(f, hi, lo);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_f32_kernel(Params p) {
+  using L = TileF32<D>;
+  using R = RawF32<D>;
+  constexpr int kBQ = kTcBlockQ, kBK = f32_sweep<D>();
+  constexpr bool kQSplit = f32_q_split<D>();
+  using LT = TileF32<kBK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* q_hi = reinterpret_cast<float*>(smem_raw);  // or the raw Q tile
+  float* q_lo = q_hi + kBQ * L::kStride;             // with kQSplit
+  float* k_raw = q_hi + (kQSplit ? 2 : 1) * kBQ * L::kStride;
+  float* v_raw = k_raw + kBK * R::kStride;
+  float* k_hi = v_raw + kBK * R::kStride;
+  float* k_lo = k_hi + kBK * L::kStride;
+  float* vt_hi = k_lo + kBK * L::kStride;
+  float* vt_lo = vt_hi + D * LT::kStride;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
+  const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // keys past the last row of this q tile are masked for every row
+  const int kv_end = p.causal ? min(p.Tk, q_off + q0 + kBQ) : p.Tk;
+  const int n_tiles = kv_end > 0 ? (kv_end + kBK - 1) / kBK : 0;
+  const int wr0 = 16 * warp;    // the warp's first row in the tile
+  const int wq0 = q0 + wr0;     // its first query row
+  const int wpos = q_off + wq0; // and that row's causal position
+  const float scale_log2 = p.scale * kLog2e;
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    load_tile_f32<L, kBQ, kTcThreads>(q_hi, q, p.sqt, q0, p.Tq);
+    load_tile_f32<R, kBK, kTcThreads>(k_raw, k, p.skt, 0, p.Tk);
+    load_tile_f32<R, kBK, kTcThreads>(v_raw, v, p.svt, 0, p.Tk);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    // tile `it` has landed, and every warp is done with the split tiles
+    // of tile it - 1, which the split of tile it now overwrites
+    cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (kQSplit) {
+      if (it == 0) split_rows<L, L, kBQ>(q_hi, q_hi, q_lo);
+    }
+    split_rows<R, L, kBK>(k_raw, k_hi, k_lo);
+    split_v_t<D, kBK>(v_raw, vt_hi, vt_lo);
+    // the split tiles are complete, and the raw tiles free for tile it + 1
+    __syncthreads();
+    if (it + 1 < n_tiles) {
+      const int k1 = (it + 1) * kBK;
+      load_tile_f32<R, kBK, kTcThreads>(k_raw, k, p.skt, k1, p.Tk);
+      load_tile_f32<R, kBK, kTcThreads>(v_raw, v, p.svt, k1, p.Tk);
+      cp_async_commit();
+    }
+    const int k0 = it * kBK;
+    // no row of this warp exists or sees any key of the tile
+    if (wq0 >= p.Tq || (p.causal && k0 > wpos + 15)) continue;
+
+    // S = Q K^T: per k step the three passes (lo.hi, hi.lo, hi.hi) each
+    // run over every key block, so consecutive products are independent.
+    // Each k step's products go to a fresh accumulator, added to S by
+    // FADD (round to nearest): the tensor cores truncate as they
+    // accumulate, and a chain of D / 8 k steps on them biased S and O
+    // toward zero (see the header)
+    float s[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      float sk[kBK / 8][4];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sk[j][e] = 0.f;
+      uint32_t a_hi[4], a_lo[4];
+      q_frag_f32<D, kQSplit>(a_hi, a_lo, q_hi, q_lo, wr0, kk);
+      uint32_t b_hi[kBK / 8][2], b_lo[kBK / 8][2];
+#pragma unroll
+      for (int j = 0; j < kBK / 8; j += 2) {
+        // blocks: keys 8j..8j+7 at columns 8kk.. and 8kk+4.., then keys
+        // 8j+8..8j+15 at the same columns
+        const int off = L::at(8 * j + (lane & 7) + ((lane >> 4) << 3),
+                              8 * kk + ((lane >> 3) & 1) * 4);
+        uint32_t x[4];
+        ldmatrix_x4(x, k_hi + off);
+        b_hi[j][0] = x[0], b_hi[j][1] = x[1];
+        b_hi[j + 1][0] = x[2], b_hi[j + 1][1] = x[3];
+        ldmatrix_x4(x, k_lo + off);
+        b_lo[j][0] = x[0], b_lo[j][1] = x[1];
+        b_lo[j + 1][0] = x[2], b_lo[j + 1][1] = x[3];
+      }
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mma_tf32(sk[j], a_lo, b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mma_tf32(sk[j], a_hi, b_lo[j][0], b_lo[j][1]);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+        mma_tf32(sk[j], a_hi, b_hi[j][0], b_hi[j][1]);
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] += sk[j][e];
+    }
+
+    const bool interior =
+        k0 + kBK <= p.Tk && (!p.causal || k0 + kBK - 1 <= wpos);
+    float alpha[2];
+    if (interior)
+      online_softmax<false>(s, m, l, alpha, p, scale_log2, k0, wpos);
+    else
+      online_softmax<true>(s, m, l, alpha, p, scale_log2, k0, wpos);
+
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+    // O += P V.  Key block j's C fragment is the A fragment of keys
+    // (2t, 2t + 1) at k positions (t, t + 4); V^T's B fragments by
+    // ldmatrix, kG column blocks at a time.  As for S, each key block's
+    // three products go to a fresh accumulator, added to O by FADD.
+    constexpr int kG = (D / 8) % 4 == 0 ? 4 : 2;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      const uint32_t af[4] = {__float_as_uint(s[j][0]),
+                              __float_as_uint(s[j][2]),
+                              __float_as_uint(s[j][1]),
+                              __float_as_uint(s[j][3])};
+      uint32_t a_hi[4], a_lo[4];
+      split_tf32(af, a_hi, a_lo);
+#pragma unroll
+      for (int n0 = 0; n0 < D / 8; n0 += kG) {
+        uint32_t b_hi[kG][2], b_lo[kG][2];
+#pragma unroll
+        for (int n = 0; n < kG; n += 2) {
+          // blocks: d 8(n0+n).. at key positions 8j.. and 8j+4.., then
+          // d 8(n0+n)+8.. at the same positions
+          const int off =
+              LT::at(8 * (n0 + n) + (lane & 7) + ((lane >> 4) << 3),
+                     8 * j + ((lane >> 3) & 1) * 4);
+          uint32_t x[4];
+          ldmatrix_x4(x, vt_hi + off);
+          b_hi[n][0] = x[0], b_hi[n][1] = x[1];
+          b_hi[n + 1][0] = x[2], b_hi[n + 1][1] = x[3];
+          ldmatrix_x4(x, vt_lo + off);
+          b_lo[n][0] = x[0], b_lo[n][1] = x[1];
+          b_lo[n + 1][0] = x[2], b_lo[n + 1][1] = x[3];
+        }
+        float pv[kG][4];
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+          mma_tf32(pv[n], a_lo, b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+          mma_tf32(pv[n], a_hi, b_lo[n][0], b_lo[n][1]);
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+          mma_tf32(pv[n], a_hi, b_hi[n][0], b_hi[n][1]);
+#pragma unroll
+        for (int n = 0; n < kG; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n0 + n][e] += pv[n][e];
+      }
+    }
+  }
+
+  // the warp's rows of the Q tile are its own: stage O there
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  const float lc[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  __syncwarp();  // the warp's last reads of its Q rows are done
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(q_hi + L::at(wr0 + g + 8 * r, 8 * n + 2 * t)) =
+          make_float2(o[n][2 * r] / lc[r], o[n][2 * r + 1] / lc[r]);
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qr = wq0 + g + 8 * r;
+      // a fully masked row has l = 0: lse = -1e30 + log(1), as the Pallas
+      // kernel's m and clamped l give
+      if (qr < p.Tq)
+        p.lse[static_cast<long long>(bh) * p.Tq + qr] =
+            l[r] == 0.f ? kNegInf : m[r] * kLn2 + logf(l[r]);
+    }
+  }
+  __syncwarp();
+  float* out =
+      static_cast<float*>(p.out) + static_cast<long long>(bh) * p.Tq * D;
+#pragma unroll
+  for (int i = lane; i < 16 * L::kChunks; i += 32) {
+    const int r = i / L::kChunks, c = i % L::kChunks;
+    if (wq0 + r < p.Tq)
+      *reinterpret_cast<float4*>(out + static_cast<long long>(wq0 + r) * D +
+                                 4 * c) =
+          *reinterpret_cast<const float4*>(q_hi + L::at(wr0 + r, 4 * c));
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
+  constexpr size_t smem =
+      f32_smem_bytes<D, f32_sweep<D>(), f32_q_split<D>()>();
+  static_assert(smem <= kMaxSmem, "the f32 tiles overflow shared memory");
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.Tq + kTcBlockQ - 1) / kTcBlockQ);
+  flash_fwd_f32_kernel<D><<<grid, kTcThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int bh, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<D>(p, bh, stream);
@@ -487,8 +764,9 @@ cudaError_t launch(const Params& p, int bh, int dtype, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  bf16 rows (base pointers and the B,
-// H and T strides) must be 16-byte aligned.  Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16.  Rows (base pointers and the B, H
+// and T strides) must be 16-byte aligned in both dtypes.  Returns a
+// cudaError_t.
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Tq,
                            int Tk, int D, long long sqb, long long sqh,

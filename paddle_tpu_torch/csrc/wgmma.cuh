@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the bf16 kernels that run on wgmma:
-// shared-memory matrix descriptors for 128-byte-swizzled K-major tiles,
+// shared-memory matrix descriptors for 128-byte-swizzled K-major tiles
+// (and MN-major ones, for a B operand read as it lies),
 // the warpgroup product and its fences, mbarriers, TMA tile loads, the
 // cp.async arrive on an mbarrier, the async-proxy fence and named
-// barriers.
+// barriers; on the host, the TMA tensor maps of those tiles.
 //
 // Tile layout (what the descriptors below describe, and what TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes): a [rows][64] bf16 tile, one
@@ -18,6 +19,8 @@
 
 #pragma once
 
+#include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "tensor_core.cuh"
@@ -43,6 +46,21 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// The descriptor of an MN-major 128-byte-swizzled tile (B read as it
+// lies, rows along K): a [k][64] bf16 block per 64 columns, one 128-byte
+// row a k index, swizzled as above (what TMA writes for a 64-column box),
+// the blocks `lbo` bytes apart.  For MN-major layouts the leading byte
+// offset is the stride between 64-column blocks and the stride byte
+// offset (1024) the stride between 8-row groups of k; a k16 step moves
+// the start address by 16 rows (2048 bytes).
+__device__ __forceinline__ uint64_t wgmma_desc_mn(uint32_t addr,
+                                                  uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -64,8 +82,11 @@ __device__ __forceinline__ void fence_operand(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d += A[64x16] * B[Nx16]^T, A and B K-major bf16 tiles in shared memory
-// (descriptors a and b), d the f32 accumulator in registers.
+// d += A[64x16] * B[Nx16]^T, A a K-major bf16 tile in shared memory and
+// B a K-major one (kTransB 0) or an MN-major one (kTransB 1, wgmma's
+// transpose-B, as wgmma_desc_mn describes it); d the f32 accumulator in
+// registers.
+template <int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
                                                  uint64_t b) {
   asm volatile(
@@ -82,7 +103,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -100,7 +121,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(1));
+      : "l"(a), "l"(b), "r"(1), "n"(kTransB));
 }
 
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
@@ -208,6 +229,53 @@ __device__ __forceinline__ void fence_proxy_async() {
 // `id` (1-15; 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The driver's cuTensorMapEncodeTiled, reached through the runtime (the
+// libraries do not link libcuda), looked up once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                            cudaEnableDefault, &found);
+    if (e == cudaSuccess && found != cudaDriverEntryPointSuccess)
+      e = cudaErrorNotSupported;
+    if (e != cudaSuccess) return e;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  *out = encode;
+  return cudaSuccess;
+}
+
+// A TMA map of the row-major bf16 matrix [rows, cols] at `base`, in boxes
+// of `box_rows` x 64 columns, 128-byte swizzled as the wgmma tiles are,
+// zero outside the matrix.
+inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base,
+                                   long long rows, int cols, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t e = tensor_map_encoder(&encode);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? cudaSuccess
+             : cudaErrorInvalidValue;
 }
 
 }  // namespace

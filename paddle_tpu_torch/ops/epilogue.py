@@ -20,8 +20,12 @@ Counterpart of ``paddle_tpu/ops/epilogue.py``:
   ``:370,406``): ``csrc/fc_epilogue.cu``, whose header says how it is
   laid out and what bounds it.  It covers every shape: the Pallas
   wrapper's quiet fall-back to the chain above Mosaic's VMEM budget is a
-  TPU rule and is gone.  Launches are counted in
-  ``fc_epilogue.launches``.
+  TPU rule and is gone.  ``fc_kernel_path`` picks the kernel's path from
+  the shape and alignment (bf16 ``wgmma`` where TMA can address the
+  operands, else ``mma_sync``; ``f32``); the entry point refuses a path
+  the operands do not allow.  Launches are counted in
+  ``fc_epilogue.launches`` and by path in
+  ``fc_epilogue.launches_by_path``.
 - ``FcEpilogue``, the ``torch.autograd.Function``: the forward runs the
   chosen implementation; the backward is autograd of the chain,
   recomputed from the saved inputs in their dtype, as ``_fc_ep_bwd``
@@ -347,6 +351,23 @@ def _check(x2, w2, bias, residual):
                          "row-major operands")
 
 
+FC_PATHS = ("f32", "mma_sync", "wgmma")   # the entry point's path codes
+
+
+def fc_kernel_path(k, n, dtype, aligned):
+    """The kernel path of an fc_epilogue call with x [M,K] and w [K,N]
+    (contiguous) of ``dtype``: ``"f32"`` (CUDA cores) for float32; for
+    bfloat16 ``"wgmma"`` (TMA ring, wgmma) where TMA can address both
+    operands' rows (K > 0, K and N multiples of 8, so rows of whole
+    16-byte chunks, and ``aligned``: x and w start on 16 bytes), else
+    ``"mma_sync"``.  M does not enter: every path takes any M."""
+    if dtype == torch.float32:
+        return "f32"
+    if k > 0 and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
 def _launch(x2, w2, bias, residual, act, approximate):
     # the Pallas kernel casts both operands to promote(x, w) as well
     ct = torch.promote_types(x2.dtype, w2.dtype)
@@ -356,6 +377,8 @@ def _launch(x2, w2, bias, residual, act, approximate):
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if out.numel() == 0:
         return out
+    path = fc_kernel_path(k, n, x2.dtype, x2.data_ptr() % 16 == 0
+                          and w2.data_ptr() % 16 == 0)
     lib = _load()
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
@@ -366,11 +389,12 @@ def _launch(x2, w2, bias, residual, act, approximate):
             out.data_ptr(), m, n, k, _DTYPE_CODES[x2.dtype],
             -1 if bias is None else _DTYPE_CODES[bias.dtype],
             -1 if residual is None else _DTYPE_CODES[residual.dtype],
-            _act_code(act, approximate), stream)
+            _act_code(act, approximate), FC_PATHS.index(path), stream)
     if err != 0:
-        raise RuntimeError("fc_epilogue kernel launch failed: "
+        raise RuntimeError(f"fc_epilogue kernel launch ({path}) failed: "
                            + lib.pt_cuda_error_string(err).decode())
     fc_epilogue.launches += 1
+    fc_epilogue.launches_by_path[path] += 1
     return out
 
 
@@ -381,7 +405,7 @@ def _load():
     lib = _build.load(_KERNEL)
     if lib.pt_fc_epilogue.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pt_fc_epilogue.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+        lib.pt_fc_epilogue.argtypes = [ptr] * 5 + [i32] * 8 + [ptr]
         lib.pt_fc_epilogue.restype = i32
         lib.pt_cuda_error_string.argtypes = [i32]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
@@ -458,6 +482,7 @@ def fc_epilogue(x, w, bias=None, residual=None, *, act=None,
 
 
 fc_epilogue.launches = 0
+fc_epilogue.launches_by_path = dict.fromkeys(FC_PATHS, 0)
 
 
 def _fc_impl_from_flag():

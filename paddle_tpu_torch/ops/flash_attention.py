@@ -24,15 +24,19 @@ TPU kernels (lane-replicated or packed stats, head packing) are gone.
 device of ``q``: a CUDA tensor launches the kernels (a build or launch
 failure raises), a CPU or meta tensor takes the plain version.  Each
 kernel's launches are counted: ``flash_attention_fwd.launches``,
-``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The bf16
-forward kernel and both backward kernels copy their tiles 16 bytes at a
-time, so a q, k, v (or dO) whose rows are not 16-byte aligned (bf16 for
-the forward, either dtype for the backward) is copied to a contiguous
-tensor first and counted in ``flash_attention_fwd.copies`` or
+``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The kernels
+copy their tiles 16 bytes at a time, so a q, k, v (or dO) whose rows
+are not 16-byte aligned is copied to a contiguous tensor first and
+counted in ``flash_attention_fwd.copies`` or
 ``flash_attention_bwd.copies`` (the model's permuted ``[B,T,H,D]``
-views are aligned).  The plain backward also runs sliced (dq of some q
-rows, dk/dv of some keys, summed in chunks), which checks the kernels
-at 32768 tokens.
+views are aligned).  The kernels take head dims that are multiples of
+16 up to 128; any other D up to 128 is zero-padded to the next multiple
+of 16 (``_pad_head``, counted in the same ``copies``): zero columns add
+nothing to Q K^T, the scale stays 1/sqrt(D) of the unpadded D, and the
+outputs' padded columns are sliced off.  D above 128 raises: the
+kernels' f32 and bf16 tiles do not fit in shared memory there.  The
+plain backward also runs sliced (dq of some q rows, dk/dv of some keys,
+summed in chunks), which checks the kernels at 32768 tokens.
 
 ``FlashAttention`` is the ``torch.autograd.Function`` over the pair;
 the ``flash_attention`` op's compute goes through it, so the
@@ -52,6 +56,9 @@ _NEG_INF = -1e30
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels take D a multiple of _HEAD_DIM_STEP up to _MAX_HEAD_DIM
+_HEAD_DIM_STEP = 16
+_MAX_HEAD_DIM = 128
 
 
 def _causal_mask(tq, tk, device):
@@ -94,9 +101,10 @@ def _check(q, k, v):
             f"flash_attention_fwd: shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
     d = q.shape[3]
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"flash_attention_fwd: head dim {d} is not a "
-                         "multiple of 16 in [16, 128]")
+    if not 1 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_fwd: head dim {d} is not in "
+                         f"[1, {_MAX_HEAD_DIM}]: the kernels' tiles for a "
+                         "larger D do not fit in shared memory")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError("flash_attention_fwd: q/k/v must all be float32 "
@@ -120,8 +128,9 @@ def _aligned(x):
 
 def _launch(q, k, v, causal, scale):
     _check(q, k, v)
-    if q.dtype == torch.bfloat16:
-        q, k, v = (_aligned_copy(x, flash_attention_fwd) for x in (q, k, v))
+    d_in = q.shape[3]
+    q, k, v = (_aligned_copy(_pad_head(x, flash_attention_fwd),
+                             flash_attention_fwd) for x in (q, k, v))
     b, h, tq, d = q.shape
     tk = k.shape[2]
     out = torch.empty((b, h, tq, d), dtype=q.dtype, device=q.device)
@@ -142,7 +151,24 @@ def _launch(q, k, v, causal, scale):
         raise RuntimeError("flash_attention_fwd kernel launch failed: "
                            + lib.pt_cuda_error_string(err).decode())
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _unpad_head(out, d_in), lse
+
+
+def _pad_head(x, counted_in):
+    """``x`` [B,H,T,D], or a copy zero-padded along D to the next multiple
+    of 16 (the head dims the kernels take), counted in
+    ``counted_in.copies``."""
+    d = x.shape[3]
+    padded = -(-d // _HEAD_DIM_STEP) * _HEAD_DIM_STEP
+    if padded == d:
+        return x
+    counted_in.copies += 1
+    return torch.nn.functional.pad(x, (0, padded - d))
+
+
+def _unpad_head(x, d):
+    """The first ``d`` columns of a kernel's padded output, contiguous."""
+    return x if x.shape[3] == d else x[..., :d].contiguous()
 
 
 def _aligned_copy(x, counted_in):
@@ -279,9 +305,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
 
 def _bwd_prepare(q, k, v, o, lse, do, dlse):
     """Checks the backward's inputs; returns (q, k, v, dO, lse, delta) as
-    the kernels take them: rows 16-byte aligned (a copy where not,
-    counted in ``flash_attention_bwd.copies``), dO in q's dtype with a
-    unit-stride head dim."""
+    the kernels take them: D padded to a multiple of 16 and rows 16-byte
+    aligned (a copy where not, counted in ``flash_attention_bwd.copies``),
+    dO in q's dtype with a unit-stride head dim."""
     _check(q, k, v)
     b, h, tq, _ = q.shape
     if do.shape != q.shape or o.shape != q.shape:
@@ -295,8 +321,8 @@ def _bwd_prepare(q, k, v, o, lse, do, dlse):
     if do.stride(3) != 1:
         do = do.contiguous()   # the kernels need a unit-stride head dim
     delta = _delta(o, do, dlse).contiguous()
-    q, k, v, do = (_aligned_copy(x, flash_attention_bwd)
-                   for x in (q, k, v, do))
+    q, k, v, do = (_aligned_copy(_pad_head(x, flash_attention_bwd),
+                                 flash_attention_bwd) for x in (q, k, v, do))
     return q, k, v, do, lse.contiguous(), delta
 
 
@@ -328,15 +354,16 @@ def _bwd_kernel(name, q, k, v, do, lse, delta, outs, causal, scale):
 
 
 def _bwd_launch(q, k, v, o, lse, do, causal, scale, dlse):
+    d_in = q.shape[3]
     q, k, v, do, lse, delta = _bwd_prepare(q, k, v, o, lse, do, dlse)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return tuple(_unpad_head(g.zero_(), d_in) for g in (dq, dk, dv))
     _bwd_kernel("dq", q, k, v, do, lse, delta, (dq,), causal, scale)
     _bwd_kernel("dkv", q, k, v, do, lse, delta, (dk, dv), causal, scale)
-    return dq, dk, dv
+    return tuple(_unpad_head(g, d_in) for g in (dq, dk, dv))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None,

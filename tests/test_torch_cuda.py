@@ -15,14 +15,20 @@ bf16 (dS rounded to bf16 in both, at other points of the sum), over
 every head dim, ragged and one-key lengths, strided and misaligned
 views (the latter copied and counted); two launches give the same bits,
 the bf16 dV is nearer the plain version than dV with P rounded to bf16
-is (P stays f32, as in the Pallas kernel), and the f32 grads (split
-TF32) are at least 10x nearer the plain version than the plain version
-on TF32-rounded inputs is.  A
+is (P stays f32, as in the Pallas kernel), and the f32 grads and the f32
+forward's out and lse (split TF32) are at least 10x nearer the plain
+version than the plain version on TF32-rounded inputs is.  Head dims
+that are not multiples of 16 (8, 40, 72) run padded, forward and
+backward, with their copies counted.  A
 training step of the tiny LM on the card matches the CPU within
 rtol=atol=1e-4 in the loss and every parameter grad.
 
 The ``fc_epilogue`` kernel is held against ``fc_epilogue_plain`` over
-every fc stage subset, ragged and aligned shapes, f32 and bf16.  Both
+every fc stage subset, ragged shapes (the mma.sync path) and aligned
+ones (the wgmma path, each call counted on its path), f32 and bf16; the
+AMP step's three shapes take the wgmma path, misaligned operands the
+mma.sync one, two launches give the same bits, and more than 65,535 row
+tiles run on every path.  Both
 accumulate the same products in f32 in other orders (f32 within 1e-4 of
 outputs of unit scale); bf16 output is one rounding of that f32 value,
 so the two may differ by one bf16 step where the sums straddle a
@@ -70,6 +76,16 @@ CASES = [
     (1, 3, 37, 45, 32, False, "float32"),     # ragged T
     (2, 2, 130, 130, 128, False, "float32"),
     (2, 8, 512, 512, 64, True, "float32"),
+    # the f32 kernel (split TF32) at the other head dims (64-key tiles up
+    # to D 80, 32 above, Q split per tile at 128), causal and not, Tk off
+    # the key tile and Tq off the 128-row tile, several tiles on both sides
+    (1, 2, 200, 200, 48, True, "float32"),
+    (2, 2, 130, 190, 80, False, "float32"),
+    (1, 3, 300, 300, 96, True, "float32"),
+    (1, 2, 129, 257, 112, True, "float32"),
+    (1, 2, 256, 256, 128, True, "float32"),
+    (1, 2, 200, 70, 64, True, "float32"),     # Tq > Tk: fully masked rows
+    (1, 2, 150, 40, 128, True, "float32"),    # the same at d 128
     (1, 2, 48, 48, 32, True, "bfloat16"),
     (1, 2, 37, 61, 16, True, "bfloat16"),
     # the tensor-core path at every head dim it takes, causal and not,
@@ -151,6 +167,97 @@ def test_flash_kernel_takes_views(cuda, layout):
     assert out.is_contiguous()
     assert (out.float() - ref_out.float()).abs().max().item() <= 3e-2
     assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "unaligned"])
+def test_flash_f32_kernel_takes_views(cuda, layout):
+    """f32 q/k/v as views: permuted [B,T,H,D] tensors (the model's layout,
+    no copy), and views whose rows start 4 bytes into a 16-byte chunk,
+    which the wrapper copies (counted) for the kernel's 16-byte copies."""
+    b, h, tq, tk, d = 2, 4, 150, 150, 64
+    rng = np.random.RandomState(3)
+
+    def view(t):
+        if layout == "strided":
+            x = torch.from_numpy(rng.standard_normal((b, t, h, d)).astype(
+                np.float32)).to(cuda)
+            return x.permute(0, 2, 1, 3)
+        x = torch.from_numpy(rng.standard_normal((b, h, t, d + 4)).astype(
+            np.float32)).to(cuda)
+        return x[..., 1:d + 1]
+
+    q, k, v = view(tq), view(tk), view(tk)
+    copies = fa.flash_attention_fwd.copies
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.copies == copies + (
+        3 if layout == "unaligned" else 0)
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(
+        q, k, v, True, 1.0 / math.sqrt(d))
+    assert out.is_contiguous()
+    assert (out - ref_out).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-4
+
+
+def _tf32_fwd(x):
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_f32_is_not_single_pass_tf32(cuda):
+    """The f32 forward's products are split TF32, three TF32 products on
+    each operand's high and low halves (about 21 bits of each), not one
+    TF32 product (about 11): its out and lse are at least 10x nearer the
+    plain version than the plain version on TF32-rounded q, k and v is."""
+    b, h, t, d = 2, 4, 300, 64
+    rng = np.random.RandomState(7)
+    q, k, v, _ = _bwd_inputs(rng, cuda, b, h, t, t, d, "float32", True)
+    scale = 1.0 / math.sqrt(d)
+    got = fa.flash_attention_fwd(q, k, v, True, scale)
+    want = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    tf32 = fa.flash_attention_fwd_plain(_tf32_fwd(q), _tf32_fwd(k),
+                                        _tf32_fwd(v), True, scale)
+    for name, g, w, r in zip(("out", "lse"), got, want, tf32):
+        err = (g - w).norm().item()
+        err_tf32 = (r - w).norm().item()
+        assert 10 * err <= err_tf32, (name, err, err_tf32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [8, 40, 72])
+def test_flash_kernels_take_any_head_dim(cuda, d, dtype):
+    """A head dim that is not a multiple of 16 runs on the card: the
+    wrappers pad q, k, v (and dO) with zero columns to the next multiple
+    of 16 (3 and 4 counted copies), keep the scale of the unpadded D and
+    slice the outputs back; forward and backward agree with the plain
+    versions at the usual tolerances."""
+    b, h, tq, tk = 1, 2, 150, 170
+    rng = np.random.RandomState(d)
+    q, k, v, do = _bwd_inputs(rng, cuda, b, h, tq, tk, d, dtype, True)
+    scale = 1.0 / math.sqrt(d)
+    copies = fa.flash_attention_fwd.copies
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd.copies == copies + 3
+    assert out.shape == q.shape and out.is_contiguous()
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    assert (out.float() - ref_out.float()).abs().max().item() <= tol
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    copies = fa.flash_attention_bwd.copies
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.copies == copies + 4
+    refs = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True, scale)
+    rel = 1e-4 if dtype == "float32" else 3e-2
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.shape == r.shape and g.dtype == r.dtype, name
+        assert g.is_contiguous(), name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= rel * max(1.0, r.float().abs().max().item()), name
 
 
 @pytest.mark.cuda
@@ -427,9 +534,12 @@ def test_gpu_training_step_matches_cpu(cuda):
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """The checks run before any build or launch, so they hold on the
-    CPU too."""
-    q = torch.zeros((1, 1, 8, 24))
-    with pytest.raises(ValueError, match="head dim 24"):
+    CPU too.  A head dim up to 128 that is not a multiple of 16 is padded
+    by the wrappers, not refused; above 128 the kernels' tiles do not fit
+    in shared memory."""
+    fa._check(*[torch.zeros((1, 1, 8, 24))] * 3)
+    q = torch.zeros((1, 1, 8, 136))
+    with pytest.raises(ValueError, match="head dim 136"):
         fa._check(q, q, q)
     h = torch.zeros((1, 1, 8, 32), dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
@@ -439,10 +549,12 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
         fa._check(s, s, s)
 
 
-# (M, K, N): ragged edges, K and N not multiples of 8 (the masked-load
-# path), and the aligned cp.async path
+# (M, K, N): ragged edges with K or N not a multiple of 8 (the mma.sync
+# path, masked loads), and the wgmma path (TMA) with M, K and N off its
+# 128 x 256 x 64 tile: K 40 and 72 (one partial K step), N 40 (one w box
+# of four), N 136 and 264 (a second, partial tile of columns), M 1000
 FC_SHAPES = [(100, 130, 77), (1, 3, 5), (257, 64, 129), (130, 40, 136),
-             (256, 512, 512), (300, 2048, 40)]
+             (256, 512, 512), (300, 2048, 40), (1000, 72, 264)]
 FC_ACTS = [("", False), ("relu", False), ("gelu", False), ("gelu", True)]
 
 
@@ -468,7 +580,10 @@ def _fc_close(got, want, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("m,k,n", FC_SHAPES)
 def test_fc_epilogue_kernel_matches_plain(cuda, m, k, n, dtype):
+    """Every stage subset, with bias and residual in x's dtype and in the
+    other one, on the path the shape takes (counted there)."""
     rng = np.random.RandomState(m + k + n)
+    path = ep.fc_kernel_path(k, n, getattr(torch, dtype), True)
     other = "bfloat16" if dtype == "float32" else "float32"
     for bias_dtype, res_dtype in ((dtype, dtype), (other, dtype),
                                   (dtype, other)):
@@ -479,12 +594,105 @@ def test_fc_epilogue_kernel_matches_plain(cuda, m, k, n, dtype):
                 for act, approx in FC_ACTS:
                     bias, res = b if has_b else None, r if has_r else None
                     launches = ep.fc_epilogue.launches
+                    on_path = ep.fc_epilogue.launches_by_path[path]
                     got = ep.fc_epilogue_kernel(x, w, bias, res, act, approx)
                     torch.cuda.synchronize()
                     assert ep.fc_epilogue.launches == launches + 1
+                    assert ep.fc_epilogue.launches_by_path[path] == \
+                        on_path + 1
                     want = ep.fc_epilogue_plain(x, w, bias, res, act, approx)
                     assert _fc_close(got, want, dtype), \
                         (bias_dtype, res_dtype, has_b, has_r, act, approx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,spec", [(512, 512, "residual"),
+                                      (512, 2048, "bias+relu"),
+                                      (2048, 512, "bias+residual")])
+def test_fc_epilogue_amp_shapes_take_the_wgmma_path(cuda, k, n, spec):
+    """The AMP step's three calls a layer (M = 32 * 512) run on the wgmma
+    path and agree with the plain version within FC_TOL (1e-2 of
+    max(1, |ref|))."""
+    m = 32 * 512
+    rng = np.random.RandomState(k + n)
+    x, w, b, r = _fc_operands(rng, cuda, m, k, n, "bfloat16", "bfloat16",
+                              "bfloat16")
+    b = b if "bias" in spec else None
+    r = r if "residual" in spec else None
+    act = "relu" if "relu" in spec else ""
+    before = dict(ep.fc_epilogue.launches_by_path)
+    got = ep.fc_epilogue_kernel(x, w, b, r, act)
+    torch.cuda.synchronize()
+    assert ep.fc_epilogue.launches_by_path == dict(
+        before, wgmma=before["wgmma"] + 1)
+    want = ep.fc_epilogue_plain(x, w, b, r, act, False).float()
+    err = (got.float() - want).abs().max().item()
+    assert err <= 1e-2 * max(1.0, want.abs().max().item()), err
+
+
+@pytest.mark.cuda
+def test_fc_epilogue_misaligned_operands_take_the_mma_sync_path(cuda):
+    """Contiguous x, w and residual whose data starts 2 bytes past a
+    16-byte boundary: TMA cannot address them, so the call runs on the
+    mma.sync path, and agrees with the plain version."""
+    m, k, n = 200, 64, 136
+    rng = np.random.RandomState(8)
+    x, w, b, r = _fc_operands(rng, cuda, m, k, n, "bfloat16", "bfloat16",
+                              "bfloat16")
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    xs, ws, rs = shifted(x), shifted(w), shifted(r)
+    assert xs.data_ptr() % 16 and ws.data_ptr() % 16
+    before = dict(ep.fc_epilogue.launches_by_path)
+    got = ep.fc_epilogue_kernel(xs, ws, b, rs, "relu")
+    torch.cuda.synchronize()
+    assert ep.fc_epilogue.launches_by_path == dict(
+        before, mma_sync=before["mma_sync"] + 1)
+    assert _fc_close(got, ep.fc_epilogue_plain(x, w, b, r, "relu", False),
+                     "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(1000, 512, 2048), (257, 64, 129)])
+def test_fc_epilogue_is_deterministic(cuda, m, k, n):
+    """Each output element is summed by one CTA in a fixed order: two
+    launches give the same bits (wgmma and mma.sync paths)."""
+    rng = np.random.RandomState(9)
+    x, w, b, r = _fc_operands(rng, cuda, m, k, n, "bfloat16", "float32",
+                              "bfloat16")
+    first = ep.fc_epilogue_kernel(x, w, b, r, "gelu")
+    second = ep.fc_epilogue_kernel(x, w, b, r, "gelu")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,n,dtype,path", [(16, 16, "bfloat16", "wgmma"),
+                                            (12, 16, "bfloat16", "mma_sync"),
+                                            (8, 8, "float32", "f32")])
+def test_fc_epilogue_takes_more_than_65535_row_tiles(cuda, k, n, dtype,
+                                                      path):
+    """M = 8,400,000 rows, 65,625 row tiles of 128: more than grid.y
+    could hold; the wgmma path walks its tiles persistently, the mma.sync
+    and f32 paths put row tiles on grid.x."""
+    m = 8_400_000
+    assert -(-m // 128) > 65535
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dt = getattr(torch, dtype)
+    x = torch.randn((m, k), generator=g, device=cuda).to(dt)
+    w = (torch.randn((k, n), generator=g, device=cuda) * k ** -0.5).to(dt)
+    b = torch.randn((n,), generator=g, device=cuda)
+    before = ep.fc_epilogue.launches_by_path[path]
+    got = ep.fc_epilogue_kernel(x, w, b, None, "relu")
+    torch.cuda.synchronize()
+    assert ep.fc_epilogue.launches_by_path[path] == before + 1
+    assert _fc_close(got, ep.fc_epilogue_plain(x, w, b, None, "relu", False),
+                     dtype)
 
 
 @pytest.mark.cuda

@@ -205,6 +205,36 @@ def test_fc_epilogue_flag_modes_choose_their_implementation():
         ep._check(x, w, torch.zeros(4), None)
 
 
+# (K, N, dtype, x/w 16-byte aligned, path): the AMP step's three shapes,
+# K or N off the 16-byte row, K = 0, a misaligned base, and f32
+FC_PATH_CASES = [
+    (512, 512, "bfloat16", True, "wgmma"),
+    (512, 2048, "bfloat16", True, "wgmma"),
+    (2048, 512, "bfloat16", True, "wgmma"),
+    (8, 8, "bfloat16", True, "wgmma"),
+    (130, 77, "bfloat16", True, "mma_sync"),
+    (64, 129, "bfloat16", True, "mma_sync"),
+    (3, 5, "bfloat16", True, "mma_sync"),
+    (0, 16, "bfloat16", True, "mma_sync"),
+    (512, 512, "bfloat16", False, "mma_sync"),
+    (512, 512, "float32", True, "f32"),
+    (130, 77, "float32", False, "f32"),
+]
+
+
+@pytest.mark.parametrize("k,n,dtype,aligned,path", FC_PATH_CASES)
+def test_fc_kernel_path_follows_what_tma_can_address(k, n, dtype, aligned,
+                                                     path):
+    """The kernel path a call takes is a plain function of the shape and
+    the operands' alignment: bf16 goes to the wgmma kernel where TMA can
+    address both operands' rows (K > 0, K and N multiples of 8, x and w
+    on 16 bytes), to the mma.sync kernel otherwise; f32 to the CUDA-core
+    kernel.  Every path has a launch counter, and the total stays."""
+    assert ep.fc_kernel_path(k, n, getattr(torch, dtype), aligned) == path
+    assert set(ep.fc_epilogue.launches_by_path) == set(ep.FC_PATHS)
+    assert path in ep.FC_PATHS
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("attr,approximate",
                          [s for s in FC_SPECS if s[0]],

@@ -241,3 +241,80 @@ def test_sliced_plain_bwd_matches_pallas_interpret_vjp(
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         np.testing.assert_allclose(to_numpy(g), w, rtol=tol, atol=tol,
                                    err_msg=name)
+
+
+# (B, H, Tq, Tk, causal, dtype) at head dim 72, which the kernels take
+# padded to 80
+PAD_CASES = [(2, 2, 40, 56, True, "float32"), (1, 3, 37, 45, False, "float32"),
+             (1, 2, 56, 24, True, "bfloat16")]
+PAD_D = 72
+
+
+@pytest.mark.parametrize("b,h,tq,tk,causal,dtype", PAD_CASES)
+def test_head_dim_padding_matches_plain_and_jax(b, h, tq, tk, causal, dtype):
+    """What the kernels' wrappers do at a head dim that is not a multiple
+    of 16: q, k, v zero-padded along D (each pad counted as a copy), the
+    scale of the unpadded D, the output's padded columns sliced off.  The
+    padded plain forward gives the plain forward's out within 1e-6 of its
+    scale (the sums over D take other orders; bf16: one bf16 step) and
+    its lse within 1e-5; the plain forward equals
+    the JAX package's flash_attention (impl "xla") at D 72 within 1e-5
+    in f32 (2e-2 in bf16, P rounded at other points)."""
+    q, k, v = _inputs(b, h, tq, tk, PAD_D, seed=tq + tk)
+    tq_, tk_, tv_ = (torch.from_numpy(x).to(getattr(torch, dtype))
+                     for x in (q, k, v))
+    scale = 1.0 / math.sqrt(PAD_D)
+    copies = fa.flash_attention_fwd.copies
+    padded = [fa._pad_head(x, fa.flash_attention_fwd)
+              for x in (tq_, tk_, tv_)]
+    assert fa.flash_attention_fwd.copies == copies + 3
+    assert all(x.shape[3] == 80 and x.is_contiguous() for x in padded)
+    assert all(torch.equal(p[..., :PAD_D], x) and not p[..., PAD_D:].any()
+               for p, x in zip(padded, (tq_, tk_, tv_)))
+    out_p, lse_p = fa.flash_attention_fwd_plain(*padded, causal, scale)
+    out, lse = fa.flash_attention_fwd_plain(tq_, tk_, tv_, causal, scale)
+    got = fa._unpad_head(out_p, PAD_D)
+    assert got.shape == out.shape and got.is_contiguous()
+    rel = 1e-6 if dtype == "float32" else 2 ** -8
+    assert (got.float() - out.float()).abs().max().item() <= rel * max(
+        1.0, out.float().abs().max().item())
+    assert (lse_p - lse).abs().max().item() <= 1e-5
+    jout = flash_attention(*(jnp.asarray(x, dtype=dtype) for x in (q, k, v)),
+                           causal=causal, impl="xla")
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(to_numpy(out), to_numpy(jout), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,causal,dtype", PAD_CASES)
+def test_head_dim_padding_bwd_matches_plain_and_jax(b, h, tq, tk, causal,
+                                                    dtype):
+    """The backward's padding: q, k, v and dO padded along D, the padded
+    plain backward's dq, dk, dv sliced back equal the unpadded plain
+    backward's within 1e-6 of their scale (bf16: one bf16 step), and the
+    plain backward equals jax.vjp of the JAX package's flash_attention
+    (impl "xla") at D 72 within 1e-5 in f32 (2e-2 in bf16)."""
+    q, k, v, do = _bwd_torch_inputs(b, h, tq, tk, PAD_D, dtype, seed=tq)
+    scale = 1.0 / math.sqrt(PAD_D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale)
+    copies = fa.flash_attention_bwd.copies
+    padded = [fa._pad_head(x, fa.flash_attention_bwd) for x in (q, k, v, do)]
+    assert fa.flash_attention_bwd.copies == copies + 4
+    o_p = fa._pad_head(o, fa.flash_attention_bwd)
+    got = fa.flash_attention_bwd_plain(*padded[:3], o_p, lse, padded[3],
+                                       causal, scale)
+    rel = 1e-6 if dtype == "float32" else 2 ** -7
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g = fa._unpad_head(g, PAD_D)
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        tol = rel * max(1.0, w.float().abs().max().item())
+        assert (g.float() - w.float()).abs().max().item() <= tol, name
+    jargs = [jnp.asarray(x.float().numpy(), dtype=dtype) for x in (q, k, v)]
+    _, vjp = jax.vjp(lambda a, b_, c: flash_attention(
+        a, b_, c, causal=causal, impl="xla"), *jargs)
+    jgrads = vjp(jnp.asarray(do.float().numpy(), dtype=dtype))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, g, w in zip(("dq", "dk", "dv"), want, jgrads):
+        np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
+                                   atol=tol, err_msg=name)
