@@ -18,7 +18,10 @@ Phases, none of which catches its own failure:
      kernel (by CUDA-graph replay and by events; the f32 step's shape at
      d 64 and 128 among the cases), the plain version and one PyTorch
      library call (SDPA); no case may copy its inputs (rows not 16-byte
-     aligned, or a head dim padded to a multiple of 16);
+     aligned, or a head dim padded to a multiple of 16); head dims 160 and
+     256 run the wide tile; then holds the f32 forward against an f64
+     reference at [8,8,512,64] and [1,8,8192,64], each output's mean
+     signed error and max error beside the plain f32 version's;
   3. serves the Transformer-base LM (vocab 32000, d_model 512, 8 heads,
      d_inner 2048, 6 layers, seq 512, random weights from --seed) through
      save_inference_model -> create_predictor(Config(dir)) -> run, counts
@@ -35,7 +38,8 @@ Phases, none of which catches its own failure:
      PyTorch pass that prepares their inputs (delta), the plain backward
      and SDPA's backward (forward+backward less forward, both timers);
      no case may copy its inputs; checks the autograd Function against
-     autograd of the plain forward;
+     autograd of the plain forward; holds the f32 backward's dq, dk and
+     dv against the f64 reference as phase 2 does the forward;
   5. trains the same LM (is_test=False, dropout 0) in f32 with
      optimizer.Adam(1e-4).minimize(loss) through Executor.run on the
      card: one warm-up step, then TRAIN_STEPS (5) counted steps at batch
@@ -66,8 +70,8 @@ Phases, none of which catches its own failure:
      plain version and cuDNN (plus torch.sum of y and y*y for
      conv_stats); holds bn_apply against its
      plain version at every batch-norm shape of that path, with the
-     residual and relu it has there, timed beside F.batch_norm + add +
-     relu;
+     residual and relu it has there, timed (graph replay and events,
+     each shape's share of its bound) beside F.batch_norm + add + relu;
   9. trains ResNet-50 (224x224, 1000 classes, random weights from --seed)
      in the bench's conv_bn_stats configuration (fuse_conv_bn_train,
      nhwc_transpile, AMP bf16 with static loss scaling 1.0,
@@ -83,14 +87,15 @@ Phases, none of which catches its own failure:
      counted steps, 106 conv_epilogue launches a step, finite losses;
      then the batch-2 f32 step on the card against the CPU, as in 9;
  11. holds flash_decode against its plain version on the card over
-     ragged lengths (zero-length rows, page boundaries), d 16/64/128,
-     pages of 4/16/128 tokens, f32/bf16/int8 pools, 1/5/20 query rows,
-     strided block tables, the server's shapes (64 streams of 64-160
-     tokens, 8 heads of 128, page 128, f32 and int8 pools) and two long
-     ones (64 x 4096 tokens, one 32768-token sequence); asserts verify
-     rows array_equal to q-len-1 launches and zero-length rows exact
-     zeros; times the kernel, the plain version and the gather + SDPA
-     library route;
+     ragged lengths (zero-length rows, page and split boundaries), d
+     16/64/72/128/160/256, pages of 4/16/32/128 tokens, f32/bf16/int8
+     pools, 1/3/5/20/70 query rows, strided block tables, the server's
+     shapes (64 streams of 64-160 tokens, 8 heads of 128, page 128, f32
+     and int8 pools) and long ones (64 x 4096 tokens, one 32768-token
+     sequence as a step and as a 5-row verify sweep); asserts verify rows
+     array_equal to q-len-1 launches (across split boundaries too) and
+     zero-length rows exact zeros; times the kernel (and its share of
+     its bound), the plain version and the gather + SDPA library route;
  12. serves LLM decode through DecodeServer(config=DecodeConfig(...)) ->
      submit -> Request.result on the card at the bench's llm_decode
      widths (TinyDecodeLM vocab 32000, d_model 1024, 8 heads of 128,
@@ -114,7 +119,7 @@ Phases, none of which catches its own failure:
  15. prints one {"kernels": [...]} line (eight kernels), then the card's
      line, then the result line {"ok": true, "device": {...}} last.
 
-Takes about five minutes on one H100, the kernels' build included.
+Takes about seven minutes on one H100, the kernels' build included.
 Every main path also holds the flash kernels' input copies at 0.
 
 Exits non-zero, printing no result line, when no CUDA device is present
@@ -349,6 +354,12 @@ def graph_ms(fn, iters):
 # (B, H, Tq, Tk, D, causal, dtype, strided): strided q/k/v are permuted
 # views of [B, T, H, D] tensors, as the model's transpose2 hands them over
 FLASH_CASES = [
+    # the wide tile (128 < D <= 256), causal and not, several tiles on
+    # both sides
+    (1, 2, 200, 200, 160, True, "float32", False),
+    (2, 2, 130, 190, 256, False, "float32", True),
+    (1, 2, 200, 200, 160, True, "bfloat16", True),
+    (1, 2, 129, 257, 256, True, "bfloat16", False),
     (2, 4, 128, 128, 64, True, "float32", False),
     (2, 4, 128, 128, 64, False, "float32", False),
     (2, 3, 100, 228, 64, True, "float32", False),
@@ -380,6 +391,88 @@ LONG_CHECK_ROWS = 1024
 # (LONG_FAULT_KEY..+63), a planted fault, must break both limits.
 LONG_TOL = {"out": 1e-3, "out_rel": 1e-2}
 LONG_FAULT_KEY = 16384
+
+
+# The f32 kernels against an f64 reference (autograd of the plain
+# attention in f64, head by head) at the f32 step's shape and at a long T,
+# causal: each output's mean signed error, signed by the reference (a
+# bias toward zero, which long chains of truncating tensor-core sums give,
+# reads negative), and its max error, beside the plain f32 version's
+# (cuBLAS with TF32 off) against the same reference.
+F64_SHAPES = [(8, 8, 512, 64), (1, 8, 8192, 64)]
+
+
+def f64_reference(q, k, v, do, scale):
+    """Causal attention's out and (with ``do``) dq, dk, dv in f64, by
+    autograd, one (batch, head) slice at a time."""
+    import torch
+
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(
+        tk - tq)
+    outs = {n: torch.empty(x.shape, dtype=torch.float64, device=q.device)
+            for n, x in (("out", q), ("dq", q), ("dk", k), ("dv", v))}
+    for i in range(b):
+        for j in range(h):
+            leaves = [x[i, j].double().requires_grad_() for x in (q, k, v)]
+            s = torch.matmul(leaves[0], leaves[1].T) * scale
+            p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+            out = torch.matmul(p, leaves[2])
+            outs["out"][i, j] = out.detach()
+            if do is not None:
+                g = torch.autograd.grad(out, leaves, do[i, j].double())
+                for n, x in zip(("dq", "dk", "dv"), g):
+                    outs[n][i, j] = x
+            del s, p, out, leaves
+    return outs
+
+
+def f64_errors(got, ref):
+    """(mean signed error, signed by the reference; max error)."""
+    import torch
+
+    diff = got.double() - ref
+    return {"mean_signed": (diff * torch.sign(ref)).mean().item(),
+            "max": diff.abs().max().item()}
+
+
+def check_f32_vs_f64(device, seed, grads):
+    """The f32 forward (``grads`` False) or backward kernels against the
+    f64 reference at F64_SHAPES, beside the plain f32 version; one row per
+    shape and output, logged and returned."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed + 11)
+    rows = []
+    for shape in F64_SHAPES:
+        q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device) for _ in range(4))
+        scale = 1.0 / math.sqrt(shape[-1])
+        ref = f64_reference(q, k, v, do if grads else None, scale)
+        out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+        out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+        got = {"out": (out, out_p)}
+        if grads:
+            kernel = fa.flash_attention_bwd(q, k, v, out, lse, do, True,
+                                            scale)
+            plain = fa.flash_attention_bwd_plain(q, k, v, out_p, lse_p, do,
+                                                 True, scale)
+            got = {n: pair for n, pair in zip(("dq", "dk", "dv"),
+                                              zip(kernel, plain))}
+        torch.cuda.synchronize()
+        for name, (g, pl) in got.items():
+            row = dict(shape=list(shape), output=name,
+                       ref_mean_abs=ref[name].abs().mean().item(),
+                       kernel=f64_errors(g, ref[name]),
+                       plain=f64_errors(pl, ref[name]))
+            log("f32 vs f64 " + json.dumps(row))
+            rows.append(row)
+        del q, k, v, do, ref, out, out_p, got
+        torch.cuda.empty_cache()
+    return rows
 
 
 # kernel -> (Tq x Tk x D products, [B,H,Tq,D] tensors moved, [B,H,Tk,D]
@@ -1125,13 +1218,21 @@ def check_bn_apply(device, seed, bns):
             return torch.relu(out) if relu else out
 
         bound_ms, bound_by = bound_of(bn_times(n * oh * ow, c, has_res))
+
+        def kernel():
+            return cep.bn_apply_kernel(*args)
+
+        # device times by CUDA-graph replay (ms), the calls as issued by
+        # events beside them (event_ms)
+        ms = graph_ms(kernel, 20)
         row = dict(shape=[n, oh, ow, c], residual=has_res, relu=relu,
                    per_step=count,
                    max_abs_err=(got.float() - want.float()).abs().max().item(),
-                   ms=cuda_ms(lambda: cep.bn_apply_kernel(*args), 20),
+                   ms=ms, event_ms=cuda_ms(kernel, 20),
                    plain_ms=cuda_ms(lambda: cep.bn_apply_plain(*args), 10),
-                   library_ms=cuda_ms(library, 20), bound_ms=bound_ms,
-                   bound_by=bound_by)
+                   library_ms=graph_ms(library, 20),
+                   library_event_ms=cuda_ms(library, 20), bound_ms=bound_ms,
+                   bound_by=bound_by, bound_share=bound_ms / ms)
         log("bn_apply case " + json.dumps(row))
         rows.append(row)
     return rows
@@ -1660,10 +1761,12 @@ def decode_bound_ms(lens, r, h, d, ps, dtype):
             max(page_bytes / PEAK_BYTES_PER_S * 1e3, t_ops))
 
 
-def decode_library_ms(q, k, v, tables, lens, r, iters):
+def decode_library_ms(q, k, v, tables, lens, r, iters, scales=None):
     """The nearest library route, as two calls: gather the pages into a
-    dense [B, H, T, d], then F.scaled_dot_product_attention with the
-    rows' length masks.  Returns (gather_ms, sdpa_ms)."""
+    dense [B, H, T, d] (int8 pools dequantised by their per-channel
+    ``scales`` on the way, as the kernel's wrapper scales q and the
+    output), then F.scaled_dot_product_attention with the rows' length
+    masks.  Returns (gather_ms, sdpa_ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -1672,16 +1775,20 @@ def decode_library_ms(q, k, v, tables, lens, r, iters):
     t = mp * ps
     tl = tables.long()
 
-    def gather(pool):
-        return pool[tl].permute(0, 2, 1, 3, 4).reshape(b, h, t, d)
+    def gather(pool, scale=None):
+        x = pool[tl].permute(0, 2, 1, 3, 4).reshape(b, h, t, d)
+        if scale is None:
+            return x
+        return x.float() * (scale.float() / 127.0)[None, :, None, :]
 
-    kd, vd = gather(k), gather(v)
+    ks, vs = scales if scales is not None else (None, None)
+    kd, vd = gather(k, ks), gather(v, vs)
     qd = (q[:, None] if q.dim() == 3 else q).permute(0, 2, 1, 3)
     row = torch.arange(r, device=q.device)
     limit = torch.minimum(lens[:, None], lens[:, None] - r + 1 + row)
     mask = torch.arange(t, device=q.device)[None, None, None, :] < \
         limit[:, None, :, None]
-    gather_ms = graph_ms(lambda: (gather(k), gather(v)), iters)
+    gather_ms = graph_ms(lambda: (gather(k, ks), gather(v, vs)), iters)
     sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask), iters)
     return gather_ms, sdpa_ms
@@ -1697,6 +1804,22 @@ DECODE_CASES = [
     ("bf16_verify", [17, 90, 0], 5, 2, 128, 128, "bfloat16", True),
     ("int8", [5, 33, 64, 0], 1, 4, 64, 16, "int8", False),
     ("int8_verify", [70, 9, 300], 5, 2, 128, 128, "int8", True),
+    # head dims the kernel took no copy of before (d 72 over int8 pages:
+    # rows of 72 bytes, copied element by element), 70 verify rows (five
+    # row blocks), lengths on both sides of a split boundary (16 pages:
+    # 256 keys at page 16) with their verify rows, one long sequence as a
+    # verify sweep
+    ("d72", [5, 33, 300, 1], 5, 2, 72, 16, "float32", False),
+    ("d72_int8", [70, 9, 300], 5, 2, 72, 16, "int8", True),
+    ("d160_bf16", [17, 90, 260, 0], 5, 2, 160, 32, "bfloat16", True),
+    ("d256", [129, 7, 300], 3, 2, 256, 32, "float32", False),
+    ("verify_70", [100, 75, 600, 70], 70, 2, 64, 16, "float32", False),
+    ("split_straddle", [254, 256, 258, 513, 516, 1030], 5, 2, 64, 16,
+     "float32", False),
+    ("split_straddle_bf16", [256, 259, 512, 515], 5, 2, 128, 16, "bfloat16",
+     True),
+    ("split_straddle_int8", [256, 257, 260, 1025], 5, 2, 128, 16, "int8",
+     False),
     ("draft", (64, 64, 160), 1, 2, 16, 128, "float32", False),
     ("main_verify", (64, 64, 160), 5, 8, 128, 128, "float32", False),
     ("main_strided", (64, 64, 160), 1, 8, 128, 128, "float32", True),
@@ -1704,8 +1827,10 @@ DECODE_CASES = [
     ("main_int8", (64, 64, 160), 1, 8, 128, 128, "int8", False),
     ("long_64x4096", [4096] * 64, 1, 8, 128, 128, "float32", False),
     ("long_1x32768", [32768], 1, 8, 128, 128, "float32", False),
+    ("long_1x32768_verify", [32768], 5, 8, 128, 128, "float32", False),
 ]
-DECODE_LIBRARY = ("main", "main_verify", "long_64x4096", "long_1x32768")
+DECODE_LIBRARY = ("main", "main_verify", "main_int8", "long_64x4096",
+                  "long_1x32768")
 
 
 def check_flash_decode(device, seed):
@@ -1752,7 +1877,7 @@ def check_flash_decode(device, seed):
         gather_ms = sdpa_ms = None
         if name in DECODE_LIBRARY:
             gather_ms, sdpa_ms = decode_library_ms(q, k, v, tab, ln, r,
-                                                   3 if big else 20)
+                                                   3 if big else 20, scales)
         bound_ms, bound_by, bound_pages_ms = decode_bound_ms(lens, r, h, d,
                                                              ps, dtype)
         row = dict(name=name, streams=len(lens), len_min=min(lens),
@@ -2125,9 +2250,11 @@ def main(argv=None):
     card_tests()
 
     cases = check_flash(device, args.seed)
+    f64_fwd = check_f32_vs_f64(device, args.seed, grads=False)
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, _ = serve(args.seed, args.runs, workdir)
     bwd_cases = check_flash_bwd(device, args.seed)
+    f64_bwd = check_f32_vs_f64(device, args.seed, grads=True)
     train_launches, _ = train(
         args.seed, build_train_program(), train_batch(args.seed, BATCH),
         "training", lm_expected, unit=("tokens", BATCH * MODEL["max_len"]))
@@ -2225,6 +2352,7 @@ def main(argv=None):
         "design": "mma.sync bf16",
         "f32_design": "split TF32 on mma.sync.m16n8k8",
         "copies_by_path": by_path(COPIES),
+        "f32_vs_f64": f64_fwd,
         "f32_d128": {k: f32_d128[k] for k in (
             "shape", "dtype", "max_abs_err_out", "max_abs_err_lse", "ms",
             "event_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -2267,6 +2395,7 @@ def main(argv=None):
             "f32_design": "split TF32 on mma.sync.m16n8k8",
             "copies_by_path": by_path(BWD_COPIES),
             "amp_path": bwd_summary(bwd_amp, name, errs),
+            "f32_vs_f64": [r for r in f64_bwd if r["output"] in errs],
             "long_context": [bwd_summary(r, name, errs) for r in bwd_cases
                              if r["shape"][2] > 4096],
         })
@@ -2344,14 +2473,24 @@ def main(argv=None):
         "launches": rn_bn_launches["bn_apply"],
         "launches_by_path": by_path("bn_apply"),
         "max_abs_err": max(r["max_abs_err"] for r in bn_rows),
-        "ms": per_step(bn_rows, "ms"), "plain_ms": per_step(bn_rows, "plain_ms"),
+        "ms": per_step(bn_rows, "ms"),
+        "event_ms": per_step(bn_rows, "event_ms"),
+        "plain_ms": per_step(bn_rows, "plain_ms"),
         "bound_ms": per_step(bn_rows, "bound_ms"),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_share": per_step(bn_rows, "bound_ms")
+        / per_step(bn_rows, "ms"),
         "library_ms": per_step(bn_rows, "library_ms"),
-        "per": "one ResNet-50 training step at batch 128, bf16",
+        "library_event_ms": per_step(bn_rows, "library_event_ms"),
+        "design": "2-D tiles: a thread's channel octet fixed, its 32 "
+                  "coefficients in registers, four rows' loads in flight, "
+                  "a resident grid",
+        "per": "one ResNet-50 training step at batch 128, bf16; ms by "
+               "CUDA-graph replay, event_ms by events",
         "shapes": [{k: r[k] for k in ("shape", "residual", "relu",
-                                      "per_step", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")}
+                                      "per_step", "ms", "event_ms",
+                                      "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by", "bound_share")}
                    for r in bn_rows],
     })
     # flash_decode: the main shape (one plain step of the 64-stream
@@ -2378,7 +2517,13 @@ def main(argv=None):
             "streams", "tokens", "R", "H", "d", "dtype", "ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by", "bound_pages_ms")}
             for n in ("main_verify", "main_int8", "draft", "long_64x4096",
-                      "long_1x32768")},
+                      "long_1x32768", "long_1x32768_verify")},
+        "bound_share": main_row["bound_share"],
+        "bound_share_by_case": {n: r["bound_share"]
+                                for n, r in decode_rows.items()},
+        "design": "a CTA per (sequence, head, up to 16 rows, split of 16 "
+                  "pages), a cp.async ring of 2-4 stages, splits merged "
+                  "in order",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"device: {card}", flush=True)

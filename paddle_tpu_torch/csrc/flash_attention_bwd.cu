@@ -4,7 +4,8 @@
 // _bwd_dkv_kernel (wrapper _flash_bwd_pallas).  Contract, read from the
 // Pallas kernels and _bwd_p_ds_block:
 //   q [B,H,Tq,D], k/v [B,H,Tk,D], dO [B,H,Tq,D] in f32 or bf16 (any
-//   16-byte aligned strides over B, H and T; unit stride over D).  lse [B*H,Tq] f32 from
+//   16-byte aligned strides over B, H and T; unit stride over D; D a
+//   multiple of 16 up to 256).  lse [B*H,Tq] f32 from
 //   the forward kernel, delta [B*H,Tq] f32 = rowsum(dO*O) - dlse, computed
 //   by the caller.  dq [B,H,Tq,D], dk/dv [B,H,Tk,D] contiguous, in the
 //   input dtype, accumulated in f32.
@@ -57,9 +58,15 @@
 // f32: tensor cores at f32 accuracy, as split TF32 (tensor_core.cuh): each
 // operand x as hi = tf32(x) and lo = tf32(x - hi), rounded to nearest
 // (ties away, as cvt.rna rounds, in integer operations), each product
-// three mma.sync.m16n8k8 TF32 products, lo.hi + hi.lo + hi.hi, into one f32
-// accumulator (about 21 bits of each operand, PyTorch's memory-efficient
-// attention's OpMultiplyAddFastF32; single-pass TF32 keeps about 11).  The
+// three mma.sync.m16n8k8 TF32 products, lo.hi + hi.lo + hi.hi (about 21
+// bits of each operand, PyTorch's memory-efficient attention's
+// OpMultiplyAddFastF32; single-pass TF32 keeps about 11).  Each k step's
+// three products go to a fresh accumulator, added to S, dP, dQ, dK or dV
+// by FADD, rounding to nearest: the tensor cores truncate as they
+// accumulate, and with every tile's products chained into one
+// accumulator dq, dk and dv read a mean signed error of -2e-7 to -1.3e-6
+// against an f64 reference (a bias toward zero; the plain f32 version
+// -2e-10 to -7e-10) and max errors 8-25x the plain version's (PERF.md).  The
 // same shape as bf16: 8 warps x 16 rows, tiles by 16-byte cp.async into
 // f32 tiles whose rows are padded by 4 words (TileF32), double-buffered,
 // zero-filled past Tq and Tk; the same order, skips and epilogue.
@@ -83,6 +90,13 @@
 //   every D: holding them in registers at D <= 64, as bf16 does, ran
 //   slower.
 //
+// Wide design (128 < D <= 256, both dtypes): the wide tile of
+// flash_wide.cuh on the CUDA cores.  dq: 16 q rows a CTA against 32-key
+// tiles, a lane a key for S, dP and dS (rounded to bf16 with bf16 inputs),
+// each thread two dQ columns of the 16 rows.  dkv: 16 keys a CTA against
+// 32-row q tiles, transposed (a lane a q row), each thread two dK and two
+// dV columns of the 16 keys; P stays f32 in dV.  The f32 results are
+// sums of f32 FMAs, each rounded to nearest.
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 494.7
 // TFLOP/s dense TF32, 67 TFLOP/s f32 outside the tensor cores; inputs read
 // and outputs written once; dq does three Tq x Tk x D products, dkv four,
@@ -105,6 +119,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -596,9 +611,16 @@ __device__ __forceinline__ void mma_abt_f32(float (&c)[kN][4],
                                          ((lane >> 4) << 3),
                                      8 * kk + ((lane >> 3) & 1) * 4));
       split_tf32(bf, b_hi, b_lo);
-      mma_split_tf32(c[j], a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
-      mma_split_tf32(c[j + 1], a_hi, a_lo, b_hi[2], b_hi[3], b_lo[2],
-                     b_lo[3]);
+      // one k step's three products into fresh accumulators, added by
+      // FADD: the tensor cores truncate as they accumulate (header)
+      float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_split_tf32(t0, a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
+      mma_split_tf32(t1, a_hi, a_lo, b_hi[2], b_hi[3], b_lo[2], b_lo[3]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        c[j][e] += t0[e];
+        c[j + 1][e] += t1[e];
+      }
     }
   }
 }
@@ -628,8 +650,10 @@ __device__ __forceinline__ void mma_ab_f32(float (&acc)[D / 8][4],
                               __float_as_uint(b[L::kStride + 8 * n])};
       uint32_t b_hi[2], b_lo[2];
       split_tf32(bf, b_hi, b_lo);
-      mma_split_tf32(acc[n], a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0],
-                     b_lo[1]);
+      float t[4] = {0.f, 0.f, 0.f, 0.f};  // a fresh accumulator, as above
+      mma_split_tf32(t, a_hi, a_lo, b_hi[0], b_hi[1], b_lo[0], b_lo[1]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
     }
   }
 }
@@ -928,6 +952,233 @@ cudaError_t launch_dkv(const Params& p, int bh, int dtype,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 128 < D <= 256: the wide tile (flash_wide.cuh), f32 and bf16
+// ---------------------------------------------------------------------------
+
+// dq: a CTA owns 16 q rows and sweeps 32-key tiles.  Shared memory: the Q
+// and dO tiles, the K and V tiles (rows padded) and dS.
+__host__ __device__ constexpr size_t dq_wide_smem_bytes(int D) {
+  return sizeof(float) * (2 * kWideRows * D +
+                          2 * kWideSweep * (D + kWidePad) +
+                          kWideRows * kWideSweep);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dq_wide_kernel(Params p, int D) {
+  extern __shared__ __align__(16) float wsm[];
+  const int ld = D + kWidePad;
+  float* q_s = wsm;                       // [16][D]
+  float* o_s = q_s + kWideRows * D;       // [16][D] dO
+  float* k_s = o_s + kWideRows * D;       // [32][D + 4]
+  float* v_s = k_s + kWideSweep * ld;     // [32][D + 4]
+  float* ds_s = v_s + kWideSweep * ld;    // [16][32]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;  // longest first
+  const int b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  const int kv_end =
+      p.causal ? max(0, min(p.Tk, q_off + q0 + kWideRows)) : p.Tk;
+
+  wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
+  wide_load_rows(o_s, D, dout, p.sot, q0, kWideRows, p.Tq, D);
+  float lse[kWideOwn], delta[kWideOwn];
+#pragma unroll
+  for (int i = 0; i < kWideOwn; ++i) {
+    const int qr = q0 + warp + kWideWarps * i;
+    const long long at = static_cast<long long>(bh) * p.Tq + qr;
+    lse[i] = qr < p.Tq ? p.lse[at] : 0.f;
+    delta[i] = qr < p.Tq ? p.delta[at] : 0.f;
+  }
+  float acc[kWideRows][kWideCols];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) acc[r][g] = 0.f;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kWideSweep) {
+    __syncthreads();  // every thread is done with the previous tile
+    wide_load_rows(k_s, ld, k, p.skt, k0, kWideSweep, p.Tk, D);
+    wide_load_rows(v_s, ld, v, p.svt, k0, kWideSweep, p.Tk, D);
+    __syncthreads();
+    float s[kWideOwn], dp[kWideOwn];
+    wide_dots(s, q_s, warp, k_s + lane * ld, D);
+    wide_dots(dp, o_s, warp, v_s + lane * ld, D);
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) {
+      const int r = warp + kWideWarps * i, qr = q0 + r;
+      const bool valid =
+          qr < p.Tq && kpos < p.Tk && (!p.causal || qr + q_off >= kpos);
+      // a fully masked row (lse -1e30) has no valid entry
+      const float pv = valid ? expf(s[i] * p.scale - lse[i]) : 0.f;
+      ds_s[r * kWideSweep + lane] =
+          wide_round<T>(pv * (dp[i] - delta[i]) * p.scale);
+    }
+    __syncthreads();
+    for (int j = 0; j < kWideSweep; ++j) {
+      float kj[kWideCols];
+#pragma unroll
+      for (int g = 0; g < kWideCols; ++g) {
+        const int c = tid + kWideThreads * g;
+        kj[g] = c < D ? k_s[j * ld + c] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) {
+        const float dsj = ds_s[r * kWideSweep + j];
+#pragma unroll
+        for (int g = 0; g < kWideCols; ++g)
+          acc[r][g] = fmaf(dsj, kj[g], acc[r][g]);
+      }
+    }
+  }
+
+  T* dq = static_cast<T*>(p.dq) + static_cast<long long>(bh) * p.Tq * D;
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    if (q0 + r >= p.Tq) break;
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) {
+      const int c = tid + kWideThreads * g;
+      if (c < D)
+        dq[static_cast<long long>(q0 + r) * D + c] = wide_cast<T>(acc[r][g]);
+    }
+  }
+}
+
+// dkv: a CTA owns 16 keys and sweeps 32-row q tiles, transposed: a lane
+// owns a q row of the tile, a warp scores its keys.  Shared memory: the K
+// and V tiles, the Q and dO tiles (rows padded), their lse and delta, P^T
+// and dS^T.
+__host__ __device__ constexpr size_t dkv_wide_smem_bytes(int D) {
+  return sizeof(float) * (2 * kWideRows * D +
+                          2 * kWideSweep * (D + kWidePad) + 2 * kWideSweep +
+                          2 * kWideRows * kWideSweep);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dkv_wide_kernel(Params p, int D) {
+  extern __shared__ __align__(16) float wsm[];
+  const int ld = D + kWidePad;
+  float* k_s = wsm;                           // [16][D]
+  float* v_s = k_s + kWideRows * D;           // [16][D]
+  float* q_s = v_s + kWideRows * D;           // [32][D + 4]
+  float* o_s = q_s + kWideSweep * ld;         // [32][D + 4] dO
+  float* lse_s = o_s + kWideSweep * ld;       // [32]
+  float* delta_s = lse_s + kWideSweep;        // [32]
+  float* p_s = delta_s + kWideSweep;          // [16][32] P^T
+  float* ds_s = p_s + kWideRows * kWideSweep; // [16][32] dS^T
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kWideRows;  // the CTA's first key
+  const int b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const T* dout = static_cast<const T*>(p.dout) + b * p.sob + h * p.soh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  // the first q row that sees the CTA's first key, on a tile boundary
+  const int q_begin =
+      p.causal ? max(0, k0 - q_off) / kWideSweep * kWideSweep : 0;
+
+  wide_load_rows(k_s, D, k, p.skt, k0, kWideRows, p.Tk, D);
+  wide_load_rows(v_s, D, v, p.svt, k0, kWideRows, p.Tk, D);
+  float dk[kWideRows][kWideCols], dv[kWideRows][kWideCols];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) dk[r][g] = dv[r][g] = 0.f;
+
+  for (int r0 = q_begin; r0 < p.Tq; r0 += kWideSweep) {
+    __syncthreads();  // every thread is done with the previous tile
+    wide_load_rows(q_s, ld, q, p.sqt, r0, kWideSweep, p.Tq, D);
+    wide_load_rows(o_s, ld, dout, p.sot, r0, kWideSweep, p.Tq, D);
+    if (tid < kWideSweep) {
+      const int qr = r0 + tid;
+      const long long at = static_cast<long long>(bh) * p.Tq + qr;
+      lse_s[tid] = qr < p.Tq ? p.lse[at] : 0.f;
+      delta_s[tid] = qr < p.Tq ? p.delta[at] : 0.f;
+    }
+    __syncthreads();
+    float s[kWideOwn], dp[kWideOwn];
+    wide_dots(s, k_s, warp, q_s + lane * ld, D);
+    wide_dots(dp, v_s, warp, o_s + lane * ld, D);
+    const int qr = r0 + lane;
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) {
+      const int r = warp + kWideWarps * i, kpos = k0 + r;
+      const bool valid =
+          qr < p.Tq && kpos < p.Tk && (!p.causal || qr + q_off >= kpos);
+      // a fully masked row (lse -1e30) has no valid entry
+      const float pv = valid ? expf(s[i] * p.scale - lse_s[lane]) : 0.f;
+      p_s[r * kWideSweep + lane] = pv;  // P stays f32 in dV
+      ds_s[r * kWideSweep + lane] =
+          wide_round<T>(pv * (dp[i] - delta_s[lane]) * p.scale);
+    }
+    __syncthreads();
+    for (int j = 0; j < kWideSweep; ++j) {
+      float qj[kWideCols], oj[kWideCols];
+#pragma unroll
+      for (int g = 0; g < kWideCols; ++g) {
+        const int c = tid + kWideThreads * g;
+        qj[g] = c < D ? q_s[j * ld + c] : 0.f;
+        oj[g] = c < D ? o_s[j * ld + c] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) {
+        const float pj = p_s[r * kWideSweep + j];
+        const float dsj = ds_s[r * kWideSweep + j];
+#pragma unroll
+        for (int g = 0; g < kWideCols; ++g) {
+          dv[r][g] = fmaf(pj, oj[g], dv[r][g]);
+          dk[r][g] = fmaf(dsj, qj[g], dk[r][g]);
+        }
+      }
+    }
+  }
+
+  const long long base = static_cast<long long>(bh) * p.Tk * D;
+  T* dkp = static_cast<T*>(p.dk) + base;
+  T* dvp = static_cast<T*>(p.dv) + base;
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    if (k0 + r >= p.Tk) break;
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) {
+      const int c = tid + kWideThreads * g;
+      if (c < D) {
+        const long long at = static_cast<long long>(k0 + r) * D + c;
+        dkp[at] = wide_cast<T>(dk[r][g]);
+        dvp[at] = wide_cast<T>(dv[r][g]);
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Params& p, int bh, int D, bool dq,
+                        cudaStream_t stream) {
+  auto kernel = dq ? flash_bwd_dq_wide_kernel<T>
+                   : flash_bwd_dkv_wide_kernel<T>;
+  const size_t smem = dq ? dq_wide_smem_bytes(D) : dkv_wide_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, ((dq ? p.Tq : p.Tk) + kWideRows - 1) / kWideRows);
+  kernel<<<grid, kWideThreads, smem, stream>>>(p, D);
+  return cudaGetLastError();
+}
+
 template <bool kDq>
 int run(Params p, int B, int D, int dtype, void* stream) {
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
@@ -947,9 +1198,14 @@ int run(Params p, int B, int D, int dtype, void* stream) {
     PT_CASE(112)
     PT_CASE(128)
     default:
-      return cudaErrorInvalidValue;
+      break;
   }
 #undef PT_CASE
+  if (D > 128 && D <= kWideMaxD && D % 16 == 0) {
+    if (dtype == 0) return launch_wide<float>(p, bh, D, kDq, s);
+    return launch_wide<__nv_bfloat16>(p, bh, D, kDq, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -5,7 +5,7 @@
 // kernel:
 //   q [B,H,Tq,D], k/v [B,H,Tk,D] in f32 or bf16 (any 16-byte aligned
 //   strides over B, H and T; unit stride over D; D a multiple of 16 up to
-//   128, which the wrapper pads to).  out [B,H,Tq,D] in q's dtype (contiguous),
+//   256, which the wrapper pads to).  out [B,H,Tq,D] in q's dtype (contiguous),
 //   lse [B*H,Tq] f32 with lse = m + log(l).
 //   Causal masking is bottom-right aligned (query row i sees keys
 //   k <= i + Tk - Tq).  Masked scores are -1e30 and their probabilities an
@@ -85,6 +85,12 @@
 //     (182,272 and 211,456), 32 keys at D 128 with Q's A fragments split
 //     each tile (173,056; Q's split tiles would need 240,640).  One CTA
 //     an SM, hence __launch_bounds__(256, 1).
+// Wide design (128 < D <= 256, both dtypes): the wide tile of
+// flash_wide.cuh on the CUDA cores, 16 query rows a CTA of 4 warps against
+// 32-key tiles, a lane a key for S and the online softmax (natural exp),
+// each thread two output columns of the 16 rows, P rounded to bf16 before
+// P.V with bf16 inputs.  At these head dims the tensor-core tiles' O
+// accumulators alone take 128 registers a lane.
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s
 // f32 outside the tensor cores; q, k, v, out and lse each moved once, two
 // Tq x Tk x D products, halved when causal):
@@ -112,6 +118,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_wide.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -753,6 +760,137 @@ cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// 128 < D <= 256: the wide tile (flash_wide.cuh), f32 and bf16
+// ---------------------------------------------------------------------------
+
+// shared memory: the Q tile, the K tile (rows padded), the V tile, P and
+// each row's rescale factor and final l
+__host__ __device__ constexpr size_t fwd_wide_smem_bytes(int D) {
+  return sizeof(float) *
+         (kWideRows * D + kWideSweep * (D + kWidePad) + kWideSweep * D +
+          kWideRows * kWideSweep + 2 * kWideRows);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads)
+    flash_fwd_wide_kernel(Params p, int D) {
+  extern __shared__ __align__(16) float wsm[];
+  const int ldk = D + kWidePad;
+  float* q_s = wsm;                           // [16][D]
+  float* k_s = q_s + kWideRows * D;           // [32][D + 4]
+  float* v_s = k_s + kWideSweep * ldk;        // [32][D]
+  float* p_s = v_s + kWideSweep * D;          // [16][32]
+  float* a_s = p_s + kWideRows * kWideSweep;  // [16]
+  float* l_s = a_s + kWideRows;               // [16]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;  // longest first
+  const int b = bh / p.H, h = bh % p.H;
+  const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
+  const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
+  const T* v = static_cast<const T*>(p.v) + b * p.svb + h * p.svh;
+  const int q_off = p.causal ? p.Tk - p.Tq : 0;
+  const int kv_end =
+      p.causal ? max(0, min(p.Tk, q_off + q0 + kWideRows)) : p.Tk;
+
+  wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
+  float m[kWideOwn], l[kWideOwn];
+#pragma unroll
+  for (int i = 0; i < kWideOwn; ++i) m[i] = kNegInf, l[i] = 0.f;
+  float acc[kWideRows][kWideCols];
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r)
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) acc[r][g] = 0.f;
+
+  for (int k0 = 0; k0 < kv_end; k0 += kWideSweep) {
+    __syncthreads();  // every thread is done with the previous tile
+    wide_load_rows(k_s, ldk, k, p.skt, k0, kWideSweep, p.Tk, D);
+    wide_load_rows(v_s, D, v, p.svt, k0, kWideSweep, p.Tk, D);
+    __syncthreads();
+    float s[kWideOwn];
+    wide_dots(s, q_s, warp, k_s + lane * ldk, D);
+    const int kpos = k0 + lane;
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) {
+      const int r = warp + kWideWarps * i, qr = q0 + r;
+      const bool valid =
+          qr < p.Tq && kpos < p.Tk && (!p.causal || qr + q_off >= kpos);
+      const float x = valid ? s[i] * p.scale : kNegInf;
+      const float m_next = fmaxf(m[i], wide_warp_max(x));
+      const float pv = valid ? expf(x - m_next) : 0.f;
+      const float alpha = expf(m[i] - m_next);
+      l[i] = l[i] * alpha + wide_warp_sum(pv);
+      m[i] = m_next;
+      p_s[r * kWideSweep + lane] = wide_round<T>(pv);
+      if (lane == 0) a_s[r] = alpha;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kWideRows; ++r) {
+      const float alpha = a_s[r];
+#pragma unroll
+      for (int g = 0; g < kWideCols; ++g) acc[r][g] *= alpha;
+    }
+    for (int j = 0; j < kWideSweep; ++j) {
+      float vj[kWideCols];
+#pragma unroll
+      for (int g = 0; g < kWideCols; ++g) {
+        const int c = tid + kWideThreads * g;
+        vj[g] = c < D ? v_s[j * D + c] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < kWideRows; ++r) {
+        const float pj = p_s[r * kWideSweep + j];
+#pragma unroll
+        for (int g = 0; g < kWideCols; ++g)
+          acc[r][g] = fmaf(pj, vj[g], acc[r][g]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kWideOwn; ++i) {
+    const int r = warp + kWideWarps * i, qr = q0 + r;
+    if (lane == 0) {
+      l_s[r] = l[i];
+      // a fully masked row has l = 0: lse = -1e30, as the other tiles give
+      if (qr < p.Tq)
+        p.lse[static_cast<long long>(bh) * p.Tq + qr] =
+            l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
+    }
+  }
+  __syncthreads();
+  T* out = static_cast<T*>(p.out) + static_cast<long long>(bh) * p.Tq * D;
+#pragma unroll
+  for (int r = 0; r < kWideRows; ++r) {
+    if (q0 + r >= p.Tq) break;
+    const float lc = l_s[r] == 0.f ? 1.f : l_s[r];
+#pragma unroll
+    for (int g = 0; g < kWideCols; ++g) {
+      const int c = tid + kWideThreads * g;
+      if (c < D)
+        out[static_cast<long long>(q0 + r) * D + c] =
+            wide_cast<T>(acc[r][g] / lc);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_wide(const Params& p, int bh, int D,
+                        cudaStream_t stream) {
+  const size_t smem = fwd_wide_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh, (p.Tq + kWideRows - 1) / kWideRows);
+  flash_fwd_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(p, D);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const Params& p, int bh, int dtype, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<D>(p, bh, stream);
@@ -787,8 +925,13 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
     case 96: return launch<96>(p, bh, dtype, s);
     case 112: return launch<112>(p, bh, dtype, s);
     case 128: return launch<128>(p, bh, dtype, s);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  if (D > 128 && D <= kWideMaxD && D % 16 == 0) {
+    if (dtype == 0) return launch_wide<float>(p, bh, D, s);
+    if (dtype == 1) return launch_wide<__nv_bfloat16>(p, bh, D, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 const char* pt_cuda_error_string(int err) {

@@ -26,15 +26,17 @@ failure raises), a CPU or meta tensor takes the plain version.  Each
 kernel's launches are counted: ``flash_attention_fwd.launches``,
 ``flash_attention_bwd.launches["dq"]`` and ``["dkv"]``.  The kernels
 copy their tiles 16 bytes at a time, so a q, k, v (or dO) whose rows
-are not 16-byte aligned is copied to a contiguous tensor first and
-counted in ``flash_attention_fwd.copies`` or
-``flash_attention_bwd.copies`` (the model's permuted ``[B,T,H,D]``
-views are aligned).  The kernels take head dims that are multiples of
-16 up to 128; any other D up to 128 is zero-padded to the next multiple
-of 16 (``_pad_head``, counted in the same ``copies``): zero columns add
-nothing to Q K^T, the scale stays 1/sqrt(D) of the unpadded D, and the
-outputs' padded columns are sliced off.  D above 128 raises: the
-kernels' f32 and bf16 tiles do not fit in shared memory there.  The
+are not 16-byte aligned, or whose head dim has a non-unit stride, is
+copied to a contiguous tensor first and counted in
+``flash_attention_fwd.copies`` or ``flash_attention_bwd.copies`` (the
+model's permuted ``[B,T,H,D]`` views are aligned).  The kernels take
+head dims that are multiples of 16 up to 256 (the tensor-core tiles up
+to 128, the wide tile of ``csrc/flash_wide.cuh`` above); any other D up
+to 256 is zero-padded to the next multiple of 16 (``_pad_head``,
+counted in the same ``copies``): zero columns add nothing to Q K^T, the
+scale stays 1/sqrt(D) of the unpadded D, and the outputs' padded
+columns are sliced off.  D above 256 raises: the wide tile's f32 rows
+and accumulators are sized for 256.  The
 plain backward also runs sliced (dq of some q rows, dk/dv of some keys,
 summed in chunks), which checks the kernels at 32768 tokens.
 
@@ -58,7 +60,7 @@ _BWD_KERNEL = "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels take D a multiple of _HEAD_DIM_STEP up to _MAX_HEAD_DIM
 _HEAD_DIM_STEP = 16
-_MAX_HEAD_DIM = 128
+_MAX_HEAD_DIM = 256
 
 
 def _causal_mask(tq, tk, device):
@@ -103,8 +105,8 @@ def _check(q, k, v):
     d = q.shape[3]
     if not 1 <= d <= _MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_fwd: head dim {d} is not in "
-                         f"[1, {_MAX_HEAD_DIM}]: the kernels' tiles for a "
-                         "larger D do not fit in shared memory")
+                         f"[1, {_MAX_HEAD_DIM}]: the wide tile's rows and "
+                         "accumulators are sized for 256")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError("flash_attention_fwd: q/k/v must all be float32 "
@@ -112,16 +114,13 @@ def _check(q, k, v):
                         f"{v.dtype}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention_fwd: q/k/v on different devices")
-    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
-        raise ValueError("flash_attention_fwd: the head dim must have "
-                         "unit stride")
 
 
 def _aligned(x):
-    """Whether every row of ``x`` starts on 16 bytes, as the kernels'
-    16-byte cp.async copies need: the base pointer and each B,
-    H and T stride (of a dim longer than 1)."""
-    return x.data_ptr() % 16 == 0 and all(
+    """Whether every row of ``x`` is contiguous and starts on 16 bytes, as
+    the kernels' 16-byte copies need: a unit-stride head dim, the base
+    pointer and each B, H and T stride (of a dim longer than 1)."""
+    return x.stride(3) == 1 and x.data_ptr() % 16 == 0 and all(
         n == 1 or st * x.element_size() % 16 == 0
         for n, st in zip(x.shape[:3], x.stride()[:3]))
 
@@ -172,8 +171,8 @@ def _unpad_head(x, d):
 
 
 def _aligned_copy(x, counted_in):
-    """``x``, or a contiguous copy of it when a row is not 16-byte
-    aligned; each copy is counted in ``counted_in.copies``."""
+    """``x``, or a contiguous copy of it when a row is not contiguous or
+    not 16-byte aligned; each copy is counted in ``counted_in.copies``."""
     if _aligned(x):
         return x
     counted_in.copies += 1
@@ -305,9 +304,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal, scale,
 
 def _bwd_prepare(q, k, v, o, lse, do, dlse):
     """Checks the backward's inputs; returns (q, k, v, dO, lse, delta) as
-    the kernels take them: D padded to a multiple of 16 and rows 16-byte
-    aligned (a copy where not, counted in ``flash_attention_bwd.copies``),
-    dO in q's dtype with a unit-stride head dim."""
+    the kernels take them: D padded to a multiple of 16 and rows
+    contiguous and 16-byte aligned (a copy where not, counted in
+    ``flash_attention_bwd.copies``), dO in q's dtype."""
     _check(q, k, v)
     b, h, tq, _ = q.shape
     if do.shape != q.shape or o.shape != q.shape:
@@ -318,8 +317,6 @@ def _bwd_prepare(q, k, v, o, lse, do, dlse):
         raise ValueError("flash_attention_bwd: lse must be [B*H, Tq] f32")
     if do.dtype != q.dtype:
         do = do.to(q.dtype)
-    if do.stride(3) != 1:
-        do = do.contiguous()   # the kernels need a unit-stride head dim
     delta = _delta(o, do, dlse).contiguous()
     q, k, v, do = (_aligned_copy(_pad_head(x, flash_attention_bwd),
                                  flash_attention_bwd) for x in (q, k, v, do))

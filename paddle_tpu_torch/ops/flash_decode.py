@@ -21,9 +21,11 @@ The kernel replaces ``_decode_kernel`` (wrapper ``_flash_decode_pallas``):
 ``csrc/flash_decode.cu``, whose header says how it is laid out and what
 bounds it.  The TPU kernel's sublane-replicated query rows, head
 packing, scalar-prefetch grid and VMEM budget with its quiet fall-back
-to the reference are Mosaic rules and are gone: every page size and
-every head dim that is a multiple of 8 up to 128 runs the kernel, with
-up to 64 query rows.  The JAX package's ``head_pack`` has no
+to the reference are Mosaic rules and are gone: every page size, every
+head dim up to 1024 and any number of query rows run the kernel (one
+CTA serves up to 16 rows of a sequence and head; a long sequence is cut
+into splits of 16 pages, merged in split order through a workspace this
+wrapper allocates).  The JAX package's ``head_pack`` has no
 counterpart: the kernel has nothing to pack.
 
 ``flash_decode`` dispatches on the device of ``q``: a CUDA tensor
@@ -55,7 +57,8 @@ from paddle_tpu_torch.core.registry import register_op
 _NEG_INF = -1e30
 _KERNEL = "flash_decode"
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_ROWS = 64
+# the head dims whose chunks of K/V rows fit the kernel's shared memory
+_MAX_HEAD_DIM = 1024
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -140,12 +143,10 @@ def _check(q4, k_pages, v_pages, tables, lens):
             f"flash_decode: q {tuple(q4.shape)} and pools "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not agree "
             "(pools are [P, H, page_size, d])")
-    if d % 8 or not 8 <= d <= 128:
-        raise ValueError(f"flash_decode: head dim {d} is not a multiple "
-                         "of 8 in [8, 128]")
-    if not 1 <= rr <= _MAX_ROWS:
-        raise ValueError(f"flash_decode: {rr} query rows; the kernel "
-                         f"takes 1 to {_MAX_ROWS}")
+    if not 1 <= d <= _MAX_HEAD_DIM:
+        raise ValueError(f"flash_decode: head dim {d} is not in [1, "
+                         f"{_MAX_HEAD_DIM}]: two chunks of K/V rows of a "
+                         "larger d do not fit in shared memory")
     kv = k_pages.dtype
     if kv not in _KV_CODES or v_pages.dtype != kv or \
             q4.dtype != (torch.float32 if kv == torch.int8 else kv):
@@ -162,12 +163,12 @@ def _check(q4, k_pages, v_pages, tables, lens):
                 t.data_ptr() % 16:
             raise ValueError("flash_decode: the pools must be contiguous, "
                              "16-byte aligned and on q's device")
-    if q4.stride(3) != 1:
-        raise ValueError("flash_decode: q's head dim must have unit stride")
 
 
 def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale):
     q4 = _as_rows(q)
+    if q4.stride(3) != 1:
+        q4 = q4.contiguous()  # the kernel reads a row's d values in order
     tables = torch.as_tensor(block_tables).to(q.device, torch.int32)
     lens = torch.as_tensor(seq_lens).to(q.device, torch.int32)
     tables, lens = tables.contiguous(), lens.contiguous()
@@ -177,12 +178,19 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale):
     if out.numel() == 0 or tables.shape[1] == 0:
         return out.zero_()[:, 0] if q.dim() == 3 else out.zero_()
     lib = _load()
+    mp = tables.shape[1]
+    # the splits' partials (acc, m, l of each row), merged by the kernel's
+    # second pass; none when every sequence fits one split
+    splits = lib.pt_flash_decode_splits(mp)
+    ws = torch.empty(b * h * rr * splits * (d + 2), dtype=torch.float32,
+                     device=q.device) if splits > 1 else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_flash_decode(
             q4.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), lens.data_ptr(), out.data_ptr(), b, rr, h, d,
-            k_pages.shape[2], tables.shape[1], q4.stride(0), q4.stride(1),
+            tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), b, rr, h, d,
+            k_pages.shape[2], mp, q4.stride(0), q4.stride(1),
             q4.stride(2), _KV_CODES[k_pages.dtype], float(scale), stream)
     if err != 0:
         raise RuntimeError("flash_decode kernel launch failed: "
@@ -199,8 +207,10 @@ def _load():
     if lib.pt_flash_decode.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.pt_flash_decode.argtypes = (
-            [ptr] * 6 + [i32] * 6 + [i64] * 3 + [i32, ctypes.c_float, ptr])
+            [ptr] * 7 + [i32] * 6 + [i64] * 3 + [i32, ctypes.c_float, ptr])
         lib.pt_flash_decode.restype = ctypes.c_int
+        lib.pt_flash_decode_splits.argtypes = [ctypes.c_int]
+        lib.pt_flash_decode_splits.restype = ctypes.c_int
         lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
         lib.pt_cuda_error_string.restype = ctypes.c_char_p
     return lib

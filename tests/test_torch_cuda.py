@@ -100,6 +100,14 @@ CASES = [
     (1, 2, 200, 70, 64, True, "bfloat16"),    # Tq > Tk: fully masked rows
     (1, 2, 150, 40, 128, True, "bfloat16"),   # the same at d 128
     (2, 2, 100, 97, 64, False, "bfloat16"),   # ragged T
+    # the wide tile (128 < D <= 256): causal and not, Tq > Tk (fully
+    # masked rows), Tk off the 32-key tile and Tq off the 16-row tile
+    (1, 2, 200, 200, 160, True, "float32"),
+    (2, 2, 130, 190, 256, False, "float32"),
+    (1, 2, 150, 40, 256, True, "float32"),
+    (1, 2, 200, 200, 160, True, "bfloat16"),
+    (1, 2, 129, 257, 256, True, "bfloat16"),
+    (1, 2, 150, 40, 160, True, "bfloat16"),
 ]
 
 
@@ -261,6 +269,110 @@ def test_flash_kernels_take_any_head_dim(cuda, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [160, 256])
+def test_flash_kernels_take_wide_and_strided_head_dims(cuda, d, dtype):
+    """Head dims above 128 run the wide tile, forward and backward, each
+    kernel launched once and counted, with no copy of contiguous inputs;
+    a head dim with a non-unit stride (a transposed [..., D, T] tensor)
+    is copied once per input, each copy counted, and gives the same
+    forward (the backward's delta, rowsum(dO * O), is a PyTorch sum whose
+    order follows dO's layout, so its grads are held to the plain
+    version only)."""
+    b, h, tq, tk = 1, 2, 150, 170
+    rng = np.random.RandomState(d)
+    q, k, v, do = _bwd_inputs(rng, cuda, b, h, tq, tk, d, dtype, False)
+    scale = 1.0 / math.sqrt(d)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    refs = None
+    for layout in ("contiguous", "strided_head"):
+        if layout == "strided_head":
+            q, k, v, do = (x.transpose(2, 3).contiguous().transpose(2, 3)
+                           for x in (q, k, v, do))
+            assert q.stride(3) != 1
+        copies, bcopies = fa.flash_attention_fwd.copies, \
+            fa.flash_attention_bwd.copies
+        launches = fa.flash_attention_fwd.launches
+        dq_l, dkv_l = (fa.flash_attention_bwd.launches[n]
+                       for n in ("dq", "dkv"))
+        out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+        grads = fa.flash_attention_bwd(q, k, v, out, lse, do, True, scale)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_fwd.launches == launches + 1
+        assert fa.flash_attention_bwd.launches["dq"] == dq_l + 1
+        assert fa.flash_attention_bwd.launches["dkv"] == dkv_l + 1
+        strided = layout == "strided_head"
+        assert fa.flash_attention_fwd.copies == copies + 3 * strided
+        assert fa.flash_attention_bwd.copies == bcopies + 4 * strided
+        ref_out, ref_lse = fa.flash_attention_fwd_plain(q, k, v, True,
+                                                        scale)
+        assert (out.float() - ref_out.float()).abs().max().item() <= tol
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, True,
+                                            scale)
+        for name, g, r in zip(("dq", "dk", "dv"), grads, want):
+            assert g.is_contiguous() and g.dtype == r.dtype, name
+            err = (g.float() - r.float()).abs().max().item()
+            assert err <= tol * max(1.0, r.float().abs().max().item()), name
+        if refs is None:
+            refs = (out, lse)
+        else:
+            assert torch.equal(refs[0], out) and torch.equal(refs[1], lse)
+
+
+# the f64 hold's bounds (test_flash_f32_kernels_hold_against_f64)
+F64_MAX_FACTOR = 4.0
+F64_BIAS_FACTOR = 4.0
+F64_BIAS_FLOOR = 1e-7
+
+
+def _f64_attention(q, k, v, do, scale):
+    """Causal attention's out, dq, dk, dv in f64 by autograd."""
+    tq, tk = q.shape[2], k.shape[2]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device).tril(
+        tk - tq)
+    leaves = [x.double().requires_grad_() for x in (q, k, v)]
+    s = torch.matmul(leaves[0], leaves[1].transpose(-1, -2)) * scale
+    out = torch.matmul(torch.softmax(s.masked_fill(~mask, float("-inf")),
+                                     dim=-1), leaves[2])
+    return (out.detach(), *torch.autograd.grad(out, leaves, do.double()))
+
+
+def _f64_errs(got, ref):
+    diff = got.double() - ref
+    return (diff * torch.sign(ref)).mean().item(), diff.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 8, 512, 64), (1, 2, 4096, 64)])
+def test_flash_f32_kernels_hold_against_f64(cuda, shape):
+    """The f32 kernels' out, dq, dk and dv against an f64 reference, beside
+    the plain f32 version (cuBLAS, TF32 off) against the same reference:
+    the kernels' max error within F64_MAX_FACTOR of the plain version's,
+    and their mean signed error (signed by the reference, so a bias
+    toward zero, which long chains of truncating tensor-core sums give,
+    reads negative) within F64_BIAS_FACTOR of the plain version's
+    magnitude, or of F64_BIAS_FLOOR of the reference's mean magnitude."""
+    rng = np.random.RandomState(11)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda) for _ in range(4))
+    scale = 1.0 / math.sqrt(shape[-1])
+    refs = _f64_attention(q, k, v, do, scale)
+    out, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    out_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, True, scale)
+    got = (out, *fa.flash_attention_bwd(q, k, v, out, lse, do, True, scale))
+    plain = (out_p, *fa.flash_attention_bwd_plain(q, k, v, out_p, lse_p, do,
+                                                  True, scale))
+    for name, g, pl, r in zip(("out", "dq", "dk", "dv"), got, plain, refs):
+        bias, err = _f64_errs(g, r)
+        pbias, perr = _f64_errs(pl, r)
+        floor = F64_BIAS_FLOOR * r.abs().mean().item()
+        assert err <= F64_MAX_FACTOR * perr, (name, err, perr)
+        assert abs(bias) <= max(F64_BIAS_FACTOR * abs(pbias), floor), \
+            (name, bias, pbias, floor)
+
+
+@pytest.mark.cuda
 def test_gpu_predictor_matches_cpu(cuda, tmp_path):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.models.transformer import \
@@ -323,6 +435,13 @@ BWD_CASES = [
     (1, 2, 33, 1, 64, False, "bfloat16", False, False),   # one key
     (1, 2, 33, 1, 128, True, "bfloat16", False, False),   # one key, causal
     (4, 8, 512, 512, 64, True, "bfloat16", True, False),  # the AMP layout
+    # the wide tile: causal and not, ragged, fully masked rows, one key
+    (1, 2, 200, 200, 160, True, "float32", False, True),
+    (2, 2, 130, 190, 256, False, "float32", True, False),
+    (1, 2, 150, 40, 256, True, "float32", False, False),
+    (1, 2, 200, 200, 160, True, "bfloat16", True, False),
+    (1, 2, 129, 257, 256, True, "bfloat16", False, True),
+    (1, 2, 33, 1, 160, True, "bfloat16", False, False),
 ]
 
 
@@ -534,19 +653,23 @@ def test_gpu_training_step_matches_cpu(cuda):
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """The checks run before any build or launch, so they hold on the
-    CPU too.  A head dim up to 128 that is not a multiple of 16 is padded
-    by the wrappers, not refused; above 128 the kernels' tiles do not fit
-    in shared memory."""
+    CPU too.  A head dim up to 256 is taken (padded to a multiple of 16
+    where it is not one, the wide tile above 128), and so is a head dim
+    with a non-unit stride (copied, counted); above 256 the wide tile's
+    rows and accumulators do not fit, and float16 is not a kernel
+    dtype."""
     fa._check(*[torch.zeros((1, 1, 8, 24))] * 3)
-    q = torch.zeros((1, 1, 8, 136))
-    with pytest.raises(ValueError, match="head dim 136"):
+    fa._check(*[torch.zeros((1, 1, 8, 136))] * 3)
+    fa._check(*[torch.zeros((1, 1, 8, 256))] * 3)
+    q = torch.zeros((1, 1, 8, 264))
+    with pytest.raises(ValueError, match="head dim 264"):
         fa._check(q, q, q)
     h = torch.zeros((1, 1, 8, 32), dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
         fa._check(h, h, h)
     s = torch.zeros((1, 1, 32, 8)).transpose(2, 3)
-    with pytest.raises(ValueError, match="unit stride"):
-        fa._check(s, s, s)
+    fa._check(s, s, s)
+    assert not fa._aligned(s) and fa._aligned(s.contiguous())
 
 
 # (M, K, N): ragged edges with K or N not a multiple of 8 (the mma.sync
@@ -886,7 +1009,12 @@ def test_conv_stats_refuses_partials_of_the_wrong_height(cuda, monkeypatch):
 
 
 # (N, H, W, C): C a multiple of 8 (16-byte loads) and ragged
-BN_SHAPES = [(2, 7, 7, 64), (3, 5, 4, 24), (2, 3, 3, 13), (128, 7, 7, 2048)]
+BN_SHAPES = [(2, 7, 7, 64), (3, 5, 4, 24), (2, 3, 3, 13), (128, 7, 7, 2048),
+             # every ResNet-50 shape class at batch 2 (spatial 112 to 7,
+             # C 64 to 2048: one to two hundred fifty-six octets a row)
+             (2, 112, 112, 64), (2, 56, 56, 64), (2, 56, 56, 256),
+             (2, 28, 28, 128), (2, 28, 28, 512), (2, 14, 14, 256),
+             (2, 14, 14, 1024), (2, 7, 7, 512)]
 
 
 @pytest.mark.cuda
@@ -915,6 +1043,39 @@ def test_bn_apply_kernel_matches_plain(cuda, n, h, w, c, dtype):
             tol = 1e-6 if dtype == "float32" else 1e-2
             err = (got.float() - want.float()).abs().max().item()
             assert err <= tol * scale_, (r is None, act, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [64, 2048, 1200])
+def test_bn_apply_tiled_and_masked_kernels_agree(cuda, c, dtype):
+    """The tiled kernel (aligned rows, C a multiple of 8) and the masked
+    one (a view 4 bytes off 16-byte alignment) round at the same points:
+    their outputs are bit-equal, with and without a residual and relu.
+    C 1200 takes more than one span of 256 octets."""
+    rng = np.random.RandomState(c)
+    n, h, w = 3, 5, 7
+    m = n * h * w * c
+
+    def t(shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda, getattr(torch, dt))
+
+    mean, scale, shift = t((c,), "float32"), t((c,), "float32"), \
+        t((c,), "float32")
+    rstd = torch.rsqrt(t((c,), "float32").abs() + 0.5)
+    buf, rbuf = t((m + 8,)), t((m + 8,), "float32")
+    off = 4 // buf.element_size()
+    y_off = buf[off:off + m].view(n, h, w, c)
+    res_off = rbuf[1:1 + m].view(n, h, w, c)
+    y, res = y_off.clone(), res_off.clone()   # fresh, aligned
+    for r, r_off in ((None, None), (res, res_off)):
+        for act in ("", "relu"):
+            tiled = cep.bn_apply_kernel(y, mean, rstd, scale, shift, r, act)
+            masked = cep.bn_apply_kernel(y_off, mean, rstd, scale, shift,
+                                         r_off, act)
+            torch.cuda.synchronize()
+            assert torch.equal(tiled, masked), (r is None, act)
 
 
 @pytest.mark.cuda
@@ -1023,6 +1184,16 @@ DECODE_CASES = [
     ([17, 90], 5, 128, 48, "bfloat16", True),         # ragged chunks
     ([5, 33, 64], 1, 64, 32, "int8", False),
     ([70, 9], 5, 128, 16, "int8", True),
+    # head dims off 16-byte rows or above 128 (d 72 over int8 pages: 72-byte
+    # rows, copied element by element), 70 verify rows, one long sequence
+    # (32 splits)
+    ([5, 33, 300, 1], 5, 72, 16, "float32", False),
+    ([70, 9, 300], 3, 72, 16, "int8", True),
+    ([17, 90, 260, 0], 5, 160, 32, "bfloat16", True),
+    ([129, 7, 300], 3, 256, 32, "float32", False),
+    ([129, 7, 300], 2, 256, 16, "int8", False),
+    ([100, 75, 600, 70], 70, 64, 16, "float32", False),
+    ([32768], 1, 128, 128, "float32", False),
 ]
 # relative to max(1, |ref|): f32 sums in another order; bf16 output is
 # one rounding of those sums, so one bf16 step apart at most
@@ -1099,20 +1270,79 @@ def test_flash_decode_verify_rows_bit_equal_qlen1(cuda, dtype):
         assert torch.equal(one, out[:, i]), i
 
 
+# (lens, R, d, page size): lengths on both sides of a split boundary (16
+# pages: 256 keys at page 16), so verify rows of one sweep fall in one or
+# two splits; 70 rows (five row blocks) over several splits; d 16 (64-key
+# chunks of four pages)
+SPLIT_VERIFY_CASES = [
+    ([254, 256, 258, 259, 513, 1030], 5, 64, 16),
+    ([256, 257, 260, 1025], 5, 128, 16),
+    ([100, 75, 600, 70], 70, 64, 16),
+    ([70, 33, 300, 129], 5, 16, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("lens,r,d,ps", SPLIT_VERIFY_CASES)
+def test_flash_decode_verify_rows_bit_equal_across_splits(cuda, lens, r, d,
+                                                          ps, dtype):
+    """Verify rows stay array_equal to q-len-1 launches whichever row
+    block and however many splits either launch has: split points follow
+    the page index, a split past a row's limit is an exact no-op of the
+    merge."""
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    q, k, v, tab, ln, scales = _decode_inputs(6, lens, r, d, ps, dtype,
+                                              False, cuda)
+    out = fd.flash_decode(q, k, v, tab, ln, kv_scales=scales)
+    for i in range(r):
+        one = fd.flash_decode(q[:, i].contiguous(), k, v, tab,
+                              (ln - (r - 1 - i)).clamp_min(0),
+                              kv_scales=scales)
+        assert torch.equal(one, out[:, i]), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_flash_decode_is_deterministic(cuda, dtype):
+    """Two launches over many splits give the same bits: the splits are
+    merged in order, with no atomics."""
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    q, k, v, tab, ln, scales = _decode_inputs(7, [4000, 1030, 77], 5, 128,
+                                              16, dtype, True, cuda)
+    first = fd.flash_decode(q, k, v, tab, ln, kv_scales=scales)
+    assert torch.equal(first,
+                       fd.flash_decode(q, k, v, tab, ln, kv_scales=scales))
+
+
 @pytest.mark.cuda
 def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
+    """What the kernel took no longer (a head dim off multiples of 8, more
+    than 64 query rows) runs and is counted; q of another dtype than the
+    pools' and head dims above 1024 (two chunks of K/V rows overflow
+    shared memory) are refused."""
     from paddle_tpu_torch.ops import flash_decode as fd
 
     q, k, v, tab, ln, _ = _decode_inputs(5, [5], 1, 64, 16, "float32",
                                          False, cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        fd.flash_decode(q[..., :60], k[..., :60].contiguous(),
-                        v[..., :60].contiguous(), tab, ln)
-    with pytest.raises(ValueError, match="query rows"):
-        qr = q[:, None].expand(1, 65, 2, 64)
-        fd.flash_decode(qr, k, v, tab, ln)
+    for args in ((q[..., :60], k[..., :60].contiguous(),
+                  v[..., :60].contiguous(), tab, ln),
+                 (q[:, None].expand(1, 65, 2, 64), k, v, tab, ln)):
+        before = fd.flash_decode.launches
+        out = fd.flash_decode(*args)
+        torch.cuda.synchronize()
+        assert fd.flash_decode.launches == before + 1
+        ref = fd.flash_decode_plain(*args)
+        assert (out - ref).abs().max().item() <= 1e-5 * max(
+            1.0, ref.abs().max().item())
     with pytest.raises(TypeError):
         fd.flash_decode(q.bfloat16(), k, v, tab, ln)
+    wide = torch.zeros((1, 2, 16, 1032), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fd.flash_decode(torch.zeros((1, 2, 1032), device=cuda), wide, wide,
+                        tab, ln)
 
 
 @pytest.mark.cuda

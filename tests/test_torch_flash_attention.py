@@ -318,3 +318,32 @@ def test_head_dim_padding_bwd_matches_plain_and_jax(b, h, tq, tk, causal,
     for name, g, w in zip(("dq", "dk", "dv"), want, jgrads):
         np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
                                    atol=tol, err_msg=name)
+
+
+# (B, H, Tq, Tk, causal, dtype) at head dim 160, which the kernels take
+# in the wide tile
+WIDE_CASES = [(1, 2, 40, 56, True, "float32"), (1, 2, 37, 45, False, "float32"),
+              (1, 2, 56, 24, True, "bfloat16")]
+WIDE_D = 160
+
+
+@pytest.mark.parametrize("b,h,tq,tk,causal,dtype", WIDE_CASES)
+def test_wide_head_dim_matches_jax(b, h, tq, tk, causal, dtype):
+    """At D 160 (the wide tile's range) the plain forward equals the JAX
+    package's flash_attention (impl "xla") within 1e-5 in f32 (2e-2 in
+    bf16, P rounded at other points), and the plain backward equals
+    jax.vjp of it within the same."""
+    q, k, v, do = _bwd_torch_inputs(b, h, tq, tk, WIDE_D, dtype, seed=tq)
+    scale = 1.0 / math.sqrt(WIDE_D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    jargs = [jnp.asarray(x.float().numpy(), dtype=dtype) for x in (q, k, v)]
+    jout, vjp = jax.vjp(lambda a, b_, c: flash_attention(
+        a, b_, c, causal=causal, impl="xla"), *jargs)
+    jgrads = vjp(jnp.asarray(do.float().numpy(), dtype=dtype))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(to_numpy(o), to_numpy(jout), rtol=tol,
+                               atol=tol, err_msg="out")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, jgrads):
+        np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
+                                   atol=tol, err_msg=name)

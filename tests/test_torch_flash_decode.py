@@ -91,6 +91,26 @@ def test_plain_matches_jax_interpret_kernel(d, dtype, r):
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d,r,lens", [(72, 5, [5, 33, 16, 1]),
+                                      (160, 5, [5, 33, 16, 1]),
+                                      (64, 70, [100, 75, 70, 5])])
+def test_plain_matches_jax_interpret_kernel_any_d_and_rows(d, r, lens,
+                                                          dtype):
+    """Head dims off the old kernel's range (72, 160) and 70 verify rows,
+    which the kernel now takes: the plain version still equals the JAX
+    package's kernel under the interpreter, within TOL."""
+    ps = 32 if dtype == "int8" else 16     # the Pallas int8 page tile
+    port, jx = _setup(lens, r=r, d=d, ps=ps, dtype=dtype)
+    q, c, tab, ln, scales = jx
+    want = jax.jit(lambda *a: pk.flash_decode(
+        *a, impl="interpret", kv_scales=scales))(q, c.k_pages, c.v_pages,
+                                                   tab, ln)
+    got = _port_out(port)
+    assert got.dtype == port[0].dtype
+    _assert_close(got, want, dtype)
+
+
 def test_plain_matches_plain_softmax():
     """The page-ordered online softmax equals softmax(QK^T)V over the
     live prefix (within 1e-5 of outputs of unit scale)."""
