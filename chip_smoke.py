@@ -19,8 +19,9 @@ Phases, none of which catches its own failure:
      d 64 and 128 among the cases), the plain version and one PyTorch
      library call (SDPA); no case may copy its inputs (rows not 16-byte
      aligned, or a head dim padded to a multiple of 16); head dims 160 and
-     256 run the wide tile; then holds the f32 forward against an f64
-     reference at [8,8,512,64] and [1,8,8192,64], each output's mean
+     256 run the wide tile, 320 and 512 the wide tile in 256-column
+     slices; then holds the f32 forward against an f64 reference at
+     [8,8,512,64], [1,8,8192,64] and [1,4,512,320], each output's mean
      signed error and max error beside the plain f32 version's;
   3. serves the Transformer-base LM (vocab 32000, d_model 512, 8 heads,
      d_inner 2048, 6 layers, seq 512, random weights from --seed) through
@@ -88,7 +89,7 @@ Phases, none of which catches its own failure:
      then the batch-2 f32 step on the card against the CPU, as in 9;
  11. holds flash_decode against its plain version on the card over
      ragged lengths (zero-length rows, page and split boundaries), d
-     16/64/72/128/160/256, pages of 4/16/32/128 tokens, f32/bf16/int8
+     16/64/72/128/160/256/1536/2048, pages of 4/16/32/128 tokens, f32/bf16/int8
      pools, 1/3/5/20/70 query rows, strided block tables, the server's
      shapes (64 streams of 64-160 tokens, 8 heads of 128, page 128, f32
      and int8 pools) and long ones (64 x 4096 tokens, one 32768-token
@@ -115,11 +116,47 @@ Phases, none of which catches its own failure:
  14. profiles one request and one step of each training path and one
      served run of the 64 decode requests, first submit to last result
      (device busy share, top kernels), inside phases 3, 5, 7, 9, 10 and
-     12;
- 15. prints one {"kernels": [...]} line (eight kernels), then the card's
+     12, and one batch of each inference leg in 15-17;
+ 15. conv-net inference in bf16, the bench's legs (bench.py:623-661) on
+     weights from --seed, every batch norm's scale and shift drawn and
+     its statistics taken from 8 images: infer (ResNet-50 at batch 128,
+     unfolded), its A/B lever infer_convep (the conv+bn fold,
+     fuse_conv_epilogue and flag conv_epilogue "on": 53 conv_epilogue
+     launches a batch with bias, residual and relu), vgg_infer (VGG16 at
+     64), vgg_cifar and rn32_cifar (at 512): one warm-up and INFER_RUNS
+     (5) counted batches each (ms by events and by the host clock,
+     launches, a profile), and at batch 2 the card's bf16 logits against
+     the CPU's f32 run of the program before bf16_transpile, within the
+     leg's BF16_BOUNDS of scale with the same top-1 (where the top-2
+     margin is above twice the error), and a planted fault (the last
+     block's shift zeroed) that must break the bound;
+ 16. int8 inference, infer_i8 and infer_i8_inter (bench.py:768-929):
+     ResNet-50 folded, nhwc, abs-max int8 weights, calibrated on 8
+     images, converted with bf16 out (int8 activations between layers in
+     the second), the bench's calibration and interlayer coverage numbers
+     and gates, INFER_RUNS batches of 128 with one conv_int8 launch per
+     int8 op a batch, and at batch 2 the card against the CPU's run of
+     the same converted program: every logit and the fc's float input
+     equal (the share of equal logits and any other's distance in steps
+     of the fc's lattice logged);
+ 17. the bf16 Predictor: ResNet-50 saved, Config(dir) with
+     enable_mkldnn_bfloat16, create_predictor (ir_optim folds conv+bn),
+     INFER_RUNS requests of 128 images, and a batch-2 request against the
+     CPU's f32 Predictor (planted fault: its last folded shift zeroed);
+ 18. conv_int8 torch.equal to its plain version at every distinct int8
+     shape of phase 16 and of ResNet-32 on cifar at 512 (the fc as a
+     1x1 convolution) with every epilogue subset of I8_SUBSETS and every
+     one the legs run there (Bias and Residual in the dtypes the run
+     gave them); each (shape, epilogue) of the two legs timed by graph
+     replay and by events beside the plain version, torch._int_mm on an
+     explicit im2col and cuDNN's bf16 convolution, its timed operands
+     held torch.equal to the plain version; conv_epilogue at the fused graph's shapes and
+     stages, timed beside cuDNN + adds + relu;
+ 19. prints one {"kernels": [...]} line (nine kernels), then the card's
      line, then the result line {"ok": true, "device": {...}} last.
 
-Takes about seven minutes on one H100, the kernels' build included.
+Takes about ten minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
+kernels' build included.
 Every main path also holds the flash kernels' input copies at 0.
 
 Exits non-zero, printing no result line, when no CUDA device is present
@@ -354,6 +391,12 @@ def graph_ms(fn, iters):
 # (B, H, Tq, Tk, D, causal, dtype, strided): strided q/k/v are permuted
 # views of [B, T, H, D] tensors, as the model's transpose2 hands them over
 FLASH_CASES = [
+    # above D 256 (the wide tile in 256-column slices), causal and not,
+    # several K/V tiles
+    (1, 2, 150, 230, 320, True, "float32", False),
+    (1, 2, 130, 210, 512, False, "float32", True),
+    (1, 2, 200, 230, 320, False, "bfloat16", True),
+    (1, 2, 129, 257, 512, True, "bfloat16", False),
     # the wide tile (128 < D <= 256), causal and not, several tiles on
     # both sides
     (1, 2, 200, 200, 160, True, "float32", False),
@@ -399,7 +442,7 @@ LONG_FAULT_KEY = 16384
 # bias toward zero, which long chains of truncating tensor-core sums give,
 # reads negative), and its max error, beside the plain f32 version's
 # (cuBLAS with TF32 off) against the same reference.
-F64_SHAPES = [(8, 8, 512, 64), (1, 8, 8192, 64)]
+F64_SHAPES = [(8, 8, 512, 64), (1, 8, 8192, 64), (1, 4, 512, 320)]
 
 
 def f64_reference(q, k, v, do, scale):
@@ -1433,7 +1476,7 @@ def train_batch(seed, batch):
 
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fc_epilogue", "conv_epilogue",
-           "conv_stats", "bn_apply", "flash_decode")
+           "conv_stats", "bn_apply", "flash_decode", "conv_int8")
 # beside the launches: the bf16 flash kernels' contiguous copies of q, k,
 # v (or dO) whose rows were not 16-byte aligned, 0 on every main path
 COPIES = "flash_attention_fwd_copies"
@@ -1447,6 +1490,7 @@ def kernel_counts():
     from paddle_tpu_torch.ops import epilogue as ep
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.ops import quant
 
     return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
             "flash_attention_bwd_dq": fa.flash_attention_bwd.launches["dq"],
@@ -1457,6 +1501,7 @@ def kernel_counts():
             "conv_stats": cep.conv_stats_kernel.launches,
             "bn_apply": cep.bn_apply_kernel.launches,
             "flash_decode": fd.flash_decode.launches,
+            "conv_int8": quant.conv_int8.launches,
             COPIES: fa.flash_attention_fwd.copies,
             BWD_COPIES: fa.flash_attention_bwd.copies,
             FC_WGMMA: ep.fc_epilogue.launches_by_path["wgmma"]}
@@ -1467,6 +1512,7 @@ def reset_kernel_counts():
     from paddle_tpu_torch.ops import epilogue as ep
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import flash_decode as fd
+    from paddle_tpu_torch.ops import quant
 
     fa.flash_attention_fwd.launches = 0
     fa.flash_attention_fwd.copies = 0
@@ -1478,6 +1524,7 @@ def reset_kernel_counts():
     cep.conv_stats_kernel.launches = 0
     cep.bn_apply_kernel.launches = 0
     fd.flash_decode.launches = 0
+    quant.conv_int8.launches = 0
 
 
 def expected_counts(**per_run):
@@ -1813,6 +1860,13 @@ DECODE_CASES = [
     ("d72_int8", [70, 9, 300], 5, 2, 72, 16, "int8", True),
     ("d160_bf16", [17, 90, 260, 0], 5, 2, 160, 32, "bfloat16", True),
     ("d256", [129, 7, 300], 3, 2, 256, 32, "float32", False),
+    # above d 1024: chunks of 4 keys (the pools' d alone sets them), a step
+    # and a 5-row sweep over f32, bf16 and int8 pools, across a split
+    ("d1536", [5, 33, 300, 1], 1, 2, 1536, 16, "float32", False),
+    ("d1536_bf16_verify", [70, 9, 300], 5, 2, 1536, 16, "bfloat16", True),
+    ("d2048_verify", [17, 90, 260, 0], 5, 2, 2048, 32, "float32", True),
+    ("d2048_int8", [129, 7, 300], 1, 2, 2048, 16, "int8", False),
+    ("d2048_int8_verify", [70, 9, 300], 5, 2, 2048, 16, "int8", True),
     ("verify_70", [100, 75, 600, 70], 70, 2, 64, 16, "float32", False),
     ("split_straddle", [254, 256, 258, 513, 516, 1030], 5, 2, 64, 16,
      "float32", False),
@@ -2179,6 +2233,844 @@ def decode_phase(device, seed):
     return launches, res, spec_res, self_res, int8_res, long_res, top1
 
 
+# ---------------------------------------------------------------------------
+# phases 15-22: conv-net inference in bf16 and int8 (the bench's six
+# inference legs, bench.py:1767-1793, the infer leg's A/B lever, and the
+# bf16 Predictor)
+# ---------------------------------------------------------------------------
+
+# leg -> (model, batch, image side): the bench's batches (bench.py:667,
+# 701, 722, 744, 768)
+INFER_LEGS = {
+    "infer": ("resnet50", 128, 224),
+    "infer_convep": ("resnet50", 128, 224),
+    "vgg_infer": ("vgg16", 64, 224),
+    "vgg_cifar": ("vgg16_cifar", 512, 32),
+    "rn32_cifar": ("resnet32_cifar", 512, 32),
+    "infer_i8": ("resnet50", 128, 224),
+    "infer_i8_inter": ("resnet50", 128, 224),
+    "predictor": ("resnet50", 128, 224),
+}
+INFER_RUNS = 5        # counted batches a leg, after one warm-up batch
+INT8_CALIB = 8        # calibration images (bench.py:812)
+BN_CALIB_IMAGES = 8   # images whose statistics the batch norms take
+# bf16 logits on the card against the CPU's f32 run of the same program
+# before bf16_transpile, at batch CHECK_BATCH, as a share of the f32
+# logits' scale, a bound a leg (bf16 keeps 8 significant bits and rounds
+# at every one of 16-50 layers).  Each bound lies between the leg's sound
+# reading and the reading of a planted fault, the same comparison against
+# the CPU run with one block's (folded) shift zeroed, which must break it
+# (on an NVIDIA H100 80GB HBM3 at 700 W, seed 0: infer 0.0089 / 0.381,
+# infer_convep 0.0065 / 0.384, the Predictor 0.0072 / 0.386, vgg_infer
+# 0.111 / 0.315, vgg_cifar 0.065 / 0.263, rn32_cifar 0.0028 / 0.246).
+# Top-1 must agree on every image whose f32 top-2 margin is above twice
+# the leg's measured error; a closer image is a near-tie whose top-1 the
+# measured error may flip, and it is counted and logged.
+BF16_BOUNDS = {"infer": 0.03, "infer_convep": 0.03, "predictor": 0.03,
+               "vgg_infer": 0.18, "vgg_cifar": 0.13, "rn32_cifar": 0.01}
+# int8: the card and the CPU run the same converted program and scales.
+# The s8 sums are exact, the f32 epilogues round at fixed points and the
+# float ops between them (the average pool) agree on both, so every logit
+# and the fc's float input must be equal; the distance of any unequal
+# logit in steps of the bf16 grid of the fc's output is logged.
+# the dense s8 peak of the same card at 700 W (tensor cores)
+PEAK_INT8_OPS = 1979e12
+
+
+def build_infer_model(name, side):
+    """(logits name, main, startup) of an inference model
+    (``is_test=True``) in programs of its own."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import resnet, vgg
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        if name == "resnet50":
+            model = resnet.resnet50(is_test=True,
+                                    image_shape=(3, side, side))
+        elif name == "vgg16":
+            model = vgg.vgg16(is_test=True, img_shape=(3, side, side))
+        elif name == "vgg16_cifar":
+            model = vgg.vgg(16, class_dim=10, img_shape=(3, side, side),
+                            is_test=True)
+        else:
+            model = resnet.resnet_cifar10(is_test=True)
+    return model["logits"].name, main, startup
+
+
+def init_infer_scope(main, startup, seed, device, side):
+    """A scope holding the startup's weights on ``device`` (host RNG
+    from ``seed``), every batch norm's scale and shift drawn from U[0.5,
+    1.5) (U[0.1, 0.2) where a residual add takes its output, as trained
+    residual nets keep their branches small: a random net of unit
+    branches is chaotic, and bf16's roundings grow through it without
+    bound) and U[-0.5, 0.5), its running mean 0 and its running variance
+    the mean square of its input over BN_CALIB_IMAGES images, layer
+    after layer (at least a tenth of the layer's mean): the activations
+    keep about unit scale, as a trained net's do, so a shift of one block
+    matters to the logits (the planted faults' premise).  (Centring on
+    the batch mean divides nearly constant channels by a tiny deviation,
+    and a channel dead on the calibration images by sqrt(epsilon): both
+    amplify bf16's rounding past any bound.)"""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    exe = pt.Executor(pt.CUDAPlace(0))
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed + 11)
+    block = main.global_block()
+    into_add = {n for op in block.ops if op.type == "elementwise_add"
+                for n in op.input_names()}
+    feed = infer_feed(main, seed + 23, BN_CALIB_IMAGES, side)
+    exe._feed_data(main, feed, scope)
+    with torch.no_grad():
+        for op in block.ops:
+            if op.type == "batch_norm":
+                x = scope.find_var(op.inputs["X"][0]).get().float()
+                dims = (0, 2, 3) if x.dim() == 4 else (0,)
+                c = x.shape[1]
+                ms = (x * x).mean(dims)
+                residual = op.outputs["Y"][0] in into_add
+                stats = {"Mean": torch.zeros(c),
+                         "Variance": torch.maximum(ms, 0.1 * ms.mean()),
+                         "Scale": rng.uniform(0.1, 0.2, c) if residual
+                         else rng.uniform(0.5, 1.5, c),
+                         "Bias": rng.uniform(-0.5, 0.5, c)}
+                for slot, value in stats.items():
+                    if isinstance(value, np.ndarray):
+                        value = torch.from_numpy(value.astype(np.float32))
+                    scope.var(op.inputs[slot][0]).set(value.to(device))
+            exe._run_op(op, scope)
+    return scope
+
+
+def infer_feed(program, seed, batch, side, device=None, dtype=None):
+    """The bench's feed: images U[0, 1), and zero labels where the
+    program reads them; on ``device`` (in ``dtype``) or as numpy."""
+    import torch
+
+    rng = np.random.RandomState(seed + 13)
+    feed = {"image": rng.rand(batch, 3, side, side).astype(np.float32)}
+    if "label" in program.global_block().vars:
+        feed["label"] = np.zeros((batch, 1), np.int64)
+    if device is not None:
+        feed = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+        if dtype is not None:
+            feed["image"] = feed["image"].to(dtype)
+    return feed
+
+
+def persistable_state(program, scope):
+    """{name: CPU tensor} of the program's persistables in ``scope``."""
+    out = {}
+    for v in program.list_vars():
+        var = scope.find_var(v.name) if v.persistable else None
+        if var is not None and var.get() is not None:
+            out[v.name] = var.get().detach().cpu().clone()
+    return out
+
+
+def cpu_logits(program, state, feed, fetch):
+    """``program`` on the CPU with ``state`` (a copy of it)."""
+    import paddle_tpu_torch as pt
+
+    out, = pt.Executor(pt.CPUPlace()).run(program, feed=feed,
+                                          fetch_list=[fetch],
+                                          scope=pt_scope(state))
+    return np.asarray(out, np.float32)
+
+
+def time_infer(what, exe, program, feed, fetch, scope, expected):
+    """One warm-up batch, then INFER_RUNS counted batches: ms a batch by
+    events and by the host clock (each ending in a synchronise), kernel
+    launches (checked against ``expected``), and a profile of one
+    batch."""
+    import torch
+
+    def run():
+        return exe.run(program, feed=feed, fetch_list=[fetch], scope=scope,
+                       return_numpy=False)[0]
+
+    out = run()
+    torch.cuda.synchronize()
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    reset_kernel_counts()
+    walls, events = [], []
+    for _ in range(INFER_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    launches = kernel_counts()
+    if launches != expected:
+        raise AssertionError(f"{what} launched {launches}, expected "
+                             f"{expected}")
+    batch = int(feed["image"].shape[0])
+    row = dict(batch=batch, event_ms=events, wall_ms=walls,
+               images_per_s=batch * len(walls) / sum(walls) * 1e3,
+               launches_per_batch={k: v // INFER_RUNS
+                                   for k, v in launches.items() if v},
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{what} " + json.dumps(row))
+    profile(f"{what} batch", run)
+    return launches, row
+
+
+def check_bf16_vs_cpu(what, exe, program, f32_program, scope, state32,
+                      fetch, shift_var, seed, side):
+    """The card's bf16 logits at CHECK_BATCH against the CPU's f32 run of
+    the program before bf16_transpile (same weights), within the leg's
+    BF16_BOUNDS of scale and with equal top-1 (bf16_agreement); the same
+    against the CPU run with ``shift_var`` zeroed must break the
+    bound."""
+    import torch
+
+    feed = infer_feed(program, seed, CHECK_BATCH, side)
+    card, = exe.run(program, feed=feed, fetch_list=[fetch], scope=scope)
+    card = np.asarray(card, np.float32)
+    ref = cpu_logits(f32_program, state32, feed, fetch)
+    faulted = dict(state32)
+    faulted[shift_var] = torch.zeros_like(state32[shift_var])
+    fault = cpu_logits(f32_program, faulted, feed, fetch)
+    row = bf16_agreement(what, card, ref, fault)
+    row["planted_fault"] = shift_var
+    log(f"{what} card vs CPU " + json.dumps(row))
+    return row
+
+
+def bf16_agreement(what, card, ref, fault):
+    """The card's logits against the CPU's f32 ones and the faulted CPU
+    run, as shares of the f32 logits' scale, held to the leg's
+    BF16_BOUNDS; top-1 agreement over all images and over the decisive
+    ones, whose top-2 margin is above twice the measured error (a flip
+    there is a fault; below it, a near-tie).  Raises where the card
+    breaks the bound or a decisive top-1, or the planted fault keeps
+    within it."""
+    bound = BF16_BOUNDS[what]
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(card - ref).max()) / scale
+    top = np.sort(ref, axis=-1)
+    margin = (top[:, -1] - top[:, -2]) / scale
+    same = card.argmax(-1) == ref.argmax(-1)
+    decisive = margin > 2 * err
+    row = dict(scale=scale, err_rel_to_scale=err, bound=bound,
+               top1_equal=bool(same.all()), top1_margin_rel=margin.tolist(),
+               n_decisive=int(decisive.sum()),
+               top1_equal_decisive=bool(same[decisive].all()),
+               planted_fault_err=float(np.abs(card - fault).max()) / scale)
+    if not (err <= bound and row["top1_equal_decisive"]):
+        raise AssertionError(f"{what}: the card's bf16 logits disagree with "
+                             f"the CPU's f32 run: {row}")
+    if row["planted_fault_err"] <= bound:
+        raise AssertionError(f"{what}: a planted fault does not break the "
+                             f"bound: {row}")
+    return row
+
+
+def fc_output_steps(program, state, card, ref):
+    """|card - ref| in steps of the bf16 grid of the int8 fc's output
+    (mul_int8 casts y = acc * scales to bf16 before its bias add): one
+    step of y is 2^(e - 7) for y in [2^e, 2^(e+1))."""
+    block = program.global_block()
+    fc = next(o for o in block.ops if o.type == "mul_int8")
+    out = fc.outputs["Out"][0]
+    add = next((o for o in block.ops if o.type == "elementwise_add"
+                and o.inputs["X"][0] == out), None)
+    bias = state[add.inputs["Y"][0]].float().numpy() if add else 0.0
+    y = np.abs(ref - bias)
+    step = np.exp2(np.floor(np.log2(np.maximum(y, 1e-30))) - 7)
+    return np.abs(card - ref) / step
+
+
+def check_int8_vs_cpu(what, exe, program, scope, fetch, seed, side):
+    """The card's int8 logits at CHECK_BATCH against the CPU's run of the
+    same converted program and state: the share of equal logits, the
+    rest's distance in steps of the fc output's bf16 grid, and the fc's
+    float input (the average pool) on both."""
+    import paddle_tpu_torch as pt
+
+    feed = infer_feed(program, seed, CHECK_BATCH, side)
+    state = persistable_state(program, scope)
+    fc_in = next(o for o in program.global_block().ops
+                 if o.type == "mul_int8").inputs["X"][0]
+    card, card_x = (np.asarray(v, np.float32) for v in exe.run(
+        program, feed=feed, fetch_list=[fetch, fc_in], scope=scope))
+    ref, ref_x = (np.asarray(v, np.float32) for v in pt.Executor(
+        pt.CPUPlace()).run(program, feed=feed, fetch_list=[fetch, fc_in],
+                           scope=pt_scope(state)))
+    steps = fc_output_steps(program, state, card, ref)
+    unequal = card != ref
+    row = dict(equal_share=float(1.0 - unequal.mean()),
+               max_bf16_steps=float(steps.max()),
+               fc_input_max_err_rel=float(np.abs(card_x - ref_x).max())
+               / float(np.abs(ref_x).max()),
+               fc_input_unequal=int((card_x != ref_x).sum()),
+               fc_inputs=int(ref_x.size),
+               top1_equal=bool((card.argmax(-1) == ref.argmax(-1)).all()),
+               scale=float(np.abs(ref).max()))
+    log(f"{what} card vs CPU " + json.dumps(row))
+    if unequal.any() or row["fc_input_unequal"]:
+        raise AssertionError(f"{what}: the card's int8 logits disagree with "
+                             f"the CPU's run of the same program: {row}")
+    return row
+
+
+def pt_scope(state):
+    """A scope holding copies of ``state``'s tensors."""
+    import paddle_tpu_torch as pt
+
+    scope = pt.Scope()
+    for name, t in state.items():
+        scope.var(name).set(t.clone())
+    return scope
+
+
+def last_shift(program, fused):
+    """The shift var of the program's last block: the last batch norm's
+    Bias, or (folded and fused) the last fused conv's folded bias."""
+    ops = program.global_block().ops
+    if fused:
+        return next(op for op in reversed(ops)
+                    if op.type == "conv2d_epilogue").inputs["Bias"][0]
+    return next(op for op in reversed(ops)
+                if op.type == "batch_norm").inputs["Bias"][0]
+
+
+def bf16_leg(leg, seed, device):
+    """One bf16 leg: the bench's build (bench.py:623-661), timed at its
+    batch, checked against the CPU.  Returns (launches, row, program)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    name, batch, side = INFER_LEGS[leg]
+    t0 = time.perf_counter()
+    fetch, main, startup = build_infer_model(name, side)
+    scope = init_infer_scope(main, startup, seed, device, side)
+    infer = main.clone(for_test=True)
+    fused = leg == "infer_convep"
+    if fused:
+        pt.transpiler.InferenceTranspiler().transpile(
+            infer, scope=scope, protected=[fetch])
+        pt.transpiler.fuse_conv_epilogue(infer, protected=[fetch])
+    pt.transpiler.nhwc_transpile(infer)
+    f32_program = infer.clone()
+    state32 = persistable_state(infer, scope)
+    pt.contrib.float16.bf16_transpile(infer, scope=scope)
+    types = [op.type for op in infer.global_block().ops]
+    n_fused = types.count("conv2d_epilogue")
+    log(f"{leg}: {name} at {side}x{side}, {len(types)} ops "
+        f"({n_fused} conv2d_epilogue), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if fused and n_fused != 53:
+        raise AssertionError(f"{leg}: {n_fused} conv2d_epilogue ops, "
+                             "expected 53")
+    exe = pt.Executor(pt.CUDAPlace(0))
+    feed = infer_feed(infer, seed, batch, side, device, torch.bfloat16)
+    with kernel_flag("conv_epilogue", "on" if fused else "off"):
+        launches, row = time_infer(
+            leg, exe, infer, feed, fetch, scope,
+            expected_counts(conv_epilogue=n_fused * INFER_RUNS))
+        row["vs_cpu"] = check_bf16_vs_cpu(
+            leg, exe, infer, f32_program, scope, state32, fetch,
+            last_shift(infer, fused), seed, side)
+    row["ops"] = len(types)
+    return launches, row, infer
+
+
+def int8_leg(leg, seed, device):
+    """One int8 leg as bench.py:768-929 builds it: fold, nhwc, abs-max
+    int8 weights, calibration on INT8_CALIB images, conversion with bf16
+    out (interlayer for infer_i8_inter); the bench's coverage numbers;
+    timed at its batch, checked against the CPU.  Returns (launches, row,
+    int8_op_shapes of the program at its batch, in the run's dtypes)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib.slim import quantization as slim
+
+    inter = leg == "infer_i8_inter"
+    name, batch, side = INFER_LEGS[leg]
+    t0 = time.perf_counter()
+    fetch, main, startup = build_infer_model(name, side)
+    scope = init_infer_scope(main, startup, seed, device, side)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    infer = main.clone(for_test=True)
+    pt.transpiler.InferenceTranspiler().transpile(infer, scope=scope,
+                                                  protected=[fetch])
+    pt.transpiler.nhwc_transpile(infer)
+    qw = slim.quantize_weights_abs_max(infer, scope)
+    rng = np.random.RandomState(7)
+    calib = [{"image": rng.rand(INT8_CALIB, 3, side, side).astype(
+        np.float32), "label": np.zeros((INT8_CALIB, 1), np.int64)}]
+    act_scales, _ = slim.post_training_quantize(
+        infer, scope, exe, calib, fetch_list=[fetch],
+        fold_boundaries=inter)
+    slim.convert_to_int8_execution(infer, scope, qw, act_scales=act_scales,
+                                   out_dtype="bfloat16",
+                                   int8_activations=inter,
+                                   protected=[fetch])
+    ops = infer.global_block().ops
+    int8_ops = [op for op in ops if op.type.endswith("_int8")]
+    n_cal = sum(1 for op in int8_ops if op.inputs.get("InScale"))
+    calib_row = {"n_int8_params": len(qw), "n_int8_ops": len(int8_ops),
+                 "n_int8_calibrated": n_cal,
+                 "calibration_coverage": n_cal / max(len(int8_ops), 1)}
+    if calib_row["calibration_coverage"] < 0.9:
+        raise AssertionError(f"{leg}: calibration coverage {calib_row}")
+    if inter:
+        stats = infer._int8_interlayer_stats
+        n_req = sum(1 for op in int8_ops if op.inputs.get("OutScale"))
+        nz = sum(1 for v in act_scales.values() if v > 0)
+        calib_row.update(
+            n_requant_epilogues=n_req,
+            n_partial_folds=stats.get("n_partial_folds", 0),
+            interlayer_fold_coverage=n_req / max(len(int8_ops), 1),
+            n_int8_inputs=stats.get("n_int8_inputs", 0),
+            boundary_scale_coverage=nz / max(len(act_scales), 1))
+        if n_req != stats.get("n_edges_folded") or \
+                calib_row["interlayer_fold_coverage"] < 0.5 or \
+                calib_row["boundary_scale_coverage"] < 0.9:
+            raise AssertionError(f"{leg}: interlayer coverage {calib_row} "
+                                 f"{stats}")
+    log(f"{leg}: {len(ops)} ops, calibration {json.dumps(calib_row)}, "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    feed = infer_feed(infer, seed, batch, side, device)
+    launches, row = time_infer(
+        leg, exe, infer, feed, fetch, scope,
+        expected_counts(conv_int8=len(int8_ops) * INFER_RUNS))
+    row["calibration"] = calib_row
+    row["vs_cpu"] = check_int8_vs_cpu(leg, exe, infer, scope, fetch, seed,
+                                      side)
+    row["ops"] = len(ops)
+    return launches, row, int8_op_shapes(infer, batch, scope)
+
+
+def predictor_leg(seed, device, workdir):
+    """ResNet-50 through save_inference_model -> Config(dir) with
+    enable_mkldnn_bfloat16 -> create_predictor -> run on the card (the
+    Predictor's ir_optim folds conv+bn), timed at the bench's batch, and
+    a batch-2 request held against the f32 CPU Predictor of the same
+    model (the planted fault: the last folded shift zeroed there)."""
+    import ml_dtypes
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    name, batch, side = INFER_LEGS["predictor"]
+    fetch, main, startup = build_infer_model(name, side)
+    scope = init_infer_scope(main, startup, seed, device, side)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(workdir, ["image"], [fetch],
+                                   pt.Executor(pt.CUDAPlace(0)),
+                                   main_program=main)
+    cfg = pt.inference.Config(workdir)
+    cfg.enable_mkldnn_bfloat16()
+    pred = pt.inference.create_predictor(cfg)
+    types = [op.type for op in pred._program.global_block().ops]
+    log(f"predictor on {pred.device}: {len(types)} ops, "
+        f"{types.count('batch_norm')} batch_norm left after ir_optim")
+    image = np.random.RandomState(seed + 13).rand(
+        batch, 3, side, side).astype(ml_dtypes.bfloat16)
+    pred.run([image])
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    walls, events = [], []
+    for _ in range(INFER_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out, = pred.run([image])
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+    launches = kernel_counts()
+    if launches != expected_counts():
+        raise AssertionError(f"predictor launched {launches}")
+    row = dict(batch=batch, event_ms=events, wall_ms=walls,
+               images_per_s=batch * len(walls) / sum(walls) * 1e3,
+               ops=len(types))
+    log("predictor " + json.dumps(row))
+    profile("predictor request", lambda: pred.run([image]))
+    cpu_cfg = pt.inference.Config(workdir)
+    cpu_cfg.disable_gpu()
+    cpu_pred = pt.inference.create_predictor(cpu_cfg)
+    small = image[:CHECK_BATCH]
+    card = np.asarray(pred.run([small])[0], np.float32)
+    ref = np.asarray(cpu_pred.run([small.astype(np.float32)])[0],
+                     np.float32)
+    shift = next(n for op in reversed(cpu_pred._program.global_block().ops)
+                 for n in op.input_names() if "bn_folded_bias" in n)
+    var = cpu_pred._scope.find_var(shift)
+    var.set(torch.zeros_like(var.get()))
+    fault = np.asarray(cpu_pred.run([small.astype(np.float32)])[0],
+                       np.float32)
+    check = bf16_agreement("predictor", card, ref, fault)
+    check["planted_fault"] = shift
+    log("predictor card vs CPU " + json.dumps(check))
+    row["vs_cpu"] = check
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# the s8 kernel and #5 at the inference legs' shapes
+# ---------------------------------------------------------------------------
+
+# (out dtype, bias, residual, relu, OutScale): every epilogue subset the
+# kernel takes, as tests/test_torch_cuda.py's I8_EPILOGUES
+I8_SUBSETS = [
+    ("int32", None, None, False, False),
+    ("float32", None, None, False, False),
+    ("bfloat16", "float32", None, True, False),
+    ("bfloat16", "bfloat16", "bfloat16", True, False),
+    ("float32", "bfloat16", "float32", False, False),
+    ("bfloat16", "float32", "bfloat16", True, True),
+    ("float32", None, None, False, True),
+]
+
+
+def int8_op_shapes(program, batch, scope=None):
+    """{(N, H, W, Cin, Cout, K, stride, pad, dilation, groups, subset,
+    int8 x): launches a batch} of a converted program's int8 ops, NHWC;
+    mul_int8 as a 1x1 convolution over [M, 1, 1, K].  The dtypes of x,
+    Bias and Residual are those of ``scope``'s tensors after a run where
+    it is given, else the program's vars'."""
+    block = program.global_block()
+
+    def dtype(slot, op):
+        names = op.inputs.get(slot)
+        if not names:
+            return None
+        var = scope.find_var(names[0]) if scope is not None else None
+        if var is not None and var.get() is not None:
+            return str(var.get().dtype).replace("torch.", "")
+        return block.var(names[0]).dtype
+
+    out = {}
+    for op in block.ops:
+        if op.type == "conv2d_int8":
+            _, h, w, cin = block.var(op.inputs["Input"][0]).shape
+            cout, _, k, _ = block.var(op.inputs["Filter"][0]).shape
+            a = op.attrs
+            geo = (batch, h, w, cin, cout, k, a["strides"][0],
+                   a["paddings"][0], a["dilations"][0], a["groups"])
+            x8 = dtype("Input", op) == "int8"
+        elif op.type == "mul_int8":
+            k, n = block.var(op.inputs["Y"][0]).shape
+            geo = (batch, 1, 1, k, n, 1, 1, 0, 1, 1)
+            x8 = dtype("X", op) == "int8"
+        else:
+            continue
+        a = op.attrs
+        subset = (a["out_dtype"], dtype("Bias", op), dtype("Residual", op),
+                  bool(a.get("fuse_relu")), bool(op.inputs.get("OutScale")))
+        key = geo + (subset, x8)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
+def int8_times(n, h, w, cin, cout, k, s, p, d, g, subset):
+    """(bytes ms, operations ms) of one s8 convolution: the pixels of x
+    its windows touch (1 byte), w once, the output written once (int32 4,
+    f32 4, bf16 2, int8 1 bytes) and the residual read once; 2*M*Cout*K
+    operations at the dense s8 peak."""
+    out, bias, res, _, outscale = subset
+    oh = (h + 2 * p - (k - 1) * d - 1) // s + 1
+    ow = (w + 2 * p - (k - 1) * d - 1) // s + 1
+    m, kk = n * oh * ow, k * k * cin // g
+    pixels = n * h * w if k >= s else n * min(h, oh * k) * min(w, ow * k)
+    elem = {"int32": 4, "float32": 4, "bfloat16": 2}
+    dt_out = 1 if outscale else elem[out]
+    if bias and not outscale and out != "int32":
+        dt_out = 4 if "float32" in (out, bias) else 2
+    nbytes = pixels * cin + cout * kk + m * cout * dt_out + \
+        (m * cout * elem[res] if res else 0)
+    return (nbytes / PEAK_BYTES_PER_S * 1e3,
+            2.0 * m * cout * kk / PEAK_INT8_OPS * 1e3)
+
+
+def check_conv_int8(device, seed, shapes):
+    """conv_int8 against its plain version, torch.equal, at every
+    distinct shape of ``shapes`` (the int8 legs' ops at their batch, the
+    cifar nets' convolutions) with every epilogue subset of I8_SUBSETS
+    and every one ``shapes`` has there; then, at each (shape, subset) the
+    legs run, its times by graph replay and by events beside the plain
+    version and two library calls on the same shape: torch._int_mm (the
+    same s8 product in cuBLASLt) on an explicit im2col, made outside the
+    timing, and cuDNN's channels-last bf16 convolution, which the bf16
+    legs pay; the timed operands are held to the plain version too (the
+    row's max_abs_err).  Returns one row per (shape, subset)."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import quant as Q
+
+    def int8_case(rng, geo, subset):
+        n, h, w, cin, cout, k, s, p, d, g = geo
+        x8 = torch.from_numpy(rng.randint(-127, 128, (n, h, w, cin))
+                              .astype(np.int8)).to(device)
+        wt = torch.from_numpy(rng.randint(-127, 128, (cout, cin // g, k, k))
+                              .astype(np.int8)).to(device)
+        oh = (h + 2 * p - (k - 1) * d - 1) // s + 1
+        ow = (w + 2 * p - (k - 1) * d - 1) // s + 1
+        ops = int8_operands(rng, device, (n, oh, ow, cout), subset)
+        conv = dict(strides=(s, s), paddings=(p, p), dilations=(d, d),
+                    groups=g)
+        return x8, wt, ops, conv
+
+    def held(x8, wt, ops, conv, acc, where):
+        """The kernel's output against the plain version's: raises unless
+        torch.equal; returns max |got - want|."""
+        got = Q.conv_int8(x8, wt, **ops, **conv)
+        want = Q._epilogue_plain(
+            acc, ops["alpha"], ops["colscale"], ops["out_dtype"],
+            ops["bias"], ops["residual"], ops["relu"], ops["out_scale"],
+            127.0)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            raise AssertionError(f"conv_int8 differs from its plain version "
+                                 f"at {where}")
+        return float((got.double() - want.double()).abs().max())
+
+    def plain_acc(x8, wt, conv):
+        return Q._conv_acc_plain(x8, wt, conv["strides"], conv["paddings"],
+                                 conv["dilations"], conv["groups"])
+
+    rng = np.random.RandomState(seed + 17)
+    geos = sorted({key[:10] for key in shapes})
+    n_checked = 0
+    for geo in geos:
+        subsets = list(I8_SUBSETS)
+        subsets += sorted({key[10] for key in shapes if key[:10] == geo
+                           and key[10] not in subsets}, key=str)
+        x8, wt, _, conv = int8_case(rng, geo, I8_SUBSETS[0])
+        acc = plain_acc(x8, wt, conv)
+        shape = (geo[0], acc.shape[1], acc.shape[2], geo[4])
+        for subset in subsets:
+            held(x8, wt, int8_operands(rng, device, shape, subset), conv,
+                 acc, f"{geo} {subset}")
+            n_checked += 1
+        del acc
+    log(f"conv_int8 torch.equal to its plain version over {len(geos)} "
+        f"shapes x {len(I8_SUBSETS)} epilogue subsets and the legs' own "
+        f"({n_checked} cases)")
+
+    rows = []
+    for key, count in sorted(shapes.items(), key=lambda kv: str(kv[0])):
+        n, h, w, cin, cout, k, s, p, d, g = key[:10]
+        subset, x_int8 = key[10], key[11]
+        if count == 0:
+            continue
+        x8, wt, ops, conv = int8_case(rng, key[:10], subset)
+        acc = plain_acc(x8, wt, conv)
+        err = held(x8, wt, ops, conv, acc, f"{key} (timed operands)")
+        del acc
+
+        def kernel():
+            return Q.conv_int8(x8, wt, **ops, **conv)
+
+        # the library calls' operands, made outside their timing
+        cols = F.unfold(x8.permute(0, 3, 1, 2).float(), (k, k),
+                        dilation=d, padding=p, stride=s)
+        kk = cols.shape[1]
+        a_mat = cols.transpose(1, 2).reshape(-1, kk)
+        kpad, npad = -kk % 8, -cout % 8
+        a_mat = F.pad(a_mat, (0, kpad)).to(torch.int8).contiguous()
+        b_mat = F.pad(wt.reshape(cout, -1).float(), (0, kpad, 0, npad)).to(
+            torch.int8).contiguous().t()
+        del cols
+        xb = x8.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wt.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+        def int_mm():
+            return torch._int_mm(a_mat, b_mat)
+
+        def cudnn():
+            return F.conv2d(xb, wb, stride=s, padding=p, dilation=d,
+                            groups=g)
+
+        bound, bound_by = bound_of(int8_times(n, h, w, cin, cout, k, s, p,
+                                              d, g, subset))
+        row = dict(shape=[n, h, w, cin, cout, k, s, p, d, g],
+                   epilogue=list(subset), x_int8=x_int8, per_batch=count,
+                   max_abs_err=err,
+                   ms=graph_ms(kernel, 10), event_ms=cuda_ms(kernel, 10),
+                   plain_ms=cuda_ms(lambda: Q.conv_int8_plain(
+                       x8, wt, **ops, **conv), 1, warmup=1),
+                   int_mm_ms=graph_ms(int_mm, 10),
+                   cudnn_bf16_ms=graph_ms(cudnn, 10),
+                   bound_ms=bound, bound_by=bound_by)
+        row["bound_share"] = bound / row["ms"]
+        log("conv_int8 case " + json.dumps(row))
+        rows.append(row)
+        del x8, wt, a_mat, b_mat, xb, wb
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_operands(rng, device, shape, subset):
+    """Random epilogue operands of ``subset`` for an output of ``shape``
+    (NHWC), as conv_int8 takes them."""
+    import torch
+
+    out, bias, res, relu, outscale = subset
+    cout = shape[3]
+
+    def make(dtype, shp):
+        if dtype is None:
+            return None
+        return torch.from_numpy(rng.standard_normal(shp).astype(
+            np.float32)).to(device, getattr(torch, dtype))
+
+    return dict(
+        alpha=torch.tensor(rng.uniform(1e-6, 1e-5), dtype=torch.float32,
+                           device=device),
+        colscale=torch.from_numpy(rng.uniform(0.5, 2.0, cout).astype(
+            np.float32)).to(device),
+        bias=make(bias, (cout,)), residual=make(res, shape), relu=relu,
+        out_scale=torch.tensor([rng.uniform(1.0, 3.0)], dtype=torch.float32,
+                               device=device) if outscale else None,
+        out_dtype=getattr(torch, out))
+
+
+def cifar_int8_shapes(batch):
+    """The s8 shapes of ResNet-32 on cifar at ``batch`` (its convolutions
+    and fc, with bf16 out, bias and relu, as the int8 conversion gives
+    them), for the kernel check: built, folded and converted with
+    stand-in weights on the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib.slim import quantization as slim
+
+    fetch, main, startup = build_infer_model("resnet32_cifar", 32)
+    scope = pt.Scope()
+    np.random.seed(0)
+    pt.Executor(pt.CPUPlace()).run(startup, scope=scope)
+    infer = main.clone(for_test=True)
+    pt.transpiler.InferenceTranspiler().transpile(infer, scope=scope,
+                                                  protected=[fetch])
+    pt.transpiler.nhwc_transpile(infer)
+    qw = slim.quantize_weights_abs_max(infer, scope)
+    slim.convert_to_int8_execution(infer, scope, qw, out_dtype="bfloat16",
+                                   int8_activations=False,
+                                   protected=[fetch])
+    return {key: 0 for key in int8_op_shapes(infer, batch)}
+
+
+def conv_epilogue_infer_rows(device, seed, program, batch):
+    """#5 at the fused inference graph's shapes (bias, residual and relu
+    stages) at ``batch`` in bf16: each distinct (shape, stages) timed by
+    graph replay and by events, held to its plain version, beside cuDNN's
+    channels-last conv with the same adds and relu.  One row each."""
+    import torch
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import conv_epilogue as cep
+
+    block = program.global_block()
+    shapes = {}
+    for op in block.ops:
+        if op.type != "conv2d_epilogue":
+            continue
+        _, h, w, cin = block.var(op.inputs["Input"][0]).shape
+        cout, _, k, _ = block.var(op.inputs["Filter"][0]).shape
+        key = (h, w, cin, cout, k, op.attrs["strides"][0],
+               op.attrs["paddings"][0], op.attrs["epilogue"])
+        shapes[key] = shapes.get(key, 0) + 1
+    rng = np.random.RandomState(seed + 19)
+    rows = []
+    for (h, w, cin, cout, k, s, p, spec), count in sorted(shapes.items()):
+        x, wt = conv_operands(rng, device, batch, h, w, cin, cout, k,
+                              "bfloat16")
+        oh, ow = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+        bias = torch.randn(cout, device=device).to(torch.bfloat16)
+        res = torch.randn((batch, oh, ow, cout), device=device).to(
+            torch.bfloat16) if "residual" in spec else None
+        act = "relu" if "relu" in spec else ""
+        pad = ((p, p), (p, p))
+        args = (x, wt, bias, res, (s, s), pad, act)
+        got = cep.conv_epilogue_kernel(*args)
+        torch.cuda.synchronize()
+        err = scaled_err(got, cep.conv_epilogue_plain(*args))
+        if err > CONV_TOL["bfloat16"]:
+            raise AssertionError(f"conv_epilogue disagrees with its plain "
+                                 f"version at {(h, w, cin, cout, k, s, p)} "
+                                 f"{spec}: {err:.3e}")
+        xn = x.permute(0, 3, 1, 2)
+        w_cl = wt.contiguous(memory_format=torch.channels_last)
+
+        def library():
+            y = F.conv2d(xn, w_cl, stride=s, padding=p) + bias[:, None,
+                                                               None]
+            if res is not None:
+                y = y + res.permute(0, 3, 1, 2)
+            return torch.relu(y) if act else y
+
+        t_bytes, t_ops = conv_times(batch, h, w, cin, cout, k, s, p)
+        t_bytes += (res.numel() * 2 if res is not None else 0) / \
+            PEAK_BYTES_PER_S * 1e3
+        bound, bound_by = bound_of((t_bytes, t_ops))
+        row = dict(shape=[batch, h, w, cin, cout, k, s, p], epilogue=spec,
+                   per_batch=count, scaled_err=err,
+                   ms=graph_ms(lambda: cep.conv_epilogue_kernel(*args), 10),
+                   event_ms=cuda_ms(lambda: cep.conv_epilogue_kernel(*args),
+                                    10),
+                   plain_ms=cuda_ms(lambda: cep.conv_epilogue_plain(*args),
+                                    1, warmup=1),
+                   library_ms=graph_ms(library, 10), bound_ms=bound,
+                   bound_by=bound_by)
+        log("conv_epilogue inference case " + json.dumps(row))
+        rows.append(row)
+        del x, wt, res
+    return rows
+
+
+def infer_phases(device, seed, workdir):
+    """Phases 15-22: the bench's six inference legs, the infer leg's
+    lever and the Predictor, each driven with every count set to 0 just
+    before and read just after; then the s8 kernel and #5 at their
+    shapes.  Returns ({leg: launches}, {leg: row}, conv_int8 rows, #5
+    inference rows)."""
+    import torch
+
+    launches, rows, programs = {}, {}, {}
+    for leg in ("infer", "infer_convep", "vgg_infer", "vgg_cifar",
+                "rn32_cifar"):
+        launches[leg], rows[leg], programs[leg] = bf16_leg(leg, seed,
+                                                           device)
+        torch.cuda.empty_cache()
+    leg_shapes = {}
+    for leg in ("infer_i8", "infer_i8_inter"):
+        launches[leg], rows[leg], leg_shapes[leg] = int8_leg(leg, seed,
+                                                             device)
+        torch.cuda.empty_cache()
+    launches["predictor"], rows["predictor"] = predictor_leg(
+        seed, device, workdir)
+    shapes = {}
+    for leg, counts in leg_shapes.items():
+        for key, count in counts.items():
+            shapes.setdefault(key, {})[leg] = count
+    i8_counts = {key: max(c.values()) for key, c in shapes.items()}
+    i8_counts.update({k: 0 for k in cifar_int8_shapes(
+        INFER_LEGS["rn32_cifar"][1]) if k not in i8_counts})
+    i8_rows = check_conv_int8(device, seed, i8_counts)
+    for row in i8_rows:
+        key = tuple(row["shape"]) + (tuple(row["epilogue"]), row["x_int8"])
+        row["per_batch_by_leg"] = shapes.get(key, {})
+    ep_rows = conv_epilogue_infer_rows(device, seed,
+                                       programs["infer_convep"],
+                                       INFER_LEGS["infer_convep"][1])
+    return launches, rows, i8_rows, ep_rows
+
+
 def profile(what, fn):
     """Device time of one call of ``fn`` (a request, a training step, a
     served decode run) by kernel or copy (torch.profiler), counting only
@@ -2243,7 +3135,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     logs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
                          "fc_epilogue", "conv_epilogue", "bn_apply",
-                         "flash_decode"])
+                         "flash_decode", "conv_int8"])
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -2319,6 +3211,16 @@ def main(argv=None):
                                                             args.seed)}
     decode_launches, *_ = decode_phase("cuda", args.seed)
 
+    # conv-net inference: the six legs, the lever, the Predictor, then the
+    # s8 kernel and #5 at their shapes
+    with tempfile.TemporaryDirectory() as workdir:
+        infer_launches, infer_rows, i8_rows, ep_infer_rows = infer_phases(
+            device, args.seed, workdir)
+    log("inference legs " + json.dumps(
+        {leg: {k: row[k] for k in ("batch", "event_ms", "wall_ms",
+                                   "images_per_s") if k in row}
+         for leg, row in infer_rows.items()}))
+
     def row_of(rows, case):
         return next(r for r in rows if r["shape"] == list(case[:5])
                     and r["dtype"] == case[6])
@@ -2335,7 +3237,9 @@ def main(argv=None):
                 "rn_convbnstats": rn_bn_launches[name],
                 "rn_convep": rn_ep_launches[name],
                 **{path: counts[name]
-                   for path, counts in decode_launches.items()}}
+                   for path, counts in decode_launches.items()},
+                **{leg: counts[name]
+                   for leg, counts in infer_launches.items()}}
 
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
@@ -2524,6 +3428,59 @@ def main(argv=None):
         "design": "a CTA per (sequence, head, up to 16 rows, split of 16 "
                   "pages), a cp.async ring of 2-4 stages, splits merged "
                   "in order",
+    })
+    # #5 on the infer leg's lever: the fused folded graph's shapes and
+    # stages, each weighted by its launches a batch
+    def per_batch(rows, key, weight="per_batch"):
+        return sum(r[weight] * r[key] for r in rows)
+
+    next(k for k in kernels if k["name"] == "conv_epilogue")["inference"] = {
+        "leg": "infer_convep", "batch": INFER_LEGS["infer_convep"][1],
+        "launches_per_batch": infer_launches["infer_convep"][
+            "conv_epilogue"] // INFER_RUNS,
+        **{k: per_batch(ep_infer_rows, k) for k in (
+            "ms", "event_ms", "plain_ms", "library_ms", "bound_ms")},
+        "library": "cuDNN channels-last conv + bias + residual + relu",
+        "max_scaled_err": max(r["scaled_err"] for r in ep_infer_rows),
+        "shapes": ep_infer_rows,
+    }
+    # conv_int8: the infer_i8 leg's int8 ops at batch 128, each (shape,
+    # epilogue) weighted by its launches a batch; infer_i8_inter beside it
+    def leg_sum(key, leg):
+        return sum(r["per_batch_by_leg"].get(leg, 0) * r[key]
+                   for r in i8_rows)
+
+    t_bytes, t_ops = (sum(
+        r["per_batch_by_leg"].get("infer_i8", 0) * int8_times(
+            *r["shape"], tuple(r["epilogue"]))[i] for r in i8_rows)
+        for i in (0, 1))
+    kernels.append({
+        "name": "conv_int8", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/conv_int8.cu",
+        "replaces": "paddle_tpu/ops/quant.py:228",
+        "replaces_note": "an XLA s8 dot (lax.conv_general_dilated and "
+                         "dot_general, preferred_element_type int32), not "
+                         "a Pallas kernel",
+        "launches": infer_launches["infer_i8"]["conv_int8"],
+        "launches_by_path": by_path("conv_int8"),
+        "max_abs_err": max(r["max_abs_err"] for r in i8_rows),
+        "ms": leg_sum("ms", "infer_i8"),
+        "event_ms": leg_sum("event_ms", "infer_i8"),
+        "plain_ms": leg_sum("plain_ms", "infer_i8"),
+        "bound_ms": leg_sum("bound_ms", "infer_i8"),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": leg_sum("int_mm_ms", "infer_i8"),
+        "library": "torch._int_mm on an explicit im2col (the im2col "
+                   "excluded)",
+        "cudnn_bf16_ms": leg_sum("cudnn_bf16_ms", "infer_i8"),
+        "inter": {k: leg_sum(k, "infer_i8_inter") for k in (
+            "ms", "event_ms", "plain_ms", "bound_ms", "int_mm_ms",
+            "cudnn_bf16_ms")},
+        "design": "implicit GEMM on mma.sync m16n8k32 s8, 128 x 64 tiles, "
+                  "a 4-stage cp.async ring, the epilogue fused",
+        "per": "one infer_i8 batch of 128 (inter: one infer_i8_inter "
+               "batch); ms by CUDA-graph replay, event_ms by events",
+        "shapes": i8_rows,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"device: {card}", flush=True)

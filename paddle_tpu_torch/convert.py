@@ -68,3 +68,21 @@ def tiny_decode_lm_from_numpy(params, device="cuda", dtype=None):
             w.copy_(torch.from_numpy(
                 np.array(params[name], np.float32)).to(w.dtype))
     return model
+
+
+def int8_state_from_numpy(quant_weights, act_scales=None):
+    """The int8 program's state carried across as numpy: ``quant_weights``
+    ({param: (int8 weights, f32 scale)}, from either package's
+    ``quantize_weights_abs_max`` or ``post_training_quantize``) and
+    ``act_scales`` ({activation: abs-max}) as ``({param: (np.int8,
+    np.float32)}, {activation: float})``, the form
+    ``contrib.slim.quantization.convert_to_int8_execution`` takes.  Both
+    packages then run the same int8 program on the same weights and
+    scales, whatever each one's f32 calibration would round to."""
+    qw = {}
+    for name, (q, scale) in quant_weights.items():
+        q = np.asarray(q)
+        if q.dtype != np.int8:
+            raise TypeError(f"int8 weights of '{name}' are {q.dtype}")
+        qw[name] = (q, np.asarray(scale, np.float32))
+    return qw, {n: float(v) for n, v in (act_scales or {}).items()}

@@ -5,7 +5,7 @@
 // Pallas kernels and _bwd_p_ds_block:
 //   q [B,H,Tq,D], k/v [B,H,Tk,D], dO [B,H,Tq,D] in f32 or bf16 (any
 //   16-byte aligned strides over B, H and T; unit stride over D; D a
-//   multiple of 16 up to 256).  lse [B*H,Tq] f32 from
+//   multiple of 16, which the wrapper pads to).  lse [B*H,Tq] f32 from
 //   the forward kernel, delta [B*H,Tq] f32 = rowsum(dO*O) - dlse, computed
 //   by the caller.  dq [B,H,Tq,D], dk/dv [B,H,Tk,D] contiguous, in the
 //   input dtype, accumulated in f32.
@@ -90,12 +90,14 @@
 //   every D: holding them in registers at D <= 64, as bf16 does, ran
 //   slower.
 //
-// Wide design (128 < D <= 256, both dtypes): the wide tile of
-// flash_wide.cuh on the CUDA cores.  dq: 16 q rows a CTA against 32-key
-// tiles, a lane a key for S, dP and dS (rounded to bf16 with bf16 inputs),
-// each thread two dQ columns of the 16 rows.  dkv: 16 keys a CTA against
-// 32-row q tiles, transposed (a lane a q row), each thread two dK and two
-// dV columns of the 16 keys; P stays f32 in dV.  The f32 results are
+// Wide design (D > 128, both dtypes): the wide tile of flash_wide.cuh on
+// the CUDA cores.  dq: 16 q rows a CTA against 32-key tiles, a lane a key
+// for S, dP and dS (rounded to bf16 with bf16 inputs), each thread two dQ
+// columns of the 16 rows.  dkv: 16 keys a CTA against 32-row q tiles,
+// transposed (a lane a q row), each thread two dK and two dV columns of
+// the 16 keys; P stays f32 in dV.  Above D 256, S and dP are summed over
+// D in 256-column slices and each CTA writes one 256-column slice of its
+// outputs, recomputing S and dP like the other slices' CTAs.  The f32 results are
 // sums of f32 FMAs, each rounded to nearest.
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 494.7
 // TFLOP/s dense TF32, 67 TFLOP/s f32 outside the tensor cores; inputs read
@@ -953,31 +955,40 @@ cudaError_t launch_dkv(const Params& p, int bh, int dtype,
 }
 
 // ---------------------------------------------------------------------------
-// 128 < D <= 256: the wide tile (flash_wide.cuh), f32 and bf16
+// D > 128: the wide tile (flash_wide.cuh), f32 and bf16
 // ---------------------------------------------------------------------------
 
-// dq: a CTA owns 16 q rows and sweeps 32-key tiles.  Shared memory: the Q
-// and dO tiles, the K and V tiles (rows padded) and dS.
+// dq: a CTA owns 16 q rows and sweeps 32-key tiles.  Shared memory, for
+// slices of W = min(D, 256) columns: slices of the Q and dO tiles, slices
+// of the K and V tiles (rows padded), dS, and above D 256 the K tile's
+// columns of the CTA's dQ slice (101,376 bytes at W 256; 134,144 above
+// D 256, whatever D).
 __host__ __device__ constexpr size_t dq_wide_smem_bytes(int D) {
-  return sizeof(float) * (2 * kWideRows * D +
-                          2 * kWideSweep * (D + kWidePad) +
-                          kWideRows * kWideSweep);
+  return sizeof(float) *
+         (2 * kWideRows * (D < kWideSlice ? D : kWideSlice) +
+          2 * kWideSweep * ((D < kWideSlice ? D : kWideSlice) + kWidePad) +
+          kWideRows * kWideSweep +
+          (D > kWideSlice ? kWideSweep * kWideSlice : 0));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dq_wide_kernel(Params p, int D) {
   extern __shared__ __align__(16) float wsm[];
-  const int ld = D + kWidePad;
-  float* q_s = wsm;                       // [16][D]
-  float* o_s = q_s + kWideRows * D;       // [16][D] dO
-  float* k_s = o_s + kWideRows * D;       // [32][D + 4]
-  float* v_s = k_s + kWideSweep * ld;     // [32][D + 4]
-  float* ds_s = v_s + kWideSweep * ld;    // [16][32]
+  const int W = min(D, kWideSlice), ldw = W + kWidePad;
+  float* q_s = wsm;                            // [16][W]
+  float* o_s = q_s + kWideRows * W;            // [16][W] dO
+  float* k_s = o_s + kWideRows * W;            // [32][W + 4]
+  float* v_s = k_s + kWideSweep * ldw;         // [32][W + 4]
+  float* ds_s = v_s + kWideSweep * ldw;        // [16][32]
+  float* kc_s = ds_s + kWideRows * kWideSweep; // [32][256] (D > 256)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;  // longest first
+  // the output slice: columns [c0, c0 + wc) of dQ
+  const int n_sl = wide_slices(D), c0 = blockIdx.z * kWideSlice;
+  const int wc = wide_width(D, blockIdx.z);
   const int b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
@@ -987,8 +998,14 @@ __global__ void __launch_bounds__(kWideThreads)
   const int kv_end =
       p.causal ? max(0, min(p.Tk, q_off + q0 + kWideRows)) : p.Tk;
 
-  wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
-  wide_load_rows(o_s, D, dout, p.sot, q0, kWideRows, p.Tq, D);
+  // one slice: Q and dO stay in shared memory across the K/V tiles, and
+  // the K tile is dQ's operand too
+  if (n_sl == 1) {
+    wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
+    wide_load_rows(o_s, D, dout, p.sot, q0, kWideRows, p.Tq, D);
+  }
+  const float* kc = n_sl == 1 ? k_s : kc_s;
+  const int ldc = n_sl == 1 ? D + kWidePad : wc;
   float lse[kWideOwn], delta[kWideOwn];
 #pragma unroll
   for (int i = 0; i < kWideOwn; ++i) {
@@ -1004,13 +1021,26 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int g = 0; g < kWideCols; ++g) acc[r][g] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += kWideSweep) {
-    __syncthreads();  // every thread is done with the previous tile
-    wide_load_rows(k_s, ld, k, p.skt, k0, kWideSweep, p.Tk, D);
-    wide_load_rows(v_s, ld, v, p.svt, k0, kWideSweep, p.Tk, D);
-    __syncthreads();
     float s[kWideOwn], dp[kWideOwn];
-    wide_dots(s, q_s, warp, k_s + lane * ld, D);
-    wide_dots(dp, o_s, warp, v_s + lane * ld, D);
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) s[i] = dp[i] = 0.f;
+    for (int sl = 0; sl < n_sl; ++sl) {
+      const int d0 = sl * kWideSlice, wd = wide_width(D, sl);
+      __syncthreads();  // every thread is done with the previous tiles
+      if (n_sl > 1) {
+        wide_load_rows(q_s, wd, q + d0, p.sqt, q0, kWideRows, p.Tq, wd);
+        wide_load_rows(o_s, wd, dout + d0, p.sot, q0, kWideRows, p.Tq, wd);
+        if (sl == n_sl - 1)
+          wide_load_rows(kc_s, wc, k + c0, p.skt, k0, kWideSweep, p.Tk, wc);
+      }
+      wide_load_rows(k_s, wd + kWidePad, k + d0, p.skt, k0, kWideSweep,
+                     p.Tk, wd);
+      wide_load_rows(v_s, wd + kWidePad, v + d0, p.svt, k0, kWideSweep,
+                     p.Tk, wd);
+      __syncthreads();
+      wide_dots(s, q_s, warp, k_s + lane * (wd + kWidePad), wd);
+      wide_dots(dp, o_s, warp, v_s + lane * (wd + kWidePad), wd);
+    }
     const int kpos = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kWideOwn; ++i) {
@@ -1028,7 +1058,7 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
       for (int g = 0; g < kWideCols; ++g) {
         const int c = tid + kWideThreads * g;
-        kj[g] = c < D ? k_s[j * ld + c] : 0.f;
+        kj[g] = c < wc ? kc[j * ldc + c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kWideRows; ++r) {
@@ -1047,39 +1077,49 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int g = 0; g < kWideCols; ++g) {
       const int c = tid + kWideThreads * g;
-      if (c < D)
-        dq[static_cast<long long>(q0 + r) * D + c] = wide_cast<T>(acc[r][g]);
+      if (c < wc)
+        dq[static_cast<long long>(q0 + r) * D + c0 + c] =
+            wide_cast<T>(acc[r][g]);
     }
   }
 }
 
 // dkv: a CTA owns 16 keys and sweeps 32-row q tiles, transposed: a lane
-// owns a q row of the tile, a warp scores its keys.  Shared memory: the K
-// and V tiles, the Q and dO tiles (rows padded), their lse and delta, P^T
-// and dS^T.
+// owns a q row of the tile, a warp scores its keys.  Shared memory, for
+// slices of W = min(D, 256) columns: slices of the K and V tiles, slices
+// of the Q and dO tiles (rows padded), their lse and delta, P^T and dS^T,
+// and above D 256 the Q and dO tiles' columns of the CTA's dK/dV slice
+// (103,680 bytes at W 256; 169,216 above D 256, whatever D).
 __host__ __device__ constexpr size_t dkv_wide_smem_bytes(int D) {
-  return sizeof(float) * (2 * kWideRows * D +
-                          2 * kWideSweep * (D + kWidePad) + 2 * kWideSweep +
-                          2 * kWideRows * kWideSweep);
+  return sizeof(float) *
+         (2 * kWideRows * (D < kWideSlice ? D : kWideSlice) +
+          2 * kWideSweep * ((D < kWideSlice ? D : kWideSlice) + kWidePad) +
+          2 * kWideSweep + 2 * kWideRows * kWideSweep +
+          (D > kWideSlice ? 2 * kWideSweep * kWideSlice : 0));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dkv_wide_kernel(Params p, int D) {
   extern __shared__ __align__(16) float wsm[];
-  const int ld = D + kWidePad;
-  float* k_s = wsm;                           // [16][D]
-  float* v_s = k_s + kWideRows * D;           // [16][D]
-  float* q_s = v_s + kWideRows * D;           // [32][D + 4]
-  float* o_s = q_s + kWideSweep * ld;         // [32][D + 4] dO
-  float* lse_s = o_s + kWideSweep * ld;       // [32]
-  float* delta_s = lse_s + kWideSweep;        // [32]
-  float* p_s = delta_s + kWideSweep;          // [16][32] P^T
-  float* ds_s = p_s + kWideRows * kWideSweep; // [16][32] dS^T
+  const int W = min(D, kWideSlice), ldw = W + kWidePad;
+  float* k_s = wsm;                             // [16][W]
+  float* v_s = k_s + kWideRows * W;             // [16][W]
+  float* q_s = v_s + kWideRows * W;             // [32][W + 4]
+  float* o_s = q_s + kWideSweep * ldw;          // [32][256 + 4] dO
+  float* lse_s = o_s + kWideSweep * ldw;        // [32]
+  float* delta_s = lse_s + kWideSweep;          // [32]
+  float* p_s = delta_s + kWideSweep;            // [16][32] P^T
+  float* ds_s = p_s + kWideRows * kWideSweep;   // [16][32] dS^T
+  float* qc_s = ds_s + kWideRows * kWideSweep;  // [32][256] (D > 256)
+  float* oc_s = qc_s + kWideSweep * kWideSlice; // [32][256] (D > 256)
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kWideRows;  // the CTA's first key
+  // the output slice: columns [c0, c0 + wc) of dK and dV
+  const int n_sl = wide_slices(D), c0 = blockIdx.z * kWideSlice;
+  const int wc = wide_width(D, blockIdx.z);
   const int b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
@@ -1090,8 +1130,15 @@ __global__ void __launch_bounds__(kWideThreads)
   const int q_begin =
       p.causal ? max(0, k0 - q_off) / kWideSweep * kWideSweep : 0;
 
-  wide_load_rows(k_s, D, k, p.skt, k0, kWideRows, p.Tk, D);
-  wide_load_rows(v_s, D, v, p.svt, k0, kWideRows, p.Tk, D);
+  // one slice: K and V stay in shared memory across the q tiles, and the
+  // Q and dO tiles are dK's and dV's operands too
+  if (n_sl == 1) {
+    wide_load_rows(k_s, D, k, p.skt, k0, kWideRows, p.Tk, D);
+    wide_load_rows(v_s, D, v, p.svt, k0, kWideRows, p.Tk, D);
+  }
+  const float* qc = n_sl == 1 ? q_s : qc_s;
+  const float* oc = n_sl == 1 ? o_s : oc_s;
+  const int ldc = n_sl == 1 ? D + kWidePad : wc;
   float dk[kWideRows][kWideCols], dv[kWideRows][kWideCols];
 #pragma unroll
   for (int r = 0; r < kWideRows; ++r)
@@ -1099,19 +1146,35 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int g = 0; g < kWideCols; ++g) dk[r][g] = dv[r][g] = 0.f;
 
   for (int r0 = q_begin; r0 < p.Tq; r0 += kWideSweep) {
-    __syncthreads();  // every thread is done with the previous tile
-    wide_load_rows(q_s, ld, q, p.sqt, r0, kWideSweep, p.Tq, D);
-    wide_load_rows(o_s, ld, dout, p.sot, r0, kWideSweep, p.Tq, D);
-    if (tid < kWideSweep) {
-      const int qr = r0 + tid;
-      const long long at = static_cast<long long>(bh) * p.Tq + qr;
-      lse_s[tid] = qr < p.Tq ? p.lse[at] : 0.f;
-      delta_s[tid] = qr < p.Tq ? p.delta[at] : 0.f;
-    }
-    __syncthreads();
     float s[kWideOwn], dp[kWideOwn];
-    wide_dots(s, k_s, warp, q_s + lane * ld, D);
-    wide_dots(dp, v_s, warp, o_s + lane * ld, D);
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) s[i] = dp[i] = 0.f;
+    for (int sl = 0; sl < n_sl; ++sl) {
+      const int d0 = sl * kWideSlice, wd = wide_width(D, sl);
+      __syncthreads();  // every thread is done with the previous tiles
+      if (n_sl > 1) {
+        wide_load_rows(k_s, wd, k + d0, p.skt, k0, kWideRows, p.Tk, wd);
+        wide_load_rows(v_s, wd, v + d0, p.svt, k0, kWideRows, p.Tk, wd);
+        if (sl == n_sl - 1) {
+          wide_load_rows(qc_s, wc, q + c0, p.sqt, r0, kWideSweep, p.Tq, wc);
+          wide_load_rows(oc_s, wc, dout + c0, p.sot, r0, kWideSweep, p.Tq,
+                         wc);
+        }
+      }
+      wide_load_rows(q_s, wd + kWidePad, q + d0, p.sqt, r0, kWideSweep,
+                     p.Tq, wd);
+      wide_load_rows(o_s, wd + kWidePad, dout + d0, p.sot, r0, kWideSweep,
+                     p.Tq, wd);
+      if (sl == 0 && tid < kWideSweep) {
+        const int qr = r0 + tid;
+        const long long at = static_cast<long long>(bh) * p.Tq + qr;
+        lse_s[tid] = qr < p.Tq ? p.lse[at] : 0.f;
+        delta_s[tid] = qr < p.Tq ? p.delta[at] : 0.f;
+      }
+      __syncthreads();
+      wide_dots(s, k_s, warp, q_s + lane * (wd + kWidePad), wd);
+      wide_dots(dp, v_s, warp, o_s + lane * (wd + kWidePad), wd);
+    }
     const int qr = r0 + lane;
 #pragma unroll
     for (int i = 0; i < kWideOwn; ++i) {
@@ -1130,8 +1193,8 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
       for (int g = 0; g < kWideCols; ++g) {
         const int c = tid + kWideThreads * g;
-        qj[g] = c < D ? q_s[j * ld + c] : 0.f;
-        oj[g] = c < D ? o_s[j * ld + c] : 0.f;
+        qj[g] = c < wc ? qc[j * ldc + c] : 0.f;
+        oj[g] = c < wc ? oc[j * ldc + c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kWideRows; ++r) {
@@ -1155,8 +1218,8 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int g = 0; g < kWideCols; ++g) {
       const int c = tid + kWideThreads * g;
-      if (c < D) {
-        const long long at = static_cast<long long>(k0 + r) * D + c;
+      if (c < wc) {
+        const long long at = static_cast<long long>(k0 + r) * D + c0 + c;
         dkp[at] = wide_cast<T>(dk[r][g]);
         dvp[at] = wide_cast<T>(dv[r][g]);
       }
@@ -1174,7 +1237,8 @@ cudaError_t launch_wide(const Params& p, int bh, int D, bool dq,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, ((dq ? p.Tq : p.Tk) + kWideRows - 1) / kWideRows);
+  const dim3 grid(bh, ((dq ? p.Tq : p.Tk) + kWideRows - 1) / kWideRows,
+                  wide_slices(D));
   kernel<<<grid, kWideThreads, smem, stream>>>(p, D);
   return cudaGetLastError();
 }
@@ -1201,7 +1265,7 @@ int run(Params p, int B, int D, int dtype, void* stream) {
       break;
   }
 #undef PT_CASE
-  if (D > 128 && D <= kWideMaxD && D % 16 == 0) {
+  if (D > 128 && D % 16 == 0) {
     if (dtype == 0) return launch_wide<float>(p, bh, D, kDq, s);
     return launch_wide<__nv_bfloat16>(p, bh, D, kDq, s);
   }

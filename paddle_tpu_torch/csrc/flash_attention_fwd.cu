@@ -4,8 +4,8 @@
 // _flash_fwd_pallas, pallas_call at :328).  Contract, read from the Pallas
 // kernel:
 //   q [B,H,Tq,D], k/v [B,H,Tk,D] in f32 or bf16 (any 16-byte aligned
-//   strides over B, H and T; unit stride over D; D a multiple of 16 up to
-//   256, which the wrapper pads to).  out [B,H,Tq,D] in q's dtype (contiguous),
+//   strides over B, H and T; unit stride over D; D a multiple of 16, which
+//   the wrapper pads to).  out [B,H,Tq,D] in q's dtype (contiguous),
 //   lse [B*H,Tq] f32 with lse = m + log(l).
 //   Causal masking is bottom-right aligned (query row i sees keys
 //   k <= i + Tk - Tq).  Masked scores are -1e30 and their probabilities an
@@ -85,11 +85,12 @@
 //     (182,272 and 211,456), 32 keys at D 128 with Q's A fragments split
 //     each tile (173,056; Q's split tiles would need 240,640).  One CTA
 //     an SM, hence __launch_bounds__(256, 1).
-// Wide design (128 < D <= 256, both dtypes): the wide tile of
-// flash_wide.cuh on the CUDA cores, 16 query rows a CTA of 4 warps against
-// 32-key tiles, a lane a key for S and the online softmax (natural exp),
-// each thread two output columns of the 16 rows, P rounded to bf16 before
-// P.V with bf16 inputs.  At these head dims the tensor-core tiles' O
+// Wide design (D > 128, both dtypes): the wide tile of flash_wide.cuh on
+// the CUDA cores, 16 query rows a CTA of 4 warps against 32-key tiles, a
+// lane a key for S and the online softmax (natural exp), each thread two
+// output columns of the 16 rows in the CTA's 256-column slice of O (D >
+// 256: S summed over D in 256-column slices, each output slice's CTA
+// recomputing it), P rounded to bf16 before P.V with bf16 inputs.  At these head dims the tensor-core tiles' O
 // accumulators alone take 128 registers a lane.
 // What bounds it (H100 SXM: 3.35 TB/s, 989 TFLOP/s dense bf16, 67 TFLOP/s
 // f32 outside the tensor cores; q, k, v, out and lse each moved once, two
@@ -761,14 +762,16 @@ cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// 128 < D <= 256: the wide tile (flash_wide.cuh), f32 and bf16
+// D > 128: the wide tile (flash_wide.cuh), f32 and bf16
 // ---------------------------------------------------------------------------
 
-// shared memory: the Q tile, the K tile (rows padded), the V tile, P and
-// each row's rescale factor and final l
-__host__ __device__ constexpr size_t fwd_wide_smem_bytes(int D) {
+// shared memory, for slices of W = min(D, 256) columns: a slice of the Q
+// tile, a slice of the K tile (rows padded), the V tile's columns of the
+// CTA's output slice, P and each row's rescale factor and final l (84,608
+// bytes at W 256, whatever D)
+__host__ __device__ constexpr size_t fwd_wide_smem_bytes(int W) {
   return sizeof(float) *
-         (kWideRows * D + kWideSweep * (D + kWidePad) + kWideSweep * D +
+         (kWideRows * W + kWideSweep * (W + kWidePad) + kWideSweep * W +
           kWideRows * kWideSweep + 2 * kWideRows);
 }
 
@@ -776,17 +779,20 @@ template <typename T>
 __global__ void __launch_bounds__(kWideThreads)
     flash_fwd_wide_kernel(Params p, int D) {
   extern __shared__ __align__(16) float wsm[];
-  const int ldk = D + kWidePad;
-  float* q_s = wsm;                           // [16][D]
-  float* k_s = q_s + kWideRows * D;           // [32][D + 4]
-  float* v_s = k_s + kWideSweep * ldk;        // [32][D]
-  float* p_s = v_s + kWideSweep * D;          // [16][32]
-  float* a_s = p_s + kWideRows * kWideSweep;  // [16]
-  float* l_s = a_s + kWideRows;               // [16]
+  const int W = min(D, kWideSlice);
+  float* q_s = wsm;                            // [16][W]
+  float* k_s = q_s + kWideRows * W;            // [32][W + 4]
+  float* v_s = k_s + kWideSweep * (W + kWidePad);  // [32][W]
+  float* p_s = v_s + kWideSweep * W;           // [16][32]
+  float* a_s = p_s + kWideRows * kWideSweep;             // [16]
+  float* l_s = a_s + kWideRows;                          // [16]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kWideRows;  // longest first
+  // the output slice: columns [c0, c0 + wc) of O
+  const int n_sl = wide_slices(D), c0 = blockIdx.z * kWideSlice;
+  const int wc = wide_width(D, blockIdx.z);
   const int b = bh / p.H, h = bh % p.H;
   const T* q = static_cast<const T*>(p.q) + b * p.sqb + h * p.sqh;
   const T* k = static_cast<const T*>(p.k) + b * p.skb + h * p.skh;
@@ -795,7 +801,8 @@ __global__ void __launch_bounds__(kWideThreads)
   const int kv_end =
       p.causal ? max(0, min(p.Tk, q_off + q0 + kWideRows)) : p.Tk;
 
-  wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
+  // one slice: Q stays in shared memory across the K/V tiles
+  if (n_sl == 1) wide_load_rows(q_s, D, q, p.sqt, q0, kWideRows, p.Tq, D);
   float m[kWideOwn], l[kWideOwn];
 #pragma unroll
   for (int i = 0; i < kWideOwn; ++i) m[i] = kNegInf, l[i] = 0.f;
@@ -806,12 +813,21 @@ __global__ void __launch_bounds__(kWideThreads)
     for (int g = 0; g < kWideCols; ++g) acc[r][g] = 0.f;
 
   for (int k0 = 0; k0 < kv_end; k0 += kWideSweep) {
-    __syncthreads();  // every thread is done with the previous tile
-    wide_load_rows(k_s, ldk, k, p.skt, k0, kWideSweep, p.Tk, D);
-    wide_load_rows(v_s, D, v, p.svt, k0, kWideSweep, p.Tk, D);
-    __syncthreads();
     float s[kWideOwn];
-    wide_dots(s, q_s, warp, k_s + lane * ldk, D);
+#pragma unroll
+    for (int i = 0; i < kWideOwn; ++i) s[i] = 0.f;
+    for (int sl = 0; sl < n_sl; ++sl) {
+      const int d0 = sl * kWideSlice, wd = wide_width(D, sl);
+      __syncthreads();  // every thread is done with the previous tiles
+      if (n_sl > 1)
+        wide_load_rows(q_s, wd, q + d0, p.sqt, q0, kWideRows, p.Tq, wd);
+      wide_load_rows(k_s, wd + kWidePad, k + d0, p.skt, k0, kWideSweep,
+                     p.Tk, wd);
+      if (sl == n_sl - 1)
+        wide_load_rows(v_s, wc, v + c0, p.svt, k0, kWideSweep, p.Tk, wc);
+      __syncthreads();
+      wide_dots(s, q_s, warp, k_s + lane * (wd + kWidePad), wd);
+    }
     const int kpos = k0 + lane;
 #pragma unroll
     for (int i = 0; i < kWideOwn; ++i) {
@@ -839,7 +855,7 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
       for (int g = 0; g < kWideCols; ++g) {
         const int c = tid + kWideThreads * g;
-        vj[g] = c < D ? v_s[j * D + c] : 0.f;
+        vj[g] = c < wc ? v_s[j * wc + c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kWideRows; ++r) {
@@ -856,8 +872,9 @@ __global__ void __launch_bounds__(kWideThreads)
     const int r = warp + kWideWarps * i, qr = q0 + r;
     if (lane == 0) {
       l_s[r] = l[i];
-      // a fully masked row has l = 0: lse = -1e30, as the other tiles give
-      if (qr < p.Tq)
+      // a fully masked row has l = 0: lse = -1e30, as the other tiles give;
+      // every slice computes the same lse, the first writes it
+      if (qr < p.Tq && blockIdx.z == 0)
         p.lse[static_cast<long long>(bh) * p.Tq + qr] =
             l[i] == 0.f ? kNegInf : m[i] + logf(l[i]);
     }
@@ -871,8 +888,8 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int g = 0; g < kWideCols; ++g) {
       const int c = tid + kWideThreads * g;
-      if (c < D)
-        out[static_cast<long long>(q0 + r) * D + c] =
+      if (c < wc)
+        out[static_cast<long long>(q0 + r) * D + c0 + c] =
             wide_cast<T>(acc[r][g] / lc);
     }
   }
@@ -881,12 +898,12 @@ __global__ void __launch_bounds__(kWideThreads)
 template <typename T>
 cudaError_t launch_wide(const Params& p, int bh, int D,
                         cudaStream_t stream) {
-  const size_t smem = fwd_wide_smem_bytes(D);
+  const size_t smem = fwd_wide_smem_bytes(min(D, kWideSlice));
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_wide_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(bh, (p.Tq + kWideRows - 1) / kWideRows);
+  const dim3 grid(bh, (p.Tq + kWideRows - 1) / kWideRows, wide_slices(D));
   flash_fwd_wide_kernel<T><<<grid, kWideThreads, smem, stream>>>(p, D);
   return cudaGetLastError();
 }
@@ -927,7 +944,7 @@ int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
     case 128: return launch<128>(p, bh, dtype, s);
     default: break;
   }
-  if (D > 128 && D <= kWideMaxD && D % 16 == 0) {
+  if (D > 128 && D % 16 == 0) {
     if (dtype == 0) return launch_wide<float>(p, bh, D, s);
     if (dtype == 1) return launch_wide<__nv_bfloat16>(p, bh, D, s);
   }

@@ -21,8 +21,9 @@
 // to 16 query rows, split): the rows of a verify sweep share every K/V
 // read, and a long sequence is cut into splits of kSplitPages pages.
 //   - K/V arrive in chunks of KC keys (32; 64 up to d 32, 128 for f32 up
-//     to d 16; 16 for f32 pools from d 64 to 256 and at d 257-512; 8
-//     above) from one page, or of whole pages where KC is a multiple of a
+//     to d 16; 16 for f32 pools from d 64 to 256 and at d 257-512; 8 at d
+//     513-1024; 4 at d 1025-2048, where two stages of 8 f32 keys would
+//     take 256 KB) from one page, or of whole pages where KC is a multiple of a
 //     smaller page (two pages of 16), by 16-byte cp.async (cg: past L1)
 //     into a ring of two to four stages of shared memory, the next chunks
 //     in flight while this one is computed: the deepest ring that keeps
@@ -95,7 +96,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;  // the ring's stages: 2 to 4, by the grid
 constexpr size_t kMaxSmem = 232448;  // a CTA's dynamic shared memory
 constexpr int kSplitPages = 16;  // pages a split: a constant of the kernel
-constexpr int kMaxD = 1024;
+// a thread holds 16 output columns (128 apart) of each row in registers
+constexpr int kMaxD = 2048;
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -770,7 +772,8 @@ cudaError_t launch_rows(Params p, int B, int sms, cudaStream_t stream) {
   return launch<Q, KV, NCG, kMax, KC>(p, B, sms, stream);
 }
 
-// The chunk: 32 keys (fewer above d 256), but 16 for f32 pools from d 64
+// The chunk: 32 keys (fewer above d 256: 16, 8, then 4 keys of up to d
+// 2048, whose two stages take 128 KB in f32), but 16 for f32 pools from d 64
 // to 256, whose 16 keys already take 16 KB a stage at d 128 (so a full
 // grid keeps four CTAs an SM with two chunks in flight each), and 64 up to
 // d 32 (128 for f32 up to d 16), whose rows are short: fewer chunks, less
@@ -797,7 +800,8 @@ cudaError_t launch_d(const Params& p, int B, cudaStream_t stream) {
     return launch_rows<Q, KV, 2, 32>(p, B, sms, stream);
   }
   if (p.D <= 512) return launch_rows<Q, KV, 4, 16>(p, B, sms, stream);
-  return launch_rows<Q, KV, 8, 8>(p, B, sms, stream);
+  if (p.D <= 1024) return launch_rows<Q, KV, 8, 8>(p, B, sms, stream);
+  return launch_rows<Q, KV, 16, 4>(p, B, sms, stream);
 }
 
 }  // namespace

@@ -1,4 +1,4 @@
-// The wide tile of the flash kernels: head dims 128 < D <= 256, where the
+// The wide tile of the flash kernels: head dims D > 128, where the
 // tensor-core tiles' f32 accumulators and shared-memory tiles do not fit
 // (an f32 O accumulator of 16 rows x 256 columns is 128 registers a lane
 // before any fragment; the f32 forward's tiles need 240 KB at D 128
@@ -6,14 +6,20 @@
 // warps owns 16 rows (query rows; keys in dkv) and sweeps tiles of 32 of
 // the other side; a lane owns one key (one q row in dkv) of the tile for
 // the scores, so each row's max and sum are five xor shuffles of one warp;
-// and thread t owns output columns t and t + 128 of all 16 rows.  Every
-// product is an FMA in f32, rounded to nearest at each step, so there is
-// no long chain of truncating tensor-core sums to bias it.  Tiles are
-// converted to f32 as they land in shared memory, by 16-byte loads (the
-// wrappers pad D to a multiple of 16 and align rows to 16 bytes, as for
-// the other tiles); the other side's rows are padded by 4 words, so a
-// quarter warp's 16-byte reads of 8 rows hit 32 banks.
-
+// and thread t owns output columns t and t + 128 of all 16 rows of one
+// 256-column slice of the output.  Every product is an FMA in f32,
+// rounded to nearest at each step, so there is no long chain of truncating
+// tensor-core sums to bias it.  Tiles are converted to f32 as they land in
+// shared memory, by 16-byte loads (the wrappers pad D to a multiple of 16
+// and align rows to 16 bytes, as for the other tiles); the other side's
+// rows are padded by 4 words, so a quarter warp's 16-byte reads of 8 rows
+// hit 32 banks.
+// Any D: above 256 the scores (and dP) are summed over D in 256-wide
+// slices of both sides staged in turn, one FMA chain in column order, so
+// a slice boundary changes no rounding; the output columns are covered in
+// 256-wide slices, one a grid index (blockIdx.z), and each slice's CTA
+// recomputes the same scores and softmax state.  Shared memory is sized
+// for one slice whatever D is, so no head dim is refused.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -26,8 +32,8 @@ constexpr int kWideWarps = kWideThreads / 32;
 constexpr int kWideRows = 16;  // the CTA's own rows
 constexpr int kWideSweep = 32;  // rows of a tile of the other side
 constexpr int kWideOwn = kWideRows / kWideWarps;  // rows a warp scores
-constexpr int kWideMaxD = 256;
-constexpr int kWideCols = kWideMaxD / kWideThreads;  // columns a thread
+constexpr int kWideSlice = 256;  // columns of D staged at a time
+constexpr int kWideCols = kWideSlice / kWideThreads;  // columns a thread
 constexpr int kWidePad = 4;  // words a swept row is padded by
 
 __device__ __forceinline__ float wide_f32(float x) { return x; }
@@ -90,14 +96,13 @@ __device__ __forceinline__ void wide_load_rows(float* dst, int ld,
   }
 }
 
-// The dot products of a lane's swept row x (ld words a row) with the
-// warp's kWideOwn own rows (rows own0 + kWideWarps * i of `own`, D words
-// a row): own rows are the same for the whole warp (broadcast reads).
+// Adds to s the dot products of a lane's swept row x with the warp's
+// kWideOwn own rows (rows own0 + kWideWarps * i of `own`, D words a row)
+// over D columns: own rows are the same for the whole warp (broadcast
+// reads).
 __device__ __forceinline__ void wide_dots(float (&s)[kWideOwn],
                                           const float* own, int own0,
                                           const float* x, int D) {
-#pragma unroll
-  for (int i = 0; i < kWideOwn; ++i) s[i] = 0.f;
   for (int c = 0; c < D; c += 4) {
     const float4 xv = *reinterpret_cast<const float4*>(x + c);
 #pragma unroll
@@ -110,6 +115,14 @@ __device__ __forceinline__ void wide_dots(float (&s)[kWideOwn],
       s[i] = fmaf(ov.w, xv.w, s[i]);
     }
   }
+}
+
+// The number of 256-column slices of D, and the width of slice `i`.
+__host__ __device__ __forceinline__ int wide_slices(int D) {
+  return (D + kWideSlice - 1) / kWideSlice;
+}
+__device__ __forceinline__ int wide_width(int D, int i) {
+  return min(kWideSlice, D - i * kWideSlice);
 }
 
 __device__ __forceinline__ float wide_warp_max(float x) {

@@ -82,6 +82,22 @@ define_flag("fc_epilogue", "off",
             "'interpret' the kernel's plain PyTorch version, 'pallas' "
             "the CUDA kernel (a CPU tensor raises), 'on' the CUDA kernel "
             "on a CUDA tensor and the chain on a CPU one")
+define_flag("int8_interlayer", False,
+            "int8 activations across layer boundaries "
+            "(contrib.slim.quantization.convert_to_int8_execution with "
+            "int8_activations=None reads it): False = each int8 op emits "
+            "out_dtype and the next one quantises again (default); True = "
+            "every quantized-op -> quantized-op edge folds the producer's "
+            "dequant, the folded-BN bias add, a residual add and the relu "
+            "and the consumer's quantisation into the producer's epilogue, "
+            "so the tensor between the layers is int8")
+define_flag("int8_conv_algo", "conv",
+            "the s8 convolution of conv2d_int8: 'conv' (default) or "
+            "'im2col'; in the JAX package two lowerings with the same "
+            "bits.  Accepted here for parity only: no code of the port "
+            "reads it, and conv2d_int8 runs the s8 kernel "
+            "(csrc/conv_int8.cu) on a CUDA tensor and its plain version "
+            "on a CPU one whichever value it holds")
 define_flag("tracing", False,
             "request-scoped structured tracing (observability/tracing.py): "
             "False = off (default; every span site reduces to one "

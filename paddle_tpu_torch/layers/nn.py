@@ -17,6 +17,7 @@ __all__ = [
     "reshape", "transpose", "flash_attention", "mean",
     "softmax_with_cross_entropy", "relu", "gelu", "elementwise_mul", "cast",
     "conv2d", "pool2d", "batch_norm", "softmax", "topk", "accuracy",
+    "dropout",
 ]
 
 
@@ -160,6 +161,29 @@ def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
                "is_test": is_test, "data_layout": data_layout,
                "use_global_stats": use_global_stats})
     return helper.append_activation(y, act)
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    """Inference dropout (``paddle_tpu/layers/nn.py:311``): the same op
+    and attrs.  In training the JAX layer feeds a persistable step
+    counter (an ``increment`` op) into the op's SeedOffset; that and
+    training dropout are not ported yet (ROADMAP Queue 1 item 6), so
+    ``is_test=False`` raises."""
+    if not is_test:
+        raise NotImplementedError(
+            "layers.dropout: training mode (is_test=False) is not ported "
+            "yet (ROADMAP Queue 1 item 6)")
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference(x.dtype, True)
+    helper.append_op(
+        type="dropout", inputs={"X": x},
+        outputs={"Out": out, "Mask": mask},
+        attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+               "seed": seed or 0,
+               "dropout_implementation": dropout_implementation})
+    return out
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,

@@ -12,3 +12,4 @@ from paddle_tpu_torch.ops import conv_epilogue  # noqa: F401
 from paddle_tpu_torch.ops import metrics  # noqa: F401
 from paddle_tpu_torch.ops import flash_decode  # noqa: F401
 from paddle_tpu_torch.ops import control_flow  # noqa: F401
+from paddle_tpu_torch.ops import quant  # noqa: F401

@@ -261,3 +261,33 @@ def top_k(ins, attrs, device):
     vals, idx = torch.sort(ins["X"], dim=-1, descending=True, stable=True)
     k = attrs["k"]
     return {"Out": vals[..., :k], "Indices": idx[..., :k]}
+
+
+@register_op("dropout", inputs=("X", "SeedOffset"),
+             outputs=("Out", "Mask"),
+             optional=("SeedOffset",),
+             attrs={"dropout_prob": 0.5, "is_test": False, "seed": 0,
+                    "dropout_implementation": "downgrade_in_infer"})
+def dropout(ins, attrs, device):
+    """Inference dropout (``paddle_tpu/ops/basic.py:793-817``), bit for
+    bit: ``downgrade_in_infer`` scales by ``1 - p``, ``upscale_in_train``
+    passes x through; Mask is ones.  jnp rounds the Python float ``1 -
+    p`` to x's dtype before the product (a weak type), where torch would
+    multiply a bf16 x by its f32 value: the factor is made a 0-d tensor
+    of x's dtype.  Training with p > 0 draws threefry bits the port cannot
+    match, and raises (ROADMAP Queue 1 item 6); at p == 0 every element
+    is kept, so Out is x."""
+    x = ins["X"]
+    p = attrs["dropout_prob"]
+    if attrs["is_test"]:
+        upscale = attrs["dropout_implementation"] == "upscale_in_train"
+        keep = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+        return {"Out": x if upscale else x * keep,
+                "Mask": torch.ones_like(x)}
+    if p > 0:
+        raise NotImplementedError(
+            "dropout: training mode (is_test=False, dropout_prob > 0) is "
+            "not ported yet (ROADMAP Queue 1 item 6); run the program "
+            "with is_test=True or dropout_prob=0")
+    mask = torch.ones_like(x)
+    return {"Out": x * mask, "Mask": mask}

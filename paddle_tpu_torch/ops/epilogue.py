@@ -12,7 +12,8 @@ Counterpart of ``paddle_tpu/ops/epilogue.py``:
   whose gradient at ``y == 0`` is 0.5, as ``jnp.maximum``'s is (the
   ``relu`` op's, ``torch.relu``, is 0).  ``apply_bn_tail`` is the
   normalize kernel's tail (``:324-333``).
-- ``greedy_logits_tail`` (``:346``), the argmax stage the decode engine
+- ``quantize_tail`` (``:336``), the requantize stage of the int8 ops, and
+  ``greedy_logits_tail`` (``:346``), the argmax stage the decode engine
   samples with.
 - ``fc_epilogue``: ``act(x @ w + bias + residual)`` on ``x [M,K]``,
   ``w [K,N]``, ``bias [N]``, ``residual [M,N]``, in ``promote(x, w)``.
@@ -281,6 +282,18 @@ def apply_bn_tail(t, out_dtype, residual=None, act=""):
     if residual is not None:
         t = t + residual.to(out_dtype)
     return _act_fn(act)(t)
+
+
+def quantize_tail(y, out_scale, bnd):
+    """The requantize stage (``paddle_tpu/ops/epilogue.py:336``): the
+    epilogue's result quantised to the consumer's calibrated scale
+    (symmetric, zero point 0), ``clip(round(y / so * bnd), -bnd, bnd)``
+    as int8 with ``so = max(out_scale, 1e-8)``, all in f32 and rounding
+    half to even: the int8 boundary's rounding point, shared by
+    conv2d_int8, mul_int8 and requantize."""
+    so = torch.clamp_min(out_scale.reshape(()).float(), 1e-8)
+    return torch.clamp(torch.round(y.float() / so * bnd), -bnd,
+                       bnd).to(torch.int8)
 
 
 def greedy_logits_tail(logits, axis=-1):

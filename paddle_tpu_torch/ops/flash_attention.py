@@ -30,13 +30,12 @@ are not 16-byte aligned, or whose head dim has a non-unit stride, is
 copied to a contiguous tensor first and counted in
 ``flash_attention_fwd.copies`` or ``flash_attention_bwd.copies`` (the
 model's permuted ``[B,T,H,D]`` views are aligned).  The kernels take
-head dims that are multiples of 16 up to 256 (the tensor-core tiles up
-to 128, the wide tile of ``csrc/flash_wide.cuh`` above); any other D up
-to 256 is zero-padded to the next multiple of 16 (``_pad_head``,
-counted in the same ``copies``): zero columns add nothing to Q K^T, the
-scale stays 1/sqrt(D) of the unpadded D, and the outputs' padded
-columns are sliced off.  D above 256 raises: the wide tile's f32 rows
-and accumulators are sized for 256.  The
+head dims that are multiples of 16, of any size (the tensor-core tiles
+up to 128, the wide tile of ``csrc/flash_wide.cuh`` above, in
+256-column slices past 256); any other D is zero-padded to the next
+multiple of 16 (``_pad_head``, counted in the same ``copies``): zero
+columns add nothing to Q K^T, the scale stays 1/sqrt(D) of the
+unpadded D, and the outputs' padded columns are sliced off.  The
 plain backward also runs sliced (dq of some q rows, dk/dv of some keys,
 summed in chunks), which checks the kernels at 32768 tokens.
 
@@ -58,9 +57,8 @@ _NEG_INF = -1e30
 _KERNEL = "flash_attention_fwd"
 _BWD_KERNEL = "flash_attention_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# the kernels take D a multiple of _HEAD_DIM_STEP up to _MAX_HEAD_DIM
+# the kernels take D a multiple of _HEAD_DIM_STEP
 _HEAD_DIM_STEP = 16
-_MAX_HEAD_DIM = 256
 
 
 def _causal_mask(tq, tk, device):
@@ -102,11 +100,8 @@ def _check(q, k, v):
         raise ValueError(
             f"flash_attention_fwd: shapes q {tuple(q.shape)}, k "
             f"{tuple(k.shape)}, v {tuple(v.shape)} do not agree")
-    d = q.shape[3]
-    if not 1 <= d <= _MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_fwd: head dim {d} is not in "
-                         f"[1, {_MAX_HEAD_DIM}]: the wide tile's rows and "
-                         "accumulators are sized for 256")
+    if q.shape[3] < 1:
+        raise ValueError("flash_attention_fwd: head dim 0")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError("flash_attention_fwd: q/k/v must all be float32 "

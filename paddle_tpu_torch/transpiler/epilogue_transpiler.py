@@ -16,14 +16,18 @@ one fused op carrying the matched stages in its ``epilogue`` attr
 Every fused intermediate is sole-consumed and unprotected; conv anchors
 take only group-1, undilated convs.  ``fuse_conv_epilogue`` and
 ``fuse_conv_bn_train`` run the pass with one conv anchor, as the JAX
-package's wrappers do.  The JAX package's IR verifier around the pass
-(``checked_pass``) and the int8 interlayer fold are not ported.
+package's wrappers do.  ``fold_int8_interlayer`` is the grammar's
+requantize arm, the int8 interlayer fold that
+``contrib.slim.quantization.convert_to_int8_execution`` runs.  The JAX
+package's IR verifier around the pass (``checked_pass``) is not ported.
 
 Run it before ``nhwc_transpile`` and before ``minimize``, so the backward
 derives from the fused ops.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from paddle_tpu_torch.core.program import OpDesc
 from paddle_tpu_torch.ops.epilogue import spec_attr
@@ -342,3 +346,182 @@ def fuse_conv_bn_train(program, protected=None):
     (+relu) chain of ``program`` onto ``conv2d_bn_train``, in place;
     returns the number fused."""
     return fuse_epilogue(program, protected=protected, anchors=("conv_bn",))
+
+
+# ---------------------------------------------------------------------------
+# int8 interlayer fold: the requantize arm of the grammar
+# ---------------------------------------------------------------------------
+
+def fold_int8_interlayer(program, block, out_dtype, weight_bits,
+                         protected):
+    """Folds quantized-op -> quantized-op edges so the tensor between the
+    layers is int8 (``paddle_tpu/transpiler/epilogue_transpiler.py:407``,
+    walk for walk).
+
+    For each ``conv2d_int8`` producer with a calibrated InScale, its
+    epilogue chain: an optional per-channel bias ``elementwise_add`` (a 1-D
+    persistable Y), an optional same-shape float residual add, then an
+    optional ``relu``, each link sole-consumed and unprotected.  If every
+    consumer of the chain's tail is an int8 op reading it as its
+    activation with a calibrated InScale on that tensor, the full fold
+    puts Bias, Residual, fuse_relu and OutScale on the producer, deletes
+    the chain and makes the tail int8; otherwise the partial fold absorbs
+    the chain and keeps the float output.  The matched stages go on the
+    producer's ``epilogue`` attr.  Returns the fold statistics
+    (n_producers, n_edges_folded, n_partial_folds, n_rejected,
+    n_residual_folds, n_int8_inputs)."""
+    del out_dtype, weight_bits  # the epilogue reuses the producer's
+
+    sub_read = set()
+    for blk in program.blocks:
+        if blk is block:
+            continue
+        for op in blk.ops:
+            for names in op.inputs.values():
+                sub_read.update(names)
+
+    def _build_consumers():
+        consumers = {}
+        for op in block.ops:
+            for slot, names in op.inputs.items():
+                for n in names:
+                    consumers.setdefault(n, []).append((op, slot))
+        return consumers
+
+    def _is_bias_add(op):
+        if op.type != "elementwise_add":
+            return False
+        v = block.vars.get(op.inputs.get("Y", [None])[0])
+        return (v is not None and v.persistable and v.shape is not None
+                and len(v.shape) == 1)
+
+    def _residual_operand(op, cur):
+        """The same-shape float skip operand of elementwise_add ``op``
+        (either slot), or None; an int8 operand (a folded edge's tensor)
+        cannot join a float add."""
+        if op.type != "elementwise_add" or _is_bias_add(op):
+            return None
+        xs, ys = op.inputs["X"][0], op.inputs["Y"][0]
+        other = ys if xs == cur else xs if ys == cur else None
+        if other is None:
+            return None
+        ov, tv = block.vars.get(other), block.vars.get(cur)
+        if (ov is None or tv is None or ov.shape is None
+                or tv.shape is None
+                or tuple(ov.shape) != tuple(tv.shape)
+                or str(ov.dtype) == "int8"):
+            return None
+        return other
+
+    def _quantized_consumer(op, slot, tail):
+        """Whether (op, slot) is an int8 op reading ``tail`` as its
+        activation with a calibrated InScale on that tensor."""
+        if op.inputs.get("InScale", [None])[0] != tail + "@ACT_SCALE":
+            return False
+        if op.type == "conv2d_int8":
+            return slot == "Input"
+        if op.type == "mul_int8":
+            if slot != "X":
+                return False
+            sv = block.vars.get(op.inputs["Scale"][0])
+            if sv is None or sv.shape is None:
+                return False
+            shp = tuple(sv.shape)
+            # per-input-row scales fold into the activation before its
+            # quantisation: refused, as mul_int8 refuses them at run time
+            if len(shp) >= 2 and int(np.prod(shp[1:])) == 1 and \
+                    shp[0] != 1:
+                return False
+            yv = block.vars.get(op.inputs["Y"][0])
+            k = yv.shape[0] if yv is not None and yv.shape else None
+            return not (len(shp) == 1 and shp[0] == k and shp[0] != 1)
+        return False
+
+    def _open(name, cons):
+        """Whether the chain may take the sole consumer of ``name``."""
+        return len(cons) == 1 and name not in sub_read and \
+            name not in protected
+
+    stats = {"n_producers": 0, "n_edges_folded": 0,
+             "n_partial_folds": 0, "n_rejected": 0,
+             "n_residual_folds": 0}
+    n_int8_in = 0
+    done = set()
+    while True:
+        # a residual fold moves a second producer's tail (the skip operand
+        # moves onto the fused op's Residual slot): rebuild each round
+        consumers = _build_consumers()
+        P = next((op for op in block.ops
+                  if op.type == "conv2d_int8" and id(op) not in done
+                  and op.inputs.get("InScale")), None)
+        if P is None:
+            break
+        done.add(id(P))
+        if P.attrs.get("out_dtype") == "int32" or \
+                P.inputs.get("OutScale"):
+            continue
+        stats["n_producers"] += 1
+        chain = []
+        bias_op = res_op = relu_op = None
+        res_name = None
+        cur = P.outputs["Output"][0]
+        cons = consumers.get(cur, [])
+        if _open(cur, cons) and _is_bias_add(cons[0][0]) and \
+                cons[0][1] == "X":
+            bias_op = cons[0][0]
+            chain.append(bias_op)
+            cur = bias_op.outputs["Out"][0]
+            cons = consumers.get(cur, [])
+        if _open(cur, cons):
+            rn = _residual_operand(cons[0][0], cur)
+            if rn is not None:
+                res_op, res_name = cons[0][0], rn
+                chain.append(res_op)
+                cur = res_op.outputs["Out"][0]
+                cons = consumers.get(cur, [])
+        if _open(cur, cons) and cons[0][0].type == "relu":
+            relu_op = cons[0][0]
+            chain.append(relu_op)
+            cur = relu_op.outputs["Out"][0]
+            cons = consumers.get(cur, [])
+        tail = cur
+        if not chain and not cons:
+            continue
+        full = (bool(cons)
+                and all(_quantized_consumer(op, slot, tail)
+                        for op, slot in cons)
+                and tail not in protected and tail not in sub_read
+                and (tail + "@ACT_SCALE") in block.vars)
+        if not full and not chain:
+            stats["n_rejected"] += 1
+            continue
+        if bias_op is not None:
+            P.inputs["Bias"] = list(bias_op.inputs["Y"])
+            P.attrs["bias_axis"] = bias_op.attrs.get("axis", -1)
+        if res_op is not None:
+            P.inputs["Residual"] = [res_name]
+            stats["n_residual_folds"] += 1
+        P.attrs["fuse_relu"] = relu_op is not None
+        P.attrs["epilogue"] = spec_attr(
+            bias=bias_op is not None, residual=res_op is not None,
+            act="relu" if relu_op is not None else "", requantize=full)
+        if chain:
+            P.outputs["Output"] = [tail]
+            if res_op is not None:
+                # the skip operand may be produced between P and the
+                # residual add: P moves to the chain's tail position
+                i_p = block.ops.index(P)
+                block.ops[block.ops.index(chain[-1])] = P
+                del block.ops[i_p]
+            block.ops = [o for o in block.ops if o not in chain]
+        if full:
+            P.inputs["OutScale"] = [tail + "@ACT_SCALE"]
+            tv = block.vars.get(tail)
+            if tv is not None:
+                tv.dtype = "int8"
+            n_int8_in += len(cons)
+            stats["n_edges_folded"] += 1
+        else:
+            stats["n_partial_folds"] += 1
+    stats["n_int8_inputs"] = n_int8_in
+    return stats

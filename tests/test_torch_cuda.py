@@ -47,11 +47,21 @@ cuDNN as well.
 
 ``flash_decode`` is held against ``flash_decode_plain`` over ragged
 lengths (zero-length rows among them), page sizes 4 to 128, strided
-block tables, d 16 to 128, 1 to 20 query rows and f32, bf16 and int8
+block tables, d 16 to 2048, 1 to 70 query rows and f32, bf16 and int8
 pools: within ``1e-5 * max(1, max|ref|)`` in f32 and over int8 pools
 (f32 sums in another order) and one bf16 step in bf16.  Its verify rows
 are array_equal to q-len-1 launches, and a small decode server on the
 card emits the CPU server's tokens.
+
+``conv_int8`` (the s8 convolution of ``conv2d_int8`` and ``mul_int8``) is
+``torch.equal`` to ``conv_int8_plain`` over odd Cin and Cout, the
+3-channel stem, 1x1, stride 2, dilation 2, groups 2 and 4, an fc shape
+and every epilogue subset (int32 out; f32 or bf16 out with bias and
+residual in either dtype, relu, OutScale): the int32 sum is exact and
+every float step is fixed, so anything short of equal is a fault.  A
+misaligned view is copied (counted) and gives the same bits, two launches
+give the same bits, and the two ops on a CUDA tensor give the CPU op's
+bits.
 """
 
 from __future__ import annotations
@@ -108,6 +118,14 @@ CASES = [
     (1, 2, 200, 200, 160, True, "bfloat16"),
     (1, 2, 129, 257, 256, True, "bfloat16"),
     (1, 2, 150, 40, 160, True, "bfloat16"),
+    # above 256: S over D in 256-column slices, one CTA a 256-column slice
+    # of O (a last slice of 64, 16 and 256), causal and not, several K/V
+    # tiles (Tk >= 200), Tq > Tk
+    (1, 2, 150, 230, 320, True, "float32"),
+    (2, 2, 130, 210, 512, False, "float32"),
+    (1, 2, 250, 200, 264, True, "float32"),
+    (1, 2, 200, 230, 320, False, "bfloat16"),
+    (1, 2, 129, 257, 512, True, "bfloat16"),
 ]
 
 
@@ -270,7 +288,7 @@ def test_flash_kernels_take_any_head_dim(cuda, d, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("d", [160, 256, 320, 512])
 def test_flash_kernels_take_wide_and_strided_head_dims(cuda, d, dtype):
     """Head dims above 128 run the wide tile, forward and backward, each
     kernel launched once and counted, with no copy of contiguous inputs;
@@ -344,7 +362,8 @@ def _f64_errs(got, ref):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 8, 512, 64), (1, 2, 4096, 64)])
+@pytest.mark.parametrize("shape", [(8, 8, 512, 64), (1, 2, 4096, 64),
+                                   (1, 2, 512, 320)])
 def test_flash_f32_kernels_hold_against_f64(cuda, shape):
     """The f32 kernels' out, dq, dk and dv against an f64 reference, beside
     the plain f32 version (cuBLAS, TF32 off) against the same reference:
@@ -442,6 +461,13 @@ BWD_CASES = [
     (1, 2, 200, 200, 160, True, "bfloat16", True, False),
     (1, 2, 129, 257, 256, True, "bfloat16", False, True),
     (1, 2, 33, 1, 160, True, "bfloat16", False, False),
+    # above 256 (256-column slices): causal and not, Tk >= 200, ragged,
+    # strided, dlse, fully masked rows
+    (1, 2, 150, 230, 320, True, "float32", False, True),
+    (2, 2, 130, 210, 512, False, "float32", True, False),
+    (1, 2, 250, 200, 264, True, "float32", False, False),
+    (1, 2, 200, 230, 320, False, "bfloat16", True, False),
+    (1, 2, 129, 257, 512, True, "bfloat16", False, True),
 ]
 
 
@@ -653,16 +679,17 @@ def test_gpu_training_step_matches_cpu(cuda):
 
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     """The checks run before any build or launch, so they hold on the
-    CPU too.  A head dim up to 256 is taken (padded to a multiple of 16
-    where it is not one, the wide tile above 128), and so is a head dim
-    with a non-unit stride (copied, counted); above 256 the wide tile's
-    rows and accumulators do not fit, and float16 is not a kernel
-    dtype."""
+    CPU too.  Any head dim is taken (padded to a multiple of 16 where it
+    is not one, the wide tile above 128, in 256-column slices above 256),
+    and so is a head dim with a non-unit stride (copied, counted); a head
+    dim of 0 is not, and float16 is not a kernel dtype."""
     fa._check(*[torch.zeros((1, 1, 8, 24))] * 3)
     fa._check(*[torch.zeros((1, 1, 8, 136))] * 3)
     fa._check(*[torch.zeros((1, 1, 8, 256))] * 3)
-    q = torch.zeros((1, 1, 8, 264))
-    with pytest.raises(ValueError, match="head dim 264"):
+    fa._check(*[torch.zeros((1, 1, 8, 264))] * 3)
+    fa._check(*[torch.zeros((1, 1, 8, 1000))] * 3)
+    q = torch.zeros((1, 1, 8, 0))
+    with pytest.raises(ValueError, match="head dim 0"):
         fa._check(q, q, q)
     h = torch.zeros((1, 1, 8, 32), dtype=torch.float16)
     with pytest.raises(TypeError, match="float32"):
@@ -1194,6 +1221,13 @@ DECODE_CASES = [
     ([129, 7, 300], 2, 256, 16, "int8", False),
     ([100, 75, 600, 70], 70, 64, 16, "float32", False),
     ([32768], 1, 128, 128, "float32", False),
+    # above d 1024: chunks of 4 keys, 16 output columns a thread
+    ([5, 33, 300, 1], 1, 1536, 16, "float32", False),
+    ([70, 9, 300], 5, 1536, 16, "bfloat16", True),
+    ([17, 90, 260, 0], 5, 2048, 32, "float32", True),
+    ([129, 7, 300], 1, 2048, 16, "bfloat16", False),
+    ([70, 9, 300], 5, 1536, 32, "int8", True),
+    ([129, 7, 300], 1, 2048, 16, "int8", False),
 ]
 # relative to max(1, |ref|): f32 sums in another order; bf16 output is
 # one rounding of those sums, so one bf16 step apart at most
@@ -1304,6 +1338,26 @@ def test_flash_decode_verify_rows_bit_equal_across_splits(cuda, lens, r, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("d", [1536, 2048])
+def test_flash_decode_wide_verify_rows_bit_equal_qlen1(cuda, d, dtype):
+    """Above d 1024 (chunks of 4 keys, which follow the pools' d alone)
+    verify row r of a 5-row sweep is still array_equal to a q-len-1
+    launch at length len - 4 + r, across split boundaries (300 tokens of
+    16-token pages: two splits)."""
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    r = 5
+    q, k, v, tab, ln, scales = _decode_inputs(
+        8, [9, 33, 300, 258], r, d, 16, dtype, True, cuda)
+    out = fd.flash_decode(q, k, v, tab, ln, kv_scales=scales)
+    for i in range(r):
+        one = fd.flash_decode(q[:, i].contiguous(), k, v, tab,
+                              ln - (r - 1 - i), kv_scales=scales)
+        assert torch.equal(one, out[:, i]), i
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "int8"])
 def test_flash_decode_is_deterministic(cuda, dtype):
     """Two launches over many splits give the same bits: the splits are
@@ -1321,8 +1375,8 @@ def test_flash_decode_is_deterministic(cuda, dtype):
 def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
     """What the kernel took no longer (a head dim off multiples of 8, more
     than 64 query rows) runs and is counted; q of another dtype than the
-    pools' and head dims above 1024 (two chunks of K/V rows overflow
-    shared memory) are refused."""
+    pools' and head dims above 2048 (a thread keeps 16 output columns of
+    each row in registers) are refused."""
     from paddle_tpu_torch.ops import flash_decode as fd
 
     q, k, v, tab, ln, _ = _decode_inputs(5, [5], 1, 64, 16, "float32",
@@ -1339,9 +1393,9 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
             1.0, ref.abs().max().item())
     with pytest.raises(TypeError):
         fd.flash_decode(q.bfloat16(), k, v, tab, ln)
-    wide = torch.zeros((1, 2, 16, 1032), device=cuda)
+    wide = torch.zeros((1, 2, 16, 2056), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        fd.flash_decode(torch.zeros((1, 2, 1032), device=cuda), wide, wide,
+        fd.flash_decode(torch.zeros((1, 2, 2056), device=cuda), wide, wide,
                         tab, ln)
 
 
@@ -1375,3 +1429,153 @@ def test_gpu_decode_server_matches_cpu(cuda, knob):
             assert fd.flash_decode.launches - before == \
                 per * srv.stats()["decode"]["iterations"]
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# conv_int8: the s8 convolution and its epilogue
+# ---------------------------------------------------------------------------
+
+# (N, H, W, Cin, Cout, K, stride, pad, dilation, groups): odd Cin and Cout,
+# the 3-channel stem, 1x1, stride 2, dilation 2, groups 2 and 4, M off the
+# 128-pixel tile, Cout off the 64-channel tile, a mul_int8 shape as a 1x1
+# convolution over [M, 1, 1, K]
+I8_SHAPES = [
+    (2, 9, 9, 24, 20, 3, 1, 1, 1, 1),
+    (2, 20, 20, 3, 64, 7, 2, 3, 1, 1),
+    (3, 7, 7, 40, 130, 1, 1, 0, 1, 1),
+    (2, 13, 11, 20, 12, 3, 2, 2, 2, 1),
+    (2, 7, 7, 24, 10, 3, 1, 1, 1, 2),
+    (2, 8, 8, 64, 32, 3, 2, 1, 1, 4),
+    (2, 14, 14, 256, 64, 1, 1, 0, 1, 1),
+    (300, 1, 1, 2048, 1000, 1, 1, 0, 1, 1),
+]
+# (out dtype, bias, residual, relu, OutScale)
+I8_EPILOGUES = [
+    ("int32", None, None, False, False),
+    ("float32", None, None, False, False),
+    ("bfloat16", "float32", None, True, False),
+    ("bfloat16", "bfloat16", "bfloat16", True, False),
+    ("float32", "bfloat16", "float32", False, False),
+    ("bfloat16", "float32", "bfloat16", True, True),
+    ("float32", None, None, False, True),
+]
+
+
+def _i8_case(device, n, h, w, cin, cout, k, s, p, d, g, seed=0):
+    rng = np.random.RandomState(seed)
+    x8 = torch.from_numpy(rng.randint(-127, 128, (n, h, w, cin))
+                          .astype(np.int8)).to(device)
+    wt = torch.from_numpy(rng.randint(-127, 128, (cout, cin // g, k, k))
+                          .astype(np.int8)).to(device)
+    oh = (h + 2 * p - (k - 1) * d - 1) // s + 1
+    ow = (w + 2 * p - (k - 1) * d - 1) // s + 1
+    return rng, x8, wt, (n, oh, ow, cout)
+
+
+def _i8_operands(rng, device, shape, epilogue):
+    out, bias, res, relu, outscale = epilogue
+    cout = shape[3]
+    alpha = torch.tensor(rng.uniform(1e-5, 1e-4), dtype=torch.float32,
+                         device=device)
+    col = torch.from_numpy(rng.uniform(0.5, 2.0, cout).astype(np.float32)
+                           ).to(device)
+
+    def make(dtype, shp):
+        if dtype is None:
+            return None
+        return torch.from_numpy(rng.standard_normal(shp).astype(np.float32)
+                                ).to(device, getattr(torch, dtype))
+
+    return dict(alpha=alpha, colscale=col, bias=make(bias, (cout,)),
+                residual=make(res, shape), relu=relu,
+                out_scale=torch.tensor([rng.uniform(1.0, 3.0)],
+                                       dtype=torch.float32, device=device)
+                if outscale else None,
+                out_dtype=getattr(torch, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epilogue", I8_EPILOGUES,
+                         ids=["-".join(str(v) for v in e)
+                              for e in I8_EPILOGUES])
+@pytest.mark.parametrize("n,h,w,cin,cout,k,s,p,d,g", I8_SHAPES)
+def test_conv_int8_kernel_equals_plain(cuda, n, h, w, cin, cout, k, s, p,
+                                       d, g, epilogue):
+    """The kernel's output is torch.equal to the plain version's on the
+    card: the int32 sum is exact and every float step is fixed."""
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng, x8, wt, shape = _i8_case(cuda, n, h, w, cin, cout, k, s, p, d, g)
+    ops = _i8_operands(rng, cuda, shape, epilogue)
+    conv = dict(strides=(s, s), paddings=(p, p), dilations=(d, d),
+                groups=g)
+    launches = Q.conv_int8.launches
+    got = Q.conv_int8(x8, wt, **ops, **conv)
+    torch.cuda.synchronize()
+    assert Q.conv_int8.launches == launches + 1
+    want = Q.conv_int8_plain(x8, wt, **ops, **conv)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_conv_int8_takes_misaligned_views_and_is_deterministic(cuda):
+    """A view starting off 16 bytes is copied once (counted) and gives the
+    contiguous tensor's bits; two launches give the same bits."""
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng, x8, wt, shape = _i8_case(cuda, 2, 9, 9, 32, 48, 3, 1, 1, 1, 1)
+    ops = _i8_operands(rng, cuda, shape, I8_EPILOGUES[5])
+    base = torch.zeros(x8.numel() + 3, dtype=torch.int8, device=cuda)
+    view = base[3:].view(x8.shape)
+    view.copy_(x8)
+    assert view.data_ptr() % 16 != 0
+    copies = Q.conv_int8.copies
+    got = Q.conv_int8(view, wt, **ops, paddings=(1, 1))
+    assert Q.conv_int8.copies == copies + 1
+    again = Q.conv_int8(x8, wt, **ops, paddings=(1, 1))
+    assert Q.conv_int8.copies == copies + 1
+    assert torch.equal(got, again)
+    assert torch.equal(again, Q.conv_int8(x8, wt, **ops, paddings=(1, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["conv2d_int8", "mul_int8"])
+def test_int8_ops_on_the_card_equal_the_cpu(cuda, op):
+    """The ops on a CUDA tensor launch the kernel once and give the CPU
+    op's bits: the activation's quantisation and the scales are the same
+    f32 arithmetic on both (divisions by the op's Python floats are true
+    divisions on the card too, as in jnp, not products with a
+    reciprocal); the scales are not powers of two."""
+    from paddle_tpu_torch.core import registry
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng = np.random.RandomState(5)
+    if op == "conv2d_int8":
+        ins = {"Input": rng.standard_normal((2, 10, 10, 24)) * 2,
+               "Filter": rng.randint(-127, 128, (40, 24, 3, 3)),
+               "FilterScale": rng.uniform(0.005, 0.02, (40, 1, 1, 1)),
+               "InScale": [3.7], "Bias": rng.standard_normal(40),
+               "Residual": rng.standard_normal((2, 10, 10, 40)),
+               "OutScale": [2.9]}
+        attrs = {"data_format": "NHWC", "paddings": [1, 1],
+                 "out_dtype": "bfloat16", "fuse_relu": True}
+    else:
+        ins = {"X": rng.standard_normal((9, 2048)) * 2,
+               "Y": rng.randint(-127, 128, (2048, 1000)),
+               "Scale": rng.uniform(0.005, 0.02, (1, 1000)),
+               "InScale": [3.7]}
+        attrs = {"out_dtype": "bfloat16"}
+    dtypes = {"Filter": torch.int8, "Y": torch.int8}
+    tensors = {k: torch.tensor(np.asarray(v), dtype=dtypes.get(
+        k, torch.float32)) for k, v in ins.items()}
+    opdef = registry.get_op_def(op)
+    attrs = opdef.canonical_attrs(attrs)
+    cpu = opdef.compute(tensors, attrs, torch.device("cpu"))
+    launches = Q.conv_int8.launches
+    gpu = opdef.compute({k: v.to(cuda) for k, v in tensors.items()}, attrs,
+                        cuda)
+    torch.cuda.synchronize()
+    assert Q.conv_int8.launches == launches + 1
+    for slot, v in cpu.items():
+        assert torch.equal(gpu[slot].cpu(), v), slot

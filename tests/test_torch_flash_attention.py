@@ -347,3 +347,30 @@ def test_wide_head_dim_matches_jax(b, h, tq, tk, causal, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), grads, jgrads):
         np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
                                    atol=tol, err_msg=name)
+
+
+# (B, H, Tq, Tk, causal, dtype) at head dim 320, which the kernels take in
+# the wide tile's 256-column slices
+SLICED_D = 320
+
+
+@pytest.mark.parametrize("b,h,tq,tk,causal,dtype", WIDE_CASES)
+def test_head_dim_above_256_matches_jax(b, h, tq, tk, causal, dtype):
+    """At D 320 (two 256-column slices on the card) the plain forward
+    equals the JAX package's flash_attention (impl "xla") within 1e-5 in
+    f32 (2e-2 in bf16, P rounded at other points), and the plain backward
+    equals jax.vjp of it within the same."""
+    q, k, v, do = _bwd_torch_inputs(b, h, tq, tk, SLICED_D, dtype, seed=tk)
+    scale = 1.0 / math.sqrt(SLICED_D)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, scale)
+    jargs = [jnp.asarray(x.float().numpy(), dtype=dtype) for x in (q, k, v)]
+    jout, vjp = jax.vjp(lambda a, b_, c: flash_attention(
+        a, b_, c, causal=causal, impl="xla"), *jargs)
+    jgrads = vjp(jnp.asarray(do.float().numpy(), dtype=dtype))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(to_numpy(o), to_numpy(jout), rtol=tol,
+                               atol=tol, err_msg="out")
+    for name, g, w in zip(("dq", "dk", "dv"), grads, jgrads):
+        np.testing.assert_allclose(to_numpy(g), to_numpy(w), rtol=tol,
+                                   atol=tol, err_msg=name)

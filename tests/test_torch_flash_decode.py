@@ -94,11 +94,12 @@ def test_plain_matches_jax_interpret_kernel(d, dtype, r):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 @pytest.mark.parametrize("d,r,lens", [(72, 5, [5, 33, 16, 1]),
                                       (160, 5, [5, 33, 16, 1]),
-                                      (64, 70, [100, 75, 70, 5])])
+                                      (64, 70, [100, 75, 70, 5]),
+                                      (1536, 5, [5, 33, 16, 1])])
 def test_plain_matches_jax_interpret_kernel_any_d_and_rows(d, r, lens,
                                                           dtype):
-    """Head dims off the old kernel's range (72, 160) and 70 verify rows,
-    which the kernel now takes: the plain version still equals the JAX
+    """Head dims off the old kernel's range (72, 160, 1536) and 70 verify
+    rows, which the kernel now takes: the plain version still equals the JAX
     package's kernel under the interpreter, within TOL."""
     ps = 32 if dtype == "int8" else 16     # the Pallas int8 page tile
     port, jx = _setup(lens, r=r, d=d, ps=ps, dtype=dtype)
