@@ -89,7 +89,8 @@ Phases, none of which catches its own failure:
      then the batch-2 f32 step on the card against the CPU, as in 9;
  11. holds flash_decode against its plain version on the card over
      ragged lengths (zero-length rows, page and split boundaries), d
-     16/64/72/128/160/256/1536/2048, pages of 4/16/32/128 tokens, f32/bf16/int8
+     16/64/72/128/160/256/1536/2048/3072 (above 2048 the wide kernel),
+     pages of 4/16/32/128 tokens, f32/bf16/int8
      pools, 1/3/5/20/70 query rows, strided block tables, the server's
      shapes (64 streams of 64-160 tokens, 8 heads of 128, page 128, f32
      and int8 pools) and long ones (64 x 4096 tokens, one 32768-token
@@ -135,7 +136,9 @@ Phases, none of which catches its own failure:
      images, converted with bf16 out (int8 activations between layers in
      the second), the bench's calibration and interlayer coverage numbers
      and gates, INFER_RUNS batches of 128 with one conv_int8 launch per
-     int8 op a batch, and at batch 2 the card against the CPU's run of
+     int8 op a batch, every one on its wgmma route, and one quantize_act
+     launch per int8 op with a float input, and at batch 2 the card
+     against the CPU's run of
      the same converted program: every logit and the fc's float input
      equal (the share of equal logits and any other's distance in steps
      of the fc's lattice logged);
@@ -148,11 +151,15 @@ Phases, none of which catches its own failure:
      1x1 convolution) with every epilogue subset of I8_SUBSETS and every
      one the legs run there (Bias and Residual in the dtypes the run
      gave them); each (shape, epilogue) of the two legs timed by graph
-     replay and by events beside the plain version, torch._int_mm on an
-     explicit im2col and cuDNN's bf16 convolution, its timed operands
-     held torch.equal to the plain version; conv_epilogue at the fused graph's shapes and
+     replay and by events beside the plain version, the first design
+     (the mma.sync route, the parent's kernel, which must give the same
+     bits), torch._int_mm on an explicit im2col and cuDNN's bf16
+     convolution, its timed operands held torch.equal to the plain
+     version; quantize_act torch.equal to its plain version at every
+     float input of the legs' int8 ops, timed beside the plain version's
+     PyTorch passes; conv_epilogue at the fused graph's shapes and
      stages, timed beside cuDNN + adds + relu;
- 19. prints one {"kernels": [...]} line (nine kernels), then the card's
+ 19. prints one {"kernels": [...]} line (ten kernels), then the card's
      line, then the result line {"ok": true, "device": {...}} last.
 
 Takes about ten minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
@@ -1476,13 +1483,16 @@ def train_batch(seed, batch):
 
 KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "fc_epilogue", "conv_epilogue",
-           "conv_stats", "bn_apply", "flash_decode", "conv_int8")
+           "conv_stats", "bn_apply", "flash_decode", "conv_int8",
+           "quantize_act")
 # beside the launches: the bf16 flash kernels' contiguous copies of q, k,
 # v (or dO) whose rows were not 16-byte aligned, 0 on every main path
 COPIES = "flash_attention_fwd_copies"
 BWD_COPIES = "flash_attention_bwd_copies"
-# beside them: the fc_epilogue launches that took the wgmma path
+# beside them: the fc_epilogue launches that took the wgmma path, and the
+# conv_int8 launches that took the wgmma route (the packed stem's too)
 FC_WGMMA = "fc_epilogue_wgmma"
+I8_WGMMA = "conv_int8_wgmma"
 
 
 def kernel_counts():
@@ -1502,9 +1512,12 @@ def kernel_counts():
             "bn_apply": cep.bn_apply_kernel.launches,
             "flash_decode": fd.flash_decode.launches,
             "conv_int8": quant.conv_int8.launches,
+            "quantize_act": quant.quantize_act.launches,
             COPIES: fa.flash_attention_fwd.copies,
             BWD_COPIES: fa.flash_attention_bwd.copies,
-            FC_WGMMA: ep.fc_epilogue.launches_by_path["wgmma"]}
+            FC_WGMMA: ep.fc_epilogue.launches_by_path["wgmma"],
+            I8_WGMMA: quant.conv_int8.launches_by_route["wgmma"]
+            + quant.conv_int8.launches_by_route["wgmma_stem"]}
 
 
 def reset_kernel_counts():
@@ -1525,14 +1538,17 @@ def reset_kernel_counts():
     cep.bn_apply_kernel.launches = 0
     fd.flash_decode.launches = 0
     quant.conv_int8.launches = 0
+    quant.conv_int8.launches_by_route = dict.fromkeys(
+        quant.conv_int8.launches_by_route, 0)
+    quant.quantize_act.launches = 0
 
 
 def expected_counts(**per_run):
     """Every kernel's expected launch count, the flash kernels' expected
-    copies and fc_epilogue's expected wgmma-path launches: 0 unless
-    given."""
+    copies, fc_epilogue's expected wgmma-path launches and conv_int8's
+    expected wgmma-route launches: 0 unless given."""
     return {k: per_run.get(k, 0)
-            for k in KERNELS + (COPIES, BWD_COPIES, FC_WGMMA)}
+            for k in KERNELS + (COPIES, BWD_COPIES, FC_WGMMA, I8_WGMMA)}
 
 
 def lm_expected(types, steps):
@@ -1867,6 +1883,11 @@ DECODE_CASES = [
     ("d2048_verify", [17, 90, 260, 0], 5, 2, 2048, 32, "float32", True),
     ("d2048_int8", [129, 7, 300], 1, 2, 2048, 16, "int8", False),
     ("d2048_int8_verify", [70, 9, 300], 5, 2, 2048, 16, "int8", True),
+    # above d 2048: the wide kernel (q.k in slices, output columns in
+    # 2048-column slices)
+    ("d3072", [5, 33, 300, 1], 1, 2, 3072, 16, "float32", False),
+    ("d3072_bf16_verify", [70, 9, 300], 5, 2, 3072, 16, "bfloat16", True),
+    ("d3072_int8_verify", [17, 90, 260, 0], 5, 2, 3072, 32, "int8", True),
     ("verify_70", [100, 75, 600, 70], 70, 2, 64, 16, "float32", False),
     ("split_straddle", [254, 256, 258, 513, 516, 1030], 5, 2, 64, 16,
      "float32", False),
@@ -2587,18 +2608,16 @@ def bf16_leg(leg, seed, device):
     return launches, row, infer
 
 
-def int8_leg(leg, seed, device):
-    """One int8 leg as bench.py:768-929 builds it: fold, nhwc, abs-max
-    int8 weights, calibration on INT8_CALIB images, conversion with bf16
-    out (interlayer for infer_i8_inter); the bench's coverage numbers;
-    timed at its batch, checked against the CPU.  Returns (launches, row,
-    int8_op_shapes of the program at its batch, in the run's dtypes)."""
+def int8_program(leg, seed, device):
+    """The converted program of an int8 leg as bench.py:768-929 builds it:
+    fold, nhwc, abs-max int8 weights, calibration on INT8_CALIB images,
+    conversion with bf16 out (interlayer for infer_i8_inter).  Returns
+    (program, scope, fetch name, executor, the bench's coverage row)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.contrib.slim import quantization as slim
 
     inter = leg == "infer_i8_inter"
-    name, batch, side = INFER_LEGS[leg]
-    t0 = time.perf_counter()
+    name, _, side = INFER_LEGS[leg]
     fetch, main, startup = build_infer_model(name, side)
     scope = init_infer_scope(main, startup, seed, device, side)
     exe = pt.Executor(pt.CUDAPlace(0))
@@ -2640,12 +2659,31 @@ def int8_leg(leg, seed, device):
                 calib_row["boundary_scale_coverage"] < 0.9:
             raise AssertionError(f"{leg}: interlayer coverage {calib_row} "
                                  f"{stats}")
+    return infer, scope, fetch, exe, calib_row
+
+
+def int8_leg(leg, seed, device):
+    """One int8 leg (``int8_program``) with the bench's coverage numbers,
+    timed at its batch, checked against the CPU.  Returns (launches, row,
+    int8_op_shapes of the program at its batch, in the run's dtypes)."""
+    _, batch, side = INFER_LEGS[leg]
+    t0 = time.perf_counter()
+    infer, scope, fetch, exe, calib_row = int8_program(leg, seed, device)
+    ops = infer.global_block().ops
+    int8_ops = [op for op in ops if op.type.endswith("_int8")]
     log(f"{leg}: {len(ops)} ops, calibration {json.dumps(calib_row)}, "
         f"built in {time.perf_counter() - t0:.1f} s")
     feed = infer_feed(infer, seed, batch, side, device)
+    # every int8 op on the wgmma route; each one with a float x quantises
+    # it through quantize_act
+    n_float_x = sum(count for key, count in int8_op_shapes(infer,
+                                                           batch).items()
+                    if key[11] != "int8")
     launches, row = time_infer(
         leg, exe, infer, feed, fetch, scope,
-        expected_counts(conv_int8=len(int8_ops) * INFER_RUNS))
+        expected_counts(conv_int8=len(int8_ops) * INFER_RUNS,
+                        quantize_act=n_float_x * INFER_RUNS,
+                        **{I8_WGMMA: len(int8_ops) * INFER_RUNS}))
     row["calibration"] = calib_row
     row["vs_cpu"] = check_int8_vs_cpu(leg, exe, infer, scope, fetch, seed,
                                       side)
@@ -2740,7 +2778,7 @@ I8_SUBSETS = [
 
 def int8_op_shapes(program, batch, scope=None):
     """{(N, H, W, Cin, Cout, K, stride, pad, dilation, groups, subset,
-    int8 x): launches a batch} of a converted program's int8 ops, NHWC;
+    x's dtype): launches a batch} of a converted program's int8 ops, NHWC;
     mul_int8 as a 1x1 convolution over [M, 1, 1, K].  The dtypes of x,
     Bias and Residual are those of ``scope``'s tensors after a run where
     it is given, else the program's vars'."""
@@ -2763,17 +2801,17 @@ def int8_op_shapes(program, batch, scope=None):
             a = op.attrs
             geo = (batch, h, w, cin, cout, k, a["strides"][0],
                    a["paddings"][0], a["dilations"][0], a["groups"])
-            x8 = dtype("Input", op) == "int8"
+            x_dtype = dtype("Input", op)
         elif op.type == "mul_int8":
             k, n = block.var(op.inputs["Y"][0]).shape
             geo = (batch, 1, 1, k, n, 1, 1, 0, 1, 1)
-            x8 = dtype("X", op) == "int8"
+            x_dtype = dtype("X", op)
         else:
             continue
         a = op.attrs
         subset = (a["out_dtype"], dtype("Bias", op), dtype("Residual", op),
                   bool(a.get("fuse_relu")), bool(op.inputs.get("OutScale")))
-        key = geo + (subset, x8)
+        key = geo + (subset, str(x_dtype))
         out[key] = out.get(key, 0) + 1
     return out
 
@@ -2866,16 +2904,27 @@ def check_conv_int8(device, seed, shapes):
     rows = []
     for key, count in sorted(shapes.items(), key=lambda kv: str(kv[0])):
         n, h, w, cin, cout, k, s, p, d, g = key[:10]
-        subset, x_int8 = key[10], key[11]
+        subset, x_dtype = key[10], key[11]
         if count == 0:
             continue
         x8, wt, ops, conv = int8_case(rng, key[:10], subset)
         acc = plain_acc(x8, wt, conv)
         err = held(x8, wt, ops, conv, acc, f"{key} (timed operands)")
         del acc
+        route = Q.kernel_route(cin // g, g, (s, s), (d, d))
+        if g == 1 and route == "mma_sync":
+            raise AssertionError(f"conv_int8: {key} would not take wgmma")
 
         def kernel():
             return Q.conv_int8(x8, wt, **ops, **conv)
+
+        def first_kernel():
+            return Q.conv_int8(x8, wt, **ops, **conv, route="mma_sync")
+
+        # the first design (the parent's kernel), kept callable: its bits
+        if not torch.equal(kernel(), first_kernel()):
+            raise AssertionError(f"conv_int8 on {route} differs from the "
+                                 f"mma.sync kernel at {key}")
 
         # the library calls' operands, made outside their timing
         cols = F.unfold(x8.permute(0, 3, 1, 2).float(), (k, k),
@@ -2901,9 +2950,11 @@ def check_conv_int8(device, seed, shapes):
         bound, bound_by = bound_of(int8_times(n, h, w, cin, cout, k, s, p,
                                               d, g, subset))
         row = dict(shape=[n, h, w, cin, cout, k, s, p, d, g],
-                   epilogue=list(subset), x_int8=x_int8, per_batch=count,
-                   max_abs_err=err,
+                   epilogue=list(subset), x_int8=x_dtype == "int8",
+                   x_dtype=x_dtype, per_batch=count,
+                   max_abs_err=err, route=route,
                    ms=graph_ms(kernel, 10), event_ms=cuda_ms(kernel, 10),
+                   mma_sync_ms=graph_ms(first_kernel, 10),
                    plain_ms=cuda_ms(lambda: Q.conv_int8_plain(
                        x8, wt, **ops, **conv), 1, warmup=1),
                    int_mm_ms=graph_ms(int_mm, 10),
@@ -2914,6 +2965,65 @@ def check_conv_int8(device, seed, shapes):
         rows.append(row)
         del x8, wt, a_mat, b_mat, xb, wb
     torch.cuda.empty_cache()
+    return rows
+
+
+def quantize_times(numel, dtype):
+    """(bytes ms, operations ms) of quantize_act on ``numel`` elements:
+    each read once (f32 4, bf16 2 bytes) and written once as int8; the
+    operations (a division, a product, a rounding) are far below the
+    card's rate, so 0."""
+    item = 4 if dtype == "float32" else 2
+    return numel * (item + 1) / PEAK_BYTES_PER_S * 1e3, 0.0
+
+
+def check_quantize_act(device, seed, shapes):
+    """quantize_act torch.equal to its plain version at every int8 op's
+    float input of ``shapes`` (int8_op_shapes keys of the legs: x NHWC, or
+    mul_int8's [M, K] as [M, 1, 1, K]), with saturation among the values
+    (x * 40 over sx 20-60); each shape timed by graph replay and by events
+    beside the plain version (the PyTorch passes the int8 ops ran
+    before).  Returns one row per (shape, dtype)."""
+    import torch
+
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng = np.random.RandomState(seed + 23)
+    xs = {}
+    for key, count in shapes.items():
+        if key[11] == "int8":
+            continue
+        x_key = (key[0], key[1], key[2], key[3], key[11])
+        xs[x_key] = xs.get(x_key, 0) + count
+    rows = []
+    for (n, h, w, c, dtype), count in sorted(xs.items()):
+        g = torch.Generator(device=device)
+        g.manual_seed(int(rng.randint(1 << 30)))
+        x = (torch.randn((n, h, w, c), generator=g, device=device) * 40.0)
+        x = x.to(getattr(torch, dtype))
+        sx = torch.tensor(float(rng.uniform(20.0, 60.0)), device=device)
+        got = Q.quantize_act(x, sx, 127.0)
+        want = Q.quantize_act_plain(x, sx, 127.0)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"quantize_act differs from its plain "
+                                 f"version at {(n, h, w, c, dtype)}")
+        bound, bound_by = bound_of(quantize_times(x.numel(), dtype))
+        row = dict(shape=[n, h, w, c], dtype=dtype, per_batch=count,
+                   max_abs_err=0.0,
+                   saturated_share=float((got.abs() == 127).float().mean()),
+                   ms=graph_ms(lambda: Q.quantize_act(x, sx, 127.0), 10),
+                   event_ms=cuda_ms(lambda: Q.quantize_act(x, sx, 127.0),
+                                    10),
+                   plain_ms=graph_ms(
+                       lambda: Q.quantize_act_plain(x, sx, 127.0), 10),
+                   bound_ms=bound, bound_by=bound_by)
+        row["bound_share"] = bound / row["ms"]
+        log("quantize_act case " + json.dumps(row))
+        rows.append(row)
+        del x, got, want
+    log(f"quantize_act torch.equal to its plain version at {len(rows)} "
+        "shapes")
     return rows
 
 
@@ -3034,11 +3144,11 @@ def conv_epilogue_infer_rows(device, seed, program, batch):
 
 
 def infer_phases(device, seed, workdir):
-    """Phases 15-22: the bench's six inference legs, the infer leg's
+    """Phases 15-18: the bench's six inference legs, the infer leg's
     lever and the Predictor, each driven with every count set to 0 just
-    before and read just after; then the s8 kernel and #5 at their
-    shapes.  Returns ({leg: launches}, {leg: row}, conv_int8 rows, #5
-    inference rows)."""
+    before and read just after; then the s8 kernel, the activations'
+    quantisation and #5 at their shapes.  Returns ({leg: launches}, {leg:
+    row}, conv_int8 rows, quantize_act rows, #5 inference rows)."""
     import torch
 
     launches, rows, programs = {}, {}, {}
@@ -3063,12 +3173,18 @@ def infer_phases(device, seed, workdir):
         INFER_LEGS["rn32_cifar"][1]) if k not in i8_counts})
     i8_rows = check_conv_int8(device, seed, i8_counts)
     for row in i8_rows:
-        key = tuple(row["shape"]) + (tuple(row["epilogue"]), row["x_int8"])
+        key = tuple(row["shape"]) + (tuple(row["epilogue"]), row["x_dtype"])
         row["per_batch_by_leg"] = shapes.get(key, {})
+    q_rows = check_quantize_act(device, seed, i8_counts)
+    for row in q_rows:
+        row["per_batch_by_leg"] = {leg: sum(
+            count for key, count in counts.items()
+            if list(key[:4]) == row["shape"] and key[11] == row["dtype"])
+            for leg, counts in leg_shapes.items()}
     ep_rows = conv_epilogue_infer_rows(device, seed,
                                        programs["infer_convep"],
                                        INFER_LEGS["infer_convep"][1])
-    return launches, rows, i8_rows, ep_rows
+    return launches, rows, i8_rows, q_rows, ep_rows
 
 
 def profile(what, fn):
@@ -3135,7 +3251,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     logs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
                          "fc_epilogue", "conv_epilogue", "bn_apply",
-                         "flash_decode", "conv_int8"])
+                         "flash_decode", "conv_int8", "quantize_act"])
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s")
@@ -3214,8 +3330,8 @@ def main(argv=None):
     # conv-net inference: the six legs, the lever, the Predictor, then the
     # s8 kernel and #5 at their shapes
     with tempfile.TemporaryDirectory() as workdir:
-        infer_launches, infer_rows, i8_rows, ep_infer_rows = infer_phases(
-            device, args.seed, workdir)
+        infer_launches, infer_rows, i8_rows, q_rows, ep_infer_rows = \
+            infer_phases(device, args.seed, workdir)
     log("inference legs " + json.dumps(
         {leg: {k: row[k] for k in ("batch", "event_ms", "wall_ms",
                                    "images_per_s") if k in row}
@@ -3454,6 +3570,12 @@ def main(argv=None):
         r["per_batch_by_leg"].get("infer_i8", 0) * int8_times(
             *r["shape"], tuple(r["epilogue"]))[i] for r in i8_rows)
         for i in (0, 1))
+    routes = {leg: {"wgmma": c[I8_WGMMA], "all": c["conv_int8"]}
+              for leg, c in infer_launches.items() if c["conv_int8"]}
+    log("conv_int8 launches by route " + json.dumps(routes))
+    if any(r["wgmma"] != r["all"] for r in routes.values()):
+        raise AssertionError(f"an int8 leg launched conv_int8 off the wgmma "
+                             f"route: {routes}")
     kernels.append({
         "name": "conv_int8", "route": "cuda",
         "source": "paddle_tpu_torch/csrc/conv_int8.cu",
@@ -3473,14 +3595,50 @@ def main(argv=None):
         "library": "torch._int_mm on an explicit im2col (the im2col "
                    "excluded)",
         "cudnn_bf16_ms": leg_sum("cudnn_bf16_ms", "infer_i8"),
+        "mma_sync_ms": leg_sum("mma_sync_ms", "infer_i8"),
         "inter": {k: leg_sum(k, "infer_i8_inter") for k in (
             "ms", "event_ms", "plain_ms", "bound_ms", "int_mm_ms",
-            "cudnn_bf16_ms")},
-        "design": "implicit GEMM on mma.sync m16n8k32 s8, 128 x 64 tiles, "
-                  "a 4-stage cp.async ring, the epilogue fused",
+            "cudnn_bf16_ms", "mma_sync_ms")},
+        "launches_by_route": routes,
+        "design": "persistent implicit GEMM on wgmma m64nNk32 s8 (N 64 or "
+                  "128 by Cout), w (and a 1x1's x) by TMA, x otherwise "
+                  "gathered by cp.async, the stem packed, a 3-4 stage ring, "
+                  "the epilogue staged in shared memory; mma_sync_ms the "
+                  "first design (mma.sync m16n8k32, 128 x 64 tiles), which "
+                  "grouped convolutions take",
         "per": "one infer_i8 batch of 128 (inter: one infer_i8_inter "
                "batch); ms by CUDA-graph replay, event_ms by events",
         "shapes": i8_rows,
+    })
+    # quantize_act: the infer_i8 leg's float activations at batch 128, each
+    # shape weighted by its launches a batch; infer_i8_inter beside it
+    def q_sum(key, leg):
+        return sum(r["per_batch_by_leg"].get(leg, 0) * r[key]
+                   for r in q_rows)
+
+    kernels.append({
+        "name": "quantize_act", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/quantize_act.cu",
+        "replaces": "paddle_tpu/ops/quant.py:325",
+        "replaces_note": "XLA's quantisation of the activation, fused into "
+                         "the s8 dot's operand (conv2d_int8 :325, mul_int8 "
+                         ":460), not a Pallas kernel",
+        "launches": infer_launches["infer_i8"]["quantize_act"],
+        "launches_by_path": by_path("quantize_act"),
+        "max_abs_err": max(r["max_abs_err"] for r in q_rows),
+        "ms": q_sum("ms", "infer_i8"),
+        "event_ms": q_sum("event_ms", "infer_i8"),
+        "plain_ms": q_sum("plain_ms", "infer_i8"),
+        "bound_ms": q_sum("bound_ms", "infer_i8"),
+        "bound_by": "bytes",
+        "library_ms": None,
+        "inter": {k: q_sum(k, "infer_i8_inter") for k in (
+            "ms", "event_ms", "plain_ms", "bound_ms")},
+        "design": "one pass, 16 elements a thread by 16-byte loads and "
+                  "stores, the scale read on the card",
+        "per": "one infer_i8 batch of 128 (inter: one infer_i8_inter "
+               "batch); ms by CUDA-graph replay, event_ms by events",
+        "shapes": q_rows,
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"device: {card}", flush=True)

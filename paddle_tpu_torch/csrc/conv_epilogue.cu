@@ -103,23 +103,6 @@ constexpr int kFBK = 8;
 constexpr int kBK = 64;  // one 128-byte swizzled row of bf16
 constexpr int kWg = 128;
 
-// n / d for 0 <= n < 2^31 by a multiply-high and a shift (the divisor's
-// magic number is computed on the host): the per-tile index arithmetic.
-struct FastDiv {
-  uint32_t mul, shift;
-  __device__ __forceinline__ int operator()(int n) const {
-    const uint32_t u = static_cast<uint32_t>(n);
-    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
-  }
-};
-
-FastDiv make_fastdiv(uint32_t d) {
-  uint32_t shift = 0;
-  while ((uint64_t(1) << shift) < d) ++shift;
-  const uint64_t mul = ((uint64_t(1) << 32) * ((uint64_t(1) << shift) - d)) / d + 1;
-  return FastDiv{static_cast<uint32_t>(mul), shift};
-}
-
 struct Params {
   const void* x;
   const void* w;

@@ -62,6 +62,14 @@
 //     acc alike, from (m, l, acc) = (-1e30, 0, 0).  No atomics, so two
 //     launches give the same bits.
 //
+//   - Above d 2048 (kMaxD) a second kernel takes the head dim in slices
+//     (flash_decode_wide_kernel): chunks of 4 keys, one warp a key
+//     folding its row into q.k 16-byte chunk by chunk, read straight from
+//     the pools (L2) with q's rows, so shared memory holds no row whole;
+//     the output columns in slices of 2048 (a thread 16 of each row), one
+//     slice a grid index, every slice recomputing q.k and the softmax.  A
+//     CTA takes one or two rows.  d <= 2048 never reaches it.
+//
 // Rows do not interact.  A row's arithmetic depends on its own limit and
 // on nothing else of the launch: every product, sum and reduction has a
 // fixed order and shape (explicit fmaf, fixed shuffle trees), the chunk
@@ -96,8 +104,11 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxStages = 4;  // the ring's stages: 2 to 4, by the grid
 constexpr size_t kMaxSmem = 232448;  // a CTA's dynamic shared memory
 constexpr int kSplitPages = 16;  // pages a split: a constant of the kernel
-// a thread holds 16 output columns (128 apart) of each row in registers
+// the widest d of flash_decode_kernel: a thread holds 16 output columns
+// (128 apart) of each row in registers; above it, flash_decode_wide_kernel
+// takes the output in column slices of kMaxD
 constexpr int kMaxD = 2048;
+constexpr int kWideKC = 4;  // keys a chunk of the wide kernel
 constexpr float kNegInf = -1e30f;
 
 struct Params {
@@ -116,6 +127,7 @@ struct Params {
   int ldq;       // floats of a q row in shared memory (nchk 16-byte chunks)
   int vec;       // pool rows are whole 16-byte chunks: copy by cp.async
   int stages;    // stages of the ring
+  int n_cs;      // column slices of kMaxD (the wide kernel; 1 otherwise)
   long long sqb, sqr, sqh;
   float scale;
 };
@@ -647,6 +659,218 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Above d 2048: one CTA a (sequence, head, block of up to ROWS rows, split,
+// slice of kMaxD output columns).  Chunks of kWideKC keys on the main
+// kernel's page and split bounds; q.k by one warp a key over the key's
+// 16-byte chunks (lane c, c + 32, ...), its K chunks and q's elements read
+// from global memory (the pools stay in L2 across the CTAs of the slices
+// and row blocks), summed by a fixed shuffle tree; the online softmax as
+// the main kernel's at 4 keys a chunk; p.V for this slice's columns, a
+// thread 16 of each row (128 apart), the keys in order.  Every slice
+// recomputes q.k and the softmax, so no state crosses CTAs but the
+// splits' partials.  As in the main kernel every sum is an explicit fmaf
+// or __fadd_rn in a fixed order that depends on nothing of the launch but
+// d, so verify rows stay bit-equal to q-len-1 launches.
+template <typename Q, typename KV, int ROWS>
+__global__ void __launch_bounds__(kThreads)
+    flash_decode_wide_kernel(const Params p) {
+  constexpr int KC = kWideKC;
+  constexpr int E = Chunk<KV>::kElems;
+  constexpr int NCG = kMaxD / kThreads;  // output columns a thread
+  __shared__ float s_s[ROWS * KC], p_s[ROWS * KC], a_s[ROWS];
+  __shared__ float ml_s[2 * ROWS];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int bid = blockIdx.x;
+  const int cs = bid % p.n_cs;
+  bid /= p.n_cs;
+  const int rb = bid % p.n_rb;
+  bid /= p.n_rb;
+  const int split = bid % p.NS;
+  const int bh = bid / p.NS;
+  const int b = bh / p.H, h = bh % p.H;
+  const int D = p.D, PS = p.PS;
+
+  const int kv_len = p.lens[b];
+  const int n_pages = min((kv_len + PS - 1) / PS, p.MP);
+  const int n_splits = max(1, (n_pages + kSplitPages - 1) / kSplitPages);
+  if (split >= n_splits) return;
+  const int r0 = rb * p.rows_cta;
+  const int nrows = min(p.rows_cta, p.R - r0);
+
+  const int ppc = PS < KC && KC % PS == 0 ? KC / PS : 1;
+  const int cpp = ppc > 1 ? 1 : (PS + KC - 1) / KC;
+  const int p0 = split * kSplitPages;
+  const int p1 = min(p0 + kSplitPages, n_pages);
+  int n_live = 0;
+  if (p1 > p0) {
+    const int last = min(kv_len - (p1 - 1) * PS, PS);
+    n_live = ppc > 1 ? (p1 - p0 + ppc - 1) / ppc
+                     : (p1 - p0 - 1) * cpp + min(cpp, (last + KC - 1) / KC);
+  }
+  const Split sp{p0, p1, ppc, cpp, PS, KC};
+  const int* table = p.tables + static_cast<long long>(b) * p.MP;
+  const KV* k_pool = static_cast<const KV*>(p.k_pages);
+  const KV* v_pool = static_cast<const KV*>(p.v_pages);
+  const Q* qb = static_cast<const Q*>(p.q) + b * p.sqb + h * p.sqh;
+  // key j of a chunk: its K/V row in the pools
+  auto row_of = [&](const Chunk1& c, int j) {
+    const int pg = c.pg + (ppc > 1 ? j / PS : 0);
+    const int pos = ppc > 1 ? j % PS : c.c0 + j;
+    return ((static_cast<long long>(table[pg]) * p.H + h) * PS + pos) * D;
+  };
+
+  constexpr int kGrp = KC;       // lanes a row in the softmax
+  const int grp = lane / kGrp, kl = lane % kGrp;
+  float m = kNegInf, l = 0.f;  // of row grp (warp 0 only)
+  float acc[ROWS][NCG];
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+    for (int g = 0; g < NCG; ++g) acc[r][g] = 0.f;
+  const int col0 = cs * kMaxD + tid;
+
+  for (int ci = 0; ci < n_live; ++ci) {
+    const Chunk1 cur = sp.at(ci);
+    const int start = cur.pg * PS + cur.c0;
+    const int rows = cur.rows;
+    // q.k: warp `warp` takes key `warp` of the chunk
+    if (warp < rows) {
+      const KV* kr = k_pool + row_of(cur, warp);
+      float dot[ROWS];
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) dot[r] = 0.f;
+      for (int c = lane; c < p.nchk; c += 32) {
+        float kf[E];
+        if (p.vec) {
+          Chunk<KV>::cvt(reinterpret_cast<const uint4*>(kr)[c], kf);
+        } else {
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            kf[e] = c * E + e < D ? to_f32(kr[c * E + e]) : 0.f;
+        }
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          if (r < nrows) {
+            const Q* qr = qb + (r0 + r) * p.sqr + c * E;
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              const float qv = c * E + e < D ? to_f32(qr[e]) : 0.f;
+              dot[r] = fmaf(qv, kf[e], dot[r]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r < nrows) {
+#pragma unroll
+          for (int off = 1; off < 32; off *= 2)
+            dot[r] = __fadd_rn(dot[r],
+                               __shfl_xor_sync(0xffffffffu, dot[r], off));
+          if (lane == 0) s_s[r * KC + warp] = __fmul_rn(dot[r], p.scale);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the online softmax: warp 0, a group of 4 lanes a row, a lane a key
+    if (warp == 0) {
+      const int r = grp;
+      const bool own = r < nrows;
+      const int limit = min(kv_len, kv_len - p.R + 1 + r0 + r);
+      const bool valid = own && kl < rows && start + kl < limit;
+      const float sv = valid ? s_s[r * KC + kl] : kNegInf;
+      float cmax = sv;
+#pragma unroll
+      for (int off = kGrp / 2; off > 0; off /= 2)
+        cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+      const float m_next = fmaxf(m, cmax);
+      const float pv = valid ? expf(__fsub_rn(sv, m_next)) : 0.f;
+      float csum = pv;
+#pragma unroll
+      for (int off = kGrp / 2; off > 0; off /= 2)
+        csum = __fadd_rn(csum, __shfl_xor_sync(0xffffffffu, csum, off));
+      const float alpha = expf(__fsub_rn(m, m_next));
+      if (own) {
+        l = __fmaf_rn(l, alpha, csum);
+        m = m_next;
+        p_s[r * KC + kl] = round_p<KV>(pv);
+        if (kl == 0) a_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // p.V: this thread's columns of every row, the keys in order
+    float o[ROWS][NCG];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int g = 0; g < NCG; ++g) o[r][g] = 0.f;
+    for (int j = 0; j < rows; ++j) {
+      const KV* vr = v_pool + row_of(cur, j);
+      float vf[NCG];
+#pragma unroll
+      for (int g = 0; g < NCG; ++g) {
+        const int c = col0 + kThreads * g;
+        vf[g] = c < D ? to_f32(vr[c]) : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r < nrows) {
+          const float pj = p_s[r * KC + j];
+#pragma unroll
+          for (int g = 0; g < NCG; ++g) o[r][g] = fmaf(pj, vf[g], o[r][g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      if (r < nrows) {
+        const float alpha = a_s[r];
+#pragma unroll
+        for (int g = 0; g < NCG; ++g)
+          acc[r][g] = __fmaf_rn(acc[r][g], alpha, o[r][g]);
+      }
+    }
+  }
+
+  if (warp == 0 && grp < nrows && kl == 0) {
+    ml_s[2 * grp] = m;
+    ml_s[2 * grp + 1] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    if (r >= nrows) continue;
+    if (n_splits == 1) {
+      const float lr = ml_s[2 * r + 1];
+      const float lc = lr == 0.f ? 1.f : lr;
+      Q* out = static_cast<Q*>(p.out) +
+               ((static_cast<long long>(b) * p.R + r0 + r) * p.H + h) * D;
+#pragma unroll
+      for (int g = 0; g < NCG; ++g) {
+        const int c = col0 + kThreads * g;
+        if (c < D) out[c] = from_f32<Q>(acc[r][g] / lc);
+      }
+    } else {
+      float* w = p.ws +
+                 ((static_cast<long long>(bh) * p.R + r0 + r) * p.NS +
+                  split) *
+                     (D + 2);
+#pragma unroll
+      for (int g = 0; g < NCG; ++g) {
+        const int c = col0 + kThreads * g;
+        if (c < D) w[c] = acc[r][g];
+      }
+      if (cs == 0 && tid == 0) {
+        w[D] = ml_s[2 * r];
+        w[D + 1] = ml_s[2 * r + 1];
+      }
+    }
+  }
+}
+
 // Merges the splits of one (sequence, head, row) in split order and
 // writes its output; a sequence of one split wrote its own.
 template <typename Q>
@@ -772,6 +996,35 @@ cudaError_t launch_rows(Params p, int B, int sms, cudaStream_t stream) {
   return launch<Q, KV, NCG, kMax, KC>(p, B, sms, stream);
 }
 
+// Above d 2048: the wide kernel, one or two rows a CTA (fewer where the
+// grid would leave most SMs idle), no dynamic shared memory.
+template <typename Q, typename KV>
+cudaError_t launch_wide(Params p, int B, int sms, cudaStream_t stream) {
+  constexpr int E = Chunk<KV>::kElems;
+  p.nchk = (p.D + E - 1) / E;
+  p.vec = p.D % E == 0;
+  p.n_cs = (p.D + kMaxD - 1) / kMaxD;
+  const long long seq_blocks = static_cast<long long>(B) * p.H * p.NS *
+                               p.n_cs;
+  p.rows_cta = p.R > 1 && seq_blocks * ((p.R + 1) / 2) >= sms / 2 ? 2 : 1;
+  p.n_rb = (p.R + p.rows_cta - 1) / p.rows_cta;
+  const long long blocks = seq_blocks * p.n_rb;
+  const long long merge_blocks = static_cast<long long>(B) * p.H * p.R;
+  if (blocks > 0x7fffffffLL || merge_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  if (p.rows_cta == 2)
+    flash_decode_wide_kernel<Q, KV, 2>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
+  else
+    flash_decode_wide_kernel<Q, KV, 1>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.NS == 1) return err;
+  flash_decode_merge_kernel<Q>
+      <<<static_cast<unsigned>(merge_blocks), kThreads, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
 // The chunk: 32 keys (fewer above d 256: 16, 8, then 4 keys of up to d
 // 2048, whose two stages take 128 KB in f32), but 16 for f32 pools from d 64
 // to 256, whose 16 keys already take 16 KB a stage at d 128 (so a full
@@ -801,7 +1054,8 @@ cudaError_t launch_d(const Params& p, int B, cudaStream_t stream) {
   }
   if (p.D <= 512) return launch_rows<Q, KV, 4, 16>(p, B, sms, stream);
   if (p.D <= 1024) return launch_rows<Q, KV, 8, 8>(p, B, sms, stream);
-  return launch_rows<Q, KV, 16, 4>(p, B, sms, stream);
+  if (p.D <= kMaxD) return launch_rows<Q, KV, 16, 4>(p, B, sms, stream);
+  return launch_wide<Q, KV>(p, B, sms, stream);
 }
 
 }  // namespace
@@ -822,7 +1076,7 @@ int pt_flash_decode(const void* q, const void* k_pages, const void* v_pages,
                     int B, int R, int H, int D, int PS, int MP, long long sqb,
                     long long sqr, long long sqh, int kv_dtype, float scale,
                     void* stream) {
-  if (D <= 0 || D > kMaxD || R <= 0 || PS <= 0 || MP <= 0 || H <= 0 ||
+  if (D <= 0 || R <= 0 || PS <= 0 || MP <= 0 || H <= 0 ||
       B < 0)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
@@ -832,7 +1086,7 @@ int pt_flash_decode(const void* q, const void* k_pages, const void* v_pages,
   p.q = q, p.k_pages = k_pages, p.v_pages = v_pages;
   p.tables = tables, p.lens = lens, p.out = out;
   p.ws = static_cast<float*>(ws);
-  p.R = R, p.H = H, p.D = D, p.PS = PS, p.MP = MP, p.NS = ns;
+  p.R = R, p.H = H, p.D = D, p.PS = PS, p.MP = MP, p.NS = ns, p.n_cs = 1;
   p.sqb = sqb, p.sqr = sqr, p.sqh = sqh;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks of the bf16 kernels that run on wgmma:
+// Hopper (sm_90a) building blocks of the kernels that run on wgmma:
 // shared-memory matrix descriptors for 128-byte-swizzled K-major tiles
 // (and MN-major ones, for a B operand read as it lies),
 // the warpgroup product and its fences, mbarriers, TMA tile loads, the
@@ -26,6 +26,24 @@
 #include "tensor_core.cuh"
 
 namespace {
+
+// n / d for 0 <= n < 2^31 by a multiply-high and a shift (the divisor's
+// magic number is computed on the host): the per-tile index arithmetic of
+// the implicit GEMMs.
+struct FastDiv {
+  uint32_t mul, shift;
+  __device__ __forceinline__ int operator()(int n) const {
+    const uint32_t u = static_cast<uint32_t>(n);
+    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
+  }
+};
+
+inline FastDiv make_fastdiv(uint32_t d) {
+  uint32_t shift = 0;
+  while ((uint64_t(1) << shift) < d) ++shift;
+  const uint64_t mul = ((uint64_t(1) << 32) * ((uint64_t(1) << shift) - d)) / d + 1;
+  return FastDiv{static_cast<uint32_t>(mul), shift};
+}
 
 // Offset in bytes of 16-byte chunk `chunk` of row `row` in a 128-byte-
 // swizzled tile.
@@ -256,26 +274,46 @@ inline cudaError_t tensor_map_encoder(EncodeTiled* out) {
   return cudaSuccess;
 }
 
-// A TMA map of the row-major bf16 matrix [rows, cols] at `base`, in boxes
-// of `box_rows` x 64 columns, 128-byte swizzled as the wgmma tiles are,
-// zero outside the matrix.
-inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base,
-                                   long long rows, int cols, int box_rows) {
+// A TMA map of the row-major matrix [rows, cols] of `elem`-byte elements
+// (`type`) at `base`, in boxes of `box_rows` rows x 128 bytes, 128-byte
+// swizzled as the wgmma tiles are, zero outside the matrix.
+inline cudaError_t encode_swizzled_map(CUtensorMap* map,
+                                       CUtensorMapDataType type, int elem,
+                                       const void* base, long long rows,
+                                       int cols, int box_rows) {
   EncodeTiled encode;
   const cudaError_t e = tensor_map_encoder(&encode);
   if (e != cudaSuccess) return e;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? cudaSuccess
              : cudaErrorInvalidValue;
+}
+
+// The bf16 matrix [rows, cols] in boxes of `box_rows` x 64 columns.
+inline cudaError_t encode_tile_map(CUtensorMap* map, const void* base,
+                                   long long rows, int cols, int box_rows) {
+  return encode_swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base,
+                             rows, cols, box_rows);
+}
+
+// The int8 matrix [rows, cols] (bytes) in boxes of `box_rows` x 128
+// columns: the tile of wgmma's s8 products, whose k32 slices are 32 bytes
+// as the bf16 tile's k16 slices are.
+inline cudaError_t encode_byte_tile_map(CUtensorMap* map, const void* base,
+                                        long long rows, int cols,
+                                        int box_rows) {
+  return encode_swizzled_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base,
+                             rows, cols, box_rows);
 }
 
 }  // namespace

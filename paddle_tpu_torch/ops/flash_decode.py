@@ -22,10 +22,11 @@ The kernel replaces ``_decode_kernel`` (wrapper ``_flash_decode_pallas``):
 bounds it.  The TPU kernel's sublane-replicated query rows, head
 packing, scalar-prefetch grid and VMEM budget with its quiet fall-back
 to the reference are Mosaic rules and are gone: every page size, every
-head dim up to 2048 and any number of query rows run the kernel (one
-CTA serves up to 16 rows of a sequence and head; a long sequence is cut
-into splits of 16 pages, merged in split order through a workspace this
-wrapper allocates).  The JAX package's ``head_pack`` has no
+head dim and any number of query rows run the kernel (one CTA serves up
+to 16 rows of a sequence and head; a long sequence is cut into splits of
+16 pages, merged in split order through a workspace this wrapper
+allocates; above d 2048 a second kernel takes the output in slices of
+2048 columns).  The JAX package's ``head_pack`` has no
 counterpart: the kernel has nothing to pack.
 
 ``flash_decode`` dispatches on the device of ``q``: a CUDA tensor
@@ -57,9 +58,6 @@ from paddle_tpu_torch.core.registry import register_op
 _NEG_INF = -1e30
 _KERNEL = "flash_decode"
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-# the widest head dim: a kernel thread keeps 16 output columns of each row
-# in registers (chunks of 4 K/V rows above d 1024 fit shared memory)
-_MAX_HEAD_DIM = 2048
 _LAUNCH_LOCK = threading.Lock()
 
 
@@ -144,10 +142,8 @@ def _check(q4, k_pages, v_pages, tables, lens):
             f"flash_decode: q {tuple(q4.shape)} and pools "
             f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not agree "
             "(pools are [P, H, page_size, d])")
-    if not 1 <= d <= _MAX_HEAD_DIM:
-        raise ValueError(f"flash_decode: head dim {d} is not in [1, "
-                         f"{_MAX_HEAD_DIM}]: a kernel thread keeps 16 "
-                         "output columns of each row in registers")
+    if d < 1:
+        raise ValueError(f"flash_decode: head dim {d} is not positive")
     kv = k_pages.dtype
     if kv not in _KV_CODES or v_pages.dtype != kv or \
             q4.dtype != (torch.float32 if kv == torch.int8 else kv):

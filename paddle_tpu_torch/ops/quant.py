@@ -20,22 +20,30 @@ attrs and defaults, the same errors and scale conventions.
 
 The s8 products are XLA dots in the JAX package (``:228-243``,
 ``:335-340``, ``:462``).  Here they are ``csrc/conv_int8.cu``
-(``pt_conv_int8``), an implicit GEMM on ``mma.sync`` s8 with the epilogue
-fused; its header says how it is laid out and what bounds it.  Its
-wrapper ``conv_int8`` launches it on a CUDA tensor (a build or launch
-failure raises; ``conv_int8.launches`` counts launches) and takes the
+(``pt_conv_int8``), an implicit GEMM with the epilogue fused, on two
+routes (``kernel_route``): one group takes a persistent ``wgmma`` s8
+kernel (w and a 1x1 conv's x by TMA; a stem of at most 4 channels packed,
+a filter row's taps in one 32-byte K row, ``_stem_x_operand`` and
+``_stem_filter_operand``), grouped convolutions the first ``mma.sync``
+kernel, which every convolution also takes on request
+(``route="mma_sync"``); the source's header says how each is laid out
+and what bounds it.  The wrapper ``conv_int8`` launches the kernel on a
+CUDA tensor (a build or launch failure raises; ``conv_int8.launches``
+counts launches, ``conv_int8.launches_by_route`` by route) and takes the
 plain version ``conv_int8_plain`` on a CPU or ``meta`` tensor.  The plain
 version is exact: an f64 im2col product of the int8 operands, rounded to
 int32 (``|sum| <= 127^2 * K < 2^53``), then the epilogue in PyTorch.  The
 kernel reads x with whole 16-byte chunks of channels, so the wrapper pads
-each group's channels to a multiple of 16 (the 3-channel stem), and
-copies a misaligned x; each such copy is counted in
-``conv_int8.copies``.  Filters are transposed to OHWI (and padded) once
-per parameter and kept (``_filter_operand``).  The activation's
-quantisation and the dynamic max|x| stay PyTorch elementwise ops, as the
-JAX package computes them in XLA outside the dot.  Flag
-``int8_conv_algo`` picks one of two lowerings with the same bits in the
-JAX package; the port accepts it for parity and does not read it.
+each group's channels to a multiple of 16 (the stem to 4, its width to
+even padding), and copies a misaligned x; each such copy is counted in
+``conv_int8.copies``.  Filters
+are laid out (OHWI, padded; or packed) once per parameter and kept
+(``_kept_filter``).  The activation's quantisation, which XLA fuses into
+the dot's operand (``:325``, ``:460``), is ``csrc/quantize_act.cu``
+through ``quantize_act`` (plain version ``quantize_act_plain``, counted in
+``quantize_act.launches``); the dynamic max|x| stays a PyTorch reduction.
+Flag ``int8_conv_algo`` picks one of two lowerings with the same bits in
+the JAX package; the port accepts it for parity and does not read it.
 """
 
 from __future__ import annotations
@@ -402,24 +410,73 @@ def conv_int8_plain(x8, w, alpha, colscale=None, bias=None, residual=None,
 
 
 _FILTERS: dict = {}
+# the packed stem: a filter row's taps of 4 channels, in rows of 16 bytes
+_STEM_CHANNELS = 4
+
+
+def _kept_filter(w, key, layout, make):
+    """``make(w)``, kept per parameter (``key``, the scope's tensor, and
+    its version) and layout, so a program's runs lay each filter out
+    once."""
+    key = w if key is None else key
+    hit = _FILTERS.get((id(key), layout))
+    if hit is not None and hit[0]() is key and hit[1] == key._version \
+            and hit[2].device == w.device:
+        return hit[2]
+    wk = make(w)
+    if len(_FILTERS) > 4096:
+        _FILTERS.clear()
+    _FILTERS[(id(key), layout)] = (weakref.ref(key), key._version, wk)
+    return wk
 
 
 def _filter_operand(w, key):
     """The kernel's filter: OIHW int8 ``w`` [Cout, cig, KH, KW] as OHWI
     with each group's channels zero-padded to a multiple of 16,
-    contiguous.  Kept per parameter (``key``, the scope's tensor, and its
-    version), so a program's runs transpose each filter once."""
-    key = w if key is None else key
-    hit = _FILTERS.get(id(key))
-    if hit is not None and hit[0]() is key and hit[1] == key._version \
-            and hit[2].device == w.device:
-        return hit[2]
-    cig = w.shape[1]
-    wk = F.pad(w.permute(0, 2, 3, 1), (0, -cig % _CHUNK)).contiguous()
-    if len(_FILTERS) > 4096:
-        _FILTERS.clear()
-    _FILTERS[id(key)] = (weakref.ref(key), key._version, wk)
-    return wk
+    contiguous, kept per parameter."""
+    return _kept_filter(w, key, "ohwi", lambda w: F.pad(
+        w.permute(0, 2, 3, 1), (0, -w.shape[1] % _CHUNK)).contiguous())
+
+
+def _stem_filter_operand(w, key):
+    """The packed stem's filter: OIHW ``w`` [Cout, cig <= 4, KH, KW] as
+    [Cout, KH, KP], byte 4 kw + c of row kh the tap (kh, kw) of channel
+    c, zero past cig and past KW * 4 (KP its multiple of 16); kept per
+    parameter."""
+    def make(w):
+        cout, cig, kh, kw = w.shape
+        rows = F.pad(w.permute(0, 2, 3, 1), (0, _STEM_CHANNELS - cig))
+        rows = rows.reshape(cout, kh, kw * _STEM_CHANNELS)
+        return F.pad(rows, (0, -rows.shape[2] % _CHUNK)).contiguous()
+
+    return _kept_filter(w, key, "stem", make)
+
+
+def _stem_x_operand(x8, pw):
+    """The packed stem's x and width padding: NHWC int8 with its channels
+    zero-padded to 4 and its width by pw % 2 zero columns on the left (the
+    padding left to the kernel becomes even) and as many on the right as
+    make the width even, so each pair of taps the kernel copies lies on 8
+    bytes; a copy, counted in ``conv_int8.copies``."""
+    left = pw % 2
+    right = (x8.shape[2] + left) % 2
+    conv_int8.copies += 1
+    return F.pad(x8, (0, _STEM_CHANNELS - x8.shape[3], left,
+                      right)).contiguous(), pw - left
+
+
+def kernel_route(cig, groups, strides, dilations):
+    """The kernel a convolution takes on the card: "wgmma" for one group
+    (a stem of at most 4 channels, unit width dilation and an even width
+    stride packed, "wgmma_stem"), "mma_sync" for grouped ones."""
+    if groups != 1:
+        return "mma_sync"
+    if cig <= _STEM_CHANNELS and dilations[1] == 1 and strides[1] % 2 == 0:
+        return "wgmma_stem"
+    return "wgmma"
+
+
+_ROUTE_CODES = {"mma_sync": 0, "wgmma": 1, "wgmma_stem": 2}
 
 
 def _x_operand(x8, groups):
@@ -445,7 +502,7 @@ def _load():
     lib = _build.load(_KERNEL)
     if lib.pt_conv_int8.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.pt_conv_int8.argtypes = ([ptr] * 8 + [i32] * 22
+        lib.pt_conv_int8.argtypes = ([ptr] * 8 + [i32] * 23
                                      + [ctypes.c_float, ptr])
         lib.pt_conv_int8.restype = i32
         lib.pt_cuda_error_string.argtypes = [i32]
@@ -467,7 +524,8 @@ def _vector(name, t, n, device):
 
 
 def _launch(x8, w, alpha, colscale, bias, residual, relu, out_scale,
-            out_dtype, strides, paddings, dilations, groups, bnd, w_key):
+            out_dtype, strides, paddings, dilations, groups, bnd, w_key,
+            route):
     if x8.dtype != torch.int8 or w.dtype != torch.int8 or x8.dim() != 4 \
             or w.dim() != 4:
         raise TypeError(f"conv_int8: x8 must be NHWC int8 and w OIHW "
@@ -497,8 +555,18 @@ def _launch(x8, w, alpha, colscale, bias, residual, relu, out_scale,
                                 and out_dtype not in _OPERAND_CODES):
         raise TypeError(f"conv_int8: out_dtype {out_dtype} (result {dt}) "
                         "is not float32, bfloat16 or int32")
-    xk = _x_operand(x8, groups)
-    wk = _filter_operand(w, w_key)
+    auto = kernel_route(cig, groups, strides, dilations)
+    route = auto if route is None else route
+    if route not in _ROUTE_CODES or (route != auto and route != "mma_sync"):
+        raise ValueError(f"conv_int8: route {route!r} does not take this "
+                         f"convolution (it takes {auto!r} or 'mma_sync')")
+    pw_k = pw
+    if route == "wgmma_stem":
+        (xk, pw_k), wk = _stem_x_operand(x8, pw), _stem_filter_operand(
+            w, w_key)
+    else:
+        xk, wk = _x_operand(x8, groups), _filter_operand(w, w_key)
+    cig_k = _STEM_CHANNELS if route == "wgmma_stem" else wk.shape[3]
     alpha = alpha.reshape(1).float().contiguous()
     colscale = None if colscale is None else \
         colscale.float().reshape(-1).expand(cout).contiguous()
@@ -529,23 +597,24 @@ def _launch(x8, w, alpha, colscale, bias, residual, relu, out_scale,
         err = lib.pt_conv_int8(
             xk.data_ptr(), wk.data_ptr(), alpha.data_ptr(), ptr(colscale),
             ptr(bias), ptr(residual), ptr(so), out.data_ptr(),
-            n, h, wd, xk.shape[3], cout, kh, kw, wk.shape[3], groups,
-            sh, sw, ph, pw, dh, dw, oh, ow,
+            n, h, xk.shape[2], xk.shape[3], cout, kh, kw, cig_k, groups,
+            sh, sw, ph, pw_k, dh, dw, oh, ow,
             _OUT_CODES[dt],
             _OUT_CODES[out_dtype] if out_dtype != torch.int32 else 0,
-            code(bias), code(residual), int(bool(relu)), float(bnd),
-            stream)
+            code(bias), code(residual), int(bool(relu)),
+            _ROUTE_CODES[route], float(bnd), stream)
     if err != 0:
         raise RuntimeError("conv_int8 kernel launch failed: "
                            + lib.pt_cuda_error_string(err).decode())
     conv_int8.launches += 1
+    conv_int8.launches_by_route[route] += 1
     return out
 
 
 def conv_int8(x8, w, alpha, colscale=None, bias=None, residual=None,
               relu=False, out_scale=None, out_dtype=torch.float32,
               strides=(1, 1), paddings=(0, 0), dilations=(1, 1), groups=1,
-              bnd=127.0, w_key=None):
+              bnd=127.0, w_key=None, route=None):
     """The s8 convolution with the int8 epilogue: NHWC int8 ``x8``, OIHW
     int8 ``w`` [Cout, Cin/groups, KH, KW], the 0-d f32 activation factor
     ``alpha`` (conv2d_int8: sx / bnd^2; mul_int8: sx / bnd), the
@@ -555,18 +624,21 @@ def conv_int8(x8, w, alpha, colscale=None, bias=None, residual=None,
     ``out_dtype`` (float32 or bfloat16; int32 returns the accumulator).
     Both ops round as (f32(acc) * alpha) * colscale.  ``w_key`` is the
     parameter the filter came from (its kernel layout is kept per
-    parameter).  A CUDA tensor launches ``csrc/conv_int8.cu``; a CPU or meta tensor takes
+    parameter).  A CUDA tensor launches ``csrc/conv_int8.cu`` on the
+    route ``kernel_route`` picks (``route="mma_sync"`` asks for the first
+    kernel, which every convolution takes); a CPU or meta tensor takes
     ``conv_int8_plain``.  Returns NHWC."""
     args = (alpha, colscale, bias, residual, relu, out_scale, out_dtype,
             _pair(strides), _pair(paddings), _pair(dilations), groups, bnd)
     if x8.device.type == "cuda":
-        return _launch(x8, w, *args, w_key)
+        return _launch(x8, w, *args, w_key, route)
     if x8.device.type in ("cpu", "meta"):
         return conv_int8_plain(x8, w, *args)
     raise ValueError(f"conv_int8: no implementation for {x8.device}")
 
 
 conv_int8.launches = 0
+conv_int8.launches_by_route = dict.fromkeys(_ROUTE_CODES, 0)
 conv_int8.copies = 0
 
 
@@ -578,10 +650,81 @@ def _in_scale(ins):
     return torch.clamp_min(ins["InScale"].reshape(()).float(), 1e-8)
 
 
-def _quantize_act(x, sx, bnd):
-    """clip(round(f32(x) / sx * bnd), -bnd, bnd) as int8."""
+def quantize_act_plain(x, sx, bnd):
+    """clip(round(f32(x) / sx * bnd), -bnd, bnd) as int8: a true division
+    by the 0-d ``sx`` on x's device, then a product, each rounded."""
     return torch.clamp(torch.round(x.float() / sx * bnd), -bnd,
                        bnd).to(torch.int8)
+
+
+_QUANT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _dense(t):
+    """Whether t's elements fill its storage span once, in some order of
+    its dims (contiguous, channels-last, any permutation of either)."""
+    expect = 1
+    for stride, size in sorted((s, n) for s, n in zip(t.stride(), t.shape)
+                               if n != 1):
+        if stride != expect:
+            return False
+        expect *= size
+    return True
+
+
+def _quantize_launch(x, sx, bnd):
+    if x.dtype not in _QUANT_CODES:
+        raise TypeError(f"quantize_act: x must be float32 or bfloat16, got "
+                        f"{x.dtype}")
+    sx = sx.reshape(())
+    if sx.dtype != torch.float32 or sx.device != x.device:
+        raise ValueError(f"quantize_act: sx must be a float32 scalar on "
+                         f"{x.device}, got {sx.dtype} on {sx.device}")
+    if not _dense(x):
+        quantize_act.copies += 1
+        x = x.contiguous()
+    # x's own strides: the kernel maps storage to storage
+    out = torch.empty_like(x, dtype=torch.int8)
+    if out.numel() == 0:
+        return out
+    from paddle_tpu_torch import _build
+
+    lib = _build.load("quantize_act")
+    if lib.pt_quantize_act.argtypes is None:
+        ptr = ctypes.c_void_p
+        lib.pt_quantize_act.argtypes = [ptr, ptr, ptr, ctypes.c_longlong,
+                                        ctypes.c_int, ctypes.c_float, ptr]
+        lib.pt_quantize_act.restype = ctypes.c_int
+        lib.pt_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.pt_cuda_error_string.restype = ctypes.c_char_p
+    sx = sx.contiguous()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.pt_quantize_act(x.data_ptr(), out.data_ptr(),
+                                  sx.data_ptr(), x.numel(),
+                                  _QUANT_CODES[x.dtype], float(bnd), stream)
+    if err != 0:
+        raise RuntimeError("quantize_act kernel launch failed: "
+                           + lib.pt_cuda_error_string(err).decode())
+    quantize_act.launches += 1
+    return out
+
+
+def quantize_act(x, sx, bnd):
+    """The activation's per-tensor quantisation of ``conv2d_int8`` and
+    ``mul_int8``: int8 x of x's shape, ``quantize_act_plain``'s function.
+    A CUDA tensor (f32 or bf16, any view) launches
+    ``csrc/quantize_act.cu`` with ``sx`` read on the card; a CPU or meta
+    tensor takes ``quantize_act_plain``."""
+    if x.device.type == "cuda":
+        return _quantize_launch(x, sx, bnd)
+    if x.device.type in ("cpu", "meta"):
+        return quantize_act_plain(x, sx, bnd)
+    raise ValueError(f"quantize_act: no implementation for {x.device}")
+
+
+quantize_act.launches = 0
+quantize_act.copies = 0
 
 
 def _channel_bias(ins, attrs, y_ndim, channel_axis):
@@ -632,7 +775,7 @@ def conv2d_int8(ins, attrs, device):
             sx = _in_scale(ins)
         else:
             sx = torch.clamp_min(torch.amax(torch.abs(x)), 1e-8)
-        x8 = _quantize_act(x, sx, bnd)
+        x8 = quantize_act(x, sx, bnd)
     nchw = attrs.get("data_format", "NCHW") == "NCHW"
     if nchw:
         x8 = x8.permute(0, 2, 3, 1)
@@ -711,7 +854,7 @@ def mul_int8(ins, attrs, device):
                 else cal
         else:
             sx = torch.clamp_min(torch.amax(torch.abs(x2)), 1e-8)
-        x8 = _quantize_act(x2, sx, bnd)
+        x8 = quantize_act(x2, sx, bnd)
     out_shape = tuple(x.shape[:xnc]) + tuple(q.shape[ync:])
     bias = _channel_bias(ins, attrs, len(out_shape), len(out_shape) - 1)
     y = conv_int8(x8.reshape(x8.shape[0], 1, 1, k),

@@ -47,7 +47,8 @@ cuDNN as well.
 
 ``flash_decode`` is held against ``flash_decode_plain`` over ragged
 lengths (zero-length rows among them), page sizes 4 to 128, strided
-block tables, d 16 to 2048, 1 to 70 query rows and f32, bf16 and int8
+block tables, d 16 to 4096 (above 2048 the wide kernel), 1 to 70
+query rows and f32, bf16 and int8
 pools: within ``1e-5 * max(1, max|ref|)`` in f32 and over int8 pools
 (f32 sums in another order) and one bf16 step in bf16.  Its verify rows
 are array_equal to q-len-1 launches, and a small decode server on the
@@ -55,13 +56,18 @@ card emits the CPU server's tokens.
 
 ``conv_int8`` (the s8 convolution of ``conv2d_int8`` and ``mul_int8``) is
 ``torch.equal`` to ``conv_int8_plain`` over odd Cin and Cout, the
-3-channel stem, 1x1, stride 2, dilation 2, groups 2 and 4, an fc shape
-and every epilogue subset (int32 out; f32 or bf16 out with bias and
-residual in either dtype, relu, OutScale): the int32 sum is exact and
-every float step is fixed, so anything short of equal is a fault.  A
-misaligned view is copied (counted) and gives the same bits, two launches
-give the same bits, and the two ops on a CUDA tensor give the CPU op's
-bits.
+3-channel and 1-channel stems (packed), 1x1 (by TMA and gathered), stride
+2, dilation 2, groups 2 and 4 (the mma.sync route), Cout 64, 128, 256 and
+512 (each wgmma tile width), M off the tiles, an fc shape and every
+epilogue subset (int32 out; f32 or bf16 out with bias and residual in
+either dtype, relu, OutScale): the int32 sum is exact and every float
+step is fixed, so anything short of equal is a fault.  Each shape's route
+is counted and gives the mma.sync kernel's bits.  A misaligned view is
+copied (counted) and gives the same bits, two launches give the same
+bits, and the two ops on a CUDA tensor give the CPU op's bits.
+``quantize_act`` is ``torch.equal`` to its plain version at odd sizes,
+over f32 and bf16, ties and saturation, and views off 16 bytes,
+permuted or strided.
 """
 
 from __future__ import annotations
@@ -1228,6 +1234,15 @@ DECODE_CASES = [
     ([129, 7, 300], 1, 2048, 16, "bfloat16", False),
     ([70, 9, 300], 5, 1536, 32, "int8", True),
     ([129, 7, 300], 1, 2048, 16, "int8", False),
+    # above d 2048: the wide kernel (head dim in slices, output columns in
+    # 2048-column slices); d 2056 and 3080 off whole 16-byte int8 rows
+    ([5, 33, 300, 1], 1, 2056, 16, "float32", False),
+    ([70, 9, 300], 5, 3072, 16, "bfloat16", True),
+    ([17, 90, 260, 0], 5, 3072, 32, "float32", True),
+    ([129, 7, 300], 1, 4096, 16, "bfloat16", False),
+    ([70, 9, 300], 5, 3080, 16, "int8", True),
+    ([129, 7, 300], 1, 4096, 16, "int8", False),
+    ([40, 7, 33], 5, 4096, 2, "float32", True),        # 2-key pages
 ]
 # relative to max(1, |ref|): f32 sums in another order; bf16 output is
 # one rounding of those sums, so one bf16 step apart at most
@@ -1339,12 +1354,12 @@ def test_flash_decode_verify_rows_bit_equal_across_splits(cuda, lens, r, d,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("d", [1536, 2048])
+@pytest.mark.parametrize("d", [1536, 2048, 2056, 3072, 4096])
 def test_flash_decode_wide_verify_rows_bit_equal_qlen1(cuda, d, dtype):
-    """Above d 1024 (chunks of 4 keys, which follow the pools' d alone)
-    verify row r of a 5-row sweep is still array_equal to a q-len-1
-    launch at length len - 4 + r, across split boundaries (300 tokens of
-    16-token pages: two splits)."""
+    """Above d 1024 (chunks of 4 keys, which follow the pools' d alone;
+    above 2048 the wide kernel) verify row r of a 5-row sweep is still
+    array_equal to a q-len-1 launch at length len - 4 + r, across split
+    boundaries (300 tokens of 16-token pages: two splits)."""
     from paddle_tpu_torch.ops import flash_decode as fd
 
     r = 5
@@ -1375,8 +1390,8 @@ def test_flash_decode_is_deterministic(cuda, dtype):
 def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
     """What the kernel took no longer (a head dim off multiples of 8, more
     than 64 query rows) runs and is counted; q of another dtype than the
-    pools' and head dims above 2048 (a thread keeps 16 output columns of
-    each row in registers) are refused."""
+    pools' and a head dim of 0 are refused (every positive head dim runs:
+    above 2048 on the wide kernel)."""
     from paddle_tpu_torch.ops import flash_decode as fd
 
     q, k, v, tab, ln, _ = _decode_inputs(5, [5], 1, 64, 16, "float32",
@@ -1393,10 +1408,10 @@ def test_flash_decode_refuses_what_the_kernel_does_not_take(cuda):
             1.0, ref.abs().max().item())
     with pytest.raises(TypeError):
         fd.flash_decode(q.bfloat16(), k, v, tab, ln)
-    wide = torch.zeros((1, 2, 16, 2056), device=cuda)
+    empty = torch.zeros((1, 2, 16, 0), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
-        fd.flash_decode(torch.zeros((1, 2, 2056), device=cuda), wide, wide,
-                        tab, ln)
+        fd.flash_decode(torch.zeros((1, 2, 0), device=cuda), empty, empty,
+                        tab, ln, scale=1.0)
 
 
 @pytest.mark.cuda
@@ -1448,6 +1463,15 @@ I8_SHAPES = [
     (2, 8, 8, 64, 32, 3, 2, 1, 1, 4),
     (2, 14, 14, 256, 64, 1, 1, 0, 1, 1),
     (300, 1, 1, 2048, 1000, 1, 1, 0, 1, 1),
+    # the wgmma route's tiles by Cout (64, 128, 256 and two 256-column
+    # tiles), M off the 256- and 128-pixel tiles, a strided 3x3 and a
+    # strided 1x1 (gathered), a 1x1 of 64 channels by TMA, a 1-channel stem
+    (2, 9, 9, 32, 64, 3, 2, 1, 1, 1),
+    (3, 10, 10, 48, 128, 3, 1, 1, 1, 1),
+    (2, 7, 7, 64, 256, 1, 1, 0, 1, 1),
+    (2, 14, 14, 128, 512, 1, 2, 0, 1, 1),
+    (2, 17, 15, 1, 40, 5, 2, 2, 1, 1),
+    (2, 9, 11, 3, 16, 3, 1, 1, 1, 1),      # a 3-channel conv at stride 1
 ]
 # (out dtype, bias, residual, relu, OutScale)
 I8_EPILOGUES = [
@@ -1519,6 +1543,32 @@ def test_conv_int8_kernel_equals_plain(cuda, n, h, w, cin, cout, k, s, p,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,cin,cout,k,s,p,d,g", I8_SHAPES)
+def test_conv_int8_routes_agree(cuda, n, h, w, cin, cout, k, s, p, d, g):
+    """Each shape's own route (wgmma, the packed stem's wgmma, or mma.sync
+    for groups) is counted on it and gives the mma.sync kernel's bits,
+    which every convolution also takes on request."""
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng, x8, wt, shape = _i8_case(cuda, n, h, w, cin, cout, k, s, p, d, g)
+    ops = _i8_operands(rng, cuda, shape, I8_EPILOGUES[5])
+    conv = dict(strides=(s, s), paddings=(p, p), dilations=(d, d),
+                groups=g)
+    route = Q.kernel_route(cin // g, g, (s, s), (d, d))
+    assert route == ("mma_sync" if g > 1 else
+                     "wgmma_stem" if cin <= 4 and s % 2 == 0 else "wgmma")
+    before = dict(Q.conv_int8.launches_by_route)
+    got = Q.conv_int8(x8, wt, **ops, **conv)
+    assert Q.conv_int8.launches_by_route[route] == before[route] + 1
+    ref = Q.conv_int8(x8, wt, **ops, **conv, route="mma_sync")
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if g > 1:
+        with pytest.raises(ValueError, match="route"):
+            Q.conv_int8(x8, wt, **ops, **conv, route="wgmma")
+
+
+@pytest.mark.cuda
 def test_conv_int8_takes_misaligned_views_and_is_deterministic(cuda):
     """A view starting off 16 bytes is copied once (counted) and gives the
     contiguous tensor's bits; two launches give the same bits."""
@@ -1579,3 +1629,57 @@ def test_int8_ops_on_the_card_equal_the_cpu(cuda, op):
     assert Q.conv_int8.launches == launches + 1
     for slot, v in cpu.items():
         assert torch.equal(gpu[slot].cpu(), v), slot
+
+
+# ---------------------------------------------------------------------------
+# quantize_act: the int8 ops' activation quantisation
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1,), (15,), (16,), (1001,),
+                                   (2, 3, 57, 33), (128, 64, 7, 7)])
+def test_quantize_act_equals_plain(cuda, shape, dtype):
+    """Odd sizes (the scalar tail beside the 16-element groups), values
+    beyond +-bnd, exact .5 ties and a scale read on the card: torch.equal
+    to the plain version, one launch."""
+    from paddle_tpu_torch.ops import quant as Q
+
+    rng = np.random.RandomState(len(shape))
+    x = rng.standard_normal(shape).astype(np.float32) * 30.0
+    flat = x.reshape(-1)
+    flat[::3] = np.round(flat[::3]) + 0.5     # ties at sx = bnd
+    xt = torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+    for sx, bnd in ((torch.tensor(64.0), 64.0), (torch.tensor(3.7), 127.0)):
+        sx = sx.to(cuda)
+        launches = Q.quantize_act.launches
+        got = Q.quantize_act(xt, sx, bnd)
+        torch.cuda.synchronize()
+        assert Q.quantize_act.launches == launches + 1
+        want = Q.quantize_act_plain(xt, sx, bnd)
+        assert got.dtype == torch.int8 and got.shape == xt.shape
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_act_takes_views(cuda, dtype):
+    """A view off 16 bytes runs the element path; a channels-last or
+    permuted view keeps its layout (no copy); a strided view is copied
+    (counted): each torch.equal to the plain version."""
+    from paddle_tpu_torch.ops import quant as Q
+
+    base = torch.randn(4 * 10 * 12 * 24 + 3, device=cuda).to(
+        getattr(torch, dtype)) * 20
+    sx = torch.tensor(2.9, device=cuda)
+    views = {"off16": base[3:].view(4, 10, 12, 24),
+             "nhwc_of_nchw": base[:-3].view(4, 10, 12, 24).permute(0, 3, 1, 2),
+             "strided": base[:-3].view(4, 10, 12, 24)[:, :, ::2]}
+    for name, v in views.items():
+        copies = Q.quantize_act.copies
+        got = Q.quantize_act(v, sx, 127.0)
+        torch.cuda.synchronize()
+        assert Q.quantize_act.copies == copies + int(name == "strided")
+        if name == "nhwc_of_nchw":
+            assert got.stride() == v.stride()
+        assert torch.equal(got, Q.quantize_act_plain(v, sx, 127.0)), name

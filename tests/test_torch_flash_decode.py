@@ -112,6 +112,23 @@ def test_plain_matches_jax_interpret_kernel_any_d_and_rows(d, r, lens,
     _assert_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("r", [1, 5])
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_plain_matches_jax_interpret_kernel_above_d_2048(dtype, r):
+    """d 3072, which the kernel takes on its wide path (above 2048): the
+    plain version still equals the JAX package's kernel under the
+    interpreter, within TOL, over f32 and int8 pools."""
+    ps = 32 if dtype == "int8" else 16     # the Pallas int8 page tile
+    port, jx = _setup([5, 33, 16, 1], r=r, d=3072, ps=ps, dtype=dtype)
+    q, c, tab, ln, scales = jx
+    want = jax.jit(lambda *a: pk.flash_decode(
+        *a, impl="interpret", kv_scales=scales))(q, c.k_pages, c.v_pages,
+                                                   tab, ln)
+    got = _port_out(port)
+    assert got.dtype == port[0].dtype
+    _assert_close(got, want, dtype)
+
+
 def test_plain_matches_plain_softmax():
     """The page-ordered online softmax equals softmax(QK^T)V over the
     live prefix (within 1e-5 of outputs of unit scale)."""

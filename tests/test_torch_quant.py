@@ -17,8 +17,11 @@ The same numpy inputs go through both registries' computes.
   modes) in both.
 - The kernel's operands (``_x_operand``, ``_filter_operand``: each
   group's channels padded to 16 with zeros, OHWI filters kept per
-  parameter) give the plain version's accumulator through the kernel's
-  own tap loop in numpy int64, and the copies are counted.
+  parameter; the packed stem's ``_stem_x_operand`` and
+  ``_stem_filter_operand``: 4 channels, even width padding, a filter
+  row's taps in rows of 16 bytes) give the plain version's accumulator through the kernel's
+  own tap loop in numpy int64, and the copies are counted; the route
+  each convolution takes follows its groups and channels.
 """
 
 from __future__ import annotations
@@ -430,6 +433,71 @@ def test_kernel_operands_give_the_plain_accumulator(cin, cout, k, groups, s,
     got = _kernel_tap_loop(xk.numpy(), wk.numpy(), groups, (s, s), (p, p),
                            (d, d), acc.shape[1], acc.shape[2])
     np.testing.assert_array_equal(got, acc.numpy().astype(np.int64))
+
+
+def _stem_tap_loop(xs, ws, strides, pads, dils, oh, ow):
+    """The packed stem's sum in numpy int64: for each filter row kh and
+    byte b of its KP bytes, tap b // 4 of channel b % 4 of x [N,H,W,4]
+    against w[:, kh, b], zero outside the image and past the taps."""
+    n, h, w, _ = xs.shape
+    cout, kh_, kp = ws.shape
+    (sh, sw), (ph, pw), (dh, _) = strides, pads, dils
+    x64 = xs.astype(np.int64)
+    acc = np.zeros((n, oh, ow, cout), np.int64)
+    for kh in range(kh_):
+        ih = np.arange(oh) * sh - ph + kh * dh
+        for b in range(kp):
+            tap, c = divmod(b, 4)
+            iw = np.arange(ow) * sw - pw + tap
+            mh, mw = (ih >= 0) & (ih < h), (iw >= 0) & (iw < w)
+            col = np.zeros((n, oh, ow), np.int64)
+            col[:, np.where(mh)[0][:, None], np.where(mw)[0]] = \
+                x64[:, ih[mh]][:, :, iw[mw], c]
+            acc += col[..., None] * ws[:, kh, b].astype(np.int64)
+    return acc
+
+
+@pytest.mark.parametrize("cin,cout,k,s,p,dh,w", [
+    (3, 16, 7, 2, 3, 1, 9), (1, 8, 3, 2, 1, 1, 10), (4, 12, 5, 2, 2, 2, 9),
+    (2, 8, 1, 2, 0, 1, 11)])
+def test_stem_operands_give_the_plain_accumulator(cin, cout, k, s, p, dh, w):
+    """The packed stem (groups 1, at most 4 channels, dw 1, an even width
+    stride): x padded to 4 channels and to an even width padding and
+    width (so the kernel's pairs of taps lie on 8 bytes), the filter as
+    [Cout, KH, KP] rows of KW taps of 4 channels (KP: KW * 4 rounded up
+    to 16), K = KH * KP; the kernel's sum over those operands, at the
+    padding the wrapper hands it, is the plain version's accumulator."""
+    x8 = torch.from_numpy(_i8(2, 11, w, cin))
+    wt = torch.from_numpy(_i8(cout, cin, k, k))
+    assert Q.kernel_route(cin, 1, (s, s), (dh, 1)) == "wgmma_stem"
+    copies = Q.conv_int8.copies
+    xs, pw = Q._stem_x_operand(x8, p)
+    assert Q.conv_int8.copies == copies + 1
+    assert xs.shape[:2] == (2, 11) and xs.shape[3] == 4 and xs.is_contiguous()
+    assert xs.shape[2] % 2 == 0 and pw % 2 == 0 and pw == p - p % 2
+    ws = Q._stem_filter_operand(wt, None)
+    kp = -(-k * 4 // 16) * 16
+    assert ws.shape == (cout, k, kp) and ws.is_contiguous()
+    assert Q._stem_filter_operand(wt, None) is ws   # kept per parameter
+    assert Q._filter_operand(wt, None) is not ws    # apart from OHWI
+    acc = Q._conv_acc_plain(x8, wt, (s, s), (p, p), (dh, 1), 1)
+    got = _stem_tap_loop(xs.numpy(), ws.numpy(), (s, s), (p, pw), (dh, 1),
+                         acc.shape[1], acc.shape[2])
+    np.testing.assert_array_equal(got, acc.numpy().astype(np.int64))
+
+
+def test_kernel_route_follows_groups_and_channels():
+    """One group takes the wgmma kernel (a stem of at most 4 channels with
+    unit width dilation and an even width stride packed); grouped
+    convolutions the mma.sync one."""
+    assert Q.kernel_route(64, 1, (1, 1), (1, 1)) == "wgmma"
+    assert Q.kernel_route(3, 1, (2, 2), (1, 1)) == "wgmma_stem"
+    assert Q.kernel_route(3, 1, (2, 2), (1, 2)) == "wgmma"
+    assert Q.kernel_route(3, 1, (1, 1), (1, 1)) == "wgmma"
+    assert Q.kernel_route(20, 1, (1, 1), (2, 2)) == "wgmma"
+    assert Q.kernel_route(12, 2, (1, 1), (1, 1)) == "mma_sync"
+    assert set(Q.conv_int8.launches_by_route) == {"wgmma", "wgmma_stem",
+                                                  "mma_sync"}
 
 
 def test_conv_int8_takes_the_plain_version_on_the_cpu():
