@@ -25,9 +25,12 @@ Phases, none of which catches its own failure:
      signed error and max error beside the plain f32 version's;
   3. serves the Transformer-base LM (vocab 32000, d_model 512, 8 heads,
      d_inner 2048, 6 layers, seq 512, random weights from --seed) through
-     save_inference_model -> create_predictor(Config(dir)) -> run, counts
-     the kernel launches of those requests, and compares one request's
-     logits with the same model on the CPU (Config.disable_gpu());
+     save_inference_model -> create_predictor(Config(dir)): the requests
+     interpreted (Executor.run of the Predictor's program on its scope),
+     counting their kernel launches, then through Predictor.run (the
+     compiled path, below); compares one request's logits with the same
+     model on the CPU (Config.disable_gpu()), and prints the request's
+     wall and device-to-host copy ms on both paths;
   4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -117,7 +120,8 @@ Phases, none of which catches its own failure:
  14. profiles one request and one step of each training path and one
      served run of the 64 decode requests, first submit to last result
      (device busy share, top kernels), inside phases 3, 5, 7, 9, 10 and
-     12, and one batch of each inference leg in 15-17;
+     12, and one batch of each inference leg in 15-17, each Executor path
+     interpreted and compiled;
  15. conv-net inference in bf16, the bench's legs (bench.py:623-661) on
      weights from --seed, every batch norm's scale and shift drawn and
      its statistics taken from 8 images: infer (ResNet-50 at batch 128,
@@ -162,7 +166,24 @@ Phases, none of which catches its own failure:
  19. prints one {"kernels": [...]} line (ten kernels), then the card's
      line, then the result line {"ok": true, "device": {...}} last.
 
-Takes about ten minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
+The compiled path: every Executor path above (phases 3, 5, 7, 9 and
+10, the five bf16 legs of 15, the two int8 legs of 16, and 17) runs its
+counted steps or batches a second time through CompiledProgram (the
+Predictor's own, or one built on the program), from the same state and
+feeds: its first call runs the plan eagerly and captures it into a CUDA
+graph, and every counted call must replay that graph (no launch counted
+from Python, one capture for the shape), with the replays' launches (the
+capture's counts times the replays) equal to the interpreted run's, the
+port's kernels by name in one profiled replay equal to one profiled
+interpreted call's, every persistable at its address, and the results
+equal to the interpreted run's bitwise, or, where two interpreted runs
+differ (atomics in cuDNN's backward and the embedding grad), within
+twice their spread.  Each path's ms by the host clock and by events, its
+profiled device busy and idle share and its peak memory are logged
+beside the interpreted figures, and summed up in one line before the
+kernels line.
+
+Takes about twelve minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
 kernels' build included.
 Every main path also holds the flash kernels' input copies at 0.
 
@@ -177,6 +198,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1289,10 +1311,229 @@ def check_bn_apply(device, seed, bns):
 
 
 # ---------------------------------------------------------------------------
+# the compiled path: each Executor path's counted steps or batches run a
+# second time through CompiledProgram (CUDA graphs), from the same state
+# and feeds, and held to the interpreted run
+# ---------------------------------------------------------------------------
+
+# per compiled path: its numbers beside the interpreted run's
+COMPILED = {}
+
+
+def timed(fn, n, keep=None):
+    """``n`` calls of ``fn``: their results (passed through ``keep``
+    after each call's timing: a copy, where the result holds a buffer the
+    next call should reuse), and each call's ms by the host clock (ending
+    in a synchronise) and by events."""
+    import torch
+
+    outs, walls, events = [], [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        events.append(start.elapsed_time(end))
+        outs.append(out if keep is None else keep(out))
+        del out
+    return outs, walls, events
+
+
+def _f(x):
+    """A tensor in f64 on its device, or an array in f32 (f64 kept)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    x = np.asarray(x)
+    return x if x.dtype == np.float64 else x.astype(np.float32)
+
+
+def _amax(x):
+    """max|x| of a tensor or array in the type ``_f`` gives (0 if empty,
+    inf where a NaN is)."""
+    x = abs(x)
+    if x.shape and min(x.shape) == 0:
+        return 0.0
+    m = float(x.max())
+    return m if m == m else math.inf
+
+
+def max_diff(a, b):
+    """The largest |a - b| over two lists of tensors or arrays."""
+    return max((_amax(_f(x) - _f(y)) for x, y in zip(a, b)), default=0.0)
+
+
+def max_abs(a):
+    return max((_amax(_f(x)) for x in a), default=0.0)
+
+
+def hold_to_interpreted(what, groups, another=None):
+    """``groups``: {name: (interpreted run a, [other interpreted runs of
+    the same work], compiled run c)}, each run a list of tensors or
+    arrays.  A path whose interpreted runs are bitwise equal must give
+    the same bits compiled.  One whose runs differ (cuDNN's backward and
+    the embedding grad sum by atomics) is held, group by group, within
+    twice the runs' largest spread, each relative to its group's scale;
+    ``another()``, where given, first adds one more interpreted run
+    ({name: run}), so that one close pair does not set the bound."""
+    def spreads():
+        return {n: max(max_diff(a, b) for b in bs)
+                for n, (a, bs, _) in groups.items()}
+
+    spread = spreads()
+    if any(spread.values()) and another is not None:
+        extra = another()
+        for n, (_, bs, _) in groups.items():
+            bs.append(extra[n])
+        spread = spreads()
+    scale = {n: max(max_abs(a), 1e-30) for n, (a, _, _) in groups.items()}
+    bound = 2.0 * max(spread[n] / scale[n] for n in groups)
+    row = {}
+    for n, (a, bs, c) in groups.items():
+        diff = max_diff(c, a)
+        row[n] = {"interpreted_runs": 1 + len(bs),
+                  "interpreted_spread": spread[n], "compiled_diff": diff,
+                  "scale": scale[n], "bitwise": bound == 0.0}
+        if not diff / scale[n] <= bound:
+            raise AssertionError(f"compiled {what}: {n} differs from the "
+                                 f"interpreted run by more than twice the "
+                                 f"interpreted runs' spread: {row[n]}")
+    return row
+
+
+def compiled_window(what, compiled, call, n, want_launches, scope=None,
+                    names=(), prepare=None, keep=None):
+    """``call`` (one step or batch through ``compiled``) once, which
+    builds it (the eager warm-up and the capture); ``prepare()`` where
+    given (the state put back, or one more uncounted call); then ``n``
+    counted calls.  Each counted
+    call must replay the one graph the key captured (no launch counted
+    from Python), the replays' launches (the captures' deltas times the
+    replays) must equal ``want_launches``, the interpreted run's, and
+    each of ``names``' persistables in ``scope`` must keep its
+    data_ptr.  Returns the counted calls' results (through ``keep``, as
+    ``timed``) and their row."""
+    import torch
+
+    call()
+    if prepare is not None:
+        prepare()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    before, stats0 = compiled.replayed_launches(), compiled.graph_stats()
+    ptrs = [scope.find_var(n).get().data_ptr() for n in names]
+    outs, walls, events = timed(call, n, keep)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    python = kernel_counts()
+    after, stats = compiled.replayed_launches(), compiled.graph_stats()
+    replayed = {k: after.get(k, 0) - before.get(k, 0) for k in want_launches}
+    moved = [nm for nm, p in zip(names, ptrs)
+             if scope.find_var(nm).get().data_ptr() != p]
+    row = dict(wall_ms=walls, event_ms=events, peak_mem_gb=peak,
+               graphs=stats["graphs"], replays=stats["replays"]
+               - stats0["replays"], replayed_launches={
+                   k: v for k, v in replayed.items() if v},
+               persistables_at_fixed_addresses=len(names) - len(moved))
+    if any(python.values()) or stats["entries"] != 1 or \
+            stats["graphs"] != stats0["graphs"] or row["replays"] != n:
+        raise AssertionError(f"compiled {what}: the counted calls did not "
+                             f"all replay one captured graph: {row}, "
+                             f"launched from Python {python}")
+    if replayed != want_launches:
+        raise AssertionError(f"compiled {what}: replays launched {replayed}"
+                             f", the interpreted run {want_launches}")
+    if moved:
+        raise AssertionError(f"compiled {what}: persistables moved: "
+                             f"{moved[:5]}")
+    return outs, row
+
+
+def profile_pair(what, label, interpreted, compiled, launches):
+    """Profiles one interpreted call and one replay (``profile``).  The
+    replay must run every kernel function of the port that the
+    interpreted call runs, and no more of them than ``launches``, the
+    launches the interpreted run counted a call; a pair is exact when
+    the replay shows all ``launches``.  The tracer drops records of a
+    replay in a long process (six or seven of `infer_convep`'s 53 conv
+    launches in every profiled replay here, all 53 in a process of its
+    own) and, now and then, of an interpreted call: up to three pairs are
+    taken until one is exact.  Returns the first pair's numbers, the
+    pairs taken and the records of the port's kernels the last replay
+    showed."""
+    first = None
+    for pairs in (1, 2, 3):
+        _, prof = profile(label, interpreted)
+        _, cprof = profile(f"compiled {label}", compiled)
+        first = first or (prof, cprof)
+        got, seen = cprof["port_calls"], prof["port_calls"]
+        if set(got) == set(seen) and sum(got.values()) == launches:
+            break
+    if set(got) != set(seen) or sum(got.values()) > launches:
+        raise AssertionError(
+            f"compiled {what}: the profiled replay ran the port's kernels "
+            f"{got} ({launches} launches a call), the interpreted call "
+            f"{seen}")
+    return first + (pairs, sum(got.values()))
+
+
+def per_call(launches, n):
+    """The kernels' launches a call (KERNELS only: no by-path count or
+    copy) of counts taken over ``n`` calls."""
+    return sum(launches[k] for k in KERNELS) // n
+
+
+def record_compiled(what, interpreted, compiled, hold, profile_pairs,
+                    replay_records):
+    """Logs and keeps a compiled path's numbers beside the interpreted
+    run's: ms by the host clock and by events (means), the profiled
+    call's device busy and idle share and device-to-host copies, peak
+    memory, and the hold to the interpreted run."""
+    def side(row, prof):
+        return {"wall_ms": float(np.mean(row["wall_ms"])),
+                "event_ms": float(np.mean(row["event_ms"])),
+                "profiled_wall_ms": prof["wall_ms"],
+                "profiled_device_ms": prof["device_ms"],
+                "device_busy_share": prof["device_busy_share"],
+                "device_idle_share": prof["device_idle_share"],
+                # one profiled call's wall is one sample: the device's
+                # idle share of the window's mean wall beside it
+                "device_idle_share_of_mean_wall":
+                    1.0 - prof["device_ms"] / float(np.mean(row["wall_ms"])),
+                "memcpy_dtoh_ms": prof["memcpy_dtoh_ms"],
+                "memcpy_htod_ms": prof["memcpy_htod_ms"],
+                "peak_mem_gb": row["peak_mem_gb"]}
+
+    row = {"interpreted": side(*interpreted), "compiled": side(*compiled),
+           "graphs": compiled[0]["graphs"],
+           "replays": compiled[0]["replays"],
+           "replayed_launches": compiled[0]["replayed_launches"],
+           "persistables_at_fixed_addresses":
+               compiled[0]["persistables_at_fixed_addresses"],
+           "vs_interpreted": hold, "profile_pairs": profile_pairs,
+           "profiled_replay_port_records": replay_records}
+    row["wall_speedup"] = row["interpreted"]["wall_ms"] / \
+        row["compiled"]["wall_ms"]
+    COMPILED[what] = row
+    log(f"compiled {what} " + json.dumps(row))
+    return row
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main path — serving the LM through the Predictor
 # ---------------------------------------------------------------------------
 
 def serve(seed, runs, workdir):
+    """The LM saved and served: ``runs`` requests interpreted (the
+    Predictor's program through Executor.run on its scope: the counted
+    launches), then the same requests through ``Predictor.run``, which
+    captures the program once and replays it, held to the interpreted
+    logits, bitwise or within two interpreted runs' spread."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -1316,15 +1557,22 @@ def serve(seed, runs, workdir):
     shape = (BATCH, MODEL["max_len"], 1)
     requests = [rng.randint(0, MODEL["vocab_size"], shape).astype(np.int64)
                 for _ in range(runs)]
-    first, = pred.run([requests[0]])            # warm-up, not counted
 
+    def interpreted(ids):
+        return pred._exe.run(pred._program, feed={"src_ids": ids},
+                             fetch_list=pred._fetch_vars,
+                             scope=pred._scope)[0]
+
+    # the logits (524 MB) lie in page-locked memory from the caching host
+    # allocator: each is copied out after its request's timing, so the
+    # next request reuses the block, as a client that drops it would
+    first = np.array(interpreted(requests[0]))   # warm-up, not counted
+    torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    times = []
-    for ids in requests:
-        t = time.perf_counter()
-        logits, = pred.run([ids])
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
+    it = iter(requests)
+    outs, times, events = timed(lambda: interpreted(next(it)), runs,
+                                np.array)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     launches = kernel_counts()
     expected = expected_counts(flash_attention_fwd=MODEL["n_layer"] * runs)
     log(f"kernel launches over {runs} requests: {launches}")
@@ -1353,16 +1601,42 @@ def serve(seed, runs, workdir):
         f"CPU request {cpu_s:.2f} s")
     if not close or agree < ARGMAX_AGREE:
         raise AssertionError("GPU logits disagree with the CPU run")
+    del cpu_pred, cpu_logits
 
-    total = sum(times)
+    total = sum(times) / 1e3
     tokens = BATCH * MODEL["max_len"]
     serving = dict(requests=runs, batch=BATCH, seq=MODEL["max_len"],
-                   request_ms=[t * 1e3 for t in times],
+                   request_ms=times, request_event_ms=events,
                    requests_per_s=runs / total,
                    tokens_per_s=runs * tokens / total,
                    logits_max_abs_err_vs_cpu=err, argmax_agreement=agree)
     log("serving " + json.dumps(serving))
-    profile("request", lambda: pred.run([requests[0]]))
+    again = np.array(interpreted(requests[0]))
+
+    # the same requests through Predictor.run: one capture, then replays.
+    # The Predictor keeps its last outputs (get_output_handle), so its
+    # fetches alternate between two page-locked blocks: a second request
+    # before the window allocates the second
+    it = iter([requests[0]] + requests)
+    couts, crow = compiled_window(
+        "serving", pred._compiled, lambda: pred.run([next(it)])[0], runs,
+        launches, pred._scope,
+        [v.name for v in pred._program.persistables() if not v.is_data],
+        prepare=lambda: pred.run([requests[0]]), keep=np.array)
+    hold = hold_to_interpreted("serving", {"logits": (
+        outs, [[again] + outs[1:]], couts)})
+    del outs, couts, again
+    prof, cprof, pairs, records = profile_pair(
+        "serving", "request", lambda: interpreted(requests[0]),
+        lambda: pred.run([requests[0]]), per_call(launches, runs))
+    serving["compiled"] = record_compiled(
+        "serving", (dict(wall_ms=times, event_ms=events, peak_mem_gb=peak),
+                    prof), (crow, cprof), hold, pairs, records)
+    log("serving request wall and its device-to-host copy (PR 12: 225.18 "
+        "ms of a 238.62 ms request, pageable) " + json.dumps({
+            side: {k: serving["compiled"][side][k]
+                   for k in ("profiled_wall_ms", "memcpy_dtoh_ms")}
+            for side in ("interpreted", "compiled")}))
     return launches, serving
 
 
@@ -1496,51 +1770,17 @@ I8_WGMMA = "conv_int8_wgmma"
 
 
 def kernel_counts():
-    from paddle_tpu_torch.ops import conv_epilogue as cep
-    from paddle_tpu_torch.ops import epilogue as ep
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import flash_decode as fd
-    from paddle_tpu_torch.ops import quant
+    """The port's launch counts (``ops.kernel_launches``): every kernel's
+    under KERNELS' names, and COPIES, BWD_COPIES, FC_WGMMA and I8_WGMMA."""
+    from paddle_tpu_torch.ops import kernel_launches
 
-    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd.launches["dq"],
-            "flash_attention_bwd_dkv":
-                fa.flash_attention_bwd.launches["dkv"],
-            "fc_epilogue": ep.fc_epilogue.launches,
-            "conv_epilogue": cep.conv_epilogue_kernel.launches,
-            "conv_stats": cep.conv_stats_kernel.launches,
-            "bn_apply": cep.bn_apply_kernel.launches,
-            "flash_decode": fd.flash_decode.launches,
-            "conv_int8": quant.conv_int8.launches,
-            "quantize_act": quant.quantize_act.launches,
-            COPIES: fa.flash_attention_fwd.copies,
-            BWD_COPIES: fa.flash_attention_bwd.copies,
-            FC_WGMMA: ep.fc_epilogue.launches_by_path["wgmma"],
-            I8_WGMMA: quant.conv_int8.launches_by_route["wgmma"]
-            + quant.conv_int8.launches_by_route["wgmma_stem"]}
+    return kernel_launches()
 
 
 def reset_kernel_counts():
-    from paddle_tpu_torch.ops import conv_epilogue as cep
-    from paddle_tpu_torch.ops import epilogue as ep
-    from paddle_tpu_torch.ops import flash_attention as fa
-    from paddle_tpu_torch.ops import flash_decode as fd
-    from paddle_tpu_torch.ops import quant
+    from paddle_tpu_torch.ops import reset_kernel_launches
 
-    fa.flash_attention_fwd.launches = 0
-    fa.flash_attention_fwd.copies = 0
-    fa.flash_attention_bwd.launches = {"dq": 0, "dkv": 0}
-    fa.flash_attention_bwd.copies = 0
-    ep.fc_epilogue.launches = 0
-    ep.fc_epilogue.launches_by_path = dict.fromkeys(ep.FC_PATHS, 0)
-    cep.conv_epilogue_kernel.launches = 0
-    cep.conv_stats_kernel.launches = 0
-    cep.bn_apply_kernel.launches = 0
-    fd.flash_decode.launches = 0
-    quant.conv_int8.launches = 0
-    quant.conv_int8.launches_by_route = dict.fromkeys(
-        quant.conv_int8.launches_by_route, 0)
-    quant.quantize_act.launches = 0
+    reset_kernel_launches()
 
 
 def expected_counts(**per_run):
@@ -1568,7 +1808,11 @@ def train(seed, built, feed, what, expected, steps=TRAIN_STEPS,
     """One warm-up step, then ``steps`` counted steps of ``built`` on one
     fixed batch, counting the kernel launches of those steps against
     ``expected(types, steps)``; ``unit`` names what a step processes and
-    how many.  Asserts finite losses and, with ``falling``, a fall."""
+    how many.  Asserts finite losses and, with ``falling``, a fall.  Then
+    the compiled pass, from the state after the warm-up: the steps once
+    more interpreted (the two runs' spread), then through
+    CompiledProgram (``compiled_window``), held to the first run's losses
+    and persistables (``hold_to_interpreted``), both profiled."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -1587,20 +1831,19 @@ def train(seed, built, feed, what, expected, steps=TRAIN_STEPS,
         f"{n_params} parameters; initialised in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def step():
-        return float(exe.run(main, feed=feed, fetch_list=[model["loss"]],
+    def step(program=main):
+        return float(exe.run(program, feed=feed, fetch_list=[model["loss"]],
                              scope=scope)[0])
 
     warm_loss = step()                           # warm-up, not counted
+    names = [v.name for v in main.persistables() if not v.is_data]
+    start = {nm: scope.find_var(nm).get().clone() for nm in names}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    losses, times = [], []
-    for _ in range(steps):
-        t = time.perf_counter()
-        losses.append(step())                    # the fetch synchronises
-        times.append(time.perf_counter() - t)
+    losses, walls, events = timed(step, steps)
     launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     want = expected(types, steps)
     log(f"kernel launches over {steps} {what} steps: {launches}")
     if launches != want:
@@ -1617,12 +1860,47 @@ def train(seed, built, feed, what, expected, steps=TRAIN_STEPS,
                              f"{leaked[:5]}")
     name, per_step = unit
     training = dict(steps=steps, warmup_loss=warm_loss, losses=losses,
-                    step_ms=[t * 1e3 for t in times],
-                    **{f"{name}_per_s": steps * per_step / sum(times)},
-                    max_memory_allocated_gb=torch.cuda.max_memory_allocated()
-                    / 1e9)
+                    step_ms=walls, step_event_ms=events,
+                    **{f"{name}_per_s": steps * per_step / sum(walls) * 1e3},
+                    max_memory_allocated_gb=peak)
     log(f"{what} " + json.dumps(training))
-    profile(f"{what} step", step)
+    # the interpreter replaces a persistable's tensor, never writes it
+    run_a = {"loss": [np.float64(v) for v in losses],
+             "persistables": [scope.find_var(nm).get() for nm in names]}
+
+    # the compiled pass: the same steps from the same state
+    def interpreted_run():
+        for nm in names:
+            scope.var(nm).set(start[nm].clone())
+        run = [np.float64(step()) for _ in range(steps)]
+        return {"loss": run,
+                "persistables": [scope.find_var(nm).get() for nm in names]}
+
+    run_b = interpreted_run()
+    for nm in names:
+        scope.var(nm).set(start[nm].clone())
+    compiled = pt.CompiledProgram(main)
+
+    def restore():
+        for nm in names:
+            scope.find_var(nm).get().copy_(start[nm])
+
+    c_losses, crow = compiled_window(
+        what, compiled, lambda: step(compiled), steps, launches, scope,
+        names, prepare=restore)
+    run_c = {"loss": [np.float64(v) for v in c_losses],
+             "persistables": [scope.find_var(nm).get() for nm in names]}
+    hold = hold_to_interpreted(
+        what, {g: (run_a[g], [run_b[g]], run_c[g]) for g in run_a},
+        another=interpreted_run)
+    prof, cprof, pairs, records = profile_pair(what, f"{what} step", step,
+                                      lambda: step(compiled),
+                                      per_call(launches, steps))
+    record_compiled(what, (dict(wall_ms=walls, event_ms=events,
+                                peak_mem_gb=peak), prof), (crow, cprof),
+                    hold, pairs, records)
+    del compiled, start, run_a, run_b, run_c
+    torch.cuda.empty_cache()
     return launches, training
 
 
@@ -2219,7 +2497,7 @@ def decode_phase(device, seed):
     # the plain run again under the profiler, first submit to last result
     profiled, _, _, _ = run_decode(
         "decode profiled", "cuda", seed, prompts, window=lambda fn: profile(
-            f"served run of {DECODE_STREAMS} decode requests", fn))
+            f"served run of {DECODE_STREAMS} decode requests", fn)[0])
     if profiled != plain:
         raise AssertionError("the profiled decode run emitted other tokens")
 
@@ -2407,31 +2685,28 @@ def cpu_logits(program, state, feed, fetch):
 def time_infer(what, exe, program, feed, fetch, scope, expected):
     """One warm-up batch, then INFER_RUNS counted batches: ms a batch by
     events and by the host clock (each ending in a synchronise), kernel
-    launches (checked against ``expected``), and a profile of one
-    batch."""
+    launches (checked against ``expected``), and a profile of one batch.
+    Then the same batches through CompiledProgram (``compiled_window``),
+    each output held to the interpreted one (``hold_to_interpreted``,
+    with one more interpreted batch for the spread), and a profile of
+    one replay."""
     import torch
 
-    def run():
-        return exe.run(program, feed=feed, fetch_list=[fetch], scope=scope,
+    import paddle_tpu_torch as pt
+
+    def run(prog=program):
+        return exe.run(prog, feed=feed, fetch_list=[fetch], scope=scope,
                        return_numpy=False)[0]
 
     out = run()
     torch.cuda.synchronize()
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{what}: non-finite logits")
+    torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    walls, events = [], []
-    for _ in range(INFER_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
-        events.append(start.elapsed_time(end))
+    outs, walls, events = timed(run, INFER_RUNS)
     launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
     if launches != expected:
         raise AssertionError(f"{what} launched {launches}, expected "
                              f"{expected}")
@@ -2440,9 +2715,24 @@ def time_infer(what, exe, program, feed, fetch, scope, expected):
                images_per_s=batch * len(walls) / sum(walls) * 1e3,
                launches_per_batch={k: v // INFER_RUNS
                                    for k, v in launches.items() if v},
-               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+               peak_mem_gb=peak)
     log(f"{what} " + json.dumps(row))
-    profile(f"{what} batch", run)
+    again = run()
+    compiled = pt.CompiledProgram(program).with_inference_optimize()
+    names = [v.name for v in program.persistables() if not v.is_data]
+    couts, crow = compiled_window(what, compiled, lambda: run(compiled),
+                                  INFER_RUNS, launches, scope, names)
+    hold = hold_to_interpreted(what, {"logits": (
+        outs, [[again] * INFER_RUNS], couts)},
+        another=lambda: {"logits": [run()] * INFER_RUNS})
+    prof, cprof, pairs, records = profile_pair(what, f"{what} batch", run,
+                                      lambda: run(compiled),
+                                      per_call(launches, INFER_RUNS))
+    row["compiled"] = record_compiled(
+        what, (dict(wall_ms=walls, event_ms=events, peak_mem_gb=peak),
+               prof), (crow, cprof), hold, pairs, records)
+    del compiled, couts
+    torch.cuda.empty_cache()
     return launches, row
 
 
@@ -2717,20 +3007,18 @@ def predictor_leg(seed, device, workdir):
         f"{types.count('batch_norm')} batch_norm left after ir_optim")
     image = np.random.RandomState(seed + 13).rand(
         batch, 3, side, side).astype(ml_dtypes.bfloat16)
-    pred.run([image])
+
+    def interpreted():
+        return pred._exe.run(pred._program, feed={"image": image},
+                             fetch_list=pred._fetch_vars,
+                             scope=pred._scope)[0]
+
+    interpreted()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
-    walls, events = [], []
-    for _ in range(INFER_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        start.record()
-        out, = pred.run([image])
-        end.record()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t) * 1e3)
-        events.append(start.elapsed_time(end))
+    outs, walls, events = timed(interpreted, INFER_RUNS, np.array)
+    peak = torch.cuda.max_memory_allocated() / 1e9
     launches = kernel_counts()
     if launches != expected_counts():
         raise AssertionError(f"predictor launched {launches}")
@@ -2738,7 +3026,23 @@ def predictor_leg(seed, device, workdir):
                images_per_s=batch * len(walls) / sum(walls) * 1e3,
                ops=len(types))
     log("predictor " + json.dumps(row))
-    profile("predictor request", lambda: pred.run([image]))
+    again = np.array(interpreted())
+    # the same requests through Predictor.run: one capture, then replays
+    couts, crow = compiled_window(
+        "predictor", pred._compiled, lambda: pred.run([image])[0],
+        INFER_RUNS, launches, pred._scope,
+        [v.name for v in pred._program.persistables() if not v.is_data],
+        prepare=lambda: pred.run([image]), keep=np.array)
+    hold = hold_to_interpreted("predictor", {"logits": (
+        outs, [[again] * INFER_RUNS], couts)},
+        another=lambda: {"logits": [np.array(interpreted())] * INFER_RUNS})
+    prof, cprof, pairs, records = profile_pair(
+        "predictor", "predictor request", interpreted,
+        lambda: pred.run([image]), per_call(launches, INFER_RUNS))
+    row["compiled"] = record_compiled(
+        "predictor", (dict(wall_ms=walls, event_ms=events,
+                           peak_mem_gb=peak), prof), (crow, cprof), hold,
+        pairs, records)
     cpu_cfg = pt.inference.Config(workdir)
     cpu_cfg.disable_gpu()
     cpu_pred = pt.inference.create_predictor(cpu_cfg)
@@ -3187,10 +3491,22 @@ def infer_phases(device, seed, workdir):
     return launches, rows, i8_rows, q_rows, ep_rows
 
 
+# the port's kernel functions (csrc/), in a demangled name (after "::")
+# or a mangled one (after its length)
+PORT_KERNEL = re.compile(
+    r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
+    r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
+    r"|conv_(?:f32|int8|int8_wgmma|wgmma)|bn_apply_(?:masked|tiled)"
+    r"|quantize_act)_kernel)")
+
+
 def profile(what, fn):
     """Device time of one call of ``fn`` (a request, a training step, a
     served decode run) by kernel or copy (torch.profiler), counting only
-    the events that ran on the card.  Returns what ``fn`` returns."""
+    the events that ran on the card.  Returns what ``fn`` returns and the
+    call's numbers: wall and device ms, the device's busy and idle share,
+    the device-to-host copies' ms, and the port's own kernels' calls by
+    function (``port_calls``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
@@ -3198,6 +3514,10 @@ def profile(what, fn):
 
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
+        # the tracer takes a moment to record the card's first kernels: a
+        # replay issued at once lost its first seven (PR 14)
+        torch.cuda.synchronize()
+        time.sleep(0.2)
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
@@ -3213,17 +3533,28 @@ def profile(what, fn):
             rows.append((dev_us / 1e3, e.count, e.key))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
+    # the port's own kernels by function, demangled or not
+    port = {}
+    for ms, n, name in rows:
+        m = PORT_KERNEL.search(name)
+        if m:
+            port[m.group(1)] = port.get(m.group(1), 0) + n
+    stats = {"wall_ms": wall_ms, "device_ms": device_ms,
+             "device_busy_share": device_ms / wall_ms if wall_ms else None,
+             "device_idle_share": 1.0 - device_ms / wall_ms
+             if wall_ms else None,
+             "memcpy_dtoh_ms": sum(ms for ms, _, name in rows
+                                   if name.startswith("Memcpy DtoH")),
+             "memcpy_htod_ms": sum(ms for ms, _, name in rows
+                                   if name.startswith("Memcpy HtoD")),
+             "port_calls": port}
     log(f"profile of one {what} " + json.dumps({
-        "wall_ms": wall_ms, "device_ms": device_ms,
-        "device_idle_share": 1.0 - device_ms / wall_ms if wall_ms else None,
+        **stats,
         "top": [{"ms": ms, "calls": n, "name": name[:80]}
                 for ms, n, name in rows[:12]],
-        # the port's own kernels: csrc/ puts each in a file-level
-        # anonymous namespace (a few of PyTorch's print the same way)
-        "port_kernels": [{"ms": ms, "calls": n, "name": name[:name.find(
-            "(", 30)]} for ms, n, name in rows
-            if name.startswith("void (anonymous namespace)::")]}))
-    return out
+        "port_rows": [{"ms": ms, "calls": n, "name": name[:120]}
+                      for ms, n, name in rows if PORT_KERNEL.search(name)]}))
+    return out, stats
 
 
 def main(argv=None):
@@ -3640,6 +3971,23 @@ def main(argv=None):
                "batch); ms by CUDA-graph replay, event_ms by events",
         "shapes": q_rows,
     })
+    paths = ("serving", "training", "AMP training",
+             "ResNet-50 conv_bn_stats training",
+             "ResNet-50 conv_epilogue training", "infer", "infer_convep",
+             "vgg_infer", "vgg_cifar", "rn32_cifar", "infer_i8",
+             "infer_i8_inter", "predictor")
+    if sorted(COMPILED) != sorted(paths):
+        raise AssertionError(f"compiled passes ran for {sorted(COMPILED)}, "
+                             f"expected {sorted(paths)}")
+    log("compiled paths (mean ms by the host clock and by events, the "
+        "profiled call's device idle share, peak GB: interpreted -> "
+        "compiled) " + json.dumps({
+            p: {k: [COMPILED[p]["interpreted"][k], COMPILED[p]["compiled"][k]]
+                for k in ("wall_ms", "event_ms", "device_idle_share",
+                          "device_idle_share_of_mean_wall", "peak_mem_gb")}
+            | {"bitwise": all(h["bitwise"] for h in
+                              COMPILED[p]["vs_interpreted"].values())}
+            for p in paths}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"device: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,699 @@
-"""CompiledProgram: the surface the Predictor uses.
+"""CompiledProgram: a block resolved once into a plan and, on the card,
+captured into CUDA graphs and replayed.
 
-Counterpart of ``paddle_tpu/core/compiler.py``.  The JAX package traces a
-block into one XLA module; here ``Executor.run`` interprets the wrapped
-program op by op, so this class only carries the program.  Capturing
-the block (a CUDA graph) is later work.
+Counterpart of ``paddle_tpu/core/compiler.py``.  The JAX package traces
+the whole block into one jitted XLA function, donates the persistable
+state so updates alias buffers (``:682-733``), and keys a cache on feed
+shapes, fetch names and a structural program fingerprint (``:97-185``,
+``:841-878``).  Here:
+
+- The plan (``_build_fn``).  Each op of the global block is resolved
+  once (``executor.ResolvedOp``: its ``OpDef``, input and output names,
+  optional and duplicable slots, the interpreter's own contract).  Ops in
+  ``_SKIP_IN_TRACE`` are skipped and host-only ops in
+  ``_HOST_SKIP_SILENT`` dropped, as the JAX package does; the outputs of
+  a host-only op that only an executor handler runs are poisoned
+  (``_TraceEnv``: reading one raises a clear error).  Any other host-only
+  op splits the plan: it runs eagerly between two device segments, where
+  the JAX package uses ``pure_callback``.  Ops with no inputs
+  (``fill_constant``, ``assign_value``, the random fills, which draw on
+  the host) run once when the plan is built and their values are reused
+  every step, as the JAX trace bakes them into the program as constants.
+  Control flow (``_CONTROL_FLOW``) is not ported and raises at build time.
+- Persistables at fixed addresses.  The scope's tensor of each persistable
+  becomes its buffer; a value the block writes to a persistable (an
+  optimizer's ``ParamOut`` is a new tensor) is copied back into that
+  buffer at the end of its segment, the counterpart of ``donate_argnums``.
+  A tensor the caller sets into the scope in a buffer's place is copied
+  into the buffer at the next run; one of another shape or dtype rebinds
+  every buffer and rebuilds every graph.
+- On a CUDA place, the first run of a key (feed shapes and dtypes, fetch
+  names, program fingerprint) runs the plan eagerly on a side stream:
+  its results are real (the step updates the state and is returned), and
+  it builds each hand kernel on first use and initialises cuBLAS and
+  cuDNN.  The device segments run under ``torch.cuda.set_sync_debug_mode
+  ("error")`` there, so an op that would synchronise inside a capture
+  fails by name first.  Then each segment is captured into a CUDA graph
+  on that stream, with the feeds in fixed buffers that later runs copy
+  into before they replay.  All graphs of one CompiledProgram share one
+  memory pool, freed with it.  A capture or replay failure raises:
+  nothing falls back to the interpreter (a capture that fails after its
+  warm-up leaves the warm-up's step applied).  Fetches are copied out (to
+  page-locked host memory, or cloned with ``return_numpy=False``), so the
+  caller never holds memory that the next replay overwrites.
+- On ``CPUPlace`` the same plan runs eagerly every step.
+
+The kernel wrappers count their launches on the host, so their counts
+tick while the plan runs eagerly or captures, never on a replay: each
+capture records the counts' deltas (``ops.kernel_launches``), and
+``replayed_launches`` multiplies them by the replays.
 """
 
 from __future__ import annotations
 
-from paddle_tpu_torch.core.program import Program
+import contextlib
+import threading
+import time
+
+import torch
+
+from paddle_tpu_torch.core.executor import (_SPECIAL_OPS, ResolvedOp,
+                                            feed_tensor, fetch_name)
+from paddle_tpu_torch.core.program import BlockRef, Program
+from paddle_tpu_torch.core.types import to_numpy
+from paddle_tpu_torch.observability import flight_recorder as _obs_flight
+from paddle_tpu_torch.observability import metrics as _obs_metrics
+from paddle_tpu_torch.observability import tracing as _obs_trace
+
+# executor observability: per-step wall time and compile events ride the
+# process registry next to the serving instruments
+_M_STEP_SECONDS = _obs_metrics.histogram(
+    "paddle_tpu_executor_step_seconds",
+    "compiled-program step wall time (dispatch, not device-sync)")
+_M_COMPILES = _obs_metrics.counter(
+    "paddle_tpu_executor_compiles_total",
+    "CompiledProgram cache misses (plans built, warmed up and captured)")
+
+# host-only op types silently skipped in the plan (IO/readers run outside
+# the compiled step, like the reference's feed/fetch special handling)
+_SKIP_IN_TRACE = {"feed", "fetch", "print", "save", "load", "save_combine",
+                  "load_combine", "c_comm_init", "c_gen_nccl_id"}
+
+_HOST_SKIP_SILENT = {
+    # side-effect / bootstrap ops with no data outputs the plan could
+    # consume (or whose outputs arrive via state/feeds instead).
+    # NOTE: feed/fetch/print/save/load-style ops never reach this set —
+    # _SKIP_IN_TRACE short-circuits them first.
+    "checkpoint_notify", "delete_var", "send", "recv", "send_barrier",
+    "fetch_barrier", "listen_and_serv", "create_py_reader", "read",
+    "py_reader", "fake_init", "ps_sync_init", "get_places",
+}
+
+# the JAX package lowers these to lax control flow; the port has none yet
+_CONTROL_FLOW = {"while", "conditional_block", "conditional_block_infer",
+                 "cond", "static_rnn", "static_rnn_grad", "recurrent"}
+
+
+class _TraceEnv(dict):
+    """name -> tensor, plus poisoned names that raise a clear error when
+    anything reads them (host-only op outputs that cannot join the
+    compiled program)."""
+
+    def __init__(self, *a, **k):
+        super().__init__(*a, **k)
+        self._poisoned = {}
+
+    def poison(self, name, message):
+        self._poisoned[name] = message
+
+    def __setitem__(self, name, value):
+        # a later legitimate write (IR freely reuses names) un-poisons
+        self._poisoned.pop(name, None)
+        super().__setitem__(name, value)
+
+    def update(self, *a, **k):
+        for d in a:
+            for name in d:
+                self._poisoned.pop(name, None)
+        for name in k:
+            self._poisoned.pop(name, None)
+        super().update(*a, **k)
+
+    def poisoned(self, name):
+        return self._poisoned.get(name)
+
+    def __getitem__(self, name):
+        if name in self._poisoned:
+            raise RuntimeError(
+                f"compile: '{name}' is unavailable — "
+                + self._poisoned[name])
+        return super().__getitem__(name)
+
+    def get(self, name, default=None):
+        if name in self._poisoned:
+            raise RuntimeError(
+                f"compile: '{name}' is unavailable — "
+                + self._poisoned[name])
+        return super().get(name, default)
+
+
+def _program_fingerprint(program):
+    """Structural content hash of the IR.
+
+    The full hash is O(total ops) of Python tuple hashing, so it is
+    memoized per program and revalidated with a cheap token: (total op
+    count, hash of the op-object identity tuple, the global IR mutation
+    counter bumped by append_op/set_attr/set_sharding).  Transpiler edits
+    create/replace OpDesc objects and builder edits go through
+    append_op/set_attr, so either changes the token; mutate op.attrs
+    through OpDesc.set_attr (not the raw dict) for in-place attr edits to
+    be seen."""
+    import numpy as _np
+
+    from paddle_tpu_torch.core.program import ir_mutation_counter
+
+    total = 0
+    idh = 0
+    for b in program.blocks:
+        total += len(b.ops)
+        idh = hash((idh,) + tuple(id(op) for op in b.ops))
+    token = (total, idh, ir_mutation_counter())
+    cached = program.__dict__.get("_fp_cache")
+    if cached is not None and cached[0] == token:
+        return cached[1]
+
+    def attr_key(v):
+        if isinstance(v, BlockRef):
+            return ("__block__", v.idx)
+        if isinstance(v, _np.ndarray):
+            return ("__nd__", v.shape, str(v.dtype), hash(v.tobytes()))
+        if isinstance(v, (list, tuple)):
+            return tuple(attr_key(x) for x in v)
+        if isinstance(v, dict):  # e.g. serialized segment ops
+            return tuple(sorted((k, attr_key(x)) for k, x in v.items()))
+        return v
+
+    def dtype_key(dt):
+        try:
+            return str(_np.dtype(dt))
+        except TypeError:
+            return str(dt)
+
+    h = 0
+    for b in program.blocks:
+        # sharding annotations are part of the program's identity
+        for v in b.vars.values():
+            if v.sharding is not None:
+                h = hash((h, "__sharding__", v.name, v.sharding))
+        # declared var shapes/dtypes too: two MLPs differing only in a
+        # layer width have identical op lists (the width lives on the
+        # VarDescs), and a resized weight must read as another program
+        for name in sorted(b.vars):
+            v = b.vars[name]
+            h = hash((
+                h, "__var__", name,
+                None if v.shape is None
+                else tuple(int(d) for d in v.shape),
+                None if v.dtype is None else dtype_key(v.dtype),
+                bool(v.persistable)))
+        for op in b.ops:
+            h = hash((
+                h, op.type, op.stage,
+                tuple((s, tuple(n)) for s, n in sorted(op.inputs.items())),
+                tuple((s, tuple(n))
+                      for s, n in sorted(op.outputs.items())),
+                tuple((k, attr_key(v))
+                      for k, v in sorted(op.attrs.items())),
+            ))
+    program._fp_cache = (token, h)
+    return h
+
+
+def program_fingerprint(program):
+    """Public structural content hash of a program's IR, the value the
+    compiled cache keys on (``_program_fingerprint``).  Two programs with
+    identical ops/attrs/vars/shardings hash equal; any op, attr, var or
+    sharding-annotation edit changes the value."""
+    return _program_fingerprint(program)
+
+
+def _not_ported(what):
+    return NotImplementedError(
+        f"CompiledProgram.{what}: more than one device is not ported yet "
+        "(ROADMAP Queue 1 item 5, parallelism on torch.distributed)")
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+class _Segment:
+    """A run of device ops: ``steps`` are (ResolvedOp, the outputs of an
+    op with no inputs computed at build, or None), ``writes_state`` the
+    persistables it writes, ``live_after`` the names read after it (by a
+    later item, or fetched).  On the card it is captured as ``graph``,
+    whose capture added ``launches`` to the kernels' counts."""
+
+    __slots__ = ("steps", "writes_state", "live_after", "graph",
+                 "launches")
+
+    def __init__(self):
+        self.steps = []
+        self.writes_state = []
+        self.live_after = ()
+        self.graph = None
+        self.launches = {}
+
+
+class _HostOp:
+    """A host-only op between two segments.  ``outputs`` are its outputs
+    from the eager run ({name: tensor}), or None when they were poisoned
+    with ``reason``; on the card a replay calls it on ``ins`` (fixed
+    tensors) and copies its outputs into ``buffers``."""
+
+    __slots__ = ("rop", "outputs", "reason", "ins", "buffers")
+
+    def __init__(self, rop):
+        self.rop = rop
+        self.outputs = None
+        self.reason = None
+        self.ins = None
+        self.buffers = None
+
+
+class _Entry:
+    """One cache key's plan (``items``), the storages of its constant
+    values, its feed buffers and fetched tensors on the card, and its
+    replays."""
+
+    def __init__(self, items, fetch_names, constants):
+        self.items = items
+        self.fetch_names = fetch_names
+        self.constants = constants
+        self.feed_buffers = {}
+        self.fetches = None
+        self.replays = 0
+
+    @property
+    def segments(self):
+        return [i for i in self.items if isinstance(i, _Segment)]
+
+
+class BuildStrategy:
+    """Knob container kept for API parity (reference
+    details/build_strategy.h); capturing a block is all the port does
+    with a build."""
+
+    def __init__(self):
+        self.reduce_strategy = "AllReduce"
+        self.fuse_all_reduce_ops = True
+        self.memory_optimize = True
+        self.enable_inplace = True
+
+
+class ExecutionStrategy:
+    def __init__(self):
+        self.num_threads = 1
+        self.num_iteration_per_drop_scope = 1
 
 
 class CompiledProgram:
-    def __init__(self, program: Program):
-        self._program = program
+    """reference compiler.py:48."""
+
+    def __init__(self, program_or_graph, build_strategy=None):
+        self._program: Program = program_or_graph
+        self._cache = {}
+        self._lock = threading.Lock()
+        # what the cache's entries were built against: the scope, the
+        # device and each persistable's fixed buffer there
+        self._scope = None
+        self._device = None
+        self._state = {}
+        self._state_storages = set()
+        self._pool = None
+        self._stream = None
+
+    # -- parity API -------------------------------------------------------
+    def with_data_parallel(self, loss_name=None, build_strategy=None,
+                           exec_strategy=None, share_vars_from=None,
+                           places=None, mesh=None):
+        """One device: the JAX path on a one-device mesh, the block run as
+        it is (the loss name and the strategies change nothing).  More
+        places, or a mesh, raise (ROADMAP Queue 1 item 5)."""
+        if mesh is not None or (places is not None and len(places) > 1):
+            raise _not_ported("with_data_parallel")
+        return self
 
     def with_inference_optimize(self, config=None):
-        """Nothing to set up yet: the interpreter runs the block."""
+        """Nothing differs for inference: the same plan and graphs."""
         return self
+
+    def with_sharding_rules(self, fn, mesh=None):
+        """Sharding persistable state over devices: not ported, raises
+        (ROADMAP Queue 1 item 5)."""
+        raise _not_ported("with_sharding_rules")
+
+    # -- what a run can read back -----------------------------------------
+    def replayed_launches(self) -> dict:
+        """{kernel count: launches} that the replays of every cached
+        graph made: each capture's deltas of ``ops.kernel_launches`` times
+        its entry's replays."""
+        total = {}
+        for entry in self._cache.values():
+            for seg in entry.segments:
+                for k, v in seg.launches.items():
+                    total[k] = total.get(k, 0) + v * entry.replays
+        return total
+
+    def graph_stats(self) -> dict:
+        """Entries (one a key), captured graphs and replays so far."""
+        entries = list(self._cache.values())
+        return {"entries": len(entries),
+                "graphs": sum(1 for e in entries for s in e.segments
+                              if s.graph is not None),
+                "replays": sum(e.replays for e in entries)}
+
+    @property
+    def _persistable_names(self):
+        return [v.name for v in self._program.persistables()
+                if not v.is_data]
+
+    # -- the plan ---------------------------------------------------------
+    def _build_fn(self, fetch_names, device):
+        """The plan of the global block: segments of device ops split at
+        host-only ops (see the module docstring)."""
+        items, seg, constants = [], None, set()
+        for op in self._program.global_block().ops:
+            if op.type in _SKIP_IN_TRACE:
+                continue
+            if op.type in _CONTROL_FLOW:
+                raise NotImplementedError(
+                    f"compile: op '{op.type}' (control flow) has no port "
+                    "yet; run this program through the interpreted "
+                    "executor (ROADMAP Queue 1 item 6)")
+            rop = ResolvedOp(op)
+            if rop.op_def.host_only:
+                seg = None
+                if op.type not in _HOST_SKIP_SILENT:
+                    items.append(_HostOp(rop))
+                continue
+            if seg is None:
+                seg = _Segment()
+                items.append(seg)
+            const = None
+            if not rop.input_names():
+                const = rop.compute({}, device)
+                rop.scatter(const, lambda n, v: constants.add(_storage(v)))
+            seg.steps.append((rop, const))
+        state = set(self._persistable_names)
+        live = set(fetch_names)
+        for item in reversed(items):
+            if isinstance(item, _HostOp):
+                live.update(item.rop.input_names())
+                continue
+            item.live_after = tuple(sorted(live))
+            seen = set()
+            for rop, _ in item.steps:
+                for n in rop.output_names():
+                    if n in state and n not in seen:
+                        seen.add(n)
+                        item.writes_state.append(n)
+                live.update(rop.input_names())
+        return _Entry(items, fetch_names, constants)
+
+    # -- persistable buffers ----------------------------------------------
+    def _bind_state(self, scope, device):
+        """Make the scope's tensor of each persistable its fixed buffer
+        (moved to ``device``, made dense or given a storage of its own
+        where it is not); drops every entry built against other
+        buffers."""
+        self._cache.clear()
+        self._pool = None
+        self._scope, self._device = scope, device
+        self._state, self._state_storages = {}, set()
+        for n in self._persistable_names:
+            var = scope.find_var(n)
+            t = None if var is None else var.get()
+            if t is None:
+                raise RuntimeError(
+                    f"CompiledProgram: persistable '{n}' is uninitialized —"
+                    " run the startup program first")
+            if t.device != device or not t.is_contiguous() or \
+                    _storage(t) in self._state_storages:
+                t = t.to(device).clone(memory_format=torch.contiguous_format)
+                var.set(t)
+            self._state[n] = t
+            self._state_storages.add(_storage(t))
+
+    def _sync_state(self, scope, device):
+        """Before a run: every persistable in the scope is its buffer.  A
+        tensor set in a buffer's place is copied into it (same shape,
+        dtype); anything else rebinds every buffer."""
+        if scope is not self._scope or device != self._device:
+            self._bind_state(scope, device)
+            return
+        for n, buf in self._state.items():
+            var = scope.find_var(n)
+            t = None if var is None else var.get()
+            if t is buf:
+                continue
+            if t is None:
+                raise RuntimeError(
+                    f"CompiledProgram: persistable '{n}' is uninitialized —"
+                    " run the startup program first")
+            if t.shape != buf.shape or t.dtype != buf.dtype:
+                self._bind_state(scope, device)
+                return
+            buf.copy_(t)
+            var.set(buf)
+
+    def _write_back(self, seg, env):
+        """The end of a segment: each persistable it rewrote is copied
+        back into its buffer.  A value read later (or fetched) that views
+        a buffer about to change is cloned first, and a new value that
+        views any buffer is cloned before the copies, so the order of the
+        copies changes nothing."""
+        state = self._state
+        rewritten = [n for n in seg.writes_state
+                     if dict.get(env, n) is not state[n]]
+        if not rewritten:
+            return
+        changing = {_storage(state[n]) for n in rewritten}
+        for n in seg.live_after:
+            v = dict.get(env, n)
+            if isinstance(v, torch.Tensor) and n not in state and \
+                    _storage(v) in changing:
+                env[n] = v.clone()
+        news = []
+        for n in rewritten:
+            v, buf = env[n], state[n]
+            if v.shape != buf.shape or v.dtype != buf.dtype:
+                raise RuntimeError(
+                    f"CompiledProgram: the block writes persistable '{n}' "
+                    f"as {tuple(v.shape)} {v.dtype}, its buffer is "
+                    f"{tuple(buf.shape)} {buf.dtype}; the compiled path "
+                    "keeps a persistable's shape and dtype")
+            if _storage(v) in self._state_storages:
+                v = v.clone()
+            news.append((buf, v))
+        for buf, v in news:
+            buf.copy_(v)
+        for n in rewritten:
+            env[n] = state[n]
+
+    # -- running the plan -------------------------------------------------
+    def _run_segment(self, seg, env, device):
+        for rop, const in seg.steps:
+            outs = const if const is not None else rop.compute(
+                rop.gather(env.get), device)
+            rop.scatter(outs, env.__setitem__)
+        self._write_back(seg, env)
+
+    def _run_host(self, item, env, device):
+        """A host-only op, eagerly (JAX ``_trace_host_op``: where it
+        cannot run, its outputs are poisoned)."""
+        rop = item.rop
+        poisoned = next((n for n in rop.input_names() if env.poisoned(n)),
+                        None)
+        if rop.op.type in _SPECIAL_OPS:
+            reason = ("it only runs through the interpreted executor's "
+                      "special handler")
+        elif poisoned is not None:
+            reason = (f"its input '{poisoned}' is itself an unavailable "
+                      "host-only product")
+        else:
+            try:
+                ins = rop.gather(lambda n: dict.get(env, n))
+            except RuntimeError:
+                reason = "some inputs are missing in the plan"
+            else:
+                item.outputs = {}
+                outs = rop.compute(ins, device)
+
+                def put(n, v):
+                    if n in self._state:
+                        self._state[n].copy_(v)
+                        v = self._state[n]
+                    env[n] = item.outputs[n] = v
+
+                rop.scatter(outs, put)
+                return
+        item.reason = reason
+        self._poison_host(item, env)
+
+    def _poison_host(self, item, env):
+        for n in item.rop.output_names():
+            if n in env:
+                # value already supplied via state/feeds: keep it usable
+                continue
+            env.poison(
+                n, f"op '{item.rop.op.type}' is host-only and cannot join "
+                f"the compiled program ({item.reason}); run this program "
+                "through the interpreted executor")
+
+    def _run_eager(self, entry, env, device, sync_check):
+        for item in entry.items:
+            if isinstance(item, _HostOp):
+                self._run_host(item, env, device)
+            elif sync_check:
+                previous = torch.cuda.get_sync_debug_mode()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    self._run_segment(item, env, device)
+                finally:
+                    torch.cuda.set_sync_debug_mode(previous)
+            else:
+                self._run_segment(item, env, device)
+        return [self._fetched(entry, env, f) for f in entry.fetch_names]
+
+    def _fetched(self, entry, env, name):
+        """The value of fetch ``name``, cloned where it views a buffer
+        that a later run rewrites or a constant that every run reads."""
+        v = env.get(name)
+        if v is None:
+            raise RuntimeError(f"fetch variable '{name}' has no value")
+        s = _storage(v)
+        if s in self._state_storages or s in entry.constants:
+            v = v.clone()
+        return v
+
+    def _capture(self, entry, feeds, device):
+        """Capture each segment of ``entry`` on the side stream, its
+        inputs in fixed buffers; records each capture's launch deltas and
+        the fetched tensors."""
+        from paddle_tpu_torch.ops import kernel_launches
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        env = _TraceEnv(self._state)
+        for n, t in feeds.items():
+            entry.feed_buffers[n] = buf = torch.empty_like(
+                t, device=device, memory_format=torch.contiguous_format)
+            env[n] = buf
+        for i, item in enumerate(entry.items):
+            if isinstance(item, _HostOp):
+                if item.outputs is None:       # poisoned in the eager run
+                    self._poison_host(item, env)
+                    continue
+                item.ins = item.rop.gather(lambda n: dict.get(env, n))
+                item.buffers = {}
+                for n, v in item.outputs.items():
+                    item.buffers[n] = env[n] = self._state[n] \
+                        if n in self._state else torch.empty_like(v)
+                item.outputs = None        # the eager run's tensors
+                continue
+            before = kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize(device)
+            graph.capture_begin(pool=self._pool)
+            try:
+                self._run_segment(item, env, device)
+            except BaseException as e:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass          # the capture is already invalid
+                raise RuntimeError(
+                    f"CompiledProgram: capturing segment {i} into a CUDA "
+                    f"graph failed: {e}") from e
+            graph.capture_end()
+            after = kernel_launches()
+            item.graph = graph
+            item.launches = {k: after[k] - before[k] for k in after
+                             if after[k] != before[k]}
+        entry.fetches = [env.get(f) for f in entry.fetch_names]
+
+    def _replay(self, entry, feeds, device):
+        """One replay; returns the fetched tensors, which the next replay
+        overwrites (graph memory, persistable buffers or constants)."""
+        for n, t in feeds.items():
+            entry.feed_buffers[n].copy_(t, non_blocking=True)
+        for item in entry.items:
+            if isinstance(item, _Segment):
+                item.graph.replay()
+            elif item.buffers is not None:
+                outs = item.rop.compute(item.ins, device)
+
+                def put(n, v, item=item):
+                    buf = item.buffers[n]
+                    if v.shape != buf.shape or v.dtype != buf.dtype:
+                        raise RuntimeError(
+                            f"CompiledProgram: host op '{item.rop.op.type}'"
+                            f" output '{n}' is {tuple(v.shape)} {v.dtype}; "
+                            f"the captured graph reads it as "
+                            f"{tuple(buf.shape)} {buf.dtype}")
+                    buf.copy_(v)
+
+                item.rop.scatter(outs, put)
+        entry.replays += 1
+        return entry.fetches
+
+    def _new_entry(self, fetch_names, feeds, device):
+        """Build a key's plan; on the card warm it up (the real first
+        step, returned) on the side stream and capture it.  Returns the
+        entry and the first step's fetches, which the caller owns."""
+        entry = self._build_fn(fetch_names, device)
+        env = _TraceEnv(self._state)
+        if device.type != "cuda":
+            env.update(feeds)
+            return entry, self._run_eager(entry, env, device, False)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            env.update({n: t.to(device, non_blocking=True)
+                        for n, t in feeds.items()})
+            # cloned on the side stream, whose work the caller's stream
+            # waits for: nothing the warm-up allocated is read elsewhere
+            fetched = [v.clone() for v in
+                       self._run_eager(entry, env, device, True)]
+            del env
+            self._capture(entry, feeds, device)
+        torch.cuda.current_stream(device).wait_stream(stream)
+        return entry, fetched
+
+    def _run(self, executor, feed, fetch_list, scope, return_numpy):
+        device = executor.device
+        program = self._program
+        feeds = {n: feed_tensor(program, n, v) for n, v in feed.items()}
+        fetch_names = [fetch_name(f) for f in fetch_list]
+        key = (
+            tuple(sorted((k, tuple(v.shape), str(v.dtype))
+                         for k, v in feeds.items())),
+            tuple(fetch_names),
+            _program_fingerprint(program),
+        )
+        tracer = _obs_trace._tracer
+        with self._lock, torch.no_grad():
+            self._sync_state(scope, device)
+            entry = self._cache.get(key)
+            t0 = time.perf_counter()
+            if entry is None:
+                # a cache miss: a new (shapes, fetch, program) entry
+                _M_COMPILES.inc()
+                _obs_flight.record("executor", "compile",
+                                   n_feeds=len(feeds),
+                                   n_fetch=len(fetch_names))
+                with tracer.span("executor.compile") if tracer is not None \
+                        else contextlib.nullcontext():
+                    entry, fetched = self._new_entry(fetch_names, feeds,
+                                                     device)
+                self._cache[key] = entry
+            elif device.type != "cuda":
+                env = _TraceEnv(self._state)
+                env.update(feeds)
+                with tracer.span("executor.step") if tracer is not None \
+                        else contextlib.nullcontext():
+                    fetched = self._run_eager(entry, env, device, False)
+            else:
+                with tracer.span("executor.step") if tracer is not None \
+                        else contextlib.nullcontext():
+                    fetched = self._replay(entry, feeds, device)
+                # copied out under the lock, before any other replay
+                if not return_numpy:
+                    fetched = [v.clone() for v in fetched]
+            _M_STEP_SECONDS.observe(time.perf_counter() - t0)
+            if return_numpy:
+                return [to_numpy(v, n) for v, n in zip(fetched, fetch_names)]
+            return fetched

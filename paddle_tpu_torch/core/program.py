@@ -5,6 +5,12 @@ Counterpart of ``paddle_tpu/core/program.py``.  The dict format of
 ``__block__``) and the per-var ``sharding`` field included, so a program
 serialized by either package loads in the other.  ``sharding`` is kept
 as opaque data here; nothing in this package reads it yet.
+
+Every structured IR edit (``append_op``, ``OpDesc.set_attr``,
+``VarDesc.set_sharding``) bumps one process-wide mutation counter, as
+in the JAX package (``:46-54``): ``CompiledProgram`` revalidates its
+memoised program fingerprint with it.  Edit an existing op's attrs
+through ``set_attr``, not the raw dict, for the edit to be seen.
 """
 
 from __future__ import annotations
@@ -22,6 +28,20 @@ from paddle_tpu_torch.core.types import VarType, dtype_name
 FORWARD = "forward"
 BACKWARD = "backward"
 OPTIMIZE = "optimize"
+
+# global IR mutation counter: bumped by every append_op / OpDesc.set_attr
+# / VarDesc.set_sharding so compiled-program fingerprints
+# (compiler._program_fingerprint) can memoize cheaply and revalidate on
+# any structured IR edit
+_IR_MUTATION = [0]
+
+
+def ir_mutation_counter() -> int:
+    return _IR_MUTATION[0]
+
+
+def _bump_ir_mutation():
+    _IR_MUTATION[0] += 1
 
 
 class BlockRef:
@@ -92,6 +112,16 @@ class VarDesc:
             f" type={self.type.name}{', persistable' if self.persistable else ''})"
         )
 
+    def set_sharding(self, spec):
+        """Annotate this var with a PartitionSpec-like tuple (one entry
+        per dim: None | axis name | tuple of axis names), or None to
+        clear.  Goes through the IR mutation counter, so an annotation
+        edit after a compile changes the program's fingerprint as an op
+        edit does."""
+        self.sharding = _normalize_sharding(spec)
+        _bump_ir_mutation()
+        return self
+
     @property
     def ndim(self):
         return None if self.shape is None else len(self.shape)
@@ -143,6 +173,13 @@ class OpDesc:
         self.op_role = op_role
         # pipeline stage annotation, carried through serialization
         self.stage = stage
+
+    def set_attr(self, name, value):
+        """In-place attr edit visible to compiled-program caching (a raw
+        ``op.attrs[k] = v`` write is not: see
+        ``compiler._program_fingerprint``)."""
+        self.attrs[name] = value
+        _bump_ir_mutation()
 
     def input_names(self):
         out = []
@@ -280,6 +317,7 @@ class Block:
         attrs = op_def.canonical_attrs(attrs or {})
         op = OpDesc(type, in_names, out_names, attrs, op_role)
         self.ops.append(op)
+        _bump_ir_mutation()
         if infer_shape and not op_def.host_only:
             self._infer_shape(op, op_def)
         return op

@@ -115,10 +115,22 @@ class BFloat16NumpyError(TypeError):
 
 
 def to_numpy(t: torch.Tensor, name: str) -> np.ndarray:
-    """A host numpy copy of tensor ``t`` (the var ``name``).  bfloat16
-    becomes an ``ml_dtypes.bfloat16`` array of the same bits, through a
-    16-bit integer view (numpy has no bfloat16 of its own)."""
-    t = t.detach().cpu()
+    """A host numpy copy of tensor ``t`` (the var ``name``).  A CUDA
+    tensor is copied into page-locked memory from PyTorch's caching
+    host allocator (a ``non_blocking`` copy, then a synchronise on the
+    current stream), and the array is a view of that host tensor: a
+    pageable copy of a 500 MB fetch runs at a fraction of the link's
+    rate.  bfloat16 becomes an ``ml_dtypes.bfloat16`` array of the same
+    bits, through a 16-bit integer view (numpy has no bfloat16 of its
+    own)."""
+    t = t.detach()
+    if t.device.type == "cuda":
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        t = host
+    else:
+        t = t.cpu().clone()
     if t.dtype != torch.bfloat16:
         return t.numpy()
     try:

@@ -160,9 +160,10 @@ def gelu_fn(x, approximate=False):
     """``jax.nn.gelu``'s formulas, constants in x's dtype: the exact form
     ``x/2 * erfc(-x/sqrt(2))``, or the tanh approximation."""
     if approximate:
-        c = torch.tensor(np.sqrt(2 / np.pi), dtype=x.dtype, device=x.device)
+        c = torch.full((), float(np.sqrt(2 / np.pi)), dtype=x.dtype,
+                       device=x.device)
         return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * x ** 3))))
-    c = torch.tensor(np.sqrt(0.5), dtype=x.dtype, device=x.device)
+    c = torch.full((), float(np.sqrt(0.5)), dtype=x.dtype, device=x.device)
     return 0.5 * x * torch.special.erfc(-x * c)
 
 
@@ -281,7 +282,7 @@ def dropout(ins, attrs, device):
     p = attrs["dropout_prob"]
     if attrs["is_test"]:
         upscale = attrs["dropout_implementation"] == "upscale_in_train"
-        keep = torch.tensor(1.0 - p, dtype=x.dtype, device=x.device)
+        keep = torch.full((), 1.0 - p, dtype=x.dtype, device=x.device)
         return {"Out": x if upscale else x * keep,
                 "Mask": torch.ones_like(x)}
     if p > 0:

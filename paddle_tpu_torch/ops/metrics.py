@@ -18,5 +18,5 @@ def accuracy(ins, attrs, device):
     num_correct = torch.sum(correct.to(torch.float32))
     return {"Accuracy": num_correct / idx.shape[0],
             "Correct": num_correct.to(torch.int64),
-            "Total": torch.tensor(idx.shape[0], dtype=torch.int64,
-                                  device=idx.device)}
+            "Total": torch.full((), idx.shape[0], dtype=torch.int64,
+                                device=idx.device)}

@@ -80,7 +80,7 @@ def _div(a, b):
     a's dtype (a weak type), then a true division.  (PyTorch's CUDA
     division by a Python scalar multiplies by its reciprocal, which can
     differ in the last bit.)"""
-    return a / torch.tensor(b, dtype=a.dtype, device=a.device)
+    return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
 def _relu(y):
@@ -238,7 +238,7 @@ def fake_quantize_dequantize_moving_average_abs_max(ins, attrs, device):
     else:
         state0, accum0 = ins.get("InState"), ins.get("InAccum")
         state = state0.reshape(()) * rate + 1.0 if state0 is not None \
-            else torch.tensor(1.0, device=x.device)
+            else torch.full((), 1.0, device=x.device)
         if accum0 is not None:
             accum = torch.add(*_promote(accum0.reshape(()) * rate, cur))
         else:
@@ -266,7 +266,7 @@ def moving_average_abs_max_scale(ins, attrs, device):
     cur = torch.amax(torch.abs(x))
     state0, accum0 = ins.get("InState"), ins.get("InAccum")
     state = state0.reshape(()) * rate + 1.0 if state0 is not None \
-        else torch.tensor(1.0, device=x.device)
+        else torch.full((), 1.0, device=x.device)
     if accum0 is not None:
         accum = torch.add(*_promote(accum0.reshape(()) * rate, cur))
     else:

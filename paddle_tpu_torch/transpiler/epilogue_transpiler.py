@@ -497,14 +497,14 @@ def fold_int8_interlayer(program, block, out_dtype, weight_bits,
             continue
         if bias_op is not None:
             P.inputs["Bias"] = list(bias_op.inputs["Y"])
-            P.attrs["bias_axis"] = bias_op.attrs.get("axis", -1)
+            P.set_attr("bias_axis", bias_op.attrs.get("axis", -1))
         if res_op is not None:
             P.inputs["Residual"] = [res_name]
             stats["n_residual_folds"] += 1
-        P.attrs["fuse_relu"] = relu_op is not None
-        P.attrs["epilogue"] = spec_attr(
+        P.set_attr("fuse_relu", relu_op is not None)
+        P.set_attr("epilogue", spec_attr(
             bias=bias_op is not None, residual=res_op is not None,
-            act="relu" if relu_op is not None else "", requantize=full)
+            act="relu" if relu_op is not None else "", requantize=full))
         if chain:
             P.outputs["Output"] = [tail]
             if res_op is not None:

@@ -114,14 +114,14 @@ class _Rewriter:
             if "Residual" in op.inputs:
                 op.inputs["Residual"][0] = self.as_nhwc(
                     op.inputs["Residual"][0])
-            op.attrs["data_format"] = "NHWC"
+            op.set_attr("data_format", "NHWC")
             self.new_ops.append(op)
             self.mark_out_nhwc(op, "Output")
             return
         if t in _CONV_LIKE:
             slot = "Input" if "Input" in op.inputs else "X"
             op.inputs[slot][0] = self.as_nhwc(op.inputs[slot][0])
-            op.attrs["data_format"] = "NHWC"
+            op.set_attr("data_format", "NHWC")
             self.new_ops.append(op)
             self.mark_out_nhwc(op, "Output" if "Output" in op.outputs
                                else "Out")
@@ -130,7 +130,7 @@ class _Rewriter:
             src = op.inputs["X"][0]
             if src in self.nhwc or self._is_4d(src):
                 op.inputs["X"][0] = self.as_nhwc(src)
-                op.attrs["data_layout"] = "NHWC"
+                op.set_attr("data_layout", "NHWC")
                 self.new_ops.append(op)
                 self.mark_out_nhwc(op, "Y")
                 return
@@ -161,7 +161,7 @@ class _Rewriter:
             op.inputs["Y"][0] = self.as_nhwc(y)
         elif x_h and yv.ndim == 1 and op.attrs.get("axis", -1) == 1:
             # per-channel bias: C is now the trailing axis
-            op.attrs["axis"] = -1
+            op.set_attr("axis", -1)
         elif x_h and yv.ndim in (0, 1) and (
                 yv.ndim == 0 or (yv.shape and yv.shape[0] == 1)):
             pass                  # a scalar broadcasts in any layout

@@ -54,6 +54,15 @@ pools: within ``1e-5 * max(1, max|ref|)`` in f32 and over int8 pools
 are array_equal to q-len-1 launches, and a small decode server on the
 card emits the CPU server's tokens.
 
+``CompiledProgram`` on the card: a small program compiled (the eager
+warm-up, then replays of its CUDA graph) equals the interpreted runs
+bitwise, fetches and persistables, with the replays' launches equal to
+the interpreted ones and the persistables at fixed addresses; a
+replayed step equals an eager step from the same state; an op that
+synchronises the card fails the warm-up or the capture, and ``run``
+raises (nothing falls back); a second feed shape captures a second
+graph.
+
 ``conv_int8`` (the s8 convolution of ``conv2d_int8`` and ``mul_int8``) is
 ``torch.equal`` to ``conv_int8_plain`` over odd Cin and Cout, the
 3-channel and 1-channel stems (packed), 1x1 (by TMA and gathered), stride
@@ -416,9 +425,16 @@ def test_gpu_predictor_matches_cpu(cuda, tmp_path):
     cpu = pt.inference.create_predictor(cfg)
     ids = np.random.RandomState(2).randint(
         0, TINY_LM["vocab_size"], (2, TINY_LM["max_len"], 1))
+    # the first request runs the plan eagerly, then captures it (each
+    # launching n_layer times from Python); a second one replays
     launches = fa.flash_attention_fwd.launches
     out, = gpu.run([ids.astype(np.int64)])
-    assert fa.flash_attention_fwd.launches == launches + TINY_LM["n_layer"]
+    n = TINY_LM["n_layer"]
+    assert fa.flash_attention_fwd.launches == launches + 2 * n
+    again, = gpu.run([ids.astype(np.int64)])
+    assert fa.flash_attention_fwd.launches == launches + 2 * n
+    assert gpu._compiled.replayed_launches()["flash_attention_fwd"] == n
+    np.testing.assert_array_equal(again, out)
     ref, = cpu.run([ids.astype(np.int64)])
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
@@ -1683,3 +1699,231 @@ def test_quantize_act_takes_views(cuda, dtype):
         if name == "nhwc_of_nchw":
             assert got.stride() == v.stride()
         assert torch.equal(got, Q.quantize_act_plain(v, sx, 127.0)), name
+
+
+# ---------------------------------------------------------------------------
+# CompiledProgram on the card: the block captured into CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _register_planted_ops():
+    """Two ops that synchronise the card: one always (``.item()``), one
+    only while a stream captures (so the eager warm-up passes)."""
+    from paddle_tpu_torch.core.registry import _REGISTRY, register_op
+
+    if "_test_sync_always" in _REGISTRY:
+        return
+
+    @register_op("_test_sync_always", inputs=("X",), outputs=("Out",),
+                 differentiable=False)
+    def _sync_always(ins, attrs, device):
+        x = ins["X"]
+        return {"Out": x * float(x.abs().max().item() > -1.0)}
+
+    @register_op("_test_sync_in_capture", inputs=("X",), outputs=("Out",),
+                 differentiable=False)
+    def _sync_in_capture(ins, attrs, device):
+        if torch.cuda.is_current_stream_capturing():
+            torch.cuda.synchronize()
+        return {"Out": ins["X"] * 2.0}
+
+
+def _mlp(planted=None, train=True):
+    """An fc-relu-fc MLP with Adam in the default programs (``planted``:
+    an op type applied to the hidden layer).  Returns (loss name, the
+    hidden var's name)."""
+    import paddle_tpu_torch as pt
+
+    x = pt.layers.data("x", shape=[16], dtype="float32")
+    h = pt.layers.fc(x, size=32, act="relu")
+    if planted is not None:
+        block = pt.default_main_program().global_block()
+        out = block.create_var(name="planted_out", shape=h.shape,
+                               dtype="float32")
+        block.append_op(planted, inputs={"X": [h]}, outputs={"Out": [out]})
+        h = out
+    loss = pt.layers.mean(pt.layers.fc(h, size=4))
+    if train:
+        pt.optimizer.Adam(1e-2).minimize(loss)
+    return loss.name, h.name
+
+
+def _mlp_x(batch, seed=0):
+    return np.random.RandomState(seed).rand(batch, 16).astype(np.float32)
+
+
+def _persistable_state(scope, main):
+    return {v.name: scope.find_var(v.name).get().clone()
+            for v in main.persistables() if not v.is_data}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["mlp_adam", "tiny_lm_forward"])
+def test_compiled_program_equals_interpreted_on_the_card(cuda, model):
+    """Three compiled runs (the eager warm-up, then two replays) against
+    three interpreted ones from the same start: every fetch and
+    persistable equal, the replays' launches equal to the interpreted
+    run's, and the persistables at the same addresses throughout."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+    from paddle_tpu_torch.ops import kernel_launches
+
+    with fresh_port_programs():
+        if model == "mlp_adam":
+            fetch, _ = _mlp()
+            feed = {"x": _mlp_x(8)}
+            # a parameter too: its buffer changes in every replay
+            param = pt.default_main_program().all_parameters()[0].name
+        else:
+            fetch = transformer_encoder_model(**TINY_LM)["logits"].name
+            param = None
+            feed = {n: np.random.RandomState(2).randint(
+                0, TINY_LM["vocab_size"],
+                (2, TINY_LM["max_len"], 1)).astype(np.int64)
+                for n in ("src_ids", "tgt_label")}
+        main = pt.default_main_program()
+        startup = pt.default_startup_program()
+        runs = []
+        for compiled in (False, True):
+            exe = pt.Executor(pt.CUDAPlace(0))
+            scope = pt.Scope()
+            np.random.seed(0)
+            exe.run(startup, scope=scope)
+            prog = pt.CompiledProgram(main) if compiled else main
+            outs, launches = [], []
+            for _ in range(3):
+                before = kernel_launches()
+                outs.append(exe.run(
+                    prog, feed=feed, scope=scope,
+                    fetch_list=[fetch] + ([param] if param else [])))
+                after = kernel_launches()
+                launches.append({k: after[k] - before[k] for k in after})
+                if compiled and len(outs) == 1:
+                    ptrs = {v.name: scope.find_var(v.name).get().data_ptr()
+                            for v in main.persistables() if not v.is_data}
+            runs.append((outs, _persistable_state(scope, main), launches,
+                         prog))
+        (want, want_state, want_launches, _), (got, got_state, got_l,
+                                               prog) = runs
+        for g, w in zip(got, want):
+            for gv, wv in zip(g, w):
+                np.testing.assert_array_equal(gv, wv)
+        assert all(torch.equal(got_state[n], want_state[n])
+                   for n in want_state)
+        assert {v.name: scope.find_var(v.name).get().data_ptr()
+                for v in main.persistables() if not v.is_data} == ptrs
+        # the replays launched nothing from Python; the capture's deltas
+        # times the replays equal the interpreted runs' launches
+        assert all(not any(d.values()) for d in got_l[1:])
+        per_run = {k: v for k, v in want_launches[0].items() if v}
+        assert prog.replayed_launches() == {k: 2 * v
+                                            for k, v in per_run.items()}
+        assert prog.graph_stats() == {"entries": 1, "graphs": 1,
+                                      "replays": 2}
+        if model == "tiny_lm_forward":
+            assert per_run["flash_attention_fwd"] == TINY_LM["n_layer"]
+
+
+@pytest.mark.cuda
+def test_replayed_step_equals_an_eager_step(cuda):
+    """From one state, a replayed training step and an interpreted one
+    give the same loss and the same persistables after."""
+    import paddle_tpu_torch as pt
+
+    with fresh_port_programs():
+        loss, _ = _mlp()
+        main = pt.default_main_program()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        np.random.seed(0)
+        exe.run(pt.default_startup_program())
+        scope = pt.global_scope()
+        prog = pt.CompiledProgram(main)
+        exe.run(prog, feed={"x": _mlp_x(8)}, fetch_list=[loss])
+        start = _persistable_state(scope, main)
+        feed = {"x": _mlp_x(8, 1)}
+        replayed = exe.run(prog, feed=feed, fetch_list=[loss])[0]
+        assert prog.graph_stats()["replays"] == 1
+        after_replay = _persistable_state(scope, main)
+        for n, t in start.items():
+            scope.var(n).set(t.clone())
+        eager = exe.run(main, feed=feed, fetch_list=[loss])[0]
+        np.testing.assert_array_equal(replayed, eager)
+        eager_state = _persistable_state(scope, main)
+        assert all(torch.equal(after_replay[n], eager_state[n])
+                   for n in start)
+        assert any(not torch.equal(after_replay[n], start[n])
+                   for n in start)
+
+
+@pytest.mark.cuda
+def test_persistables_keep_their_addresses_across_replays(cuda):
+    import paddle_tpu_torch as pt
+
+    with fresh_port_programs():
+        loss, _ = _mlp()
+        main = pt.default_main_program()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        exe.run(pt.default_startup_program())
+        scope = pt.global_scope()
+        prog = pt.CompiledProgram(main)
+        names = [v.name for v in main.persistables() if not v.is_data]
+        losses = []
+        for i in range(6):
+            losses.append(float(exe.run(prog, feed={"x": _mlp_x(8)},
+                                        fetch_list=[loss])[0]))
+            ptrs = [scope.find_var(n).get().data_ptr() for n in names]
+            if i == 0:
+                first = ptrs
+            assert ptrs == first
+        assert prog.graph_stats()["replays"] == 5
+        assert losses[-1] < losses[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planted,stage", [
+    ("_test_sync_always", "warm-up"),
+    ("_test_sync_in_capture", "capture")])
+def test_a_synchronising_op_makes_run_raise(cuda, planted, stage):
+    """An op that synchronises fails the warm-up (run under sync-debug
+    "error") or the capture; ``run`` raises, caches nothing, and the card
+    is usable after (the interpreter runs the same program)."""
+    import paddle_tpu_torch as pt
+
+    _register_planted_ops()
+    with fresh_port_programs():
+        loss, _ = _mlp(planted=planted, train=False)
+        main = pt.default_main_program()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        exe.run(pt.default_startup_program())
+        prog = pt.CompiledProgram(main)
+        match = "synchroniz" if stage == "warm-up" else "capturing segment"
+        with pytest.raises(RuntimeError, match=match):
+            exe.run(prog, feed={"x": _mlp_x(8)}, fetch_list=[loss])
+        assert prog._cache == {}
+        assert torch.cuda.get_sync_debug_mode() == 0
+        out, = exe.run(main, feed={"x": _mlp_x(8)}, fetch_list=[loss])
+        assert np.isfinite(out).all()
+
+
+@pytest.mark.cuda
+def test_a_second_feed_shape_captures_a_second_graph(cuda):
+    import paddle_tpu_torch as pt
+
+    with fresh_port_programs():
+        loss, hidden = _mlp(train=False)
+        main = pt.default_main_program()
+        exe = pt.Executor(pt.CUDAPlace(0))
+        exe.run(pt.default_startup_program())
+        prog = pt.CompiledProgram(main)
+        graphs = []
+        for batch in (8, 8, 8, 5, 5, 8):
+            got = exe.run(prog, feed={"x": _mlp_x(batch)},
+                          fetch_list=[loss, hidden])
+            want = exe.run(main, feed={"x": _mlp_x(batch)},
+                           fetch_list=[loss, hidden])
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+            graphs.append(prog.graph_stats()["graphs"])
+        assert graphs == [1, 1, 1, 2, 2, 2]
+        assert prog.graph_stats() == {"entries": 2, "graphs": 2,
+                                      "replays": 4}
