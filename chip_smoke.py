@@ -12,7 +12,8 @@ Phases, none of which catches its own failure:
      their own;
   2. holds the flash-attention forward kernel against its plain PyTorch
      version on the card over a set of cases (the main paths' full-width
-     shapes among them, and the bench's two 32768-token long-context
+     shapes among them, BERT-base's [8, 12, 512, 64] too, and the bench's
+     two 32768-token long-context
      shapes, held on their last 1024 query rows, also at a tolerance
      that a planted fault, one zeroed V tile, must break), and times the
      kernel (by CUDA-graph replay and by events; the f32 step's shape at
@@ -120,8 +121,8 @@ Phases, none of which catches its own failure:
  14. profiles one request and one step of each training path and one
      served run of the 64 decode requests, first submit to last result
      (device busy share, top kernels), inside phases 3, 5, 7, 9, 10 and
-     12, and one batch of each inference leg in 15-17, each Executor path
-     interpreted and compiled;
+     12, one batch of each inference leg in 15-17 and one step of each
+     leg in 19-21, each Executor path interpreted and compiled;
  15. conv-net inference in bf16, the bench's legs (bench.py:623-661) on
      weights from --seed, every batch norm's scale and shift drawn and
      its statistics taken from 8 images: infer (ResNet-50 at batch 128,
@@ -163,11 +164,40 @@ Phases, none of which catches its own failure:
      float input of the legs' int8 ops, timed beside the plain version's
      PyTorch passes; conv_epilogue at the fused graph's shapes and
      stages, timed beside cuDNN + adds + relu;
- 19. prints one {"kernels": [...]} line (ten kernels), then the card's
+ 19. (19-21 run in a process of their own: torch.profiler loses records
+     of a long process's later profiles) trains the bench's long-context
+     legs, longctx and longctx_d128
+     (bench.py:998-1046): q, k, v [1, 8, 32768, D] bf16 data vars that
+     take grads, flash_attention causal, loss = reduce_sum(cast(out,
+     f32)), append_backward, fetching the loss and q/k/v@GRAD, at D 64
+     and 128 (flags flash_packed_stats and flash_head_pack set "off", as
+     the bench sets them): one warm-up and 5 counted steps, 2 forward, 1
+     dq and 1 dkv launches a step, every step's fetches torch.equal to a
+     direct call of the flash autograd Function on the same inputs, ms a
+     step beside SDPA's forward + backward; then the program at 2 heads
+     of 1024 tokens on the card against the CPU (plain attention at 32768
+     tokens needs a 4 GiB score matrix a head and many minutes there);
+ 20. trains BERT-base (bench.py:476-534: vocab 30522, 768 wide, 12 heads
+     of 64, 12 layers, d_inner 3072, seq 512, dropout 0, random weights
+     from --seed) under the bench's AMP (decorate(Adam(1e-4)), static
+     scaling 1.0) at batch 8 on bert_inputs_synthetic: one warm-up and 5
+     counted steps, 24 flash forward (12 recomputed in the grads), 12 dq
+     and 12 dkv launches a step, all bf16 (the profiled steps' kernel
+     functions), loss finite and falling, the bench's MFU (6N + 12 L d s
+     FLOPs a token) against 989 TFLOP/s; then a batch-2 AMP step on the
+     card against the CPU, held norm-wise within 3x the distance of a
+     second CPU run, in f32, from the CPU's AMP run;
+ 21. trains DeepFM (bench.py:557-585: 26 fields, vocab 100000, embed 16,
+     dense 13, hidden 400 x 3, dense lookups) with f32 Adam(1e-3) at batch
+     2048 on the bench's rng feeds: one warm-up and 5 counted steps, no
+     hand kernel launched, loss finite and falling; then a batch-2 step
+     on the card against the CPU as in 5;
+ 22. prints one {"kernels": [...]} line (ten kernels), then the card's
      line, then the result line {"ok": true, "device": {...}} last.
 
 The compiled path: every Executor path above (phases 3, 5, 7, 9 and
-10, the five bf16 legs of 15, the two int8 legs of 16, and 17) runs its
+10, the five bf16 legs of 15, the two int8 legs of 16, 17, the two legs
+of 19, 20 and 21) runs its
 counted steps or batches a second time through CompiledProgram (the
 Predictor's own, or one built on the program), from the same state and
 feeds: its first call runs the plan eagerly and captures it into a CUDA
@@ -183,7 +213,7 @@ profiled device busy and idle share and its peak memory are logged
 beside the interpreted figures, and summed up in one line before the
 kernels line.
 
-Takes about twelve minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
+Takes about fourteen minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
 kernels' build included.
 Every main path also holds the flash kernels' input copies at 0.
 
@@ -211,6 +241,13 @@ import numpy as np
 MODEL = dict(vocab_size=32000, max_len=512, d_model=512, n_head=8,
              d_inner=2048, n_layer=6, dropout_rate=0.0, is_test=True)
 BATCH = 8
+# BERT-base (bench.py BERT_BASE, _build_bert_train): vocab 30522, 768 wide,
+# 12 heads of 64, 12 layers, d_inner 3072, seq 512, dropout 0, at the
+# bench's batch 8 under its AMP (decorate(Adam(1e-4)), static scaling 1.0)
+BERT = dict(vocab_size=30522, max_len=512, d_model=768, n_head=12,
+            d_inner=3072, n_layer=12, dropout_rate=0.0)
+BERT_BATCH = 8
+BERT_LR = 1e-4
 # H100 SXM peaks at the full 700 W (NVIDIA data sheet): HBM bytes/s and
 # dense FLOP/s by input type; float32 is the rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
@@ -440,6 +477,10 @@ FLASH_CASES = [
     (1, 2, 64, 96, 32, False, "float32", True),
     (2, 4, 128, 256, 64, True, "bfloat16", False),
     (1, 2, 97, 97, 128, False, "bfloat16", False),
+    # BERT-base's attention (phase 20): 12 heads, not causal, the model's
+    # permuted views
+    (BERT_BATCH, BERT["n_head"], BERT["max_len"], BERT["max_len"],
+     BERT["d_model"] // BERT["n_head"], False, "bfloat16", True),
     (BATCH, 8, 512, 512, 128, True, "float32", True),
     (BATCH, 8, 512, 512, 64, True, "float32", True),
     (BATCH, 8, 512, 512, 64, True, "bfloat16", True),
@@ -448,6 +489,7 @@ FLASH_CASES = [
 MAIN_CASE = FLASH_CASES[-3]
 AMP_CASE = FLASH_CASES[-1]
 F32_D128_CASE = FLASH_CASES[-4]
+BERT_CASE = FLASH_CASES[-5]
 # the bench's longctx and longctx_d128 legs (bench.py:998-1104), causal at
 # 32768 tokens: timed whole, and held against the plain version on their
 # last LONG_CHECK_ROWS query rows, which the plain version computes exactly
@@ -688,6 +730,7 @@ BWD_CASES = [c + (False,) for c in FLASH_CASES] + [
     (1, 4, 300, 300, 96, False, "float32", False, True)]
 BWD_MAIN_CASE = BWD_CASES[len(FLASH_CASES) - 3]
 BWD_AMP_CASE = BWD_CASES[len(FLASH_CASES) - 1]
+BWD_BERT_CASE = BWD_CASES[len(FLASH_CASES) - 5]
 # the bench's longctx legs (training steps, fwd+bwd): the kernels run
 # whole and are held against the sliced plain version on dq's last
 # LONG_CHECK_ROWS rows and dk/dv's keys LONG_BWD_KEYS (a full plain
@@ -1454,32 +1497,40 @@ def compiled_window(what, compiled, call, n, want_launches, scope=None,
     return outs, row
 
 
+# profiled pairs (an interpreted call, a replay) taken at most for one path
+PROFILE_PAIRS = 5
+
+
 def profile_pair(what, label, interpreted, compiled, launches):
-    """Profiles one interpreted call and one replay (``profile``).  The
-    replay must run every kernel function of the port that the
-    interpreted call runs, and no more of them than ``launches``, the
-    launches the interpreted run counted a call; a pair is exact when
-    the replay shows all ``launches``.  The tracer drops records of a
-    replay in a long process (six or seven of `infer_convep`'s 53 conv
-    launches in every profiled replay here, all 53 in a process of its
-    own) and, now and then, of an interpreted call: up to three pairs are
-    taken until one is exact.  Returns the first pair's numbers, the
-    pairs taken and the records of the port's kernels the last replay
-    showed."""
-    first = None
-    for pairs in (1, 2, 3):
+    """Profiles one interpreted call and one replay (``profile``).  A
+    pair holds when the replay shows every kernel function of the port
+    that the interpreted call shows and no more of their records than
+    ``launches``, the launches the interpreted run counted a call; it is
+    exact when the replay shows all ``launches``.  The tracer drops
+    records in a long process (six or seven of `infer_convep`'s 53 conv
+    launches in every profiled replay; every record of a replay or of an
+    interpreted call now and then, from phase 16 on), and none in a
+    process of its own: up to PROFILE_PAIRS pairs are taken until
+    one is exact, and at least one must hold.  Returns the numbers of the
+    pair that holds with the most records, the pairs taken and those
+    records."""
+    best = None
+    for pairs in range(1, PROFILE_PAIRS + 1):
         _, prof = profile(label, interpreted)
         _, cprof = profile(f"compiled {label}", compiled)
-        first = first or (prof, cprof)
         got, seen = cprof["port_calls"], prof["port_calls"]
-        if set(got) == set(seen) and sum(got.values()) == launches:
-            break
-    if set(got) != set(seen) or sum(got.values()) > launches:
+        if set(got) == set(seen) and sum(got.values()) <= launches:
+            if best is None or sum(got.values()) > best[2]:
+                best = (prof, cprof, sum(got.values()))
+            if best[2] == launches:
+                break
+    if best is None:
         raise AssertionError(
-            f"compiled {what}: the profiled replay ran the port's kernels "
-            f"{got} ({launches} launches a call), the interpreted call "
-            f"{seen}")
-    return first + (pairs, sum(got.values()))
+            f"compiled {what}: in {pairs} profiled pairs no replay ran the "
+            f"port's kernels of the interpreted call with no more records "
+            f"than its {launches} launches; the last: replay {got}, "
+            f"interpreted {seen}")
+    return best[0], best[1], pairs, best[2]
 
 
 def per_call(launches, n):
@@ -1896,6 +1947,8 @@ def train(seed, built, feed, what, expected, steps=TRAIN_STEPS,
     prof, cprof, pairs, records = profile_pair(what, f"{what} step", step,
                                       lambda: step(compiled),
                                       per_call(launches, steps))
+    training["profiled_port_calls"] = {"interpreted": prof["port_calls"],
+                                       "compiled": cprof["port_calls"]}
     record_compiled(what, (dict(wall_ms=walls, event_ms=events,
                                 peak_mem_gb=peak), prof), (crow, cprof),
                     hold, pairs, records)
@@ -1974,7 +2027,7 @@ def spread_metrics(spread):
 
 def train_gpu_vs_cpu(seed, built, what, tol, feed, flag="fc_epilogue",
                      modes=("off", "off"), cpu_reference_mode=None,
-                     extra=(), nudge=None):
+                     extra=(), nudge=None, reference_built=None):
     """The same program from the same seed on the card and on the CPU
     (kernel flag ``flag`` at ``modes[0]`` and ``modes[1]``): the step-1
     loss and grads and the parameters (and ``extra`` vars) after step 2,
@@ -1986,7 +2039,10 @@ def train_gpu_vs_cpu(seed, built, what, tol, feed, flag="fc_epilogue",
     ``spread_metrics`` by factor x that spread, or by its floor.  With
     ``nudge`` a third CPU run under ``modes[1]``, of the image scaled by
     1 + nudge, shows how far the step moves for that change of its
-    input; it bounds nothing."""
+    input; it bounds nothing.  ``flag`` None sets no kernel flag;
+    ``reference_built``, where given, is the program of the second CPU
+    run (``cpu_reference_mode`` then names it), whose grads and
+    parameters have the same names."""
     import paddle_tpu_torch as pt
 
     runs, secs = {}, {}
@@ -1997,11 +2053,15 @@ def train_gpu_vs_cpu(seed, built, what, tol, feed, flag="fc_epilogue",
             ("cpu", pt.CPUPlace(), modes[1], feed),
             ("cpu_reference", pt.CPUPlace(), cpu_reference_mode, feed),
             ("cpu_nudged", pt.CPUPlace(), modes[1], nudged)):
-        if mode is None or f is None:
+        if f is None or (mode is None and name == "cpu_reference"):
             continue
         t = time.perf_counter()
-        with kernel_flag(flag, mode):
-            runs[name] = train_and_fetch(place, seed, f, *built, extra=extra)
+        program = reference_built if reference_built is not None and \
+            name == "cpu_reference" else built
+        with kernel_flag(flag, mode) if flag is not None and \
+                reference_built is None else contextlib.nullcontext():
+            runs[name] = train_and_fetch(place, seed, f, *program,
+                                         extra=extra)
         secs[name] = time.perf_counter() - t
     loss_err, grad_rows, param_err, _ = spread = step_spread(
         runs["gpu"], runs["cpu"], tol["bulk_rtol"])
@@ -2014,6 +2074,10 @@ def train_gpu_vs_cpu(seed, built, what, tol, feed, flag="fc_epilogue",
                                  tol["bulk_rtol"])
         res["cpu_reference"] = dict(mode=cpu_reference_mode,
                                     **spread_summary(ref_spread))
+        # each grad's norm error beside the reference run's, by name
+        ref_norm = {n: r for _, _, r, n in ref_spread[1]}
+        res["norm_rel_err_by_grad"] = {
+            n: [r, ref_norm[n]] for _, _, r, n in grad_rows}
     if "cpu_nudged" in runs:
         res["cpu_nudged"] = dict(image_scale=1 + nudge, **spread_summary(
             step_spread(runs["cpu_nudged"], runs["cpu"], tol["bulk_rtol"])))
@@ -2023,6 +2087,14 @@ def train_gpu_vs_cpu(seed, built, what, tol, feed, flag="fc_epilogue",
         res["bounds"] = {k: max(tol["floors"][k], tol["factor"] * ref[k])
                          for k in got}
         failed = any(got[k] > res["bounds"][k] for k in got)
+        if tol.get("per_grad"):
+            # and each grad's norm error within factor x its own in the
+            # reference run, or the norm floor
+            worse = {n: e for n, e in res["norm_rel_err_by_grad"].items()
+                     if e[0] > max(tol["floors"]["norm"],
+                                   tol["factor"] * e[1])}
+            res["grads_beyond_their_bound"] = worse
+            failed = failed or bool(worse)
     else:
         failed = loss_err > tol["loss_rtol"] or \
             param_err > tol["param_atol"] or any(
@@ -3493,6 +3565,406 @@ def infer_phases(device, seed, workdir):
 
 # the port's kernel functions (csrc/), in a demangled name (after "::")
 # or a mangled one (after its length)
+# ---------------------------------------------------------------------------
+# phases 19-21: the bench's other training legs — long context, BERT-base,
+# DeepFM
+# ---------------------------------------------------------------------------
+
+# the bench's longctx and longctx_d128 legs (bench.py:998-1046): batch 1,
+# 8 heads, 32768 tokens, d 64 and 128, bf16, causal; each step launches
+# the forward twice (once more in its grad), dq and dkv once
+LONGCTX = dict(batch=1, heads=8, seq=32768)
+LONGCTX_LEGS = (("longctx", 64), ("longctx_d128", 128))
+# The CPU comparison's shape.  The plain attention of the CPU run holds a
+# [T, T] f32 score matrix a head (4 GiB at 32768 tokens, and its grads
+# several more) and would take many minutes, so the path is held to the
+# CPU at 1024 tokens and 2 heads.  Outputs are bf16 on both: out within
+# TOL's bf16 bound, each grad within BWD_TOL's of max(1, its scale), the
+# loss (a sum of bf16 values) within one bf16 step of the sum of |out|.
+LONGCTX_CPU = dict(batch=1, heads=2, seq=1024)
+
+
+@contextlib.contextmanager
+def flash_layout_flags():
+    """The longctx leg sets the flags of the JAX kernels' Mosaic layouts
+    explicitly (bench.py:1020-1021): "off".  The port's kernels ignore
+    them."""
+    from paddle_tpu_torch.flags import set_flags
+
+    flags = {"flash_packed_stats": "off", "flash_head_pack": "off"}
+    set_flags(flags)
+    try:
+        yield
+    finally:
+        set_flags(flags)
+
+
+def build_longctx_program(heads, seq, d):
+    """The bench's long-context step (bench.py _build_longctx_train), in
+    programs of its own: q, k, v bf16 data vars that take grads,
+    flash_attention causal, loss = reduce_sum(cast(out, f32)),
+    append_backward.  Returns (out, loss, main, startup)."""
+    import paddle_tpu_torch as pt
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        qkv = []
+        for n in "qkv":
+            x = pt.layers.data(n, shape=[heads, seq, d], dtype="bfloat16")
+            x.stop_gradient = False
+            qkv.append(x)
+        out = pt.layers.flash_attention(*qkv, causal=True)
+        loss = pt.layers.reduce_sum(pt.layers.cast(out, "float32"))
+        pt.backward.append_backward(loss)
+    return out, loss, main, startup
+
+
+def longctx_feed(seed, b, h, t, d, device):
+    """The bench's feed (unit normals rounded to bf16), made in bulk with
+    torch from the seed, on ``device``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    return {n: torch.randn((b, h, t, d), generator=gen).to(
+        device=device, dtype=torch.bfloat16) for n in "qkv"}
+
+
+def longctx_cpu_check(seed, d, device):
+    """The long-context program at LONGCTX_CPU on the card and on the
+    CPU: out, the loss and q/k/v@GRAD."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    b, h, t = (LONGCTX_CPU[k] for k in ("batch", "heads", "seq"))
+    out, loss, main, startup = build_longctx_program(h, t, d)
+    fetch = [out.name, loss.name] + [f"{n}@GRAD" for n in "qkv"]
+    feed = longctx_feed(seed + 1, b, h, t, d, "cpu")
+    got = {}
+    for name, place in (("gpu", pt.CUDAPlace(0)), ("cpu", pt.CPUPlace())):
+        exe = pt.Executor(place)
+        scope = pt.Scope()
+        exe.run(startup, scope=scope)
+        got[name] = [x.float().cpu() for x in exe.run(
+            main, feed=feed, fetch_list=fetch, scope=scope,
+            return_numpy=False)]
+    (g_out, g_loss, *g_grads), (c_out, c_loss, *c_grads) = \
+        got["gpu"], got["cpu"]
+    res = {"shape": [b, h, t, d],
+           "out_err": (g_out - c_out).abs().max().item(),
+           "out_bound": TOL["bfloat16"]["out"] * max(
+               1.0, c_out.abs().max().item()),
+           "loss_gpu": g_loss.item(), "loss_cpu": c_loss.item(),
+           "loss_err": abs(g_loss.item() - c_loss.item()),
+           "loss_bound": 2.0 ** -8 * c_out.abs().sum().item(),
+           "grad_errs": [(g - c).abs().max().item()
+                         for g, c in zip(g_grads, c_grads)],
+           "grad_bounds": [BWD_TOL["bfloat16"] * max(
+               1.0, c.abs().max().item()) for c in c_grads]}
+    ok = res["out_err"] <= res["out_bound"] and \
+        res["loss_err"] <= res["loss_bound"] and all(
+            e <= bd for e, bd in zip(res["grad_errs"], res["grad_bounds"]))
+    del feed
+    torch.cuda.empty_cache()
+    return res, ok
+
+
+def longctx_leg(seed, what, d, device):
+    """One long-context leg through the Executor: one warm-up and
+    TRAIN_STEPS counted steps (2 forward, 1 dq and 1 dkv launches a
+    step, no input copy), each step's fetches (the loss, q/k/v@GRAD)
+    torch.equal to a direct call of the port's flash autograd Function
+    on the same inputs (its loss reduced as reduce_sum reduces it);
+    the step beside SDPA's forward + backward at the shape; the compiled
+    pass as in ``train``; then the program at LONGCTX_CPU on the card
+    against the CPU."""
+    import torch
+    import torch.nn.functional as F
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    b, h, t = (LONGCTX[k] for k in ("batch", "heads", "seq"))
+    _, loss, main, startup = build_longctx_program(h, t, d)
+    fetch = [loss.name] + [f"{n}@GRAD" for n in "qkv"]
+    feed = longctx_feed(seed, b, h, t, d, device)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    scope = pt.Scope()
+    exe.run(startup, scope=scope)
+
+    def step(program=main):
+        return exe.run(program, feed=feed, fetch_list=fetch, scope=scope,
+                       return_numpy=False)
+
+    with flash_layout_flags():
+        step()                                   # warm-up, not counted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_kernel_counts()
+        runs, walls, events = timed(step, TRAIN_STEPS)
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    want = expected_counts(flash_attention_fwd=2 * TRAIN_STEPS,
+                           flash_attention_bwd_dq=TRAIN_STEPS,
+                           flash_attention_bwd_dkv=TRAIN_STEPS)
+    log(f"kernel launches over {TRAIN_STEPS} {what} steps: {launches}")
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want}")
+
+    # the direct call: the same inputs through the autograd Function
+    leaves = [feed[n].detach().requires_grad_() for n in "qkv"]
+    out, _ = fa.flash_attention_lse(*leaves, causal=True)
+    direct_loss = torch.sum(out.float(), dim=(0, 1, 2, 3))
+    direct = [direct_loss.detach()] + list(torch.autograd.grad(
+        direct_loss, leaves))
+    del out, leaves
+    unequal = [i for i, run in enumerate(runs)
+               if not all(torch.equal(x, y) for x, y in zip(run, direct))]
+    if unequal:
+        raise AssertionError(f"{what}: the fetches of steps {unequal} are "
+                             f"not torch.equal to the direct call's")
+
+    def sdpa_step():
+        qs, ks, vs = (feed[n].detach().requires_grad_() for n in "qkv")
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        torch.autograd.grad(o, (qs, ks, vs), torch.ones_like(o))
+
+    def direct_step():
+        qs, ks, vs = (feed[n].detach().requires_grad_() for n in "qkv")
+        o, _ = fa.flash_attention_lse(qs, ks, vs, causal=True)
+        torch.autograd.grad(o, (qs, ks, vs), torch.ones_like(o))
+
+    sdpa_ms = cuda_ms(sdpa_step, 5, warmup=2)
+    function_ms = cuda_ms(direct_step, 5, warmup=2)
+    flops = 3 * 2.0 * b * h * float(t) ** 2 * d      # the bench's count
+    training = dict(steps=TRAIN_STEPS, shape=[b, h, t, d], step_ms=walls,
+                    step_event_ms=events,
+                    tokens_per_s=TRAIN_STEPS * b * t / sum(walls) * 1e3,
+                    bench_mfu=flops / (np.mean(walls) / 1e3)
+                    / PEAK_FLOPS["bfloat16"],
+                    function_fwd_bwd_event_ms=function_ms,
+                    sdpa_fwd_bwd_event_ms=sdpa_ms,
+                    max_memory_allocated_gb=peak,
+                    fetches_equal_direct_call=True)
+    log(f"{what} " + json.dumps(training))
+
+    # the compiled pass: the same steps, held to two interpreted runs
+    with flash_layout_flags():
+        run_b = step()
+        compiled = pt.CompiledProgram(main)
+        c_runs, crow = compiled_window(what, compiled,
+                                       lambda: step(compiled), TRAIN_STEPS,
+                                       launches)
+        hold = hold_to_interpreted(what, {"fetches": (
+            runs[-1], [run_b], c_runs[-1])})
+        if not all(all(torch.equal(x, y) for x, y in zip(c, direct))
+                   for c in c_runs):
+            raise AssertionError(f"compiled {what}: the fetches are not "
+                                 f"torch.equal to the direct call's")
+        prof, cprof, pairs, records = profile_pair(
+            what, f"{what} step", step, lambda: step(compiled),
+            per_call(launches, TRAIN_STEPS))
+    record_compiled(what, (dict(wall_ms=walls, event_ms=events,
+                                peak_mem_gb=peak), prof), (crow, cprof),
+                    hold, pairs, records)
+    del compiled, runs, run_b, c_runs, direct, feed
+    torch.cuda.empty_cache()
+
+    cpu, ok = longctx_cpu_check(seed, d, device)
+    training["vs_cpu"] = cpu
+    log(f"{what} GPU vs CPU " + json.dumps(cpu))
+    if not ok:
+        raise AssertionError(f"the GPU {what} step disagrees with the CPU "
+                             "run")
+    return launches, training
+
+
+# BERT-base on the card against the CPU at batch 2, AMP.  A second CPU run
+# of the same model in f32 (no AMP: the same weights, grads and updates by
+# name) shows how far bf16 rounding moves this step; two runs that round
+# at other points sit about that far apart, so the GPU run is held
+# norm-wise within BERT_SPREAD_FACTOR times that run's metrics, or the
+# floor where that is larger (the AMP LM's bars: a wrong kernel is off by
+# the size of what it computes), and so is each grad's norm error against
+# its own in that run.  At batch 2 from random weights the attention is
+# near uniform and the q/k grads are differences of near-equal bf16 terms,
+# mostly rounding: the f32 run reads their norm error ~1.0 against the
+# CPU's AMP run, the card's 1.2-1.76; the other grads read below 0.03 on
+# both (PERF.md §6).  A CPU run with oneDNN off (torch's own bf16
+# products) took 13 minutes, so it is not the reference.
+BERT_SPREAD_FACTOR = 3.0
+BERT_FLOORS = dict(loss=AMP_LOSS_RTOL, norm=AMP_GRAD_NORM_RTOL,
+                   update=AMP_GRAD_NORM_RTOL)
+# DeepFM (bench.py _build_deepfm_train): 26 fields, vocab 100000, embed 16,
+# dense 13, hidden (400, 400, 400), dense lookups, f32 Adam(1e-3) at batch
+# 2048 on the bench's rng feeds; no hand kernel is on its path (the JAX
+# package's step is XLA's alone).  At batch 2 on the card against the CPU
+# in f32 (TF32 off), as phase 5: the loss and each grad's bulk within
+# LOSS_RTOL and GRAD_BULK_RTOL, its max within one example's share (a
+# ReLU input within rounding of 0 flips one example's contribution), and
+# the parameters within 2 * lr a step.
+DEEPFM = dict(num_fields=26, vocab_size=100_000, embed_dim=16, dense_dim=13,
+              hidden=(400, 400, 400), is_sparse=False)
+DEEPFM_BATCH = 2048
+DEEPFM_LR = 1e-3
+
+
+def build_bert_program(amp=True):
+    """BERT-base in training mode under the bench's AMP (or in f32), in
+    programs of its own."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.models.bert import bert_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = bert_model(**BERT)
+        opt = pt.optimizer.Adam(BERT_LR)
+        if amp:
+            opt = decorate(opt, init_loss_scaling=1.0,
+                           use_dynamic_loss_scaling=False)
+        _, params_grads = opt.minimize(model["loss"])
+    return model, main, startup, params_grads
+
+
+def bert_expected(types, steps):
+    """Per step: each layer's flash forward twice (once more in its
+    grad), dq and dkv once; no other kernel."""
+    n = types.count("flash_attention")
+    return expected_counts(flash_attention_fwd=2 * n * steps,
+                           flash_attention_bwd_dq=n * steps,
+                           flash_attention_bwd_dkv=n * steps)
+
+
+def bert_mfu(tokens_per_s):
+    """The bench's MFU (bench.py:517-533): 6N + 12 L d s FLOPs a token,
+    N counting the embeddings, the layers and the untied decoder, over
+    the card's dense bf16 peak."""
+    d, n_layer, d_inner, vocab, seq = (BERT[k] for k in (
+        "d_model", "n_layer", "d_inner", "vocab_size", "max_len"))
+    n_params = (vocab * d + seq * d + 2 * d
+                + n_layer * (4 * d * d + 2 * d * d_inner) + d * vocab)
+    fpt = 6.0 * n_params + 12.0 * n_layer * d * seq
+    return fpt * tokens_per_s / PEAK_FLOPS["bfloat16"]
+
+
+def bert_feed(seed, batch):
+    from paddle_tpu_torch.models.bert import bert_inputs_synthetic
+
+    return bert_inputs_synthetic(batch, BERT["max_len"],
+                                 BERT["vocab_size"], seed=seed)
+
+
+def bert_phase(seed):
+    """BERT-base at the bench's batch 8 (``train``), its MFU by the
+    bench's count, then the batch-2 AMP step on the card against the
+    CPU."""
+    what = "BERT-base training"
+    launches, training = train(
+        seed, build_bert_program(), bert_feed(seed, BERT_BATCH), what,
+        bert_expected, unit=("tokens", BERT_BATCH * BERT["max_len"]))
+    tokens = BERT_BATCH * BERT["max_len"]
+    compiled_ms = COMPILED[what]["compiled"]["wall_ms"]
+    training["bench_mfu"] = {
+        "interpreted": bert_mfu(training["tokens_per_s"]),
+        "compiled": bert_mfu(tokens / compiled_ms * 1e3),
+        "compiled_tokens_per_s": tokens / compiled_ms * 1e3}
+    training["launches_per_step"] = {
+        k: launches[k] // TRAIN_STEPS for k in KERNELS if launches[k]}
+    log(f"{what} bench MFU " + json.dumps(training["bench_mfu"])
+        + " launches a step " + json.dumps(training["launches_per_step"]))
+    # the flash kernels the profiled steps ran, by function: bf16 only
+    calls = {n for side in training["profiled_port_calls"].values()
+             for n in side}
+    if not calls or any("bf16" not in n for n in calls):
+        raise AssertionError(f"{what}: the profiled steps ran the port's "
+                             f"kernels {sorted(calls)}, expected the bf16 "
+                             f"flash kernels only")
+    tol = dict(factor=BERT_SPREAD_FACTOR, floors=BERT_FLOORS,
+               bulk_rtol=AMP_GRAD_BULK_RTOL, per_grad=True)
+    training["vs_cpu"] = train_gpu_vs_cpu(
+        seed, build_bert_program(), "BERT-base AMP training", tol,
+        bert_feed(seed, CHECK_BATCH), flag=None, cpu_reference_mode="f32",
+        reference_built=build_bert_program(amp=False))
+    return launches, training
+
+
+def build_deepfm_program():
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.deepfm import deepfm_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = deepfm_model(**DEEPFM)
+        _, params_grads = pt.optimizer.Adam(DEEPFM_LR).minimize(
+            model["loss"])
+    return model, main, startup, params_grads
+
+
+def deepfm_phase(seed):
+    """DeepFM at the bench's batch 2048 (``train``; no hand kernel may
+    launch), then its batch-2 step on the card against the CPU."""
+    from paddle_tpu_torch.models.deepfm import deepfm_inputs_synthetic
+
+    def feed(batch):
+        return deepfm_inputs_synthetic(batch, DEEPFM["num_fields"],
+                                       DEEPFM["vocab_size"],
+                                       DEEPFM["dense_dim"], seed=seed)
+
+    launches, training = train(
+        seed, build_deepfm_program(), feed(DEEPFM_BATCH), "DeepFM training",
+        lambda types, steps: expected_counts(),
+        unit=("examples", DEEPFM_BATCH))
+    training["vs_cpu"] = train_gpu_vs_cpu(
+        seed, build_deepfm_program(), "DeepFM training", dict(
+            loss_rtol=LOSS_RTOL, bulk_rtol=GRAD_BULK_RTOL,
+            bulk_share=GRAD_BULK_SHARE, max_rtol=1.0 / CHECK_BATCH,
+            param_atol=2 * 2 * DEEPFM_LR + 1e-5), feed(CHECK_BATCH),
+        flag=None)
+    return launches, training
+
+
+TRAINING_LEGS = ("longctx", "longctx_d128", "BERT-base training",
+                 "DeepFM training")
+
+
+def training_legs(seed, device):
+    """Phases 19-21 in this process: each leg's launches and numbers,
+    and their compiled passes' rows."""
+    launches, rows = {}, {}
+    for what, d in LONGCTX_LEGS:
+        launches[what], rows[what] = longctx_leg(seed, what, d, device)
+    launches["bert_training"], rows["bert_training"] = bert_phase(seed)
+    launches["deepfm_training"], rows["deepfm_training"] = \
+        deepfm_phase(seed)
+    return {"launches": launches, "rows": rows,
+            "compiled": {k: COMPILED[k] for k in TRAINING_LEGS}}
+
+
+def training_legs_apart(seed):
+    """Phases 19-21 in a process of their own (``--training-legs``), on
+    the kernels built here: in this long process torch.profiler lost
+    every record of the long-context step's replays in three profiled
+    pairs, and it drops records of the later phases' profiles, where a
+    process of its own records them all.  Returns what
+    ``training_legs`` returned there; its compiled rows join COMPILED."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "training_legs.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--training-legs", out], timeout=1200)
+        if proc.returncode != 0:
+            raise AssertionError(f"phases 19-21 failed in their process "
+                                 f"(exit {proc.returncode})")
+        with open(out) as f:
+            res = json.load(f)
+    COMPILED.update(res["compiled"])
+    return res
+
+
 PORT_KERNEL = re.compile(
     r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
     r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
@@ -3562,6 +4034,10 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--runs", type=int, default=5,
                     help="requests served in the counted window")
+    ap.add_argument("--training-legs", metavar="RESULT_JSON",
+                    help="run phases 19-21 alone (the kernels already "
+                    "built) and write their numbers to RESULT_JSON; the "
+                    "whole script runs them so, in a process of their own")
     args = ap.parse_args(argv)
 
     import torch
@@ -3576,6 +4052,10 @@ def main(argv=None):
     mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
+    if args.training_legs:
+        with open(args.training_legs, "w") as f:
+            json.dump(training_legs(args.seed, device), f)
+        return 0
     card = card_line()
     log(f"card: {card}")
 
@@ -3668,6 +4148,20 @@ def main(argv=None):
                                    "images_per_s") if k in row}
          for leg, row in infer_rows.items()}))
 
+    # the bench's other training legs: long context, BERT-base, DeepFM
+    legs = training_legs_apart(args.seed)
+    long_launches = {w: legs["launches"][w] for w, _ in LONGCTX_LEGS}
+    long_rows = {w: legs["rows"][w] for w, _ in LONGCTX_LEGS}
+    bert_launches = legs["launches"]["bert_training"]
+    dfm_launches = legs["launches"]["deepfm_training"]
+    log("training legs " + json.dumps({
+        what: {k: row[k] for k in ("step_ms", "step_event_ms",
+                                   "tokens_per_s", "examples_per_s",
+                                   "bench_mfu", "sdpa_fwd_bwd_event_ms",
+                                   "function_fwd_bwd_event_ms")
+               if k in row}
+        for what, row in legs["rows"].items()}))
+
     def row_of(rows, case):
         return next(r for r in rows if r["shape"] == list(case[:5])
                     and r["dtype"] == case[6])
@@ -3676,6 +4170,8 @@ def main(argv=None):
     f32_d128 = row_of(cases, F32_D128_CASE)
     bwd_row = row_of(bwd_cases, BWD_MAIN_CASE)
     bwd_amp = row_of(bwd_cases, BWD_AMP_CASE)
+    bert_fwd = row_of(cases, BERT_CASE)
+    bwd_bert = row_of(bwd_cases, BWD_BERT_CASE)
 
     def by_path(name):
         return {"serving": serve_launches[name],
@@ -3683,6 +4179,10 @@ def main(argv=None):
                 "amp_training": amp_launches[name],
                 "rn_convbnstats": rn_bn_launches[name],
                 "rn_convep": rn_ep_launches[name],
+                **{what: counts[name]
+                   for what, counts in long_launches.items()},
+                "bert_training": bert_launches[name],
+                "deepfm_training": dfm_launches[name],
                 **{path: counts[name]
                    for path, counts in decode_launches.items()},
                 **{leg: counts[name]
@@ -3710,6 +4210,17 @@ def main(argv=None):
         "amp_path": {k: amp_row[k] for k in (
             "shape", "dtype", "max_abs_err_out", "ms", "event_ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "copies")},
+        "bert_path": {**{k: bert_fwd[k] for k in (
+            "shape", "causal", "dtype", "max_abs_err_out", "ms", "event_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "copies")},
+            "launches_per_step": bert_launches["flash_attention_fwd"]
+            // TRAIN_STEPS},
+        "long_context_path": {what: {
+            "launches_per_step": counts["flash_attention_fwd"]
+            // TRAIN_STEPS, **{k: long_rows[what][k] for k in (
+                "shape", "step_ms", "step_event_ms",
+                "function_fwd_bwd_event_ms", "sdpa_fwd_bwd_event_ms")}}
+            for what, counts in long_launches.items()},
         "long_context": [{k: r[k] for k in (
             "shape", "dtype", "max_abs_err_out", "max_abs_err_lse",
             "checked_rows", "long_errs", "planted_fault_errs", "ms",
@@ -3746,6 +4257,10 @@ def main(argv=None):
             "f32_design": "split TF32 on mma.sync.m16n8k8",
             "copies_by_path": by_path(BWD_COPIES),
             "amp_path": bwd_summary(bwd_amp, name, errs),
+            "bert_path": dict(bwd_summary(bwd_bert, name, errs),
+                              launches_per_step=bert_launches[
+                                  f"flash_attention_bwd_{name}"]
+                              // TRAIN_STEPS),
             "f32_vs_f64": [r for r in f64_bwd if r["output"] in errs],
             "long_context": [bwd_summary(r, name, errs) for r in bwd_cases
                              if r["shape"][2] > 4096],
@@ -3975,7 +4490,8 @@ def main(argv=None):
              "ResNet-50 conv_bn_stats training",
              "ResNet-50 conv_epilogue training", "infer", "infer_convep",
              "vgg_infer", "vgg_cifar", "rn32_cifar", "infer_i8",
-             "infer_i8_inter", "predictor")
+             "infer_i8_inter", "predictor", "longctx", "longctx_d128",
+             "BERT-base training", "DeepFM training")
     if sorted(COMPILED) != sorted(paths):
         raise AssertionError(f"compiled passes ran for {sorted(COMPILED)}, "
                              f"expected {sorted(paths)}")

@@ -82,6 +82,16 @@ define_flag("fc_epilogue", "off",
             "'interpret' the kernel's plain PyTorch version, 'pallas' "
             "the CUDA kernel (a CPU tensor raises), 'on' the CUDA kernel "
             "on a CUDA tensor and the chain on a CPU one")
+define_flag("flash_packed_stats", "off",
+            "the JAX package's row-statistics layout of its flash kernels "
+            "(packed [B*H, T/128, 128] log-sum-exp when 'on'), a Mosaic "
+            "layout.  Accepted here for parity only: the port's kernels "
+            "(csrc/flash_attention_*.cu) keep lse as [B*H, T] f32 whichever "
+            "value it holds")
+define_flag("flash_head_pack", "off",
+            "the JAX package's packing of two d<=64 heads into one grid "
+            "step of its flash kernels when 'on', a Mosaic schedule.  "
+            "Accepted here for parity only: no code of the port reads it")
 define_flag("int8_interlayer", False,
             "int8 activations across layer boundaries "
             "(contrib.slim.quantization.convert_to_int8_execution with "

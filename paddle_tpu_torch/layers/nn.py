@@ -1,7 +1,7 @@
 """Layer functions building the IR.
 
-Counterpart of ``paddle_tpu/layers/nn.py``: the layers the Transformer LM
-and ResNet call, emitting the same op types, slots, attrs, var names and
+Counterpart of ``paddle_tpu/layers/nn.py``: the layers the Transformer LM,
+ResNet, BERT and DeepFM call, and the families of their ops, emitting the same op types, slots, attrs, var names and
 startup ops as the JAX package.
 """
 
@@ -13,11 +13,22 @@ from paddle_tpu_torch.core.types import dtype_name
 from paddle_tpu_torch.layers.helper import LayerHelper
 
 __all__ = [
-    "fc", "embedding", "layer_norm", "elementwise_add", "scale",
-    "reshape", "transpose", "flash_attention", "mean",
-    "softmax_with_cross_entropy", "relu", "gelu", "elementwise_mul", "cast",
-    "conv2d", "pool2d", "batch_norm", "softmax", "topk", "accuracy",
-    "dropout",
+    "fc", "embedding", "layer_norm", "scale", "reshape", "transpose",
+    "flash_attention", "mean", "softmax_with_cross_entropy",
+    "sigmoid_cross_entropy_with_logits", "cast", "conv2d", "pool2d",
+    "batch_norm", "softmax", "topk", "accuracy", "dropout",
+    # activations
+    "relu", "sigmoid", "tanh", "sqrt", "square", "abs", "exp", "log",
+    "softplus", "softsign", "relu6", "leaky_relu", "gelu", "elu", "swish",
+    "hard_sigmoid", "pow",
+    # reductions, products, the elementwise family
+    "reduce_sum", "reduce_mean", "reduce_max", "reduce_min", "reduce_prod",
+    "reduce_all", "reduce_any", "matmul", "elementwise_op",
+    "elementwise_add", "elementwise_sub", "elementwise_mul",
+    "elementwise_div", "elementwise_max", "elementwise_min",
+    "elementwise_pow",
+    # tensor manipulation
+    "concat", "slice", "one_hot",
 ]
 
 
@@ -261,30 +272,6 @@ def mean(x, name=None):
     return _single_out("mean", x)
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_add")
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_add", inputs={"X": x, "Y": y},
-                     outputs={"Out": out}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
-
-
-def elementwise_mul(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper("elementwise_mul")
-    out = helper.create_variable_for_type_inference(x.dtype)
-    helper.append_op(type="elementwise_mul", inputs={"X": x, "Y": y},
-                     outputs={"Out": out}, attrs={"axis": axis})
-    return helper.append_activation(out, act)
-
-
-def relu(x, name=None):
-    return _single_out("relu", x)
-
-
-def gelu(x, approximate=False, name=None):
-    return _single_out("gelu", x, {"approximate": approximate})
-
-
 def cast(x, dtype):
     dtype = dtype_name(dtype)
     return _single_out("cast", x, {"out_dtype": dtype}, out_dtype=dtype)
@@ -325,9 +312,184 @@ def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
                     block_k=None, name=None):
     """Fused attention over ``[B, H, T, D]`` q/k/v (the ``flash_attention``
     op; ``ops/flash_attention.py``).  ``block_q``/``block_k`` are kept in
-    the IR for the JAX package and ignored by the port's kernel."""
+    the IR for the JAX package and ignored by the port's kernel, as are
+    the flags ``flash_packed_stats`` and ``flash_head_pack``."""
     return _single_out(
         "flash_attention", q,
         {"causal": causal, "scale": float(scale or 0.0),
          "block_q": int(block_q or 0), "block_k": int(block_k or 0)},
         ins_extra={"K": k, "V": v}, in_slot="Q")
+
+
+# ---------------------------------------------------------------------------
+# activations (``paddle_tpu/layers/nn.py:336-375``)
+# ---------------------------------------------------------------------------
+
+def _unary(op_type):
+    def f(x, name=None):
+        return _single_out(op_type, x)
+    f.__name__ = op_type
+    return f
+
+
+relu = _unary("relu")
+sigmoid = _unary("sigmoid")
+tanh = _unary("tanh")
+sqrt = _unary("sqrt")
+square = _unary("square")
+abs = _unary("abs")
+exp = _unary("exp")
+log = _unary("log")
+softplus = _unary("softplus")
+softsign = _unary("softsign")
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _single_out("relu6", x, {"threshold": threshold})
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _single_out("leaky_relu", x, {"alpha": alpha})
+
+
+def gelu(x, approximate=False, name=None):
+    return _single_out("gelu", x, {"approximate": approximate})
+
+
+def elu(x, alpha=1.0, name=None):
+    return _single_out("elu", x, {"alpha": alpha})
+
+
+def swish(x, beta=1.0, name=None):
+    return _single_out("swish", x, {"beta": beta})
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _single_out("hard_sigmoid", x, {"slope": slope,
+                                           "offset": offset})
+
+
+def pow(x, factor=1.0, name=None):
+    return _single_out("pow", x, {"factor": factor})
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      normalize=False, name=None):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="sigmoid_cross_entropy_with_logits",
+        inputs={"X": x, "Label": label}, outputs={"Out": out},
+        attrs={"ignore_index": ignore_index, "normalize": normalize})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# reductions, matmul, the elementwise family (``:505-607``)
+# ---------------------------------------------------------------------------
+
+def _reduce(op_type, input, dim, keep_dim):
+    if dim is None:
+        attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
+    else:
+        attrs = {"dim": dim if isinstance(dim, (list, tuple)) else [dim],
+                 "keep_dim": keep_dim, "reduce_all": False}
+    return _single_out(op_type, input, attrs)
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
+           name=None):
+    helper = LayerHelper("matmul")
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(
+        type="matmul", inputs={"X": x, "Y": y}, outputs={"Out": out},
+        attrs={"transpose_X": transpose_x, "transpose_Y": transpose_y,
+               "alpha": float(alpha)})
+    return out
+
+
+def elementwise_op(op_type, x, y, axis=-1, act=None, name=None):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type=op_type, inputs={"X": x, "Y": y},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return helper.append_activation(out, act)
+
+
+def elementwise_add(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_add", x, y, axis, act, name)
+
+
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_sub", x, y, axis, act, name)
+
+
+def elementwise_mul(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_mul", x, y, axis, act, name)
+
+
+def elementwise_div(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_max", x, y, axis, act, name)
+
+
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_min", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return elementwise_op("elementwise_pow", x, y, axis, act, name)
+
+
+# ---------------------------------------------------------------------------
+# tensor manipulation (``:685``, ``:719``, ``:760``)
+# ---------------------------------------------------------------------------
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat")
+    out = helper.create_variable_for_type_inference(input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": input},
+                     outputs={"Out": out}, attrs={"axis": axis})
+    return out
+
+
+def slice(input, axes, starts, ends):
+    return _single_out("slice", input,
+                       {"axes": list(axes), "starts": list(starts),
+                        "ends": list(ends)}, in_slot="Input")
+
+
+def one_hot(input, depth, dtype="float32"):
+    return _single_out("one_hot", input, {"depth": depth, "dtype": dtype},
+                       out_dtype=dtype)

@@ -77,6 +77,14 @@ bits, and the two ops on a CUDA tensor give the CPU op's bits.
 ``quantize_act`` is ``torch.equal`` to its plain version at odd sizes,
 over f32 and bf16, ties and saturation, and views off 16 bytes,
 permuted or strided.
+
+The bench's other training legs at small sizes: a 2-layer BERT and a
+DeepFM of hidden (32, 32) take two f32 Adam steps on the card within
+1e-4 of the CPU (BERT launching 2/1/1 flash kernels a layer a step,
+DeepFM none), and three compiled steps give the interpreter's bits; the
+long-context program (2 heads of 512 tokens, d 64 and 128) launches
+2/1/1 a step and its fetches, interpreted and compiled, are
+``torch.equal`` to a direct call of the flash autograd Function.
 """
 
 from __future__ import annotations
@@ -1927,3 +1935,165 @@ def test_a_second_feed_shape_captures_a_second_graph(cuda):
         assert graphs == [1, 1, 1, 2, 2, 2]
         assert prog.graph_stats() == {"entries": 2, "graphs": 2,
                                       "replays": 4}
+
+
+# ---------------------------------------------------------------------------
+# the bench's other training legs at small sizes: BERT, DeepFM, long context
+# ---------------------------------------------------------------------------
+
+# heads of 16, so the flash kernels take the model's views uncopied
+TINY_BERT = dict(vocab_size=128, max_len=16, d_model=64, n_head=4,
+                 d_inner=128, n_layer=2, dropout_rate=0.0)
+
+
+def _leg_program(leg):
+    """(loss, feed) of a small BERT or DeepFM with Adam(1e-3) in the
+    default programs."""
+    import paddle_tpu_torch as pt
+
+    if leg == "bert":
+        from paddle_tpu_torch.models.bert import (bert_inputs_synthetic,
+                                                  bert_model)
+
+        loss = bert_model(**TINY_BERT)["loss"]
+        feed = bert_inputs_synthetic(2, TINY_BERT["max_len"],
+                                     TINY_BERT["vocab_size"])
+    else:
+        from paddle_tpu_torch.models.deepfm import (deepfm_inputs_synthetic,
+                                                    deepfm_model)
+
+        loss = deepfm_model(vocab_size=1000, hidden=(32, 32),
+                            is_sparse=False)["loss"]
+        feed = deepfm_inputs_synthetic(16, vocab_size=1000)
+    pt.optimizer.Adam(1e-3).minimize(loss)
+    return loss, feed
+
+
+def _leg_steps(place, leg, steps, compiled=False):
+    """Step 1's loss and grads, then ``steps - 1`` more; the params."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import convert
+
+    with fresh_port_programs():
+        loss, feed = _leg_program(leg)
+        main = pt.default_main_program()
+        exe = pt.Executor(place)
+        scope = pt.Scope()
+        np.random.seed(0)
+        exe.run(pt.default_startup_program(), scope=scope)
+        params = [p.name for p in main.all_parameters()]
+        prog = pt.CompiledProgram(main) if compiled else main
+        first = exe.run(prog, feed=feed, scope=scope,
+                        fetch_list=[loss] + [p + "@GRAD" for p in params])
+        for _ in range(steps - 1):
+            exe.run(prog, feed=feed, scope=scope)
+        return first, convert.params_to_numpy(scope, params)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["bert", "deepfm"])
+def test_leg_steps_on_the_card_match_cpu(cuda, leg):
+    """Two f32 Adam steps on the card against the CPU: the loss and every
+    grad of step 1 within 1e-4, the parameters within 2*lr a step plus
+    1e-4; BERT's layers each launch the flash forward twice a step (once
+    more in the grad), dq and dkv once; DeepFM launches no hand kernel."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernel_launches
+
+    before = kernel_launches()
+    gpu, gpu_params = _leg_steps(pt.CUDAPlace(0), leg, 2)
+    after = kernel_launches()
+    n = TINY_BERT["n_layer"] if leg == "bert" else 0
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == ({
+                "flash_attention_fwd": 2 * 2 * n,
+                "flash_attention_bwd_dq": 2 * n,
+                "flash_attention_bwd_dkv": 2 * n} if n else {})
+    cpu, cpu_params = _leg_steps(pt.CPUPlace(), leg, 2)
+    for g, c in zip(gpu, cpu):
+        np.testing.assert_allclose(g, c, rtol=1e-4,
+                                   atol=1e-4 * max(1.0, np.abs(c).max()))
+    for name in cpu_params:
+        np.testing.assert_allclose(gpu_params[name], cpu_params[name],
+                                   rtol=0, atol=2 * 2e-3 + 1e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["bert", "deepfm"])
+def test_compiled_leg_steps_equal_interpreted_on_the_card(cuda, leg):
+    """Three steps through ``CompiledProgram`` (the eager warm-up, then
+    two replays) give the interpreter's bits: step 1's fetches and every
+    parameter after step 3."""
+    import paddle_tpu_torch as pt
+
+    want, want_params = _leg_steps(pt.CUDAPlace(0), leg, 3)
+    got, got_params = _leg_steps(pt.CUDAPlace(0), leg, 3, compiled=True)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for name in want_params:
+        np.testing.assert_array_equal(got_params[name], want_params[name],
+                                      err_msg=name)
+
+
+def _longctx(heads, seq, d):
+    """The bench's long-context step in the default programs; returns
+    the loss."""
+    import paddle_tpu_torch as pt
+
+    qkv = []
+    for n in "qkv":
+        x = pt.layers.data(n, shape=[heads, seq, d], dtype="bfloat16")
+        x.stop_gradient = False
+        qkv.append(x)
+    out = pt.layers.flash_attention(*qkv, causal=True)
+    loss = pt.layers.reduce_sum(pt.layers.cast(out, "float32"))
+    pt.backward.append_backward(loss)
+    return loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_longctx_step_equals_the_autograd_function(cuda, d):
+    """The long-context program at 2 heads of 512 tokens, interpreted and
+    compiled: 2 forward, 1 dq and 1 dkv launches a step, no copy, and
+    the loss and q/k/v@GRAD torch.equal to a direct call of the flash
+    autograd Function on the same inputs; against the CPU, the grads
+    within 3e-2 of max(1, their scale) (bf16 out, dS rounded to bf16 at
+    other points)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import kernel_launches
+
+    gen = torch.Generator().manual_seed(d)
+    feed = {n: torch.randn((1, 2, 512, d), generator=gen).to(
+        cuda, torch.bfloat16) for n in "qkv"}
+    fetch = ["q@GRAD", "k@GRAD", "v@GRAD"]
+    with fresh_port_programs():
+        loss = _longctx(2, 512, d)
+        main = pt.default_main_program()
+        runs = {}
+        for name, place, prog in (
+                ("gpu", pt.CUDAPlace(0), main),
+                ("compiled", pt.CUDAPlace(0), pt.CompiledProgram(main)),
+                ("cpu", pt.CPUPlace(), main)):
+            exe = pt.Executor(place)
+            before = kernel_launches()
+            runs[name] = [exe.run(prog, feed=feed, scope=pt.Scope(),
+                                  fetch_list=[loss] + fetch,
+                                  return_numpy=False) for _ in range(2)]
+            after = kernel_launches()
+            if name == "gpu":
+                assert {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]} == {
+                    "flash_attention_fwd": 4, "flash_attention_bwd_dq": 2,
+                    "flash_attention_bwd_dkv": 2}
+    leaves = [feed[n].detach().requires_grad_() for n in "qkv"]
+    out, _ = fa.flash_attention_lse(*leaves, causal=True)
+    direct_loss = torch.sum(out.float(), dim=(0, 1, 2, 3))
+    direct = [direct_loss] + list(torch.autograd.grad(direct_loss, leaves))
+    for run in runs["gpu"] + runs["compiled"]:
+        assert all(torch.equal(x, y.detach()) for x, y in zip(run, direct))
+    for g, c in zip(runs["gpu"][0][1:], runs["cpu"][0][1:]):
+        c = c.float()
+        assert (g.float().cpu() - c).abs().max().item() <= \
+            3e-2 * max(1.0, c.abs().max().item())
