@@ -13,6 +13,7 @@ from paddle_tpu_torch.ops import metrics  # noqa: F401
 from paddle_tpu_torch.ops import flash_decode  # noqa: F401
 from paddle_tpu_torch.ops import control_flow  # noqa: F401
 from paddle_tpu_torch.ops import quant  # noqa: F401
+from paddle_tpu_torch.ops import vision  # noqa: F401
 
 
 def kernel_launches() -> dict:

@@ -581,3 +581,39 @@ def one_hot(ins, attrs, device):
                            device=x.device)
     return {"Out": (x.unsqueeze(-1) == classes).to(
         to_torch_dtype(attrs["dtype"]))}
+
+
+@register_op("pad", inputs=("X",), outputs=("Out",),
+             attrs={"paddings": REQUIRED, "pad_value": 0.0})
+def pad(ins, attrs, device):
+    """``paddings`` holds a (before, after) pair per dim, first dim
+    first; ``F.pad`` takes them last dim first."""
+    p = attrs["paddings"]
+    pairs = [(p[2 * i], p[2 * i + 1]) for i in range(len(p) // 2)]
+    flat = [n for pair in reversed(pairs) for n in pair]
+    return {"Out": torch.nn.functional.pad(ins["X"], flat,
+                                           value=attrs["pad_value"])}
+
+
+# jnp.pad's modes by torch's names: jnp's "edge" repeats the border
+# element (torch's "replicate"); both "reflect"s leave the edge out
+_PAD2D_MODES = {"constant": "constant", "reflect": "reflect",
+                "edge": "replicate"}
+
+
+@register_op("pad2d", inputs=("X",), outputs=("Out",),
+             attrs={"paddings": REQUIRED, "mode": "constant",
+                    "pad_value": 0.0, "data_format": "NCHW"})
+def pad2d(ins, attrs, device):
+    """``paddings`` is [top, bottom, left, right] in both layouts; an
+    NHWC tensor is padded as an NCHW view of it."""
+    top, bottom, left, right = attrs["paddings"]
+    mode = _PAD2D_MODES[attrs["mode"]]
+    x = ins["X"]
+    nhwc = attrs["data_format"] != "NCHW"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    kw = {"value": attrs["pad_value"]} if mode == "constant" else {}
+    out = torch.nn.functional.pad(x, [left, right, top, bottom], mode=mode,
+                                  **kw)
+    return {"Out": out.permute(0, 2, 3, 1) if nhwc else out}

@@ -59,6 +59,56 @@ def conv2d(ins, attrs, device):
     return {"Output": conv_nd(x, w, s, p, d, attrs["groups"], fmt)}
 
 
+def _maxpool_cmp_bwd(window, strides, pads, x, out, dy):
+    """The compare-and-route max-pool backward of the JAX package
+    (``paddle_tpu/ops/nn.py:122-148``) over the last two dims of NCHW
+    ``x``, ``out`` and ``dy``: dx[i] is the sum, over the window offsets
+    o, of dy[w] where x[i] == out[w], w the window whose offset-o element
+    is i.  A tie routes the gradient to every maximum (autograd of
+    ``max_pool2d`` routes it once).  The offsets run in the JAX loop's
+    order and sum in f32, then cast to dy's dtype, as there."""
+    oh, ow = out.shape[-2:]
+    up = ((oh - 1) * strides[0] + 1, (ow - 1) * strides[1] + 1)
+    lead = tuple(out.shape[:-2])
+    out_up = torch.full(lead + up, float("-inf"), dtype=out.dtype,
+                        device=out.device)
+    out_up[..., ::strides[0], ::strides[1]] = out
+    dy_up = torch.zeros(lead + up, dtype=dy.dtype, device=dy.device)
+    dy_up[..., ::strides[0], ::strides[1]] = dy
+    base = tuple(k - 1 + s for k, s in zip(window, strides))
+    flat = [base[1], base[1], base[0], base[0]]
+    p_out = F.pad(out_up, flat, value=float("-inf"))
+    p_dy = F.pad(dy_up, flat)
+    h, w = x.shape[-2:]
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=dy.dtype, device=dy.device)
+    for i in range(window[0]):
+        for j in range(window[1]):
+            r0 = base[0] + pads[0] - i
+            c0 = base[1] + pads[1] - j
+            hit = x == p_out[..., r0:r0 + h, c0:c0 + w]
+            acc = acc + torch.where(hit, p_dy[..., r0:r0 + h, c0:c0 + w],
+                                    zero).float()
+    return acc.to(dy.dtype)
+
+
+class _MaxPoolCompare(torch.autograd.Function):
+    """Max pooling of NCHW ``x`` whose backward is ``_maxpool_cmp_bwd``
+    (the JAX package's ``_maxpool_cmp`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, window, strides, pads):
+        out = F.max_pool2d(x, window, strides, pads)
+        ctx.save_for_backward(x, out)
+        ctx.geometry = (window, strides, pads)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, out = ctx.saved_tensors
+        return _maxpool_cmp_bwd(*ctx.geometry, x, out, dy), None, None, None
+
+
 @register_op("pool2d", inputs=("X",), outputs=("Out",),
              attrs={"pooling_type": "max", "ksize": REQUIRED,
                     "global_pooling": False, "strides": [1, 1],
@@ -69,7 +119,9 @@ def pool2d(ins, attrs, device):
     """Max or average pooling; ``ceil_mode`` is read by neither package.
     The max's gradient (autograd of ``max_pool2d``) goes to the first
     maximum of each window in row-major window order, as XLA's
-    select_and_scatter with ``ge`` routes it."""
+    select_and_scatter with ``ge`` routes it; under the flag
+    ``maxpool_grad_algo="compare"`` to every maximum
+    (``_MaxPoolCompare``)."""
     x = ins["X"]
     fmt = attrs.get("data_format", "NCHW")
     hw = (2, 3) if fmt == "NCHW" else (1, 2)
@@ -97,10 +149,9 @@ def pool2d(ins, attrs, device):
         from paddle_tpu_torch.flags import get_flag
 
         if get_flag("maxpool_grad_algo") == "compare":
-            raise NotImplementedError(
-                "pool2d: maxpool_grad_algo='compare' is not ported yet; "
-                "use 'sas'")
-        out = F.max_pool2d(xn, k, s, p)
+            out = _MaxPoolCompare.apply(xn, k, s, p)
+        else:
+            out = F.max_pool2d(xn, k, s, p)
     else:
         # exclusive: divide by the window's elements inside the input
         # (the JAX package's count of ones), else by the window's area

@@ -16,9 +16,15 @@ meaning:
   ResNet, the image in and the pooled features out.
 
 On the card NHWC is channels-last memory, the layout cuDNN and the
-port's conv kernels read densely.  The space-to-depth stem rewrite of the
-same JAX module is not ported.  Run the pass on the forward program,
+port's conv kernels read densely.  Run the pass on the forward program,
 before ``minimize``.
+
+``space_to_depth_stem`` (``:232-336`` there) rewrites a 7x7/s2/p3 image
+stem as pad2d + space_to_depth of the image, pad + space_to_depth of the
+filter and a 4x4/s1 valid conv on 4C channels, op for op as the JAX pass
+does.  Run it before ``nhwc_transpile``: the s2d chain stays NCHW and the
+NHWC pass puts one transpose at the conv's input.  Neither package's
+passes are wrapped in an IR verifier here: the port has none yet.
 """
 
 from __future__ import annotations
@@ -177,16 +183,20 @@ class _Rewriter:
         self.mark_out_nhwc(op, "Out")
 
 
-def nhwc_transpile(program):
-    """Rewrites ``program`` in place so its conv/pool/norm chains run
-    NHWC; returns it.  Raises on a program that already holds backward or
-    optimizer ops."""
+def _assert_forward_only(program, pass_name):
     for b in program.blocks:
         for op in b.ops:
             if op.op_role in (BACKWARD, OPTIMIZE):
                 raise ValueError(
-                    "nhwc_transpile must run before append_backward/"
+                    f"{pass_name} must run before append_backward/"
                     f"minimize; found a {op.op_role} op '{op.type}'")
+
+
+def nhwc_transpile(program):
+    """Rewrites ``program`` in place so its conv/pool/norm chains run
+    NHWC; returns it.  Raises on a program that already holds backward or
+    optimizer ops."""
+    _assert_forward_only(program, "nhwc_transpile")
     for block in program.blocks:
         if not any(op.type in _CONV_LIKE or op.type in _FUSED_CONV
                    for op in block.ops):
@@ -195,4 +205,91 @@ def nhwc_transpile(program):
         for op in block.ops:
             rw.rewrite(op)
         block.ops = rw.new_ops
+    return program
+
+
+# ---------------------------------------------------------------------------
+# the space-to-depth image stem
+# ---------------------------------------------------------------------------
+
+def _stem_candidates(block):
+    """The conv2d ops of a classic image stem: 7x7, stride 2, pad 3,
+    undilated, one group, NCHW, at most 4 input channels, on an input of
+    static even height and width."""
+    out = []
+    for op in block.ops:
+        if op.type != "conv2d":
+            continue
+        a = op.attrs
+        if (list(a.get("strides", [1, 1])) != [2, 2]
+                or list(a.get("paddings", [0, 0])) != [3, 3]
+                or list(a.get("dilations", [1, 1])) != [1, 1]
+                or a.get("groups", 1) != 1
+                or a.get("data_format", "NCHW") != "NCHW"):
+            continue
+        w = block.var(op.inputs["Filter"][0])
+        x = block.var(op.inputs["Input"][0])
+        if w.shape is None or x.shape is None or len(x.shape) != 4:
+            continue
+        _, c, kh, kw = w.shape
+        if (kh, kw) != (7, 7) or c > 4:
+            continue
+        h, wd = x.shape[2], x.shape[3]
+        if not (isinstance(h, int) and isinstance(wd, int) and h > 0
+                and wd > 0 and h % 2 == 0 and wd % 2 == 0):
+            continue
+        out.append(op)
+    return out
+
+
+def space_to_depth_stem(program):
+    """Rewrites each 7x7/s2/p3 image stem of ``program`` (in place) as
+    space-to-depth and a 4x4/s1 valid conv; returns the program.
+
+    out[y, x] = sum over c, p, q of w[o, c, p, q] in[c, 2y+p-3, 2x+q-3].
+    The image is padded by 4 above and left, 2 below and right, then
+    space_to_depth 2 makes [4C, (H+6)/2, (W+6)/2]; the filter is padded
+    by 1 on the left of each spatial dim ([O, C, 8, 8], the new tap has
+    weight 0), then space_to_depth 2 makes [O, 4C, 4, 4].  Both are plain
+    ops, so the grads reach the original [O, C, 7, 7] weight.  Raises on
+    a program that already holds backward or optimizer ops."""
+    _assert_forward_only(program, "space_to_depth_stem")
+    for block in program.blocks:
+        for conv in _stem_candidates(block):
+            xname = conv.inputs["Input"][0]
+            wname = conv.inputs["Filter"][0]
+            xv, wv = block.var(xname), block.var(wname)
+            n, c, h, w = xv.shape
+            o = wv.shape[0]
+            pre = []
+
+            def mk(name, shape, like):
+                v = block.create_var(name, shape=shape, dtype=like.dtype)
+                v.stop_gradient = like.stop_gradient
+                return v
+
+            xpad = mk(xname + "@S2DPAD", (n, c, h + 6, w + 6), xv)
+            pre.append(OpDesc("pad2d", {"X": [xname]},
+                              {"Out": [xpad.name]},
+                              {"paddings": [4, 2, 4, 2],
+                               "mode": "constant", "pad_value": 0.0,
+                               "data_format": "NCHW"}))
+            xs = mk(xname + "@S2D", (n, 4 * c, (h + 6) // 2,
+                                     (w + 6) // 2), xv)
+            pre.append(OpDesc("space_to_depth", {"X": [xpad.name]},
+                              {"Out": [xs.name]}, {"blocksize": 2}))
+            wpad = mk(wname + "@S2DPAD", (o, c, 8, 8), wv)
+            pre.append(OpDesc("pad", {"X": [wname]},
+                              {"Out": [wpad.name]},
+                              {"paddings": [0, 0, 0, 0, 1, 0, 1, 0],
+                               "pad_value": 0.0}))
+            ws = mk(wname + "@S2D", (o, 4 * c, 4, 4), wv)
+            pre.append(OpDesc("space_to_depth", {"X": [wpad.name]},
+                              {"Out": [ws.name]}, {"blocksize": 2}))
+            conv.inputs["Input"] = [xs.name]
+            conv.inputs["Filter"] = [ws.name]
+            conv.set_attr("strides", [1, 1])
+            conv.set_attr("paddings", [0, 0])
+            idx = block.ops.index(conv)
+            block.ops[idx:idx] = pre
     return program

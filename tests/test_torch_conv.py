@@ -244,12 +244,26 @@ def test_max_pool_grad_routes_ties_to_the_first_maximum(fmt):
 
 
 def test_maxpool_compare_is_not_ported():
+    """Named when the port raised on the flag; it now computes the JAX
+    package's compare backward (tests/test_torch_maxpool_compare.py
+    holds it case by case): on an all-zero input every element of each
+    2x2 window takes the window's cotangent, as in the JAX op."""
     pdef = pt_registry.get_op_def("pool2d")
-    attrs = pdef.canonical_attrs({"pooling_type": "max", "ksize": [2, 2]})
+    jdef = jax_registry.get_op_def("pool2d")
+    attrs = {"pooling_type": "max", "ksize": [2, 2], "strides": [2, 2]}
+    g = np.arange(4, dtype=np.float32).reshape(1, 1, 2, 2) + 1
     with both_flags(maxpool_grad_algo="compare"):
-        with pytest.raises(NotImplementedError, match="compare"):
-            pdef.compute({"X": torch.zeros(1, 1, 4, 4)}, attrs,
-                         torch.device("cpu"))
+        xt = torch.zeros(1, 1, 4, 4, requires_grad=True)
+        out = pdef.compute({"X": xt}, pdef.canonical_attrs(attrs),
+                           torch.device("cpu"))["Out"]
+        p_dx, = torch.autograd.grad(out, xt, torch.from_numpy(g))
+        _, vjp = jax.vjp(lambda a: jdef.compute(
+            {"X": a}, jdef.canonical_attrs(attrs))["Out"],
+            jnp.zeros((1, 1, 4, 4), jnp.float32))
+        j_dx, = vjp(jnp.asarray(g))
+    np.testing.assert_array_equal(p_dx.numpy(), np.asarray(j_dx))
+    np.testing.assert_array_equal(
+        p_dx.numpy()[0, 0], np.kron(g[0, 0], np.ones((2, 2), np.float32)))
 
 
 # ---------------------------------------------------------------------------

@@ -904,13 +904,16 @@ def test_fc_epilogue_grads_match_autograd_of_the_chain(cuda, dtype):
 # the 64-deep step), every bf16 tile shape (Cout <= 64: 256 x 64; <= 128:
 # 256 x 128; above: 128 x 256, two Cout tiles at 300), ragged Cout (24,
 # 130, 136: masked w loads and element stores), M off the tile, and
-# 256-row tiles that write two partial rows (Cout 64 and 128 at M 576)
+# 256-row tiles that write two partial rows (Cout 64 and 128 at M 576),
+# and the space-to-depth stem's 4x4/1 valid conv on 12 channels (Cin
+# padded to 16: the general route, not the packed stem's)
 CONV_SHAPES = [(2, 9, 9, 16, 32, 3, 1, 1), (2, 9, 9, 16, 24, 3, 2, 1),
                (2, 8, 8, 32, 64, 1, 1, 0), (2, 8, 8, 32, 136, 1, 2, 0),
                (2, 20, 20, 3, 64, 7, 2, 3), (1, 10, 6, 8, 300, 3, 1, 0),
                (3, 14, 14, 64, 130, 3, 1, 1), (4, 12, 12, 24, 64, 3, 1, 1),
                (4, 12, 12, 64, 128, 3, 1, 1), (2, 8, 8, 64, 256, 1, 1, 0),
-               (2, 9, 9, 3, 24, 3, 1, 1), (2, 11, 13, 4, 40, 5, 2, 2)]
+               (2, 9, 9, 3, 24, 3, 1, 1), (2, 11, 13, 4, 40, 5, 2, 2),
+               (2, 19, 19, 12, 64, 4, 1, 0)]
 
 
 def _conv_operands(rng, device, n, h, w, cin, cout, k, s, p, dtype):
@@ -2097,3 +2100,78 @@ def test_longctx_step_equals_the_autograd_function(cuda, d):
         c = c.float()
         assert (g.float().cpu() - c).abs().max().item() <= \
             3e-2 * max(1.0, c.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# maxpool_grad_algo="compare" and BERT's f32 check
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("fmt", ["NHWC", "NCHW"])
+def test_maxpool_compare_on_the_card_equals_the_cpu(cuda, fmt, dtype):
+    """pool2d under maxpool_grad_algo="compare" on a ReLU'd input full of
+    ties (the stem pool's 3x3/2/1): the card's forward and gradient are
+    the CPU's bits (plain PyTorch on both: elementwise f32 adds in one
+    order), and the gradient reaches more elements than "sas"'s."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.registry import get_op_def
+
+    pdef = get_op_def("pool2d")
+    attrs = pdef.canonical_attrs({
+        "pooling_type": "max", "ksize": [3, 3], "strides": [2, 2],
+        "paddings": [1, 1], "data_format": fmt})
+    rng = np.random.RandomState(4)
+    shape = (2, 17, 18, 8) if fmt == "NHWC" else (2, 8, 17, 18)
+    x = torch.from_numpy(np.maximum(rng.standard_normal(shape), 0)
+                         .astype(np.float32)).to(getattr(torch, dtype))
+
+    def run(device, algo):
+        pt.set_flags({"maxpool_grad_algo": algo})
+        try:
+            xr = x.to(device).requires_grad_()
+            out = pdef.compute({"X": xr}, attrs, torch.device(device))["Out"]
+            dy = torch.from_numpy(np.random.RandomState(5).standard_normal(
+                tuple(out.shape)).astype(np.float32)).to(device, x.dtype)
+            return out.detach().cpu(), torch.autograd.grad(out, xr, dy)[0] \
+                .cpu()
+        finally:
+            pt.set_flags({"maxpool_grad_algo": "sas"})
+
+    out, dx = run("cuda", "compare")
+    cpu_out, cpu_dx = run("cpu", "compare")
+    assert torch.equal(out, cpu_out) and torch.equal(dx, cpu_dx)
+    _, sas_dx = run("cuda", "sas")
+    assert int((dx != 0).sum()) > int((sas_dx != 0).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_bert_f32_step_sees_a_planted_flash_bwd_fault(cuda, kernel,
+                                                      monkeypatch):
+    """The small BERT's f32 step on the card holds every grad within 1e-4
+    of its norm against the CPU, and with the last 8 rows of every
+    (batch, head) of dq (or dk) zeroed after each launch of that kernel,
+    some grad (a q or k projection's) moves by more than 1e-2 of its
+    norm: the f32 check of chip_smoke.py's BERT phase sees such a
+    fault."""
+    import paddle_tpu_torch as pt
+
+    def rel(got, want):
+        return [float(np.linalg.norm(g - w)) / max(float(np.linalg.norm(w)),
+                                                     1e-30)
+                for g, w in zip(got[1:], want[1:])]
+
+    cpu, _ = _leg_steps(pt.CPUPlace(), "bert", 1)
+    gpu, _ = _leg_steps(pt.CUDAPlace(0), "bert", 1)
+    assert max(rel(gpu, cpu)) <= 1e-4
+    real = fa._bwd_kernel
+
+    def faulty(name, q, k, v, do, lse, delta, outs, causal, scale):
+        real(name, q, k, v, do, lse, delta, outs, causal, scale)
+        if name == kernel:
+            outs[0][:, :, -8:, :] = 0
+
+    monkeypatch.setattr(fa, "_bwd_kernel", faulty)
+    bad, _ = _leg_steps(pt.CUDAPlace(0), "bert", 1)
+    assert max(rel(bad, cpu)) > 1e-2
