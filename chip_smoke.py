@@ -7,9 +7,10 @@ Run from the repository root, with no arguments:
 
 Phases, none of which catches its own failure:
   1. prints the card (nvidia-smi name and power limit), builds every
-     CUDA kernel from csrc/, one nvcc per source, all started together,
-     and runs the card tests (tests/test_torch_cuda.py) in a process of
-     their own;
+     CUDA kernel from csrc/, one nvcc per source, all started together
+     (flash_decode's, the longest, goes on beside phases 2-10 and is
+     waited for before phase 11), and just before phase 11 runs the card
+     tests (tests/test_torch_cuda.py) in a process of their own;
   2. holds the flash-attention forward kernel against its plain PyTorch
      version on the card over a set of cases (the main paths' full-width
      shapes among them, BERT-base's [8, 12, 512, 64] too, and the bench's
@@ -32,6 +33,28 @@ Phases, none of which catches its own failure:
      compiled path, below); compares one request's logits with the same
      model on the CPU (Config.disable_gpu()), and prints the request's
      wall and device-to-host copy ms on both paths;
+  3b. serves that LM through the serving tier: InferenceServer(factory,
+     ServingConfig(max_batch=8, n_replicas=2, prewarm=True)), two
+     Predictor replicas on the card, buckets 1, 2, 4 and 8.  Four
+     client threads send 32 requests of 1-3 rows: each answer bitwise
+     equal to the same rows through a lone Predictor at the bucket it
+     rode, and within 2e-3 of the CPU's logits; flash_attention_fwd
+     replayed 6 times a batch (counted from the captures).  A seeded
+     fault plan kills replica 0 mid-batch (replica 1 quiesced until
+     then): every request answered exactly once and bitwise, replica 0
+     relaunched.  The closed loop (8 clients) at 2 replicas and at 1:
+     requests/s, rows/s, p50/p99, the batcher's occupancy, a profiled
+     window's device idle share; then an open loop at twice the 2-replica
+     rows/s for 5 s: typed OverloadedError at submit, every admitted
+     request answered, their p99 under the 1 s deadline, the peak RSS.
+     swap_predictor(0, <the LM saved again with weights from --seed + 1>)
+     under traffic and
+     back: replica 0 serves the second model's bits in between, then the
+     first fingerprint and bits with no new capture.  Two cold replicas
+     without prewarm capture buckets under traffic, one while the other
+     replays: no batch fails or requeues.  stop() with 16 requests in
+     flight leaves none; a drain of 5 ms answers the stragglers with
+     ShutdownError;
   4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -242,9 +265,9 @@ BERT-base's) are computed by a process of their own (--cpu-references),
 started with the build at the lowest priority with no card visible; each
 check takes its runs from there, waiting where they are not done yet.
 
-Takes about fourteen minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
-kernels' build included; "seconds by phase" is logged before the kernels
-line.
+Takes 14 to 19 minutes on one NVIDIA H100 80GB HBM3 at 700 W, the
+kernels' build included, as fast as the machine's host is (PERF.md);
+"seconds by phase" is logged before the kernels line.
 Every main path also holds the flash kernels' input copies at 0.
 
 Exits non-zero, printing no result line, when no CUDA device is present
@@ -254,6 +277,7 @@ or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import json
 import math
@@ -427,6 +451,24 @@ def card_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+# flash_decode's nvcc (146 kernel functions) outlasts every other source's
+# by a minute or more, and nothing before the decode phase needs it: it
+# builds beside the phases that come first, and the card tests, which need
+# every kernel, run just before the decode phase
+EARLY_KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fc_epilogue",
+                 "conv_epilogue", "bn_apply", "conv_int8", "quantize_act")
+LATE_KERNELS = ("flash_decode",)
+
+
+def timed_build(names):
+    """``_build.build(names)``: the nvcc logs and the seconds it took."""
+    from paddle_tpu_torch import _build
+
+    t = time.perf_counter()
+    logs = _build.build(list(names))
+    return logs, time.perf_counter() - t
 
 
 def card_tests():
@@ -1622,7 +1664,9 @@ def serve(seed, runs, workdir):
     Predictor's program through Executor.run on its scope: the counted
     launches), then the same requests through ``Predictor.run``, which
     captures the program once and replays it, held to the interpreted
-    logits, bitwise or within two interpreted runs' spread."""
+    logits, bitwise or within two interpreted runs' spread.  Returns the
+    launches, the numbers and the CPU reference (the first request, its
+    CPU logits and the CPU Predictor), which the serving tier reuses."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -1674,9 +1718,7 @@ def serve(seed, runs, workdir):
         raise AssertionError(f"logits shape {first.shape} (want {want}) "
                              "or non-finite values")
 
-    cfg = pt.inference.Config(workdir)
-    cfg.disable_gpu()
-    cpu_pred = pt.inference.create_predictor(cfg)
+    cpu_pred = cpu_predictor(workdir)
     t = time.perf_counter()
     cpu_logits, = cpu_pred.run([requests[0]])
     cpu_s = time.perf_counter() - t
@@ -1690,6 +1732,9 @@ def serve(seed, runs, workdir):
         f"CPU request {cpu_s:.2f} s")
     if not close or agree < ARGMAX_AGREE:
         raise AssertionError("GPU logits disagree with the CPU run")
+    # the serving tier holds its requests' rows to these CPU logits
+    reference = {"ids": requests[0], "cpu_logits": cpu_logits,
+                 "cpu_pred": cpu_pred}
     del cpu_pred, cpu_logits
 
     total = sum(times) / 1e3
@@ -1726,7 +1771,704 @@ def serve(seed, runs, workdir):
             side: {k: serving["compiled"][side][k]
                    for k in ("profiled_wall_ms", "memcpy_dtoh_ms")}
             for side in ("interpreted", "compiled")}))
-    return launches, serving
+    return launches, serving, reference
+
+
+def cpu_predictor(workdir):
+    import paddle_tpu_torch as pt
+
+    cfg = pt.inference.Config(workdir)
+    cfg.disable_gpu()
+    return pt.inference.create_predictor(cfg)
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the serving tier — InferenceServer over two LM replicas
+# ---------------------------------------------------------------------------
+
+TIER_BUCKETS = (1, 2, 4, 8)      # default_buckets(8)
+TIER_REQUESTS = 32               # round trip: requests of 1-3 rows
+TIER_CLIENTS = 4                 # round trip and failover client threads
+TIER_LOOP_CLIENTS = 8            # closed-loop client threads
+TIER_LOOP_S = 2.0                # closed-loop window
+TIER_PROFILE_S = 1.0             # profiled closed-loop window
+TIER_OVERLOAD_S = 5.0            # open loop at twice the closed-loop rate
+TIER_WARM_S = 2.5                # warm-up under traffic
+TIER_DEADLINE_S = 1.0            # ServingConfig's default deadline
+TIER_WAIT_S = 120.0              # every other wait's bound
+TIER_STRAGGLER_DRAIN_S = 0.005   # a drain shorter than one batch
+
+
+class TierPlacement:
+    """Where each request ran: wraps every replica's ``run`` to record,
+    for each rider of a batch that ran to its end, (replica index,
+    bucket, the program it ran), and for each run (replica index,
+    bucket, whether it captured a new key, start, end).  The record is written before the batch is
+    delivered, so a client that has its result finds it."""
+
+    def __init__(self, srv):
+        import threading
+
+        self.by_request = {}
+        self.runs = []
+        self._lock = threading.Lock()
+        for rep in srv.pool.replicas:
+            rep.run = self._wrap(rep, rep.run)
+
+    def _wrap(self, rep, run):
+        def wrapped(batch):
+            program = rep.predictor._program
+            compiled = rep.predictor._compiled
+            entries = len(compiled._cache)
+            t0 = time.perf_counter()
+            out = run(batch)
+            t1 = time.perf_counter()
+            cold = len(compiled._cache) > entries
+            with self._lock:
+                self.runs.append((rep.index, batch.bucket, cold, t0, t1))
+                for req in batch.requests:
+                    self.by_request[req.id] = (rep.index, batch.bucket,
+                                               program)
+            return out
+        return wrapped
+
+    def overlaps(self):
+        """Captures of one replica that overlapped a replay (waiting for
+        the device's lock included) of another."""
+        runs = list(self.runs)
+        return sum(1 for i, _, cold, a0, a1 in runs if cold
+                   for j, _, other_cold, b0, b1 in runs
+                   if j != i and not other_cold and a0 < b1 and b0 < a1)
+
+
+class TierRows:
+    """The rows the tier's requests draw from (serve()'s request and as
+    many more), their CPU logits, and a lone Predictor of each model to
+    hold every answer to, bitwise, at the bucket it rode.  A model is
+    known by its programs (two loads of one model differ in fingerprint:
+    the passes name their new vars from a process-wide counter, in the
+    JAX package too)."""
+
+    def __init__(self, seed, reference):
+        import threading
+
+        ids = reference["ids"]
+        more = np.random.RandomState(seed + 7).randint(
+            0, MODEL["vocab_size"], ids.shape).astype(np.int64)
+        t = time.perf_counter()
+        cpu_more, = reference["cpu_pred"].run([more])
+        self.cpu_s = time.perf_counter() - t
+        self.ids = np.concatenate([ids, more])
+        self.cpu = np.concatenate([reference["cpu_logits"], cpu_more])
+        self.lone = {}              # id of a program -> a lone Predictor
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self.max_err_vs_cpu = 0.0
+        self.checked = 0
+
+    def request(self, rng):
+        """(row indices, ids) of a request of 1-3 distinct rows."""
+        idx = rng.choice(len(self.ids), int(rng.randint(1, 4)),
+                         replace=False)
+        return idx, self.ids[idx]
+
+    def serves(self, preds, lone):
+        """``preds`` serve the model of the Predictor ``lone``."""
+        for p in preds:
+            self.lone[id(p._program)] = lone
+
+    def lone_run(self, program, ids, bucket):
+        pad = np.zeros((bucket - len(ids),) + ids.shape[1:], ids.dtype)
+        with self._lock:
+            out, = self.lone[id(program)].run([np.concatenate([ids, pad])])
+        return out[:len(ids)]
+
+    def _scratch(self, shape):
+        """Two row buffers of this thread: the checks work in place, as
+        a fresh 65 MB array a row costs its page faults every time."""
+        bufs = getattr(self._local, "bufs", None)
+        if bufs is None or bufs[0].shape != shape:
+            bufs = self._local.bufs = (np.empty(shape, np.float32),
+                                       np.empty(shape, np.float32))
+        return bufs
+
+    def check(self, what, idx, out, placed, cpu=True):
+        """``out`` bitwise equal to the lone run of its model at its
+        bucket and, for the first model, within the serving bound of the
+        CPU's logits (allclose's |a - b| <= atol + rtol |b|), row by
+        row."""
+        _, bucket, program = placed
+        want = self.lone_run(program, self.ids[idx], bucket)
+        if out.shape != want.shape:
+            raise AssertionError(f"serving tier, {what}: shape {out.shape}"
+                                 f", the lone Predictor's {want.shape}")
+        d, tol = self._scratch(out.shape[1:])
+        err = 0.0
+        for j, i in enumerate(idx):
+            np.subtract(out[j], want[j], out=d)
+            if d.any():            # a NaN is unequal too
+                raise AssertionError(
+                    f"serving tier, {what}: row {i} at bucket {bucket} "
+                    f"differs from the lone Predictor's by "
+                    f"{float(np.abs(d).max())}")
+            if not cpu:
+                continue
+            np.subtract(out[j], self.cpu[i], out=d)
+            np.abs(d, out=d)
+            err = max(err, float(d.max()))
+            np.abs(self.cpu[i], out=tol)
+            tol *= LOGITS_RTOL
+            tol += LOGITS_ATOL
+            np.subtract(d, tol, out=d)
+            if not d.max() <= 0.0:
+                raise AssertionError(
+                    f"serving tier, {what}: row {i} is off the CPU's "
+                    f"logits by {err:.3e}")
+        with self._lock:
+            self.max_err_vs_cpu = max(self.max_err_vs_cpu, err)
+            self.checked += 1
+
+
+def tier_clients(n, fn):
+    """``fn(k)`` in ``n`` threads; re-raises the first failure."""
+    import threading
+
+    errors = []
+
+    def run(k):
+        try:
+            fn(k)
+        except BaseException as e:   # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(k,), daemon=True)
+               for k in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=TIER_WAIT_S)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("serving tier: a client thread hung")
+    if errors:
+        raise errors[0]
+
+
+def tier_stats_delta(srv, before):
+    st = srv.batcher.stats()
+    return {k: st[k] - before.get(k, 0)
+            for k in ("batches", "real_rows", "padded_rows")}
+
+
+def closed_loop(srv, rows, seconds, seed):
+    """TIER_LOOP_CLIENTS clients, each submitting a request of 1-3 rows
+    and waiting for its answer, for ``seconds``; each answer's shape and
+    first and last positions checked, then dropped.  Returns the
+    window's requests/s, rows/s, latency p50/p99 (ms) and the batcher's
+    occupancy (real rows over padded rows)."""
+    import threading
+
+    lat, nrows, lock = [], [0], threading.Lock()
+    before = srv.batcher.stats()
+    t_end = time.perf_counter() + seconds
+
+    def client(k):
+        rng = np.random.RandomState(seed + k)
+        while time.perf_counter() < t_end:
+            idx, ids = rows.request(rng)
+            t = time.perf_counter()
+            out, = srv.submit({"src_ids": ids},
+                              deadline_s=TIER_WAIT_S).result(
+                timeout=TIER_WAIT_S)
+            dt = time.perf_counter() - t
+            if out.shape != (len(idx),) + rows.cpu.shape[1:] or \
+                    not np.isfinite(out[:, [0, -1]]).all():
+                raise AssertionError("serving tier: a malformed answer")
+            del out
+            with lock:
+                lat.append(dt)
+                nrows[0] += len(idx)
+
+    t0 = time.perf_counter()
+    tier_clients(TIER_LOOP_CLIENTS, client)
+    wall = time.perf_counter() - t0
+    d = tier_stats_delta(srv, before)
+    return {"requests": len(lat), "rows": nrows[0], "wall_s": wall,
+            "requests_per_s": len(lat) / wall, "rows_per_s": nrows[0] / wall,
+            "p50_ms": _pct([x * 1e3 for x in lat], 50),
+            "p99_ms": _pct([x * 1e3 for x in lat], 99),
+            "batches": d["batches"],
+            "occupancy": d["real_rows"] / max(d["padded_rows"], 1)}
+
+
+def tier_loop_numbers(srv, rows, seed, what):
+    """The closed-loop numbers, then a profiled window: the device's busy
+    and idle share of its wall and the top of its device time."""
+    row = closed_loop(srv, rows, TIER_LOOP_S, seed)
+    _, prof = profile(f"serving tier closed loop, {what}",
+                      lambda: closed_loop(srv, rows, TIER_PROFILE_S,
+                                          seed + 100))
+    row.update(device_idle_share=prof["device_idle_share"],
+               device_busy_share=prof["device_busy_share"],
+               profiled_device_ms=prof["device_ms"],
+               profiled_wall_ms=prof["wall_ms"],
+               memcpy_dtoh_ms=prof["memcpy_dtoh_ms"])
+    log(f"serving tier closed loop, {what} " + json.dumps(row))
+    return row
+
+
+def rss_gb():
+    """The process's resident set now and at its peak (GB)."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now = next(int(line.split()[1]) for line in f
+                   if line.startswith("VmRSS:"))
+    return now / 1e6, resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
+def overload(srv, rows, rate_rows, seed):
+    """Open loop at twice the closed-loop rate for TIER_OVERLOAD_S:
+    requests over capacity get the typed OverloadedError at submit, every
+    admitted one is answered (its latency from admission), none dropped
+    silently; the admitted p99 stays under the deadline."""
+    import queue as queue_mod
+    import threading
+
+    from paddle_tpu_torch import serving
+
+    mean_rows = 2.0                     # 1-3 rows, uniform
+    interval = mean_rows / (2.0 * rate_rows)
+    admitted, outcomes = queue_mod.Queue(), {}
+    shed = {"overloaded": 0, "other": 0}
+    lock = threading.Lock()
+    rss0 = rss_gb()
+    done = threading.Event()
+
+    def submitter(_):
+        rng = np.random.RandomState(seed)
+        t0 = time.perf_counter()
+        n = 0
+        while True:
+            t = t0 + n * interval
+            if t - t0 >= TIER_OVERLOAD_S:
+                break
+            wait = t - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            idx, ids = rows.request(rng)
+            n += 1
+            try:
+                admitted.put((srv.submit({"src_ids": ids}), len(idx)))
+            except serving.OverloadedError:
+                shed["overloaded"] += 1
+            except serving.ServingError:
+                shed["other"] += 1
+        done.set()
+
+    lat = []
+
+    def consumer(_):
+        while not (done.is_set() and admitted.empty()):
+            try:
+                req, n = admitted.get(timeout=0.05)
+            except queue_mod.Empty:
+                continue
+            try:
+                out, = req.result(timeout=TIER_WAIT_S)
+                ok = out.shape[0] == n and \
+                    bool(np.isfinite(out[:, [0, -1]]).all())
+                kind = "ok" if ok else "malformed"
+                del out
+            except serving.DeadlineExpiredError:
+                kind = "expired"
+            except serving.ServingError as e:
+                kind = e.code
+            with lock:
+                outcomes[kind] = outcomes.get(kind, 0) + 1
+                lat.append(req.latency_s())
+
+    threads = [threading.Thread(target=submitter, args=(0,), daemon=True)]
+    threads += [threading.Thread(target=consumer, args=(k,), daemon=True)
+                for k in range(4)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=TIER_OVERLOAD_S + TIER_WAIT_S)
+    wall = time.perf_counter() - t0
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("serving tier overload: a thread hung")
+    st = srv.stats()
+    n_adm = sum(outcomes.values())
+    p99 = _pct([x * 1e3 for x in lat], 99)
+    row = {"offered_rows_per_s": 2.0 * rate_rows,
+           "submitted": n_adm + sum(shed.values()), "admitted": n_adm,
+           "shed_overloaded": shed["overloaded"], "shed_other": shed["other"],
+           "outcomes": outcomes, "admitted_p50_ms": _pct(
+               [x * 1e3 for x in lat], 50), "admitted_p99_ms": p99,
+           "deadline_ms": TIER_DEADLINE_S * 1e3, "wall_s": wall,
+           "accounted": st["accounted"],
+           "rss_gb_before": rss0[0], "rss_gb_after": rss_gb()[0],
+           "peak_rss_gb": rss_gb()[1]}
+    log("serving tier overload " + json.dumps(row))
+    if not shed["overloaded"] or shed["other"] or \
+            set(outcomes) - {"ok", "expired"} or not st["accounted"] or \
+            not p99 < TIER_DEADLINE_S * 1e3:
+        raise AssertionError(f"serving tier overload: {row}")
+    return row
+
+
+def prewarm(pred, buckets=TIER_BUCKETS):
+    """A zeros batch of every bucket through ``pred`` (warm-up and
+    capture of each key), as ``InferenceServer.prewarm_buckets`` does."""
+    for b in buckets:
+        pred.run([np.zeros((b, MODEL["max_len"], 1), np.int64)])
+
+
+def save_other_lm(workdir, seed, dirname):
+    """The LM of ``workdir`` saved again to ``dirname`` with every weight
+    drawn anew from ``seed``: normal, at the mean and spread of the first
+    LM's tensor (the layer norms' ones and the biases' zeros stay).  A
+    second model of the same program for the swap, made on the host in
+    about a second (building and initialising one takes ~15 s)."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    exe = pt.Executor(pt.CPUPlace())
+    rng = np.random.default_rng(seed)
+    with pt.scope_guard(pt.Scope()):
+        program, feeds, fetches = pt.io.load_inference_model(workdir, exe)
+        scope = pt.global_scope()
+        for v in program.persistables():
+            var = scope.find_var(v.name)
+            if v.is_data or var is None or var.get() is None:
+                continue
+            a = var.get().numpy()
+            new = rng.standard_normal(a.shape, dtype=np.float32)
+            new *= a.std()
+            new += a.mean()
+            var.set(torch.from_numpy(new.astype(a.dtype)))
+        pt.io.save_inference_model(dirname, feeds, fetches, exe,
+                                   main_program=program)
+
+
+def serving_tier(seed, workdir, reference, card):
+    """The LM of phase 3 (``workdir``) behind InferenceServer with two
+    replicas on the card (ServingConfig(max_batch=8, n_replicas=2,
+    prewarm=True)): the round trip, failover through a kill, the closed
+    loop at 2 and 1 replicas, overload at twice the rate, a program swap
+    and its rollback under traffic, warm-up under traffic, and both
+    drains.  Returns the round trip's launches (replays counted from the
+    captures) and the numbers."""
+    import threading
+
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.core import compiler
+    from paddle_tpu_torch.distributed import faultinject
+
+    def predictor(d=workdir):
+        return pt.inference.create_predictor(pt.inference.Config(d))
+
+    t0 = time.perf_counter()
+    lone = predictor()
+    prewarm(lone)
+    rows = TierRows(seed, reference)
+    reps = [predictor(), predictor()]
+    rows.serves(reps + [lone], lone)
+    cfg = serving.ServingConfig(max_batch=8, n_replicas=2, prewarm=True)
+    if cfg.buckets != TIER_BUCKETS:
+        raise AssertionError(f"buckets {cfg.buckets}")
+    srv = serving.InferenceServer(lambda i: reps[i], cfg).start()
+    placed = TierPlacement(srv)
+    log(f"serving tier: 3 Predictors loaded and prewarmed over buckets "
+        f"{cfg.buckets}, 8 more CPU rows in {rows.cpu_s:.2f} s, "
+        f"{time.perf_counter() - t0:.1f} s")
+    out = {"card": card, "seconds": {}}
+    last = [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name], last[0] = now - last[0], now
+
+    lap("setup")
+    # -- the round trip, its launches counted ---------------------------
+    def served(what, idx, ids, cpu=True):
+        req = srv.submit({"src_ids": ids}, deadline_s=TIER_WAIT_S)
+        got, = req.result(timeout=TIER_WAIT_S)
+        rows.check(what, idx, got, placed.by_request[req.id], cpu)
+        return req
+
+    torch.cuda.synchronize()
+    reset_kernel_counts()
+    before = [r._compiled.replayed_launches() for r in reps]
+    st0 = srv.batcher.stats()
+
+    def round_trip(k):
+        rng = np.random.RandomState(seed + 10 + k)
+        for _ in range(TIER_REQUESTS // TIER_CLIENTS):
+            served("round trip", *rows.request(rng))
+
+    t = time.perf_counter()
+    tier_clients(TIER_CLIENTS, round_trip)
+    wall = time.perf_counter() - t
+    host = kernel_counts()
+    replayed = {}
+    for r, b in zip(reps, before):
+        for k, v in r._compiled.replayed_launches().items():
+            replayed[k] = replayed.get(k, 0) + v - b.get(k, 0)
+    launches = {k: host[k] + replayed.get(k, 0) for k in host}
+    d = tier_stats_delta(srv, st0)
+    by_bucket = {}
+    for _, bucket, _, _, _ in placed.runs:
+        by_bucket[bucket] = by_bucket.get(bucket, 0) + 1
+    st = srv.stats()
+    out["round_trip"] = {
+        "requests": TIER_REQUESTS, "batches": d["batches"],
+        "batches_by_bucket": by_bucket, "wall_s": wall,
+        "occupancy": d["real_rows"] / d["padded_rows"],
+        "checked_bitwise_vs_lone": rows.checked,
+        "max_abs_err_vs_cpu": rows.max_err_vs_cpu,
+        "flash_attention_fwd_replays": replayed.get("flash_attention_fwd"),
+        "host_launches": {k: v for k, v in host.items() if v}}
+    log("serving tier round trip " + json.dumps(out["round_trip"]))
+    if launches != expected_counts(
+            flash_attention_fwd=MODEL["n_layer"] * d["batches"]) or \
+            any(cold for _, _, cold, _, _ in placed.runs):
+        raise AssertionError(f"serving tier round trip: launches "
+                             f"{launches} over {d['batches']} batches")
+    if not st["accounted"] or st["admission"]["answered_ok"] != \
+            TIER_REQUESTS or rows.checked != TIER_REQUESTS:
+        raise AssertionError(f"serving tier round trip: {st['admission']}")
+
+    lap("round trip")
+    # -- failover: a seeded fault plan kills replica 0 mid-batch ---------
+    pool = srv.pool
+    pool.quiesce_replica(1, timeout=TIER_WAIT_S)
+    restarts0 = pool.restarts().get("replica-0", 0)
+    st0 = srv.stats()
+    plan = faultinject.FaultPlan().on(serving.MSG_INFER, 1, "kill")
+    with faultinject.installed(plan) as inj:
+        def failover(k):
+            rng = np.random.RandomState(seed + 20 + k)
+            for _ in range(TIER_REQUESTS // TIER_CLIENTS):
+                served("failover", *rows.request(rng), cpu=False)
+
+        th = threading.Thread(target=tier_clients,
+                              args=(TIER_CLIENTS, failover), daemon=True)
+        th.start()
+        t_end = time.perf_counter() + TIER_WAIT_S
+        while not inj.log and time.perf_counter() < t_end:
+            time.sleep(0.001)
+        pool.resume_replica(1)
+        th.join(timeout=TIER_WAIT_S)
+    st = srv.stats()
+    out["failover"] = {
+        "fault_log": [list(map(str, e)) for e in inj.log],
+        "requeues": st["pool"]["requeues"] - st0["pool"]["requeues"],
+        "answered": st["answered"] - st0["answered"],
+        "accounted": st["accounted"],
+        "replica_0_restarts": pool.restarts().get("replica-0", 0)
+        - restarts0, "replica_0_alive": pool.replicas[0].alive}
+    log("serving tier failover " + json.dumps(out["failover"]))
+    if th.is_alive() or [e[2] for e in inj.log] != ["kill"] or \
+            not st["accounted"] or out["failover"]["answered"] != \
+            TIER_REQUESTS or out["failover"]["requeues"] < 1 or \
+            out["failover"]["replica_0_restarts"] < 1 or \
+            not pool.replicas[0].alive:
+        raise AssertionError(f"serving tier failover: {out['failover']}")
+
+    lap("failover")
+    # -- the closed loop at 2 replicas, then overload at twice its rate --
+    out["closed_loop_2"] = tier_loop_numbers(srv, rows, seed + 30,
+                                             "2 replicas")
+    out["overload"] = overload(srv, rows, out["closed_loop_2"]["rows_per_s"],
+                               seed + 40)
+
+    lap("closed loop and overload")
+    # -- a program swap under traffic, and its rollback ------------------
+    with tempfile.TemporaryDirectory() as other:
+        save_other_lm(workdir, seed + 1, other)
+        swapped = predictor(other)
+    prewarm(swapped)
+    rows.serves([swapped], swapped)
+    fp = reps[0].program_fingerprint()
+    probe_idx = np.arange(2)
+    pool.quiesce_replica(1, timeout=TIER_WAIT_S)
+    first = srv.submit({"src_ids": rows.ids[probe_idx]},
+                       deadline_s=TIER_WAIT_S)
+    first_out = first.result(timeout=TIER_WAIT_S)[0].copy()
+    pool.resume_replica(1)
+    compiles, graphs = compiler._M_COMPILES.total(), \
+        reps[0]._compiled.graph_stats()["graphs"]
+    stop, by_swapped = threading.Event(), []
+
+    def traffic(k):
+        rng = np.random.RandomState(seed + 50 + k)
+        while not stop.is_set():
+            req = served("swap", *rows.request(rng), cpu=False)
+            r, _, program = placed.by_request[req.id]
+            if r == 0 and program is swapped._program:
+                by_swapped.append(req.id)
+
+    th = threading.Thread(target=tier_clients, args=(TIER_CLIENTS, traffic),
+                          daemon=True)
+    th.start()
+    time.sleep(0.2)
+    prior, _ = pool.swap_predictor(0, swapped, timeout=TIER_WAIT_S)
+    time.sleep(1.0)
+    stop.set()
+    th.join(timeout=TIER_WAIT_S)
+    pool.swap_predictor(0, prior, timeout=TIER_WAIT_S)
+    pool.quiesce_replica(1, timeout=TIER_WAIT_S)
+    again = srv.submit({"src_ids": rows.ids[probe_idx]},
+                       deadline_s=TIER_WAIT_S)
+    again_out = again.result(timeout=TIER_WAIT_S)[0]
+    pool.resume_replica(1)
+    out["swap"] = {
+        "served_by_the_swapped_program": len(by_swapped),
+        "fingerprint_restored": reps[0].program_fingerprint() == fp,
+        "rollback_bitwise": bool(np.array_equal(again_out, first_out)),
+        "models_differ": not np.array_equal(rows.lone_run(
+            swapped._program, rows.ids[probe_idx],
+            placed.by_request[first.id][1]), first_out),
+        "compiles_during": compiler._M_COMPILES.total() - compiles,
+        "graphs_during": reps[0]._compiled.graph_stats()["graphs"] - graphs}
+    log("serving tier swap " + json.dumps(out["swap"]))
+    if th.is_alive() or not out["swap"]["served_by_the_swapped_program"] \
+            or not out["swap"]["models_differ"] or \
+            not out["swap"]["fingerprint_restored"] or \
+            not out["swap"]["rollback_bitwise"] or \
+            out["swap"]["compiles_during"] or out["swap"]["graphs_during"] \
+            or placed.by_request[again.id][:2] != \
+            placed.by_request[first.id][:2] or \
+            placed.by_request[first.id][0] != 0:
+        raise AssertionError(f"serving tier swap: {out['swap']}")
+    del first_out, again_out, swapped, prior
+
+    lap("swap")
+    # -- a clean drain with requests in flight ---------------------------
+    rng = np.random.RandomState(seed + 60)
+    inflight = [srv.submit({"src_ids": rows.request(rng)[1]},
+                           deadline_s=TIER_WAIT_S) for _ in range(16)]
+    leftovers = srv.stop()
+    ok = 0
+    for r in inflight:
+        r.result(timeout=1)           # raises unless answered with rows
+        ok += 1
+    st = srv.stats()
+    out["clean_drain"] = {"leftovers": leftovers, "answered_ok": ok,
+                          "accounted": st["accounted"],
+                          "batches_failed": st["pool"]["batches_failed"]}
+    log("serving tier clean drain " + json.dumps(out["clean_drain"]))
+    if leftovers or ok != 16 or not st["accounted"]:
+        raise AssertionError(f"serving tier drain: {out['clean_drain']}")
+    del inflight
+
+    lap("clean drain")
+    # -- one replica: the closed loop --------------------------------------
+    one = serving.InferenceServer(lambda i: reps[0], serving.ServingConfig(
+        max_batch=8, n_replicas=1)).start()
+    try:
+        out["closed_loop_1"] = tier_loop_numbers(one, rows, seed + 70,
+                                                 "1 replica")
+    finally:
+        one.stop()
+
+    lap("one replica")
+    # -- warm-up under traffic: two cold replicas, no prewarm -------------
+    cold = [predictor(), predictor()]
+    rows.serves(cold, lone)
+    srv2 = serving.InferenceServer(lambda i: cold[i], serving.ServingConfig(
+        max_batch=8, n_replicas=2, prewarm=False)).start()
+    placed2 = TierPlacement(srv2)
+    t_start = time.perf_counter()
+
+    def warm_traffic(k):
+        """Clients 0-1 send one row (buckets 1 and 2 first) and check
+        each answer's shape, so the replays keep coming; clients 2-5
+        join later with 1-3 rows, which open buckets 4 and 8, and hold
+        each answer to the lone run, bitwise."""
+        rng = np.random.RandomState(seed + 80 + k)
+        if k >= 2:
+            time.sleep(0.3)
+        t_end = t_start + TIER_WARM_S
+        while time.perf_counter() < t_end:
+            if k >= 2:
+                idx, ids = rows.request(rng)
+            else:
+                idx = rng.randint(0, len(rows.ids), 1)
+                ids = rows.ids[idx]
+            req = srv2.submit({"src_ids": ids}, deadline_s=TIER_WAIT_S)
+            got, = req.result(timeout=TIER_WAIT_S)
+            if k >= 2:
+                rows.check("warm-up under traffic", idx, got,
+                           placed2.by_request[req.id], cpu=False)
+            elif got.shape != (1,) + rows.cpu.shape[1:] or \
+                    not np.isfinite(got[:, [0, -1]]).all():
+                raise AssertionError("serving tier: a malformed answer")
+
+    try:
+        tier_clients(6, warm_traffic)
+    finally:
+        leftovers = srv2.stop()
+    st = srv2.stats()
+    out["warm_up_under_traffic"] = {
+        "captures": sum(1 for r in placed2.runs if r[2]),
+        "replays": sum(1 for r in placed2.runs if not r[2]),
+        "captures_overlapping_a_replay": placed2.overlaps(),
+        "batches_failed": st["pool"]["batches_failed"],
+        "requeues": st["pool"]["requeues"],
+        "answered_ok": st["admission"]["answered_ok"],
+        "accounted": st["accounted"], "leftovers": leftovers,
+        "entries": [len(p._compiled._cache) for p in cold]}
+    log("serving tier warm-up under traffic "
+        + json.dumps(out["warm_up_under_traffic"]))
+    w = out["warm_up_under_traffic"]
+    if w["batches_failed"] or w["requeues"] or not w["accounted"] or \
+            leftovers or not w["captures_overlapping_a_replay"] or \
+            w["answered_ok"] != st["admission"]["admitted"]:
+        raise AssertionError(f"serving tier warm-up under traffic: {w}")
+    del cold, srv2
+
+    lap("warm-up under traffic")
+    # -- a drain shorter than a batch: the stragglers get ShutdownError ---
+    srv3 = serving.InferenceServer(lambda i: reps[i], serving.ServingConfig(
+        max_batch=8, n_replicas=2)).start()
+    inflight = [srv3.submit({"src_ids": rows.request(rng)[1]},
+                            deadline_s=TIER_WAIT_S) for _ in range(16)]
+    leftovers = srv3.stop(drain_timeout=TIER_STRAGGLER_DRAIN_S)
+    kinds = {"ok": 0, "shutdown": 0}
+    for r in inflight:
+        try:
+            r.result(timeout=TIER_WAIT_S)
+            kinds["ok"] += 1
+        except serving.ShutdownError:
+            kinds["shutdown"] += 1
+    out["straggler_drain"] = dict(kinds, leftovers=leftovers,
+                                  drain_timeout_s=TIER_STRAGGLER_DRAIN_S,
+                                  accounted=srv3.stats()["accounted"])
+    log("serving tier straggler drain " + json.dumps(out["straggler_drain"]))
+    if not leftovers or kinds["shutdown"] != leftovers or \
+            kinds["ok"] + kinds["shutdown"] != 16 or \
+            not out["straggler_drain"]["accounted"]:
+        raise AssertionError(f"serving tier drain: {out['straggler_drain']}")
+    del inflight, reps, lone, rows
+    lap("straggler drain")
+    log("serving tier seconds " + json.dumps(out["seconds"]))
+    log("serving tier numbers " + json.dumps({
+        "card": card, **{f"{n} replica{'s' if n > 1 else ''}": {
+            k: out[f"closed_loop_{n}"][k] for k in (
+                "requests_per_s", "rows_per_s", "p50_ms", "p99_ms",
+                "occupancy", "device_idle_share")} for n in (1, 2)},
+        "overload": {k: out["overload"][k] for k in (
+            "offered_rows_per_s", "admitted", "shed_overloaded",
+            "admitted_p99_ms", "peak_rss_gb")}}))
+    return launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -4848,8 +5590,6 @@ def run_phases(args, card, device):
     """Every phase after the card line; returns the exit code."""
     import torch
 
-    from paddle_tpu_torch import _build
-
     seconds, last = {}, [time.perf_counter()]
 
     def phase(name):
@@ -4860,22 +5600,24 @@ def run_phases(args, card, device):
         log(f"phase done: {name} in {seconds[name]:.1f} s")
 
     t0 = time.perf_counter()
-    logs = _build.build(["flash_attention_fwd", "flash_attention_bwd",
-                         "fc_epilogue", "conv_epilogue", "bn_apply",
-                         "flash_decode", "conv_int8", "quantize_act"])
+    late = concurrent.futures.ThreadPoolExecutor(max_workers=1).submit(
+        timed_build, LATE_KERNELS)
+    logs, built_s = timed_build(EARLY_KERNELS)
     for name, text in logs.items():
         log(f"nvcc {name}.cu:\n{text.strip()}")
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s")
+    log(f"kernels built in {built_s:.1f} s ({', '.join(LATE_KERNELS)} "
+        "still building)")
     phase("the kernels' build")
-    card_tests()
-    phase("the card tests")
 
     cases = check_flash(device, args.seed)
     f64_fwd = check_f32_vs_f64(device, args.seed, grads=False)
     phase("the flash forward")
     with tempfile.TemporaryDirectory() as workdir:
-        serve_launches, _ = serve(args.seed, args.runs, workdir)
-    phase("serving")
+        serve_launches, _, reference = serve(args.seed, args.runs, workdir)
+        phase("serving")
+        tier_launches, _ = serving_tier(args.seed, workdir, reference, card)
+        del reference
+    phase("the serving tier")
     bwd_cases = check_flash_bwd(device, args.seed)
     f64_bwd = check_f32_vs_f64(device, args.seed, grads=True)
     phase("the flash backward")
@@ -4921,8 +5663,16 @@ def run_phases(args, card, device):
     del rn_bn
     phase("the ResNet-50 legs")
 
-    # LLM decode: flash_decode at the path's shapes, then the server and
-    # the chunked join
+    # every kernel built, the card tests, then LLM decode: flash_decode at
+    # the path's shapes, then the server and the chunked join
+    logs, built_s = late.result()
+    for name, text in logs.items():
+        log(f"nvcc {name}.cu:\n{text.strip()}")
+    log(f"{', '.join(LATE_KERNELS)} built in {built_s:.1f} s, waited "
+        f"{time.perf_counter() - last[0]:.1f} s for it")
+    phase("the rest of the kernels' build")
+    card_tests()
+    phase("the card tests")
     decode_rows = {r["name"]: r for r in check_flash_decode(device,
                                                             args.seed)}
     decode_launches, *_ = decode_phase("cuda", args.seed)
@@ -4969,6 +5719,7 @@ def run_phases(args, card, device):
 
     def by_path(name):
         return {"serving": serve_launches[name],
+                "serving_tier": tier_launches[name],
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

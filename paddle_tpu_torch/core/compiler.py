@@ -42,6 +42,16 @@ shapes, fetch names and a structural program fingerprint (``:97-185``,
   page-locked host memory, or cloned with ``return_numpy=False``), so the
   caller never holds memory that the next replay overwrites.
 - On ``CPUPlace`` the same plan runs eagerly every step.
+- More than one caller on a card.  ``torch.cuda.set_sync_debug_mode`` is
+  process-wide, not per thread, and a capture in the default (global)
+  mode fails when any thread synchronises or allocates device memory
+  while it runs.  So every ``CompiledProgram`` on a device shares one
+  readers-writer lock (``_device_lock``): a key's warm-up and capture
+  hold it exclusively, and a run of a cached key (its feed copies, its
+  replay, its fetch into host memory) holds it shared.  Two instances
+  replay side by side; a new key waits for the replays in flight and
+  holds every other instance's runs until its graphs are captured.  Runs
+  of one instance stay in order under its own lock, taken first.
 
 The kernel wrappers count their launches on the host, so their counts
 tick while the plan runs eagerly or captures, never on a replay: each
@@ -215,6 +225,71 @@ def program_fingerprint(program):
     identical ops/attrs/vars/shardings hash equal; any op, attr, var or
     sharding-annotation edit changes the value."""
     return _program_fingerprint(program)
+
+
+class _DeviceLock:
+    """A readers-writer lock for the compiled path on one device: many
+    runs of cached keys hold it shared, a warm-up and capture holds it
+    alone.  A waiting capture keeps new shared holders out, so replays
+    in a loop cannot starve it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._readers = 0
+        self._writer = False
+        self._writers_waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._writer or self._writers_waiting:
+                self._cond.wait()
+            self._readers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._readers -= 1
+                if not self._readers:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._writers_waiting += 1
+            try:
+                while self._writer or self._readers:
+                    self._cond.wait()
+            finally:
+                self._writers_waiting -= 1
+            self._writer = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._writer = False
+                self._cond.notify_all()
+
+
+class _NoLock:
+    """The lock of a device that needs none (the CPU: each instance's
+    own lock orders its runs)."""
+
+    shared = exclusive = staticmethod(contextlib.nullcontext)
+
+
+_DEVICE_LOCKS = {}
+_DEVICE_LOCKS_GUARD = threading.Lock()
+
+
+def _device_lock(device):
+    """The lock every ``CompiledProgram`` on ``device`` shares."""
+    if device.type != "cuda":
+        return _NoLock
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _DEVICE_LOCKS_GUARD:
+        return _DEVICE_LOCKS.setdefault(index, _DeviceLock())
 
 
 def _not_ported(what):
@@ -536,6 +611,9 @@ class CompiledProgram:
             if isinstance(item, _HostOp):
                 self._run_host(item, env, device)
             elif sync_check:
+                # process-wide: the caller holds the device's lock
+                # exclusively, so no other thread's synchronising fetch
+                # or pageable copy runs (and raises) inside this window
                 previous = torch.cuda.get_sync_debug_mode()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -582,6 +660,9 @@ class CompiledProgram:
                         if n in self._state else torch.empty_like(v)
                 item.outputs = None        # the eager run's tensors
                 continue
+            # a global-mode capture: the device's lock, held
+            # exclusively, keeps every other compiled run (its syncs,
+            # its allocations) out of it
             before = kernel_launches()
             graph = torch.cuda.CUDAGraph()
             torch.cuda.synchronize(device)
@@ -665,12 +746,24 @@ class CompiledProgram:
             _program_fingerprint(program),
         )
         tracer = _obs_trace._tracer
+        lock = _device_lock(device)
         with self._lock, torch.no_grad():
-            self._sync_state(scope, device)
-            entry = self._cache.get(key)
-            t0 = time.perf_counter()
-            if entry is None:
-                # a cache miss: a new (shapes, fetch, program) entry
+            with lock.shared():
+                self._sync_state(scope, device)
+                entry = self._cache.get(key)
+                if entry is not None:
+                    t0 = time.perf_counter()
+                    with tracer.span("executor.step") \
+                            if tracer is not None \
+                            else contextlib.nullcontext():
+                        fetched = self._step(entry, feeds, device)
+                    # copied out under the locks, before any other replay
+                    return self._fetch(fetched, fetch_names, return_numpy,
+                                       t0, device.type == "cuda")
+            # a cache miss: a new (shapes, fetch, program) entry, built
+            # with the device to itself (the module docstring)
+            with lock.exclusive():
+                t0 = time.perf_counter()
                 _M_COMPILES.inc()
                 _obs_flight.record("executor", "compile",
                                    n_feeds=len(feeds),
@@ -680,20 +773,24 @@ class CompiledProgram:
                     entry, fetched = self._new_entry(fetch_names, feeds,
                                                      device)
                 self._cache[key] = entry
-            elif device.type != "cuda":
-                env = _TraceEnv(self._state)
-                env.update(feeds)
-                with tracer.span("executor.step") if tracer is not None \
-                        else contextlib.nullcontext():
-                    fetched = self._run_eager(entry, env, device, False)
-            else:
-                with tracer.span("executor.step") if tracer is not None \
-                        else contextlib.nullcontext():
-                    fetched = self._replay(entry, feeds, device)
-                # copied out under the lock, before any other replay
-                if not return_numpy:
-                    fetched = [v.clone() for v in fetched]
-            _M_STEP_SECONDS.observe(time.perf_counter() - t0)
-            if return_numpy:
-                return [to_numpy(v, n) for v, n in zip(fetched, fetch_names)]
-            return fetched
+                return self._fetch(fetched, fetch_names, return_numpy, t0,
+                                   False)
+
+    def _step(self, entry, feeds, device):
+        """A cached key's run: eager on the CPU, a replay on the card."""
+        if device.type != "cuda":
+            env = _TraceEnv(self._state)
+            env.update(feeds)
+            return self._run_eager(entry, env, device, False)
+        return self._replay(entry, feeds, device)
+
+    def _fetch(self, fetched, fetch_names, return_numpy, t0, replayed):
+        """The run's fetches as the caller asked: numpy arrays, or tensors
+        (a replay's cloned, since the next replay overwrites them).
+        Observes the step's seconds first."""
+        _M_STEP_SECONDS.observe(time.perf_counter() - t0)
+        if return_numpy:
+            return [to_numpy(v, n) for v, n in zip(fetched, fetch_names)]
+        if replayed:
+            return [v.clone() for v in fetched]
+        return fetched

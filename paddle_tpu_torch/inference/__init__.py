@@ -1,7 +1,7 @@
 """Inference engine: Config + Predictor over a saved inference model.
 
 Counterpart of ``paddle_tpu/inference/__init__.py`` (``:30-279``,
-``:420-425``).  A ``Config`` runs on the GPU by default;
+``:365-412``, ``:420-425``).  A ``Config`` runs on the GPU by default;
 ``Config.disable_gpu()`` selects the CPU.  With no CUDA device and no
 ``disable_gpu()``, ``create_predictor`` raises ``NoCUDADeviceError``.
 
@@ -13,10 +13,16 @@ against the program's feed targets, and interprets the program op by
 op on its device.  The knobs that map to TensorRT, MKLDNN, feed/fetch
 ops, memory optimisation and glog are recorded and change nothing, as
 in the JAX package, so reference config scripts run unchanged.
+
+The swap surface (``program_fingerprint``, ``program_state``,
+``swap_program``) lets the serving pool move a replica's Predictor onto
+another program and back; ``shard`` and ``sharding_info`` (mesh-sliced
+serving) raise ``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import numpy as np
@@ -24,6 +30,10 @@ import numpy as np
 __all__ = ["Config", "AnalysisConfig", "Predictor", "PaddleTensor",
            "FeedValidationError", "create_predictor",
            "create_paddle_predictor"]
+
+
+_NO_MESH = ("{}: mesh-sliced tensor-parallel serving is not ported yet "
+            "(ROADMAP Queue 1 item 5, parallelism on torch.distributed)")
 
 
 class FeedValidationError(ValueError):
@@ -257,13 +267,71 @@ class Predictor:
                         f"input '{name}' not set; call copy_from_cpu")
                 feed[name] = t.data()
         feed = {n: self.validate_feed(n, v) for n, v in feed.items()}
-        outs = self._exe.run(self._compiled, feed=feed,
-                             fetch_list=self._fetch_vars, scope=self._scope)
+        from paddle_tpu_torch.observability import tracing as _trace
+
+        # joins the serving.replica span through the thread-local stack
+        # when a pool worker calls it
+        with _trace._tracer.span("predictor.run") \
+                if _trace._tracer is not None else contextlib.nullcontext():
+            outs = self._exe.run(self._compiled, feed=feed,
+                                 fetch_list=self._fetch_vars,
+                                 scope=self._scope)
         self._outputs = {v.name: PaddleTensor(v.name, o)
                          for v, o in zip(self._fetch_vars, outs)}
         return outs
 
     zero_copy_run = run
+
+    # -- mesh-sliced tensor-parallel serving: not ported -------------------
+    def shard(self, plan, devices=None, axis="tp"):
+        """Sharding the Predictor over a mesh slice: not ported, raises
+        (ROADMAP Queue 1 item 5)."""
+        raise NotImplementedError(_NO_MESH.format("Predictor.shard"))
+
+    def sharding_info(self):
+        raise NotImplementedError(_NO_MESH.format("Predictor.sharding_info"))
+
+    # -- live program swap (the serving pool's swap_predictor) -------------
+    # what a snapshot carries: the CompiledProgram with the Scope its
+    # captured graphs read at fixed addresses, and the Executor whose
+    # place they run on
+    _SWAP_ATTRS = ("_program", "_feed_names", "_fetch_vars", "_compiled",
+                   "_scope", "_exe", "_inputs", "_feed_specs")
+
+    def program_fingerprint(self):
+        """Structural content hash of the loaded program, the value the
+        compiled cache keys on (``core.compiler.program_fingerprint``); a
+        rollback restores the exact old value."""
+        from paddle_tpu_torch.core.compiler import program_fingerprint
+
+        return program_fingerprint(self._program)
+
+    def program_state(self):
+        """Snapshot of the swappable surface (``_SWAP_ATTRS``): the token
+        ``swap_program`` takes to restore this exact program later.  Its
+        CompiledProgram keeps its graphs, so a swap back replays them
+        with no new capture."""
+        return {a: getattr(self, a) for a in self._SWAP_ATTRS}
+
+    def swap_program(self, source):
+        """Swap this Predictor onto another program in place: ``source``
+        is another Predictor or a ``program_state()`` snapshot.  The
+        object survives, so the server's feed validator and the replica
+        see the new program; the old state is returned for rollback.
+
+        The caller guarantees that no ``run()`` is in flight (the pool
+        swaps only a replica quiesced through its per-replica drain,
+        ``ReplicaPool.swap_predictor``)."""
+        state = source if isinstance(source, dict) \
+            else source.program_state()
+        missing = [a for a in self._SWAP_ATTRS if a not in state]
+        if missing:
+            raise ValueError(
+                "swap_program: source state missing %s" % missing)
+        prior = self.program_state()
+        for a in self._SWAP_ATTRS:
+            setattr(self, a, state[a])
+        return prior
 
 
 def create_predictor(config: Config) -> Predictor:

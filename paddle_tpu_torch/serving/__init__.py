@@ -1,11 +1,19 @@
-"""Serving of the torch port: LLM decode through ``DecodeServer``.
+"""Serving of the torch port: the batching inference server over
+Predictor replicas, and LLM decode through ``DecodeServer``.
 
-Counterpart of ``paddle_tpu/serving``.  Ported so far:
+Counterpart of ``paddle_tpu/serving``.  Ported:
 
-  admission.py      bounded queue, typed shedding, the exactly-once
-                    Request future, request-id accounting
-  replica_pool.py   the replica failure types (``ReplicaKilled``,
-                    ``ReplyLost``)
+  admission.py      bounded queue, typed shedding, per-tenant quotas,
+                    the exactly-once Request future, request-id
+                    accounting
+  batcher.py        shape-bucketed dynamic batching, pad-to-bucket,
+                    the compile-once bucket cache (on the card one
+                    captured CompiledProgram key a bucket), max-wait
+                    timer
+  replica_pool.py   N Predictor replicas, health probes, per-replica
+                    circuit breakers, failover/requeue, the per-replica
+                    drain and the Predictor swap
+  server.py         InferenceServer / ServingConfig / drain()
   decode_engine.py  continuous decode batching: ``DecodeServer`` runs
                     iteration-level batching of LLM decode over paged
                     KV-caches and ``flash_decode``, with chunked prefill
@@ -13,17 +21,22 @@ Counterpart of ``paddle_tpu/serving``.  Ported so far:
                     (``kv_share``) and lossless speculative decoding
                     (``spec_k``)
 
-    from paddle_tpu_torch import serving
+    from paddle_tpu_torch import inference, serving
 
-    srv = serving.DecodeServer(config=serving.DecodeConfig(
-        max_batch=64, page_size=128)).start()     # on the card
-    tokens = srv.submit(prompt_ids).result(timeout=60.0)[0]
-    srv.stop()
+    factory = lambda i: inference.create_predictor(
+        inference.Config(model_dir))                # on the card
+    with serving.InferenceServer(
+            factory, serving.ServingConfig(n_replicas=2)) as srv:
+        out = srv.infer({"x": batch})               # typed errors on shed
 
-``DecodeConfig(device="cpu")`` runs on the CPU.  The batching inference
-server, the replica pool, the model registry, the fleet controls and
-the disaggregated prefill tier are the serving-tier slice's, not ported
-yet.
+``Config.disable_gpu()`` (``DecodeConfig(device="cpu")``) runs on the
+CPU.  Not ported yet, each raising ``NotImplementedError`` that names
+its ROADMAP Queue 1 item: mesh-sliced replicas and
+``replicate_predictor_params`` (item 5); the model registry and the
+fleet's rollout and autoscaling (``registry.py``, ``fleet.py``: item
+4.2, nothing here refers to them); the metrics exporter and the fleet
+collector (item 4.3); ``DecodeServer``'s ``metrics_port``, ``collector``
+and ``disagg_prefill`` (item 4.4).
 """
 
 from paddle_tpu_torch.serving.admission import (  # noqa: F401
@@ -38,9 +51,20 @@ from paddle_tpu_torch.serving.admission import (  # noqa: F401
     ShutdownError,
     TenantQuota,
 )
+from paddle_tpu_torch.serving.batcher import (  # noqa: F401
+    Batch,
+    ShapeBucketBatcher,
+    default_buckets,
+    signature_of,
+)
 from paddle_tpu_torch.serving.replica_pool import (  # noqa: F401
+    MSG_HEALTH,
+    MSG_INFER,
+    Replica,
     ReplicaKilled,
+    ReplicaPool,
     ReplyLost,
+    replicate_predictor_params,
 )
 from paddle_tpu_torch.serving.decode_engine import (  # noqa: F401
     MSG_DECODE,
@@ -48,3 +72,17 @@ from paddle_tpu_torch.serving.decode_engine import (  # noqa: F401
     DecodeServer,
     TinyDecodeLM,
 )
+from paddle_tpu_torch.serving.server import (  # noqa: F401
+    InferenceServer,
+    ServingConfig,
+)
+
+__all__ = [
+    "AdmissionController", "Batch", "DeadlineExpiredError",
+    "DecodeConfig", "DecodeServer", "HandoffError", "InferenceServer",
+    "MSG_DECODE", "MSG_HEALTH", "MSG_INFER", "OverloadedError",
+    "QuotaExceededError", "Replica", "ReplicaFailedError", "ReplicaKilled",
+    "ReplicaPool", "ReplyLost", "Request", "ServingConfig", "ServingError",
+    "ShapeBucketBatcher", "ShutdownError", "TenantQuota", "TinyDecodeLM",
+    "default_buckets", "replicate_predictor_params", "signature_of",
+]

@@ -45,8 +45,8 @@ Three options, each off by default (``DecodeConfig`` knob or flag):
 Not ported yet, and refused with NotImplementedError by
 ``DecodeConfig``: the disaggregated prefill/decode tiers
 (``disagg_prefill``), the HTTP metrics exporter (``metrics_port``) and
-the fleet collector (``collector``); they come with the serving-tier
-slice.
+the fleet collector (``collector``); they wait for ROADMAP Queue 1 item
+4.4.
 
 Model adapter protocol (duck-typed; ``TinyDecodeLM`` is the built-in):
 
@@ -105,8 +105,8 @@ _M_ACTIVE = _obs_metrics.gauge(
     "sequences in the running batch, by replica index",
     max_series=64)
 
-_SERVING_TIER = ("is not ported yet: it comes with the serving-tier "
-                 "slice of the torch port")
+_SERVING_TIER = ("is not ported yet: it waits for the serving-tier's "
+                 "ROADMAP Queue 1 item 4.4")
 
 
 class TinyDecodeLM(nn.Module):

@@ -61,7 +61,9 @@ the interpreted ones and the persistables at fixed addresses; a
 replayed step equals an eager step from the same state; an op that
 synchronises the card fails the warm-up or the capture, and ``run``
 raises (nothing falls back); a second feed shape captures a second
-graph.
+graph; two CompiledPrograms in two threads, one warming up and capturing
+new keys while the other replays in a loop, give the serial runs' bits
+with no error (the per-device lock of the compiled path).
 
 ``conv_int8`` (the s8 convolution of ``conv2d_int8`` and ``mul_int8``) is
 ``torch.equal`` to ``conv_int8_plain`` over odd Cin and Cout, the
@@ -1938,6 +1940,84 @@ def test_a_second_feed_shape_captures_a_second_graph(cuda):
         assert graphs == [1, 1, 1, 2, 2, 2]
         assert prog.graph_stats() == {"entries": 2, "graphs": 2,
                                       "replays": 4}
+
+
+def _lm_feed(batch, seed):
+    ids = np.random.RandomState(seed).randint(
+        0, TINY_LM["vocab_size"], (batch, TINY_LM["max_len"], 1))
+    return {"src_ids": ids.astype(np.int64), "tgt_label": ids.astype(np.int64)}
+
+
+@pytest.mark.cuda
+def test_two_compiled_programs_capture_and_replay_side_by_side(cuda):
+    """One thread builds new keys (warm-up under sync-debug "error", then
+    capture) of one CompiledProgram while another replays a second
+    CompiledProgram of the same model in a loop, as two serving replicas
+    on one card do: no error in either, and every result equals the
+    serial run's bits for its feed."""
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    with fresh_port_programs():
+        fetch = transformer_encoder_model(**TINY_LM)["logits"].name
+        main = pt.default_main_program()
+        startup = pt.default_startup_program()
+        batches = (1, 3, 4, 5, 6, 7, 8)
+        feeds = {b: _lm_feed(b, b) for b in (2,) + batches}
+
+        def replica():
+            exe = pt.Executor(pt.CUDAPlace(0))
+            scope = pt.Scope()
+            np.random.seed(0)
+            exe.run(startup, scope=scope)
+            prog = pt.CompiledProgram(main)
+            return lambda b: exe.run(prog, feed=feeds[b], scope=scope,
+                                     fetch_list=[fetch])[0], prog
+
+        serial, _ = replica()
+        want = {b: serial(b) for b in feeds}
+        assert all(np.array_equal(serial(b), want[b]) for b in feeds)
+
+        replayer, rprog = replica()
+        capturer, cprog = replica()
+        replayer(2)                               # its one key, captured
+        done, errors, replayed = threading.Event(), [], []
+
+        def replay_loop():
+            try:
+                while not done.is_set() or len(replayed) < 20:
+                    replayed.append(np.array_equal(replayer(2), want[2]))
+            except BaseException as e:   # reported below
+                errors.append(("replayer", e))
+
+        def build_keys():
+            try:
+                for _ in range(2):              # warm-up + capture, replay
+                    for b in batches:
+                        assert np.array_equal(capturer(b), want[b]), b
+            except BaseException as e:
+                errors.append(("capturer", e))
+            finally:
+                done.set()
+
+        threads = [threading.Thread(target=replay_loop, daemon=True),
+                   threading.Thread(target=build_keys, daemon=True)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        assert not errors, errors
+        assert replayed and all(replayed)
+        assert rprog.graph_stats() == {"entries": 1, "graphs": 1,
+                                       "replays": len(replayed)}
+        assert cprog.graph_stats() == {"entries": len(batches),
+                                       "graphs": len(batches),
+                                       "replays": len(batches)}
+        assert torch.cuda.get_sync_debug_mode() == 0
 
 
 # ---------------------------------------------------------------------------
