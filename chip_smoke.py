@@ -55,7 +55,33 @@ Phases, none of which catches its own failure:
      replays: no batch fails or requeues.  stop() with 16 requests in
      flight leaves none; a drain of 5 ms answers the stragglers with
      ShutdownError;
-  4. holds the two flash-attention backward kernels (dq and dkv) against
+  3c. the fleet: that LM (v1) and two programs made from it (v2: weights
+     redrawn from --seed + 2 and a scale(1.0) on the logits; v3: another
+     scale and one parameter left out of its archive) registered in a
+     ModelRegistry under ir_verify "on" (each saved program verified, each
+     prewarm's post-load program too); two Predictors of v1 report one
+     fingerprint, v1.prewarm() over buckets 1, 2, 4, 8 records it.  A
+     2-replica server on v1 (restart_dead, prewarm) under four clients of
+     1-3 rows: RolloutController.rollout("lm", 2) converges although a
+     seeded fault plan kills a replica after the first swap; every
+     replica then reports v2's serving fingerprint, every answer (of both
+     versions) is bitwise equal to its version's lone Predictor at its
+     bucket, flash_attention_fwd replayed 6 times a batch, nothing
+     captured on the serving path.  A rollout of v1 with a monitor
+     firing after one swap rolls back (swapped == rolled_back == 1):
+     every fingerprint as before, a probe through the restored replica
+     bitwise as before, no compile after the rollout.  A rollout of v3
+     raises PrewarmFailedError with no replica touched while traffic is
+     answered.  SLOAutoscaler over a 1-replica server on v2, on an
+     SLOMonitor of fleet_availability (2 s window): twice phase 3b's
+     1-replica rows/s for 3 s scales up (the new replica from
+     v2.prewarm, bitwise equal to v2's lone Predictor), no down while
+     the overload holds; a quiet trickle then scales down through the
+     drain with every request answered.  The rollout's wall, each
+     swap's seconds, p50/p99 before and during the rollout, the seconds
+     from overload to up, the phase's seconds and peak memory are
+     logged beside the card's line;
+ 4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
      error scaled as BWD_TOL reads it is printed), and at the two
@@ -1797,6 +1823,7 @@ TIER_WARM_S = 2.5                # warm-up under traffic
 TIER_DEADLINE_S = 1.0            # ServingConfig's default deadline
 TIER_WAIT_S = 120.0              # every other wait's bound
 TIER_STRAGGLER_DRAIN_S = 0.005   # a drain shorter than one batch
+TIER_CHECK_CHUNK = 1 << 18       # f32 values a bitwise check compares at once
 
 
 class TierPlacement:
@@ -1813,7 +1840,11 @@ class TierPlacement:
         self.runs = []
         self._lock = threading.Lock()
         for rep in srv.pool.replicas:
-            rep.run = self._wrap(rep, rep.run)
+            self.watch(rep)
+
+    def watch(self, rep):
+        """Record ``rep``'s runs too (a replica added after the start)."""
+        rep.run = self._wrap(rep, rep.run)
 
     def _wrap(self, rep, run):
         def wrapped(batch):
@@ -1843,24 +1874,28 @@ class TierPlacement:
 
 class TierRows:
     """The rows the tier's requests draw from (serve()'s request and as
-    many more), their CPU logits, and a lone Predictor of each model to
-    hold every answer to, bitwise, at the bucket it rode.  A model is
-    known by its programs (two loads of one model differ in fingerprint:
-    the passes name their new vars from a process-wide counter, in the
-    JAX package too)."""
+    many more), their CPU logits (unless ``cpu`` is false), and a lone
+    Predictor of each model to hold every answer to, bitwise, at the
+    bucket it rode.  A model is known by its program objects (``serves``:
+    phase 3b's second LM has the first's program with other weights, so
+    one fingerprint), or by its fingerprint (``by_fingerprint``: every
+    load of a registry version is one program, and the fleet's versions
+    differ in program)."""
 
-    def __init__(self, seed, reference):
+    def __init__(self, seed, reference, cpu=True):
         import threading
 
         ids = reference["ids"]
         more = np.random.RandomState(seed + 7).randint(
             0, MODEL["vocab_size"], ids.shape).astype(np.int64)
         t = time.perf_counter()
-        cpu_more, = reference["cpu_pred"].run([more])
-        self.cpu_s = time.perf_counter() - t
         self.ids = np.concatenate([ids, more])
-        self.cpu = np.concatenate([reference["cpu_logits"], cpu_more])
+        if cpu:
+            cpu_more, = reference["cpu_pred"].run([more])
+            self.cpu = np.concatenate([reference["cpu_logits"], cpu_more])
+        self.cpu_s = time.perf_counter() - t
         self.lone = {}              # id of a program -> a lone Predictor
+        self.by_fingerprint = {}    # a program's fingerprint -> one
         self._lock = threading.Lock()
         self._local = threading.local()
         self.max_err_vs_cpu = 0.0
@@ -1878,9 +1913,14 @@ class TierRows:
             self.lone[id(p._program)] = lone
 
     def lone_run(self, program, ids, bucket):
+        from paddle_tpu_torch.core.compiler import program_fingerprint
+
+        lone = self.lone.get(id(program))
+        if lone is None:
+            lone = self.by_fingerprint[program_fingerprint(program)]
         pad = np.zeros((bucket - len(ids),) + ids.shape[1:], ids.dtype)
         with self._lock:
-            out, = self.lone[id(program)].run([np.concatenate([ids, pad])])
+            out, = lone.run([np.concatenate([ids, pad])])
         return out[:len(ids)]
 
     def _scratch(self, shape):
@@ -1892,6 +1932,22 @@ class TierRows:
                                        np.empty(shape, np.float32))
         return bufs
 
+    def _equal(self, a, b):
+        """``a - b`` all zero (a NaN is unequal too), a cached chunk at a
+        time: a 65 MB difference written and read back would cost each
+        check two more passes over memory that the server's fetches
+        share."""
+        a, b = a.reshape(-1), b.reshape(-1)
+        c = getattr(self._local, "chunk", None)
+        if c is None:
+            c = self._local.chunk = np.empty(TIER_CHECK_CHUNK, np.float32)
+        for s in range(0, a.size, len(c)):
+            n = min(len(c), a.size - s)
+            np.subtract(a[s:s + n], b[s:s + n], out=c[:n])
+            if c[:n].any():
+                return False
+        return True
+
     def check(self, what, idx, out, placed, cpu=True):
         """``out`` bitwise equal to the lone run of its model at its
         bucket and, for the first model, within the serving bound of the
@@ -1902,17 +1958,16 @@ class TierRows:
         if out.shape != want.shape:
             raise AssertionError(f"serving tier, {what}: shape {out.shape}"
                                  f", the lone Predictor's {want.shape}")
-        d, tol = self._scratch(out.shape[1:])
         err = 0.0
         for j, i in enumerate(idx):
-            np.subtract(out[j], want[j], out=d)
-            if d.any():            # a NaN is unequal too
+            if not self._equal(out[j], want[j]):
                 raise AssertionError(
                     f"serving tier, {what}: row {i} at bucket {bucket} "
                     f"differs from the lone Predictor's by "
-                    f"{float(np.abs(d).max())}")
+                    f"{float(np.abs(out[j] - want[j]).max())}")
             if not cpu:
                 continue
+            d, tol = self._scratch(out.shape[1:])
             np.subtract(out[j], self.cpu[i], out=d)
             np.abs(d, out=d)
             err = max(err, float(d.max()))
@@ -2027,11 +2082,15 @@ def rss_gb():
         resource.RUSAGE_SELF).ru_maxrss / 1e6
 
 
-def overload(srv, rows, rate_rows, seed):
-    """Open loop at twice the closed-loop rate for TIER_OVERLOAD_S:
-    requests over capacity get the typed OverloadedError at submit, every
-    admitted one is answered (its latency from admission), none dropped
-    silently; the admitted p99 stays under the deadline."""
+def overload(srv, rows, rate_rows, seed, seconds=TIER_OVERLOAD_S,
+             what="serving tier overload", bound_p99=True):
+    """Open loop at twice the closed-loop rate for ``seconds``: requests
+    over capacity get the typed OverloadedError at submit, every
+    admitted one is answered or expires at its deadline (its latency from
+    admission), none dropped silently; the admitted p99 stays under the
+    deadline where ``bound_p99`` (not while a scale-up's prewarm
+    captures hold the card alone, which stalls the replays behind
+    them)."""
     import queue as queue_mod
     import threading
 
@@ -2051,7 +2110,7 @@ def overload(srv, rows, rate_rows, seed):
         n = 0
         while True:
             t = t0 + n * interval
-            if t - t0 >= TIER_OVERLOAD_S:
+            if t - t0 >= seconds:
                 break
             wait = t - time.perf_counter()
             if wait > 0:
@@ -2095,10 +2154,10 @@ def overload(srv, rows, rate_rows, seed):
     for th in threads:
         th.start()
     for th in threads:
-        th.join(timeout=TIER_OVERLOAD_S + TIER_WAIT_S)
+        th.join(timeout=seconds + TIER_WAIT_S)
     wall = time.perf_counter() - t0
     if any(th.is_alive() for th in threads):
-        raise AssertionError("serving tier overload: a thread hung")
+        raise AssertionError(f"{what}: a thread hung")
     st = srv.stats()
     n_adm = sum(outcomes.values())
     p99 = _pct([x * 1e3 for x in lat], 99)
@@ -2111,11 +2170,11 @@ def overload(srv, rows, rate_rows, seed):
            "accounted": st["accounted"],
            "rss_gb_before": rss0[0], "rss_gb_after": rss_gb()[0],
            "peak_rss_gb": rss_gb()[1]}
-    log("serving tier overload " + json.dumps(row))
+    log(f"{what} " + json.dumps(row))
     if not shed["overloaded"] or shed["other"] or \
             set(outcomes) - {"ok", "expired"} or not st["accounted"] or \
-            not p99 < TIER_DEADLINE_S * 1e3:
-        raise AssertionError(f"serving tier overload: {row}")
+            bound_p99 and not p99 < TIER_DEADLINE_S * 1e3:
+        raise AssertionError(f"{what}: {row}")
     return row
 
 
@@ -2126,12 +2185,18 @@ def prewarm(pred, buckets=TIER_BUCKETS):
         pred.run([np.zeros((b, MODEL["max_len"], 1), np.int64)])
 
 
-def save_other_lm(workdir, seed, dirname):
+def save_other_lm(workdir, seed, dirname, scale=None, drop=False):
     """The LM of ``workdir`` saved again to ``dirname`` with every weight
     drawn anew from ``seed``: normal, at the mean and spread of the first
     LM's tensor (the layer norms' ones and the biases' zeros stay).  A
     second model of the same program for the swap, made on the host in
-    about a second (building and initialising one takes ~15 s)."""
+    about a second (building and initialising one takes ~15 s).
+
+    ``scale``: the logits go through one more op, ``scale`` by this
+    factor, so the saved program is another one (the model registry
+    dedupes versions by program fingerprint, which weights do not
+    move).  ``drop``: the parameter archive is written without its first
+    parameter, so the model registers but cannot load."""
     import torch
 
     import paddle_tpu_torch as pt
@@ -2150,8 +2215,21 @@ def save_other_lm(workdir, seed, dirname):
             new *= a.std()
             new += a.mean()
             var.set(torch.from_numpy(new.astype(a.dtype)))
+        if scale is not None:
+            block = program.global_block()
+            logits = fetches[0]
+            scaled = block.create_var(name=logits.name + ".scaled",
+                                      shape=logits.shape, dtype=logits.dtype)
+            block.append_op("scale", {"X": [logits]}, {"Out": [scaled]},
+                            {"scale": float(scale)})
+            fetches = [scaled]
         pt.io.save_inference_model(dirname, feeds, fetches, exe,
                                    main_program=program)
+    if drop:
+        path = os.path.join(dirname, "__params__.npz")
+        with np.load(path) as archive:
+            kept = {n: archive[n] for n in archive.files[1:]}
+        np.savez(path, **kept)
 
 
 def serving_tier(seed, workdir, reference, card):
@@ -2469,6 +2547,440 @@ def serving_tier(seed, workdir, reference, card):
             "offered_rows_per_s", "admitted", "shed_overloaded",
             "admitted_p99_ms", "peak_rss_gb")}}))
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the fleet — ModelRegistry, RolloutController, SLOAutoscaler
+# ---------------------------------------------------------------------------
+
+FLEET_LEAD_S = 2.0               # traffic before the rollout
+FLEET_AFTER_S = 0.5              # traffic after it converged
+FLEET_FAIL_S = 0.5               # traffic around the failed prewarm
+FLEET_OVERLOAD_S = 3.0           # twice the 1-replica rate, for the up
+FLEET_DOWN_WAIT_S = 20.0         # the quiet trickle's bound, for the down
+FLEET_SLO_WINDOW_S = 2.0         # fleet_availability's slow window
+FLEET_TICK_S = 0.25              # the autoscaler's interval (its default)
+
+
+class FleetTraffic:
+    """TIER_CLIENTS client threads sending requests of 1-3 rows (or one
+    sequential request at a time, ``clients=1``) until stopped: each
+    answer held bitwise to the lone Predictor of the program that served
+    it, at its bucket (``TierPlacement``, ``TierRows``), and recorded as
+    (submitted, latency s, the serving program's fingerprint)."""
+
+    def __init__(self, srv, rows, placed, seed, what, clients=TIER_CLIENTS):
+        import threading
+
+        from paddle_tpu_torch.core.compiler import program_fingerprint
+
+        self.records, self._lock = [], threading.Lock()
+        self._stop = threading.Event()
+
+        def client(k):
+            rng = np.random.RandomState(seed + k)
+            while not self._stop.is_set():
+                idx, ids = rows.request(rng)
+                t = time.perf_counter()
+                req = srv.submit({"src_ids": ids}, deadline_s=TIER_WAIT_S)
+                got, = req.result(timeout=TIER_WAIT_S)
+                dt = time.perf_counter() - t
+                where = placed.by_request[req.id]
+                rows.check(what, idx, got, where, cpu=False)
+                del got
+                with self._lock:
+                    self.records.append(
+                        (t, dt, program_fingerprint(where[2])))
+
+        self._error = None
+
+        def run():
+            try:
+                tier_clients(clients, client)
+            except BaseException as e:   # noqa: BLE001 (raised by stop)
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        """Stops the clients; re-raises the first client's failure."""
+        self._stop.set()
+        self._thread.join(timeout=TIER_WAIT_S)
+        if self._thread.is_alive():
+            raise AssertionError("the fleet: a client thread hung")
+        if self._error is not None:
+            raise self._error
+        return list(self.records)
+
+
+def fleet_latency(records, t0, t1):
+    """Requests submitted in [t0, t1): count, p50 and p99 (ms)."""
+    lat = [dt * 1e3 for t, dt, _ in records if t0 <= t < t1]
+    return {"requests": len(lat), "p50_ms": _pct(lat, 50),
+            "p99_ms": _pct(lat, 99)}
+
+
+def fleet(seed, workdir, reference, card, tier):
+    """Phase 3c: the LM of phase 3 (``workdir``, v1) and two programs made
+    from it (v2: new weights and a scale(1.0) on the logits; v3: another
+    scale and a parameter left out of its archive) in a ModelRegistry,
+    with ir_verify "on" for the registrations and the prewarms; a rolling
+    rollout v1 -> v2 of a 2-replica server under four clients and a kill,
+    a rollback on burn, a failed prewarm, and the SLO autoscaler over a
+    1-replica server on v2 (``tier``: phase 3b's numbers).  Returns the
+    rollout window's launches (replays counted from the captures) and the
+    numbers."""
+    import gc
+
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"card": card, "seconds": {}}
+    last = [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds"][name], last[0] = now - last[0], now
+
+    pt.set_flags({"ir_verify": "on"})
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            launches = _fleet(seed, workdir, reference, tier, root, out, lap)
+    finally:
+        pt.set_flags({"ir_verify": "off"})
+    gc.collect()
+    torch.cuda.synchronize()
+    out["seconds"]["phase"] = time.perf_counter() - t0
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    log("the fleet seconds " + json.dumps(out["seconds"]))
+    log("the fleet numbers " + json.dumps({
+        "card": card, "rollout_wall_s": out["rollout"]["wall_s"],
+        "swap_s": out["rollout"]["swap_s"],
+        "before": out["rollout"]["before"], "during": out["rollout"]["during"],
+        "overload_to_up_s": out["autoscale"]["overload_to_up_s"],
+        "overload_to_replica_s": out["autoscale"]["overload_to_replica_s"],
+        "phase_s": out["seconds"]["phase"],
+        "peak_mem_gb": out["peak_mem_gb"]}))
+    return launches, out
+
+
+def _fleet(seed, workdir, reference, tier, root, out, lap):
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.analysis import verify
+    from paddle_tpu_torch.core import compiler
+    from paddle_tpu_torch.distributed import faultinject
+    from paddle_tpu_torch.observability import slo
+
+    # -- the registry: three versions, one program each ------------------
+    d2, d3 = os.path.join(root, "lm_v2"), os.path.join(root, "lm_v3")
+    save_other_lm(workdir, seed + 2, d2, scale=1.0)
+    save_other_lm(workdir, seed + 3, d3, scale=0.5, drop=True)
+    reg = serving.ModelRegistry(root=os.path.join(root, "registry"))
+    v1, v2, v3 = (reg.register("lm", d) for d in (workdir, d2, d3))
+    reps = [v1.make_predictor(), v1.make_predictor()]
+    lone1 = v1.prewarm(buckets=TIER_BUCKETS)
+    lone2 = v2.prewarm(buckets=TIER_BUCKETS)
+    diags = verify(lone1._program)
+    out["registry"] = {
+        "versions": [v.version for v in reg.versions("lm")],
+        "replica_fingerprints_equal": len(
+            {p.program_fingerprint() for p in reps}) == 1,
+        "equal_to_prewarm": reps[0].program_fingerprint()
+        == v1.serving_fingerprint,
+        "versions_differ": v1.serving_fingerprint != v2.serving_fingerprint,
+        "verify_errors": [str(d) for d in diags if d.severity == "error"],
+        "verify_warnings": sum(d.severity != "error" for d in diags),
+        "ir_verify": pt.get_flag("ir_verify")}
+    log("the fleet registry " + json.dumps(out["registry"]))
+    r = out["registry"]
+    if r["versions"] != [1, 2, 3] or not r["replica_fingerprints_equal"] \
+            or not r["equal_to_prewarm"] or not r["versions_differ"] or \
+            r["verify_errors"] or not v1.prewarmed or not v2.prewarmed:
+        raise AssertionError(f"the fleet registry: {r}")
+    rows = TierRows(seed, reference, cpu=False)
+    rows.by_fingerprint = {v1.serving_fingerprint: lone1,
+                           v2.serving_fingerprint: lone2}
+    srv = serving.InferenceServer(lambda i: reps[i], serving.ServingConfig(
+        max_batch=8, n_replicas=2, restart_dead=True, prewarm=True)).start()
+    placed = TierPlacement(srv)
+    pool = srv.pool
+    swap_s = []
+    real_swap = pool.swap_predictor
+
+    def timed_swap(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return real_swap(*args, **kwargs)
+        finally:
+            swap_s.append(time.perf_counter() - t)
+
+    pool.swap_predictor = timed_swap
+    lap("setup")
+
+    # -- the rollout v1 -> v2 under traffic, a replica killed mid-way -----
+    plan = faultinject.FaultPlan(seed=seed).on(serving.MSG_INFER, 0, "kill")
+
+    class KillAfterFirstSwap:
+        """The rollout's monitor: at its first poll (after the first swap)
+        installs the plan and waits for the kill; nothing fires."""
+
+        def __init__(self):
+            self.inj = None
+
+        def observe(self):
+            if self.inj is None:
+                self.inj = faultinject.install(plan)
+                t_end = time.perf_counter() + TIER_WAIT_S
+                while not self.inj.log and time.perf_counter() < t_end:
+                    time.sleep(0.001)
+            return {}
+
+        def firing(self):
+            return []
+
+    torch.cuda.synchronize()
+    runs0 = len(placed.runs)
+    served = {id(p._compiled): p._compiled for p in reps}
+    replays0 = {k: c.replayed_launches() for k, c in served.items()}
+    st0 = srv.stats()
+    traffic = FleetTraffic(srv, rows, placed, seed + 200, "the fleet rollout")
+    time.sleep(FLEET_LEAD_S)
+    mon = KillAfterFirstSwap()
+    reset_kernel_counts()
+    t_roll = time.perf_counter()
+    try:
+        res = serving.RolloutController(srv, reg, monitor=mon).rollout(
+            "lm", 2)
+    finally:
+        faultinject.uninstall()
+    t_done = time.perf_counter()
+    host = kernel_counts()
+    time.sleep(FLEET_AFTER_S)
+    records = traffic.stop()
+    t_end = time.perf_counter() + TIER_WAIT_S
+    while not all(r.alive for r in pool.replicas) and \
+            time.perf_counter() < t_end:
+        time.sleep(0.01)
+    torch.cuda.synchronize()
+    for rep in pool.replicas:
+        served.setdefault(id(rep.predictor._compiled), rep.predictor._compiled)
+    replayed = {}
+    for k, c in served.items():
+        for name, v in c.replayed_launches().items():
+            replayed[name] = replayed.get(name, 0) + v - \
+                replays0.get(k, {}).get(name, 0)
+    launches = {k: host[k] + replayed.get(k, 0) for k in host}
+    runs = placed.runs[runs0:]
+    st = srv.stats()
+    by_version = {v: sum(1 for *_, fp in records if fp == f)
+                  for v, f in (("v1", v1.serving_fingerprint),
+                               ("v2", v2.serving_fingerprint))}
+    out["rollout"] = {
+        **res.to_dict(), "swap_s": list(swap_s),
+        "kill_log": [list(map(str, e)) for e in mon.inj.log],
+        "requeues": st["pool"]["requeues"] - st0["pool"]["requeues"],
+        "relaunches": sum(pool.restarts().values()),
+        "replica_fingerprints": sorted(
+            str(r.predictor.program_fingerprint()) for r in pool.replicas),
+        "all_on_v2": all(r.predictor.program_fingerprint()
+                         == v2.serving_fingerprint and r.version is v2
+                         for r in pool.replicas if r.alive),
+        "answers_by_version": by_version, "checked_bitwise": len(records),
+        "batches": len(runs), "captures": sum(1 for r in runs if r[2]),
+        "flash_attention_fwd_replays": replayed.get("flash_attention_fwd"),
+        "host_launches": {k: v for k, v in host.items() if v},
+        "accounted": st["accounted"], "outstanding": st["outstanding"],
+        "model_version": st["model_version"],
+        "before": fleet_latency(records, 0.0, t_roll),
+        "during": fleet_latency(records, t_roll, t_done)}
+    log("the fleet rollout " + json.dumps(out["rollout"]))
+    ro = out["rollout"]
+    if not res.converged or [e[2] for e in ro["kill_log"]] != ["kill"] or \
+            ro["requeues"] < 1 or not ro["all_on_v2"] or \
+            not all(r.alive for r in pool.replicas) or \
+            not by_version["v1"] or not by_version["v2"] or \
+            ro["captures"] or replayed.get("flash_attention_fwd") != \
+            MODEL["n_layer"] * len(runs) or launches[COPIES] or \
+            not st["accounted"] or \
+            st["outstanding"] or ro["model_version"] != "lm@v2":
+        raise AssertionError(f"the fleet rollout: {ro}")
+    lap("rollout")
+
+    # -- a rollback on burn: v1 again, the monitor firing after one swap --
+    class FireAfterFirstSwap:
+        def __init__(self):
+            self.polls = 0
+
+        def observe(self):
+            self.polls += 1
+            return {}
+
+        def firing(self):
+            return ["fleet_availability"] if self.polls >= 1 else []
+
+    first = pool.replicas[0].index
+    fps = {r.index: r.predictor.program_fingerprint() for r in pool.replicas}
+    probe_before, where_before = probe_replica(srv, placed, rows, first)
+    swap_s.clear()
+    res = serving.RolloutController(srv, reg, monitor=FireAfterFirstSwap()) \
+        .rollout("lm", 1)
+    compiles = compiler._M_COMPILES.total()
+    probe_after, where_after = probe_replica(srv, placed, rows, first)
+    out["rollback"] = {
+        **res.to_dict(), "swap_s": list(swap_s),
+        "fingerprints_restored": {r.index: r.predictor.program_fingerprint()
+                                  for r in pool.replicas} == fps,
+        "probe_bitwise": bool(np.array_equal(probe_after, probe_before)),
+        "probe_replica": [where_before[0], where_after[0]],
+        "compiles_after_rollout": compiler._M_COMPILES.total() - compiles}
+    log("the fleet rollback " + json.dumps(out["rollback"]))
+    rb = out["rollback"]
+    if res.status != "rolled_back" or res.swapped != 1 or \
+            res.rolled_back != 1 or not rb["fingerprints_restored"] or \
+            not rb["probe_bitwise"] or rb["probe_replica"] != [first, first] \
+            or rb["compiles_after_rollout"]:
+        raise AssertionError(f"the fleet rollback: {rb}")
+    del probe_before, probe_after
+    lap("rollback")
+
+    # -- a failed prewarm: v3 lacks a parameter ---------------------------
+    traffic = FleetTraffic(srv, rows, placed, seed + 300,
+                           "the fleet failed prewarm", clients=2)
+    time.sleep(FLEET_FAIL_S / 2)
+    rc = serving.RolloutController(srv, reg)
+    try:
+        rc.rollout("lm", 3)
+    except serving.PrewarmFailedError as e:
+        error = {"code": e.code, "message": str(e)[:300]}
+    else:
+        raise AssertionError("the fleet: v3's rollout did not fail")
+    time.sleep(FLEET_FAIL_S / 2)
+    records = traffic.stop()
+    out["prewarm_failure"] = {
+        **error, "state": rc.state,
+        "fingerprints_unchanged": {
+            r.index: r.predictor.program_fingerprint()
+            for r in pool.replicas} == fps,
+        "answered_during": len(records),
+        "accounted": srv.stats()["accounted"]}
+    log("the fleet prewarm failure " + json.dumps(out["prewarm_failure"]))
+    pf = out["prewarm_failure"]
+    if pf["code"] != "prewarm_failed" or "lm@v3" not in pf["message"] or \
+            pf["state"] != "idle" or not pf["fingerprints_unchanged"] or \
+            not pf["answered_during"] or not pf["accounted"]:
+        raise AssertionError(f"the fleet prewarm failure: {pf}")
+    leftovers = srv.stop()
+    if leftovers:
+        raise AssertionError(f"the fleet: {leftovers} left at stop")
+    one = pool.replicas[0].predictor          # a v2 Predictor, prewarmed
+    del srv, reps, placed, pool, real_swap
+    lap("prewarm failure")
+
+    # -- the autoscaler: overload scales up, a quiet trickle down ---------
+    srv = serving.InferenceServer(lambda i: one, serving.ServingConfig(
+        max_batch=8, n_replicas=1, prewarm=True)).start()
+    srv.model_version = v2
+    placed = TierPlacement(srv)
+    added = []
+    real_add = srv.pool.add_replica
+
+    def add_replica(*args, **kwargs):
+        idx = real_add(*args, **kwargs)
+        added.append((time.monotonic(), idx))
+        return idx
+
+    srv.pool.add_replica = add_replica
+    mon = slo.SLOMonitor(slos=[slo.fleet_availability(
+        objective=0.99, window_s=FLEET_SLO_WINDOW_S, fast_fraction=0.5)])
+    sc = serving.SLOAutoscaler(
+        srv, mon, slo="fleet_availability", min_replicas=1, max_replicas=2,
+        up_consecutive=2, down_consecutive=4, cooldown_s=0.4)
+    mon.observe()
+    sc.start(interval_s=FLEET_TICK_S)
+    rate = tier["closed_loop_1"]["rows_per_s"]
+    t_over = time.monotonic()
+    row = overload(srv, rows, rate, seed + 400, seconds=FLEET_OVERLOAD_S,
+                   what="the fleet overload", bound_p99=False)
+    t_over_end = time.monotonic()
+    # an up records its event once the replica it prewarms is added,
+    # which can be after the overload that decided it
+    t_end = t_over_end + TIER_WAIT_S
+    while not [d for _, d, _ in sc.scale_events() if d == "up"] and \
+            time.monotonic() < t_end:
+        time.sleep(0.01)
+    ups = [t for t, d, _ in sc.scale_events() if d == "up" and t < t_over_end]
+    downs = [t for t, d, _ in sc.scale_events() if d == "down"]
+    if not added or not ups or [t for t in downs if t < t_over_end]:
+        raise AssertionError(f"the fleet autoscaler under overload: events "
+                             f"{sc.scale_events()}, added {added}")
+    new = srv.pool.replica(added[0][1])
+    placed.watch(new)
+    got, where = probe_replica(srv, placed, rows, new.index)
+    rows.check("the fleet scale-up", np.arange(2), got, where, cpu=False)
+    new_ok = new.version is v2 and where[0] == new.index and \
+        new.predictor.program_fingerprint() == v2.serving_fingerprint
+    del got
+    trickle = FleetTraffic(srv, rows, placed, seed + 500,
+                           "the fleet quiet trickle", clients=1)
+    t_end = time.monotonic() + FLEET_DOWN_WAIT_S
+    while not [d for _, d, _ in sc.scale_events() if d == "down"] and \
+            time.monotonic() < t_end:
+        time.sleep(0.05)
+    t_down = time.monotonic()
+    time.sleep(0.2)
+    records = trickle.stop()
+    sc.stop()
+    st = srv.stats()
+    leftovers = srv.stop()
+    out["autoscale"] = {
+        "offered_rows_per_s": 2.0 * rate, "overload": {
+            k: row[k] for k in ("submitted", "admitted", "shed_overloaded",
+                                "outcomes", "admitted_p50_ms",
+                                "admitted_p99_ms", "accounted")},
+        "events": [[t - t_over, d, n] for t, d, n in sc.scale_events()],
+        "overload_to_up_s": ups[0] - t_over,
+        "overload_to_replica_s": added[0][0] - t_over,
+        "overload_s": t_over_end - t_over,
+        "down_after_overload_s": t_down - t_over_end,
+        "added_serves_v2_bitwise": new_ok,
+        "trickle_answered": len(records), "accounted": st["accounted"],
+        "outstanding": st["outstanding"], "leftovers": leftovers,
+        "replicas": len(srv.pool.replicas)}
+    log("the fleet autoscaler " + json.dumps(out["autoscale"]))
+    a = out["autoscale"]
+    if not new_ok or [d for _, d, _ in a["events"]].count("down") != 1 or \
+            a["replicas"] != 1 or not a["trickle_answered"] or \
+            not st["accounted"] or st["outstanding"] or leftovers:
+        raise AssertionError(f"the fleet autoscaler: {a}")
+    lap("autoscale")
+    return launches
+
+
+def probe_replica(srv, placed, rows, index):
+    """Rows 0-1 through replica ``index`` alone (the others quiesced);
+    returns (the answer, where it ran)."""
+    pool = srv.pool
+    others = [r.index for r in pool.replicas if r.index != index]
+    for i in others:
+        pool.quiesce_replica(i, timeout=TIER_WAIT_S)
+    try:
+        req = srv.submit({"src_ids": rows.ids[:2]}, deadline_s=TIER_WAIT_S)
+        got = req.result(timeout=TIER_WAIT_S)[0].copy()
+    finally:
+        for i in others:
+            pool.resume_replica(i)
+    return got, placed.by_request[req.id]
 
 
 # ---------------------------------------------------------------------------
@@ -5615,9 +6127,12 @@ def run_phases(args, card, device):
     with tempfile.TemporaryDirectory() as workdir:
         serve_launches, _, reference = serve(args.seed, args.runs, workdir)
         phase("serving")
-        tier_launches, _ = serving_tier(args.seed, workdir, reference, card)
-        del reference
-    phase("the serving tier")
+        tier_launches, tier = serving_tier(args.seed, workdir, reference,
+                                           card)
+        phase("the serving tier")
+        fleet_launches, _ = fleet(args.seed, workdir, reference, card, tier)
+        del reference, tier
+    phase("the fleet")
     bwd_cases = check_flash_bwd(device, args.seed)
     f64_bwd = check_f32_vs_f64(device, args.seed, grads=True)
     phase("the flash backward")
@@ -5720,6 +6235,7 @@ def run_phases(args, card, device):
     def by_path(name):
         return {"serving": serve_launches[name],
                 "serving_tier": tier_launches[name],
+                "fleet": fleet_launches[name],
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

@@ -157,3 +157,13 @@ define_flag("disagg_prefill", False,
             "single-tier continuous-decode engine (default); True is "
             "not ported yet and raises NotImplementedError in "
             "serving.DecodeConfig")
+define_flag("ir_verify", "off",
+            "IR verifier level: 'off' = default (no check); 'on' = the "
+            "structural Program/Block/Op verifier "
+            "(analysis.verify: def-before-use, registered op types with "
+            "their attr schemas, slot validity, dangling/duplicate vars, "
+            "grad-op pairing) runs where the port calls it, raising typed "
+            "VerifierError diagnostics that name block/op-index/var: the "
+            "model registry at registration and at prewarm; 'full' = 'on' "
+            "(the static shape check and the checks around every "
+            "transpiler pass are not ported yet, ROADMAP Queue 1 item 6)")

@@ -10,9 +10,12 @@ analysis passes when ``ir_optim`` is on (in the JAX order: the conv+bn
 fold, the fc fusion, the elementwise-add + act fusion), casts the
 program to bf16 after ``enable_mkldnn_bfloat16``, validates every feed
 against the program's feed targets, and interprets the program op by
-op on its device.  The knobs that map to TensorRT, MKLDNN, feed/fetch
-ops, memory optimisation and glog are recorded and change nothing, as
-in the JAX package, so reference config scripts run unchanged.
+op on its device.  The passes name the vars they add with the lowest
+suffix the program does not hold, so loading one directory twice gives
+one program (one ``program_fingerprint``) whatever ran before.  The
+knobs that map to TensorRT, MKLDNN, feed/fetch ops, memory optimisation
+and glog are recorded and change nothing, as in the JAX package, so
+reference config scripts run unchanged.
 
 The swap surface (``program_fingerprint``, ``program_state``,
 ``swap_program``) lets the serving pool move a replica's Predictor onto

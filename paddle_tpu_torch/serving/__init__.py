@@ -14,6 +14,15 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
                     circuit breakers, failover/requeue, the per-replica
                     drain and the Predictor swap
   server.py         InferenceServer / ServingConfig / drain()
+  registry.py       ModelRegistry: named, versioned programs riding the
+                    ProgramDesc serialization, deduped by program
+                    fingerprint, prewarmed (every bucket captured)
+                    before they take traffic
+  fleet.py          RolloutController — zero-downtime rolling version
+                    swaps through the per-replica drain with
+                    burn-triggered rollback — and SLOAutoscaler, which
+                    sizes the ReplicaPool from the burn-rate signal of
+                    ``observability.slo`` (hysteresis + cooldown)
   decode_engine.py  continuous decode batching: ``DecodeServer`` runs
                     iteration-level batching of LLM decode over paged
                     KV-caches and ``flash_decode``, with chunked prefill
@@ -29,14 +38,13 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
             factory, serving.ServingConfig(n_replicas=2)) as srv:
         out = srv.infer({"x": batch})               # typed errors on shed
 
-``Config.disable_gpu()`` (``DecodeConfig(device="cpu")``) runs on the
+``Config.disable_gpu()`` (``DecodeConfig(device="cpu")``,
+``ModelRegistry(configure=lambda c: c.disable_gpu())``) runs on the
 CPU.  Not ported yet, each raising ``NotImplementedError`` that names
 its ROADMAP Queue 1 item: mesh-sliced replicas and
-``replicate_predictor_params`` (item 5); the model registry and the
-fleet's rollout and autoscaling (``registry.py``, ``fleet.py``: item
-4.2, nothing here refers to them); the metrics exporter and the fleet
-collector (item 4.3); ``DecodeServer``'s ``metrics_port``, ``collector``
-and ``disagg_prefill`` (item 4.4).
+``replicate_predictor_params`` (item 5); the metrics exporter and the
+fleet collector (item 4.3); ``DecodeServer``'s ``metrics_port``,
+``collector`` and ``disagg_prefill`` (item 4.4).
 """
 
 from paddle_tpu_torch.serving.admission import (  # noqa: F401
@@ -76,13 +84,32 @@ from paddle_tpu_torch.serving.server import (  # noqa: F401
     InferenceServer,
     ServingConfig,
 )
+from paddle_tpu_torch.serving.registry import (  # noqa: F401
+    ManifestMismatchError,
+    ModelNotFoundError,
+    ModelRegistry,
+    ModelVersion,
+    PrewarmFailedError,
+    RegistryError,
+    VersionNotFoundError,
+)
+from paddle_tpu_torch.serving.fleet import (  # noqa: F401
+    RolloutController,
+    RolloutError,
+    RolloutResult,
+    SLOAutoscaler,
+)
 
 __all__ = [
     "AdmissionController", "Batch", "DeadlineExpiredError",
     "DecodeConfig", "DecodeServer", "HandoffError", "InferenceServer",
-    "MSG_DECODE", "MSG_HEALTH", "MSG_INFER", "OverloadedError",
-    "QuotaExceededError", "Replica", "ReplicaFailedError", "ReplicaKilled",
-    "ReplicaPool", "ReplyLost", "Request", "ServingConfig", "ServingError",
-    "ShapeBucketBatcher", "ShutdownError", "TenantQuota", "TinyDecodeLM",
-    "default_buckets", "replicate_predictor_params", "signature_of",
+    "MSG_DECODE", "MSG_HEALTH", "MSG_INFER", "ManifestMismatchError",
+    "ModelNotFoundError", "ModelRegistry", "ModelVersion",
+    "OverloadedError", "PrewarmFailedError", "QuotaExceededError",
+    "RegistryError", "Replica", "ReplicaFailedError", "ReplicaKilled",
+    "ReplicaPool", "ReplyLost", "Request", "RolloutController",
+    "RolloutError", "RolloutResult", "SLOAutoscaler", "ServingConfig",
+    "ServingError", "ShapeBucketBatcher", "ShutdownError", "TenantQuota",
+    "TinyDecodeLM", "VersionNotFoundError", "default_buckets",
+    "replicate_predictor_params", "signature_of",
 ]

@@ -48,7 +48,7 @@ __all__ = ["ServingConfig", "InferenceServer"]
 
 _NOT_PORTED = ("{} is not ported yet: it waits for ROADMAP Queue 1 item "
                "{}")
-_EXPORT = "4.3 (observability/export.py, collector.py, slo.py on the port)"
+_EXPORT = "4.3 (observability/export.py and collector.py on the port)"
 _MESH = "5 (parallelism on torch.distributed)"
 
 
@@ -169,8 +169,7 @@ class InferenceServer:
             max_batch_attempts=cfg.max_batch_attempts,
             health_failures=cfg.health_failures)
         # the registry version currently serving (set by the fleet's
-        # RolloutController, ROADMAP Queue 1 item 4.2; None for a single
-        # anonymous model)
+        # RolloutController; None for a single anonymous model)
         self.model_version = None
         self.batcher = ShapeBucketBatcher(
             self.admission, self.pool.dispatch, buckets=cfg.buckets,

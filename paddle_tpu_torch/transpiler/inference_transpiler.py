@@ -15,9 +15,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from paddle_tpu_torch import unique_name
 from paddle_tpu_torch.core.program import OpDesc
 from paddle_tpu_torch.core.types import from_numpy, to_numpy
+
+
+def _fresh_name(block, key):
+    """The first ``key_0``, ``key_1``, ... that the block does not hold:
+    a name that depends on the program alone, so one saved model loads
+    as one program, and never one a saved fusing pass already drew."""
+    n = 0
+    while block.has_var(f"{key}_{n}"):
+        n += 1
+    return f"{key}_{n}"
 
 
 def _producer(block, name, before_idx):
@@ -139,7 +148,7 @@ class InferenceTranspiler:
             put(b_name, (get(b_name) - mean) * factor + beta)
             return
         # a new bias var and an elementwise_add writing bn's output
-        b_name = unique_name.generate(w_name + ".bn_folded_bias")
+        b_name = _fresh_name(block, w_name + ".bn_folded_bias")
         block.create_var(name=b_name, shape=beta.shape,
                          dtype=str(beta.dtype), persistable=True)
         device = scope.find_var(w_name).get().device
@@ -258,7 +267,7 @@ class FuseElewiseAddActTranspiler:
             if act_op is None or act_op.type not in self._ACTS:
                 continue
             inter = block.create_var(
-                name=unique_name.generate("fuse_add_act.inter"),
+                name=_fresh_name(block, "fuse_add_act.inter"),
                 shape=None, dtype=None)
             block.ops[i] = OpDesc(
                 "fused_elemwise_activation",
