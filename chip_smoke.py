@@ -81,6 +81,29 @@ Phases, none of which catches its own failure:
      swap's seconds, p50/p99 before and during the rollout, the seconds
      from overload to up, the phase's seconds and peak memory are
      logged beside the card's line;
+  3d. (run once every kernel is built, after phase 10, in a process of
+     its own: torch.profiler drops graph-replay records in this long
+     one) the serving tier's observability on that LM, saved again from
+     --seed: InferenceServer over two replicas with metrics_port=0 and
+     tracing at sample 1.0 answers 32 requests of 1-3 rows while
+     /metrics is scraped (each scrape parsed and timed): the admission
+     counters and the request histogram's count equal stats(), the p99
+     bucket's exemplar is a trace that /tracez holds, /healthz is ok,
+     /sloz parses, /fleetz is {"enabled": false}, and the exporter is
+     gone after stop(); a DecodeServer at the llm_decode widths with
+     metrics_port=0 serves 8 requests, its decode counters and paged-KV
+     page gauges equal to stats() and each cache; a DeviceTraceSession
+     around one interpreted request joins its 6 flash launches (made
+     through ctypes) by their correlation ids, and one around 16 lone
+     Predictor requests (replays) joins exactly 6 flash slices to each
+     request's trace id, as many as the captures count, their mean within
+     25 % of an event-timed launch, with a step breakdown that sums
+     exactly and holds the logits' Memcpy DtoH; the same requests with
+     tracing off are bitwise equal and annotate nothing;
+     profiler.profiler(tracer_option="Default") around one request writes
+     a merged trace whose device lanes hold its 6 flash slices under its
+     trace id; then the request's p50/p99 over 200 requests of 8 rows
+     with tracing off, at sample 0 and at sample 1.0;
  4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -2981,6 +3004,481 @@ def probe_replica(srv, placed, rows, index):
         for i in others:
             pool.resume_replica(i)
     return got, placed.by_request[req.id]
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the serving tier's observability — the /metrics exporter on
+# both servers, DeviceTraceSession and the Fluid profiler (a process of
+# its own: torch.profiler drops graph-replay records in a long process)
+# ---------------------------------------------------------------------------
+
+OBS_REQUESTS = 32             # the exporter's requests of 1-3 rows
+OBS_CLIENTS = 4               # their client threads
+OBS_SCRAPE_GAP_S = 0.02       # between /metrics scrapes under that load
+OBS_DECODE_REQUESTS = 8       # the DecodeServer's requests
+OBS_TRACED = 16               # lone Predictor requests in the session
+OBS_TRACE_BATCH = 1           # their rows (logits of 65.5 MB each)
+OBS_LATENCY_REQUESTS = 200    # requests a tracing setting is timed over
+OBS_KERNEL_TOL = 0.25         # joined flash seconds vs an event-timed launch
+OBS_KERNEL_LAUNCHES = 50      # event-timed flash launches (median)
+
+
+def _get(url):
+    import urllib.request
+
+    t = time.perf_counter()
+    body = urllib.request.urlopen(url, timeout=30).read().decode()
+    return body, (time.perf_counter() - t) * 1e3
+
+
+def _series(samples, name, key):
+    return {labels.get(key): value for n, labels, value in samples
+            if n == name}
+
+
+def save_lm(seed, workdir):
+    """Phase 3's LM (MODEL, weights from ``seed``) saved into
+    ``workdir``, built in fresh programs."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import framework
+    from paddle_tpu_torch.core.program import Program
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    framework.switch_main_program(Program())
+    framework.switch_startup_program(Program())
+    model = transformer_encoder_model(**MODEL)
+    exe = pt.Executor(pt.CUDAPlace(0))
+    np.random.seed(seed)
+    exe.run(pt.default_startup_program())
+    pt.io.save_inference_model(workdir, ["src_ids"], [model["logits"]], exe)
+
+
+def obs_exporter(seed, workdir):
+    """InferenceServer over two LM replicas with metrics_port=0 and
+    tracing at sample 1.0: OBS_REQUESTS requests of 1-3 rows from
+    OBS_CLIENTS threads while /metrics is scraped and timed; the
+    scrape's admission counters and request histogram equal stats(), the
+    p99 bucket's exemplar is a trace /tracez holds, /healthz ok, /sloz
+    parses, /fleetz disabled, and the exporter is gone after stop().  A
+    DeviceTraceSession around the traffic joins as many flash slices as
+    the replicas' replays launched, on the replicas' own threads."""
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import serving
+    from paddle_tpu_torch.observability import device_trace, tracing
+    from paddle_tpu_torch.observability.export import parse_prometheus_text
+
+    tracing.start_tracing(sample=1.0)
+    srv = serving.InferenceServer(
+        lambda i: pt.inference.create_predictor(
+            pt.inference.Config(workdir)),
+        serving.ServingConfig(max_batch=8, n_replicas=2, prewarm=True,
+                              metrics_port=0, trace_sample=1.0)).start()
+    url = srv.metrics_server.url
+    before = parse_prometheus_text(_get(url + "/metrics")[0])
+    done = threading.Event()
+    vocab, seq = MODEL["vocab_size"], MODEL["max_len"]
+
+    def client(k):
+        rng = np.random.RandomState(seed + 300 + k)
+        for _ in range(OBS_REQUESTS // OBS_CLIENTS):
+            ids = rng.randint(0, vocab, (int(rng.randint(1, 4)), seq, 1))
+            out, = srv.submit({"src_ids": ids}, deadline_s=TIER_WAIT_S
+                              ).result(timeout=TIER_WAIT_S)
+            if out.shape != (len(ids), seq, vocab):
+                raise AssertionError(f"observability: answer {out.shape}")
+
+    scrape_ms = []
+
+    def scraper():
+        while not done.is_set():
+            text, ms = _get(url + "/metrics")
+            parse_prometheus_text(text, with_exemplars=True)
+            scrape_ms.append(ms)
+            time.sleep(OBS_SCRAPE_GAP_S)
+
+    def replays():
+        return sum(r.predictor._compiled.replayed_launches().get(
+            "flash_attention_fwd", 0) for r in srv.pool.replicas)
+
+    base = replays()
+    th = threading.Thread(target=scraper, daemon=True)
+    with tempfile.TemporaryDirectory() as logdir:
+        sess = device_trace.DeviceTraceSession(logdir).start()
+        th.start()
+        tier_clients(OBS_CLIENTS, client)
+        done.set()
+        th.join(timeout=TIER_WAIT_S)
+        sess.stop()
+    served_flash = replays() - base
+    joined_flash = sum(1 for j in sess.joined
+                       if j["kernel"] == "flash_attention")
+    step_threads = len({a["tid"] for a in sess.annotations
+                        if a["kernel"] == "executor.step"})
+    text, last_ms = _get(url + "/metrics")
+    after, exemplars = parse_prometheus_text(text, with_exemplars=True)
+    stats = srv.stats()
+    tracez = json.loads(_get(url + "/tracez")[0])
+    health = json.loads(_get(url + "/healthz")[0])
+    sloz = json.loads(_get(url + "/sloz")[0])
+    fleetz = json.loads(_get(url + "/fleetz")[0])
+    srv.stop()
+    tracing.stop_tracing()
+    gone = srv.metrics_server is None
+    adm = "paddle_tpu_admission_requests_total"
+    b, a = _series(before, adm, "outcome"), _series(after, adm, "outcome")
+    moved = {k: a.get(k, 0.0) - b.get(k, 0.0) for k in stats["admission"]}
+    count = _series(after, "paddle_tpu_serving_request_seconds_count",
+                    "outcome").get("ok", 0.0) - _series(
+        before, "paddle_tpu_serving_request_seconds_count",
+        "outcome").get("ok", 0.0)
+    # the p99 bucket: the first whose cumulative count reaches 99 %
+    buckets = sorted(
+        (float(labels["le"]), value) for n, labels, value in after
+        if n == "paddle_tpu_serving_request_seconds_bucket"
+        and labels.get("outcome") == "ok")
+    le99 = next(le for le, c in buckets if c >= 0.99 * buckets[-1][1])
+    ex99 = [e for e in exemplars
+            if e["name"] == "paddle_tpu_serving_request_seconds_bucket"
+            and e["labels"].get("outcome") == "ok"
+            and float(e["labels"]["le"]) == le99]
+    traces = {s["trace_id"] for s in tracez["spans"]}
+    row = {"requests": OBS_REQUESTS, "answered": stats["answered"],
+           "admission": stats["admission"], "scraped_admission": moved,
+           "request_histogram_count": count,
+           "scrape_ms_under_load": scrape_ms, "scrape_ms_idle": last_ms,
+           "p99_bucket_le": le99,
+           "p99_exemplar": ex99[0]["exemplar_labels"] if ex99 else None,
+           "tracez_spans": len(tracez["spans"]), "healthz": health,
+           "session_flash_replays": served_flash,
+           "session_flash_joined": joined_flash,
+           "session_step_threads": step_threads,
+           "sloz_keys": sorted(sloz), "fleetz": fleetz,
+           "exporter_gone_after_stop": gone}
+    log("observability: the exporter on InferenceServer " + json.dumps(row))
+    if moved != stats["admission"] or \
+            stats["admission"]["answered_ok"] != OBS_REQUESTS or \
+            count != OBS_REQUESTS or not stats["accounted"]:
+        raise AssertionError("observability: the scrape disagrees with "
+                             "stats()")
+    if joined_flash != served_flash or not served_flash or \
+            step_threads != len(srv.pool.replicas):
+        raise AssertionError("observability: the session around the "
+                             "server missed its replicas' flash kernels")
+    if not ex99 or ex99[0]["exemplar_labels"]["trace_id"] not in traces:
+        raise AssertionError("observability: the p99 exemplar's trace is "
+                             "not in /tracez")
+    if health != {"status": "ok"} or fleetz != {"enabled": False} or \
+            "slos" not in sloz or not gone or not scrape_ms:
+        raise AssertionError("observability: a route answered wrong")
+    return row
+
+
+def obs_decode(seed):
+    """DecodeServer at the bench's llm_decode widths with metrics_port=0:
+    OBS_DECODE_REQUESTS requests, then a scrape whose decode counters
+    equal stats() and whose paged-KV page gauges equal each cache's
+    stats, with page_accounting() clean."""
+    from paddle_tpu_torch.observability.export import parse_prometheus_text
+
+    srv = decode_server("cuda", seed, metrics_port=0).start()
+    url = srv.metrics_server.url
+    prompts = decode_prompts(seed + 400, OBS_DECODE_REQUESTS,
+                             *DECODE_PROMPT, DECODE_MODEL["vocab"])
+    futs = [srv.submit(p) for p in prompts]
+    for f in futs:
+        f.result(timeout=TIER_WAIT_S)
+    t_end = time.perf_counter() + TIER_WAIT_S
+    while any(rep.cache.stats()["in_use_pages"] for rep in srv.replicas):
+        if time.perf_counter() > t_end:
+            raise AssertionError("observability: decode pages still held")
+        time.sleep(0.01)
+    samples = parse_prometheus_text(_get(url + "/metrics")[0])
+    stats = srv.stats()
+    ok, detail = srv.page_accounting()
+    gauges = {}
+    for rep in srv.replicas:
+        label, cache = rep.cache._label, rep.cache.stats()
+        for g, key in (("free", "free_pages"), ("in_use", "in_use_pages"),
+                       ("shared", "shared_pages")):
+            gauges[f"{label}/{g}"] = (_series(
+                samples, "paddle_tpu_paged_kv_pages_" + g, "cache").get(
+                label), cache[key])
+    events = _series(samples, "paddle_tpu_decode_events_total", "event")
+    srv.stop()
+    row = {"requests": OBS_DECODE_REQUESTS, "answered": stats["answered"],
+           "page_gauges_scraped_vs_cache": gauges,
+           "page_accounting": [ok, detail],
+           "iterations": stats["decode"]["iterations"],
+           "exporter_gone_after_stop": srv.metrics_server is None}
+    log("observability: the exporter on DecodeServer " + json.dumps(row))
+    if not ok or any(s != c for s, c in gauges.values()) or \
+            stats["answered"] != OBS_DECODE_REQUESTS or any(
+            events.get(k, 0.0) != v for k, v in stats["decode"].items()) \
+            or not row["exporter_gone_after_stop"]:
+        raise AssertionError("observability: DecodeServer's scrape "
+                             "disagrees with its stats")
+    return row
+
+
+def flash_launch_ms(device, seed, batch):
+    """The LM's flash forward (f32, causal, the model's permuted views)
+    at ``batch`` rows: the median of OBS_KERNEL_LAUNCHES single launches,
+    each bracketed by CUDA events behind a sleeping kernel, so the events
+    time the launch's device time and not its issue."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    h = MODEL["n_head"]
+    d, t = MODEL["d_model"] // h, MODEL["max_len"]
+    rng = np.random.RandomState(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((batch, t, h, d)).astype(
+        np.float32)).to(device).permute(0, 2, 1, 3) for _ in range(3))
+    scale = 1.0 / math.sqrt(d)
+    for _ in range(3):
+        fa.flash_attention_fwd(q, k, v, True, scale)
+    times = []
+    for _ in range(OBS_KERNEL_LAUNCHES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fa.flash_attention_fwd(q, k, v, True, scale)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def obs_device_trace(seed, workdir):
+    """A DeviceTraceSession around OBS_TRACED lone Predictor requests,
+    each under its own trace id, replays only: exactly n_layer flash
+    slices a request joined under its trace id (the replays' launches
+    counted from the capture), their mean within OBS_KERNEL_TOL of an
+    event-timed launch, a step breakdown that sums exactly with the
+    logits' Memcpy DtoH in its transfer; the same requests with tracing
+    off bitwise equal, and a capture of them holds no annotation.  One
+    interpreted request's session first: the kernels launched through
+    ctypes join by their correlation ids too."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.observability import device_trace, tracing
+
+    n = MODEL["n_layer"]
+    pred = pt.inference.create_predictor(pt.inference.Config(workdir))
+    rng = np.random.RandomState(seed + 500)
+    shape = (OBS_TRACE_BATCH, MODEL["max_len"], 1)
+    reqs = [rng.randint(0, MODEL["vocab_size"], shape)
+            for _ in range(OBS_TRACED)]
+    pred.run([reqs[0]])                     # the capture of the key
+    pred.run([reqs[0]])
+    tracer = tracing.start_tracing(sample=1.0)
+    tracer.clear()
+    with tempfile.TemporaryDirectory() as logdir:
+        # the interpreted request: the kernels' own ctypes launches
+        sess = device_trace.DeviceTraceSession(logdir).start()
+        with tracer.span("interpreted") as root:
+            pred._exe.run(pred._program, feed={"src_ids": reqs[0]},
+                          fetch_list=pred._fetch_vars, scope=pred._scope)
+        sess.stop()
+        eager = [j for j in sess.joined if j["kernel"] == "flash_attention"
+                 and j["trace_id"] == root.trace_id
+                 and "flash_fwd" in j["name"]]
+        eager_unlaunched = sum(1 for s in sess.device_slices
+                               if s.get("launch") is None)
+        # the replays
+        base = pred._compiled.replayed_launches().get(
+            "flash_attention_fwd", 0)
+        sess = device_trace.DeviceTraceSession(logdir).start()
+        traced, tids = [], []
+        for ids in reqs:
+            with tracer.span("request") as sp:
+                traced.append(np.array(pred.run([ids])[0]))
+            tids.append(sp.trace_id)
+        t = time.perf_counter()
+        sess.stop()
+        stop_s = time.perf_counter() - t
+        t = time.perf_counter()
+        sess._parse()
+        sess._join()
+        parse_join_s = time.perf_counter() - t
+    tracing.stop_tracing()
+    replays = pred._compiled.replayed_launches().get(
+        "flash_attention_fwd", 0) - base
+    flash = [j for j in sess.joined if j["kernel"] == "flash_attention"]
+    by_tid = {}
+    for j in flash:
+        by_tid[j["trace_id"]] = by_tid.get(j["trace_id"], 0) + 1
+    ns = sess.step_breakdown_ns()
+    dtoh = [j for j in sess.joined if j["name"].startswith("Memcpy DtoH")]
+    mean_ms = sess.kernel_seconds()["flash_attention"] * 1e3 / len(flash) \
+        if flash else None
+    launch_ms = flash_launch_ms(torch.device("cuda", 0), seed,
+                                OBS_TRACE_BATCH)
+    # the same requests with tracing off, captured: no annotation
+    untraced = []
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for ids in reqs:
+            untraced.append(np.array(pred.run([ids])[0]))
+        torch.cuda.synchronize()
+    annotated = sorted({e.name for e in prof.events()
+                        if e.name.startswith(device_trace.ANNOTATION_PREFIX)})
+    bitwise = all(np.array_equal(a, b) for a, b in zip(traced, untraced))
+    row = {"requests": OBS_TRACED, "batch": OBS_TRACE_BATCH,
+           "flash_replays_from_capture": replays,
+           "joined_flash_slices": len(flash),
+           "flash_slices_by_trace_id": sorted(by_tid.values()),
+           "interpreted_flash_joined": len(eager),
+           "interpreted_slices_without_launch": eager_unlaunched,
+           "slices_without_launch": sum(
+               1 for s in sess.device_slices if s.get("launch") is None),
+           "device_slices": len(sess.device_slices),
+           "joined": len(sess.joined), "annotations": len(sess.annotations),
+           "kernel_seconds": sess.kernel_seconds(),
+           "flash_joined_mean_ms": mean_ms, "flash_event_launch_ms": launch_ms,
+           "step_breakdown_ns": ns,
+           "memcpy_dtoh_joined": len(dtoh),
+           "memcpy_dtoh_ms": sum(j["dur"] for j in dtoh) / 1e3,
+           "stop_s": stop_s, "parse_join_s": parse_join_s,
+           "untraced_bitwise": bitwise,
+           "annotations_with_tracing_off": annotated}
+    log("observability: DeviceTraceSession " + json.dumps(row))
+    if len(eager) != n:
+        raise AssertionError(
+            f"observability: {len(eager)} of the interpreted request's {n} "
+            f"flash launches joined ({eager_unlaunched} device slices "
+            f"without a launch event)")
+    if replays != n * OBS_TRACED or len(flash) != replays or \
+            by_tid != {tid: n for tid in tids}:
+        raise AssertionError("observability: the joined flash slices do "
+                             "not match the replays' launches")
+    if abs(mean_ms - launch_ms) > OBS_KERNEL_TOL * launch_ms:
+        raise AssertionError("observability: the joined flash time is "
+                             "off the event-timed launch")
+    if ns["compute"] + ns["transfer"] + ns["host_gap"] != ns["total"] or \
+            min(ns.values()) < 0 or len(dtoh) < OBS_TRACED or \
+            not all(j["transfer"] and j["step"] is not None for j in dtoh) \
+            or ns["transfer"] <= 0:
+        raise AssertionError("observability: the step breakdown")
+    if not bitwise or annotated:
+        raise AssertionError("observability: tracing changed an answer, "
+                             "or annotated with tracing off")
+    return pred, reqs, row
+
+
+def obs_fluid_profiler(pred, ids, workdir):
+    """profiler.profiler(tracer_option="Default") around one request
+    under a trace: the merged trace's device lanes hold the request's
+    n_layer flash slices with its trace id."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.observability import device_trace, tracing
+
+    tracer = tracing.start_tracing(sample=1.0)
+    path = os.path.join(workdir, "fluid_profile.json")
+    with tracer.span("request") as root:
+        with profiler.profiler(tracer_option="Default", profile_path=path,
+                               sorted_key=None):
+            pred.run([ids])
+    tracing.stop_tracing()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    lanes = [e for e in events if e.get("ph") == "X" and e.get(
+        "pid", 0) >= device_trace.DeviceTraceSession._PID_OFFSET]
+    flash = [e for e in lanes if e["args"].get("kernel") == "flash_attention"
+             and e["args"].get("trace_id") == root.trace_id]
+    bound = device_trace.annotation_name("profiler", root.trace_id)
+    row = {"device_lane_events": len(lanes),
+           "flash_with_trace_id": len(flash),
+           "profiler_annotation": sum(1 for e in lanes
+                                      if e["name"] == bound)}
+    log("observability: the Fluid profiler " + json.dumps(row))
+    if len(flash) != MODEL["n_layer"] or row["profiler_annotation"] != 1:
+        raise AssertionError("observability: the Fluid profiler's merged "
+                             "trace lacks the request's flash slices")
+    return row
+
+
+def obs_latency(pred, seed):
+    """The compiled LM request (BATCH rows) timed over
+    OBS_LATENCY_REQUESTS requests with tracing off, on at sample 0 and
+    on at sample 1.0 (each request under a span, as a served one is)."""
+    import contextlib
+
+    from paddle_tpu_torch.observability import tracing
+
+    rng = np.random.RandomState(seed + 600)
+    ids = rng.randint(0, MODEL["vocab_size"], (BATCH, MODEL["max_len"], 1))
+    for _ in range(2):
+        pred.run([ids])
+    out = {}
+    for what, sample in (("off", None), ("sample_0", 0.0),
+                         ("sample_1", 1.0)):
+        tracer = None if sample is None else \
+            tracing.start_tracing(sample=sample)
+        lat = []
+        for _ in range(OBS_LATENCY_REQUESTS):
+            t = time.perf_counter()
+            with tracer.span("request") if tracer is not None \
+                    else contextlib.nullcontext():
+                pred.run([ids])
+            lat.append((time.perf_counter() - t) * 1e3)
+        if sample is not None:
+            tracing.stop_tracing()
+        out[what] = {"p50_ms": _pct(lat, 50), "p99_ms": _pct(lat, 99),
+                     "mean_ms": float(np.mean(lat)),
+                     "tracer_installed": tracer is not None}
+    log("observability: request latency by tracing setting "
+        + json.dumps(out))
+    return out
+
+
+def observability_phase(seed):
+    """Phase 3d in this process (the kernels already built): the
+    numbers and the flash replays it counted."""
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        save_lm(seed, workdir)
+        out["setup_s"] = time.perf_counter() - t0
+        out["exporter"] = obs_exporter(seed, workdir)
+        out["decode"] = obs_decode(seed)
+        pred, reqs, out["device_trace"] = obs_device_trace(seed, workdir)
+        out["fluid_profiler"] = obs_fluid_profiler(pred, reqs[0], workdir)
+        out["latency"] = obs_latency(pred, seed)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = expected_counts(
+        flash_attention_fwd=out["device_trace"]["flash_replays_from_capture"])
+    return out
+
+
+def observability_apart(seed, card):
+    """Phase 3d in a process of its own (``--observability``), on the
+    kernels built here; returns its numbers."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res_path = os.path.join(tmp, "observability.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--observability", res_path], timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 3d failed in its process "
+                                 f"(exit {proc.returncode})")
+        with open(res_path) as f:
+            res = json.load(f)
+    log(f"observability ({card}) " + json.dumps({
+        "latency": res["latency"], "seconds": res["seconds"],
+        "parse_join_s": res["device_trace"]["parse_join_s"],
+        "scrape_ms_under_load": res["exporter"]["scrape_ms_under_load"]}))
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -6014,6 +6512,10 @@ def main(argv=None):
                     help="run phases 19-21 alone (the kernels already "
                     "built) and write their numbers to RESULT_JSON; the "
                     "whole script runs them so, in a process of their own")
+    ap.add_argument("--observability", metavar="RESULT_JSON",
+                    help="run phase 3d alone (the kernels already built) "
+                    "and write its numbers to RESULT_JSON; the whole "
+                    "script runs it so, in a process of its own")
     ap.add_argument("--cpu-references", metavar="DIR",
                     help="compute the batch-2 checks' CPU runs into DIR "
                     "(no card used); the whole script runs this in a "
@@ -6043,6 +6545,10 @@ def main(argv=None):
     if args.training_legs:
         with open(args.training_legs, "w") as f:
             json.dump(training_legs(args.seed, device), f)
+        return 0
+    if args.observability:
+        with open(args.observability, "w") as f:
+            json.dump(observability_phase(args.seed), f)
         return 0
     import paddle_tpu_torch  # noqa: F401  (before any process starts)
 
@@ -6186,6 +6692,8 @@ def run_phases(args, card, device):
     log(f"{', '.join(LATE_KERNELS)} built in {built_s:.1f} s, waited "
         f"{time.perf_counter() - last[0]:.1f} s for it")
     phase("the rest of the kernels' build")
+    obs = observability_apart(args.seed, card)
+    phase("the serving tier's observability (its own process)")
     card_tests()
     phase("the card tests")
     decode_rows = {r["name"]: r for r in check_flash_decode(device,
@@ -6236,6 +6744,7 @@ def run_phases(args, card, device):
         return {"serving": serve_launches[name],
                 "serving_tier": tier_launches[name],
                 "fleet": fleet_launches[name],
+                "observability": obs["launches"][name],
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

@@ -26,6 +26,33 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LIBS: dict = {}
 
+# Each source's kernel functions and the kernel-entry annotation names
+# (observability/device_trace.py) they run under, the first the default.
+# A kernel replayed from a CUDA graph runs under no entry annotation, so
+# a device-trace session names it from its function; the int8 kernels
+# have no annotation site (their JAX counterparts are XLA ops).
+KERNEL_SYMBOLS = {
+    "flash_attention_fwd": (("flash_fwd_bf16_kernel", "flash_fwd_f32_kernel",
+                             "flash_fwd_wide_kernel"), ("flash_attention",)),
+    "flash_attention_bwd": (("flash_bwd_dq_bf16_kernel",
+                             "flash_bwd_dkv_bf16_kernel",
+                             "flash_bwd_dq_f32_kernel",
+                             "flash_bwd_dkv_f32_kernel",
+                             "flash_bwd_dq_wide_kernel",
+                             "flash_bwd_dkv_wide_kernel"),
+                            ("flash_attention",)),
+    "flash_decode": (("flash_decode_kernel", "flash_decode_wide_kernel",
+                      "flash_decode_merge_kernel"), ("flash_decode",)),
+    "fc_epilogue": (("fc_ep_bf16_kernel", "fc_wgmma_kernel",
+                     "fc_ep_f32_kernel"), ("fc_epilogue",)),
+    "conv_epilogue": (("conv_wgmma_kernel", "conv_f32_kernel"),
+                      ("conv2d_epilogue", "conv2d_bn_act")),
+    "bn_apply": (("bn_apply_masked_kernel", "bn_apply_tiled_kernel"),
+                 ("conv2d_bn_act",)),
+    "conv_int8": (("conv_int8_kernel", "conv_int8_wgmma_kernel"), ()),
+    "quantize_act": (("quantize_act_kernel",), ()),
+}
+
 
 def _nvcc() -> str:
     nvcc = shutil.which("nvcc")

@@ -71,6 +71,7 @@ from paddle_tpu_torch.core.executor import (_SPECIAL_OPS, ResolvedOp,
                                             feed_tensor, fetch_name)
 from paddle_tpu_torch.core.program import BlockRef, Program
 from paddle_tpu_torch.core.types import to_numpy
+from paddle_tpu_torch.observability import device_trace as _obs_device
 from paddle_tpu_torch.observability import flight_recorder as _obs_flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _obs_trace
@@ -147,10 +148,47 @@ class _TraceEnv(dict):
         return super().get(name, default)
 
 
-def _program_fingerprint(program):
-    """Structural content hash of the IR.
+def _fp_encode(h, v):
+    """Streams a typed, length-prefixed encoding of a canonical value
+    (``_program_fingerprint``'s ``attr_key``) into the digest ``h``.
+    Numbers that compare equal encode alike (bools and integral floats
+    as ints), as they hashed alike under ``hash``; a list and a tuple
+    encode alike too.  A type whose serialisation is not deterministic
+    raises ``TypeError``."""
+    import numpy as _np
 
-    The full hash is O(total ops) of Python tuple hashing, so it is
+    if isinstance(v, _np.generic):
+        v = v.item()
+    if v is None:
+        h.update(b"N")
+    elif isinstance(v, (bool, int)) or (
+            isinstance(v, float) and v.is_integer()):
+        h.update(b"i%d;" % int(v))
+    elif isinstance(v, float):
+        h.update(b"f" + v.hex().encode() + b";")
+    elif isinstance(v, str):
+        b = v.encode("utf-8", "surrogatepass")
+        h.update(b"s%d:" % len(b) + b)
+    elif isinstance(v, bytes):
+        h.update(b"b%d:" % len(v) + v)
+    elif isinstance(v, (list, tuple)):
+        h.update(b"L%d:" % len(v))
+        for x in v:
+            _fp_encode(h, x)
+    else:
+        raise TypeError(f"program_fingerprint: no deterministic encoding "
+                        f"of a {type(v).__name__} value ({v!r})")
+
+
+def _program_fingerprint(program):
+    """Structural content digest of the IR.
+
+    A keyed BLAKE2b digest of a canonical, typed encoding
+    (``_fp_encode``) of the program's sharding annotations, var names,
+    shapes, dtypes and persistability, and each op's type, stage, slots
+    and attrs (an array attr by its dtype, shape and bytes), so one
+    program has one fingerprint in every process, whatever
+    ``PYTHONHASHSEED`` is.  The full digest is O(total ops), so it is
     memoized per program and revalidated with a cheap token: (total op
     count, hash of the op-object identity tuple, the global IR mutation
     counter bumped by append_op/set_attr/set_sharding).  Transpiler edits
@@ -158,6 +196,8 @@ def _program_fingerprint(program):
     append_op/set_attr, so either changes the token; mutate op.attrs
     through OpDesc.set_attr (not the raw dict) for in-place attr edits to
     be seen."""
+    import hashlib
+
     import numpy as _np
 
     from paddle_tpu_torch.core.program import ir_mutation_counter
@@ -176,7 +216,7 @@ def _program_fingerprint(program):
         if isinstance(v, BlockRef):
             return ("__block__", v.idx)
         if isinstance(v, _np.ndarray):
-            return ("__nd__", v.shape, str(v.dtype), hash(v.tobytes()))
+            return ("__nd__", v.shape, str(v.dtype), v.tobytes())
         if isinstance(v, (list, tuple)):
             return tuple(attr_key(x) for x in v)
         if isinstance(v, dict):  # e.g. serialized segment ops
@@ -189,34 +229,36 @@ def _program_fingerprint(program):
         except TypeError:
             return str(dt)
 
-    h = 0
+    h = hashlib.blake2b(digest_size=8, person=b"paddle_tpu_fp")
     for b in program.blocks:
         # sharding annotations are part of the program's identity
         for v in b.vars.values():
             if v.sharding is not None:
-                h = hash((h, "__sharding__", v.name, v.sharding))
+                _fp_encode(h, ("__sharding__", v.name,
+                               attr_key(v.sharding)))
         # declared var shapes/dtypes too: two MLPs differing only in a
         # layer width have identical op lists (the width lives on the
         # VarDescs), and a resized weight must read as another program
         for name in sorted(b.vars):
             v = b.vars[name]
-            h = hash((
-                h, "__var__", name,
+            _fp_encode(h, (
+                "__var__", name,
                 None if v.shape is None
                 else tuple(int(d) for d in v.shape),
                 None if v.dtype is None else dtype_key(v.dtype),
                 bool(v.persistable)))
         for op in b.ops:
-            h = hash((
-                h, op.type, op.stage,
+            _fp_encode(h, (
+                "__op__", op.type, op.stage,
                 tuple((s, tuple(n)) for s, n in sorted(op.inputs.items())),
                 tuple((s, tuple(n))
                       for s, n in sorted(op.outputs.items())),
                 tuple((k, attr_key(v))
                       for k, v in sorted(op.attrs.items())),
             ))
-    program._fp_cache = (token, h)
-    return h
+    fp = int.from_bytes(h.digest(), "little", signed=True)
+    program._fp_cache = (token, fp)
+    return fp
 
 
 def program_fingerprint(program):
@@ -753,13 +795,20 @@ class CompiledProgram:
                 entry = self._cache.get(key)
                 if entry is not None:
                     t0 = time.perf_counter()
-                    with tracer.span("executor.step") \
-                            if tracer is not None \
-                            else contextlib.nullcontext():
-                        fetched = self._step(entry, feeds, device)
-                    # copied out under the locks, before any other replay
-                    return self._fetch(fetched, fetch_names, return_numpy,
-                                       t0, device.type == "cuda")
+                    # the span and the device-trace annotation hold the
+                    # fetch too: its copy to the host is the step's last
+                    # transfer.  Copied out under the locks, before any
+                    # other replay
+                    if tracer is not None:
+                        with tracer.span("executor.step"), \
+                                _obs_device.annotate("executor.step"):
+                            return self._fetch(
+                                self._step(entry, feeds, device),
+                                fetch_names, return_numpy, t0,
+                                device.type == "cuda")
+                    return self._fetch(self._step(entry, feeds, device),
+                                       fetch_names, return_numpy, t0,
+                                       device.type == "cuda")
             # a cache miss: a new (shapes, fetch, program) entry, built
             # with the device to itself (the module docstring)
             with lock.exclusive():
@@ -768,8 +817,12 @@ class CompiledProgram:
                 _obs_flight.record("executor", "compile",
                                    n_feeds=len(feeds),
                                    n_fetch=len(fetch_names))
-                with tracer.span("executor.compile") if tracer is not None \
-                        else contextlib.nullcontext():
+                if tracer is not None:
+                    with tracer.span("executor.compile"), \
+                            _obs_device.annotate("executor.compile"):
+                        entry, fetched = self._new_entry(fetch_names,
+                                                         feeds, device)
+                else:
                     entry, fetched = self._new_entry(fetch_names, feeds,
                                                      device)
                 self._cache[key] = entry

@@ -8,8 +8,10 @@ arrays, as the JAX package returns them).
 
 A ``CompiledProgram`` goes to its own ``_run`` (the plan and its CUDA
 graphs, ``core/compiler.py``); a plain ``Program`` is interpreted here,
-the debug path.  Both resolve ops through ``ResolvedOp``, so they run
-one contract.
+the debug path, where the flags ``profile_ops`` (a ``RecordEvent`` span
+an op) and ``check_nan_inf`` (``FloatingPointError`` naming the output
+and the op) act, as in the JAX package.  Both resolve ops through
+``ResolvedOp``, so they run one contract.
 
 Every op runs under ``torch.no_grad()``: the forward keeps no autograd
 graph and no scope tensor requires grad.  Only a synthesised
@@ -152,6 +154,32 @@ class Executor:
                 self.device, non_blocking=True))
 
     def _run_op(self, op, scope: Scope):
+        from paddle_tpu_torch import flags
+
+        if flags.get_flag("profile_ops"):
+            from paddle_tpu_torch import profiler
+
+            with profiler.RecordEvent(op.type):
+                self._run_op_inner(op, scope)
+        else:
+            self._run_op_inner(op, scope)
+        if flags.get_flag("check_nan_inf"):
+            self._check_nan_inf(op, scope)
+
+    def _check_nan_inf(self, op, scope: Scope):
+        """reference FLAGS_check_nan_inf sweep (operator.cc:953-983)."""
+        for names in op.outputs.values():
+            for n in names:
+                val = _scope_value(scope, n)
+                if not isinstance(val, torch.Tensor):
+                    continue
+                if val.is_floating_point() and \
+                        not bool(torch.isfinite(val).all()):
+                    raise FloatingPointError(
+                        f"NaN/Inf in output '{n}' of op {op.type} "
+                        f"({op!r})")
+
+    def _run_op_inner(self, op, scope: Scope):
         special = _SPECIAL_OPS.get(op.type)
         if special is not None:
             special(op, scope, self.device)

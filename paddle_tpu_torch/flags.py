@@ -5,8 +5,9 @@ typed flags, each read from the environment variable
 ``PADDLE_TPU_<NAME>`` when the module is imported, changed at run time
 with ``set_flags``.  Flags are process-global.
 
-Only the flags that the ported slices read are defined here; the others
-come with the slices that read them.
+Only the flags that the ported slices read are defined here, and
+``benchmark``, which no code of either package reads; the others come
+with the slices that read them.
 """
 
 from __future__ import annotations
@@ -54,6 +55,20 @@ def set_flags(flags: dict):
         f.value = value
 
 
+def all_flags():
+    return {name: f.value for name, f in _REGISTRY.items()}
+
+
+# the executor's debug flags (reference counterparts noted)
+define_flag("check_nan_inf", False,
+            "sweep op outputs for NaN/Inf after each interpreted op "
+            "(reference FLAGS_check_nan_inf, operator.cc:953)")
+define_flag("benchmark", False,
+            "block after each op to localize async failures "
+            "(reference FLAGS_benchmark, operator.cc:949)")
+define_flag("profile_ops", False,
+            "record a host span per interpreted op "
+            "(reference platform/profiler RecordEvent around op Run)")
 define_flag("maxpool_grad_algo", "sas",
             "max-pool backward: 'sas' routes each output's gradient to the "
             "first maximum of its window, as XLA's select_and_scatter "

@@ -39,9 +39,8 @@ as gauges:
 
 The fleet's ``RolloutController`` and ``SLOAutoscaler``
 (``serving/fleet.py``) read a monitor.  ``sloz()`` and ``verdict()``
-return their documents; the HTTP surfaces that serve them (``/sloz``,
-the ``/healthz`` degrade) belong to the metrics exporter, which is not
-ported yet (ROADMAP Queue 1 item 4.3).
+return their documents; the metrics exporter (``observability/
+export.py``) serves them as ``/sloz`` and the ``/healthz`` degrade.
 
 Env knobs: ``PADDLE_TPU_SLO_WINDOW`` — the default slow-window seconds
 (300; tests and the load generator pass short explicit windows).

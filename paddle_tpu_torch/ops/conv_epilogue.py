@@ -57,6 +57,8 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.observability import device_trace as _obs_device
+from paddle_tpu_torch.observability import tracing as _obs_trace
 from paddle_tpu_torch.ops.epilogue import (apply_acc_stages, apply_bn_tail,
                                            apply_chain_stages)
 from paddle_tpu_torch.ops.nn import _moments_1pass, conv_nd
@@ -480,10 +482,14 @@ def conv2d_epilogue(x, w, bias=None, residual=None, *, strides=(1, 1),
     """Fused NHWC conv + bias + residual + act, differentiable in x, w,
     bias and residual.  x [N,H,W,Cin]; w [O,Cin,KH,KW]; bias [O];
     residual [N,OH,OW,O]; act None or "relu"; ``impl`` as in the module
-    docstring."""
-    return ConvEpilogue.apply(x, w, bias, residual,
-                              tuple(int(s) for s in strides),
-                              _norm_padding(paddings), act or "", impl)
+    docstring.  With tracing on, the entry is a device-trace annotation
+    site."""
+    args = (x, w, bias, residual, tuple(int(s) for s in strides),
+            _norm_padding(paddings), act or "", impl)
+    if _obs_trace._tracer is not None:
+        with _obs_device.annotate("conv2d_epilogue"):
+            return ConvEpilogue.apply(*args)
+    return ConvEpilogue.apply(*args)
 
 
 # ---------------------------------------------------------------------------
@@ -610,11 +616,15 @@ def conv2d_bn_act(x, w, scale, shift, bias=None, residual=None, *,
     """Fused NHWC conv + train-mode BN + residual + act: (out,
     batch_mean, batch_var), differentiable in x, w, bias, scale, shift
     and residual.  scale/shift are BN's gamma/beta [O] (f32); ``impl``
-    as in the module docstring."""
-    return ConvBnAct.apply(x, w, bias, scale, shift, residual,
-                           tuple(int(s) for s in strides),
-                           _norm_padding(paddings), act or "",
-                           float(epsilon), impl)
+    as in the module docstring.  With tracing on, the entry is a
+    device-trace annotation site."""
+    args = (x, w, bias, scale, shift, residual,
+            tuple(int(s) for s in strides), _norm_padding(paddings),
+            act or "", float(epsilon), impl)
+    if _obs_trace._tracer is not None:
+        with _obs_device.annotate("conv2d_bn_act"):
+            return ConvBnAct.apply(*args)
+    return ConvBnAct.apply(*args)
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,8 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.observability import device_trace as _obs_device
+from paddle_tpu_torch.observability import tracing as _obs_trace
 from paddle_tpu_torch.ops.basic import gelu_fn
 
 _KERNEL = "fc_epilogue"
@@ -489,9 +491,13 @@ def fc_epilogue(x, w, bias=None, residual=None, *, act=None,
     """Fused ``act(x @ w + bias + residual)``, differentiable in every
     operand.  x [M,K], w [K,N], bias [N], residual [M,N]; act None,
     "relu" or "gelu" (``approximate`` as the gelu op's); ``impl`` as in
-    the module docstring."""
-    return FcEpilogue.apply(x, w, bias, residual, act or "",
-                            bool(approximate), impl)
+    the module docstring.  With tracing on, the entry is a device-trace
+    annotation site."""
+    args = (x, w, bias, residual, act or "", bool(approximate), impl)
+    if _obs_trace._tracer is not None:
+        with _obs_device.annotate("fc_epilogue"):
+            return FcEpilogue.apply(*args)
+    return FcEpilogue.apply(*args)
 
 
 fc_epilogue.launches = 0

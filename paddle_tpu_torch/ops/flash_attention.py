@@ -52,6 +52,8 @@ import math
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.observability import device_trace as _obs_device
+from paddle_tpu_torch.observability import tracing as _obs_trace
 
 _NEG_INF = -1e30
 _KERNEL = "flash_attention_fwd"
@@ -418,7 +420,15 @@ def flash_attention_lse(q, k, v, causal=False, scale=None):
                     "gspmd_head_axis": ""})
 def _flash_attention_op(ins, attrs, device):
     """The IR op.  ``scale`` 0.0 means 1/sqrt(D).  The tile sizes and the
-    gspmd axes are the JAX package's and change nothing on one card."""
+    gspmd axes are the JAX package's and change nothing on one card.
+    With tracing on, the entry is a device-trace annotation site."""
+    if _obs_trace._tracer is not None:
+        with _obs_device.annotate("flash_attention"):
+            return _flash_attention_entry(ins, attrs)
+    return _flash_attention_entry(ins, attrs)
+
+
+def _flash_attention_entry(ins, attrs):
     out, _ = flash_attention_lse(ins["Q"], ins["K"], ins["V"],
                                  causal=bool(attrs["causal"]),
                                  scale=attrs["scale"] or None)

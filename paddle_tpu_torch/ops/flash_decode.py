@@ -54,6 +54,8 @@ import threading
 import torch
 
 from paddle_tpu_torch.core.registry import register_op
+from paddle_tpu_torch.observability import device_trace as _obs_device
+from paddle_tpu_torch.observability import tracing as _obs_trace
 
 _NEG_INF = -1e30
 _KERNEL = "flash_decode"
@@ -216,7 +218,18 @@ def _load():
 def flash_decode(q, k_pages, v_pages, block_tables, seq_lens, *,
                  scale=None, impl=None, kv_scales=None):
     """Paged-KV decode attention (module docstring).  ``scale`` None
-    means 1/sqrt(d)."""
+    means 1/sqrt(d).  With tracing on, the entry is a device-trace
+    annotation site."""
+    if _obs_trace._tracer is not None:
+        with _obs_device.annotate("flash_decode"):
+            return _flash_decode_entry(q, k_pages, v_pages, block_tables,
+                                       seq_lens, scale, impl, kv_scales)
+    return _flash_decode_entry(q, k_pages, v_pages, block_tables,
+                               seq_lens, scale, impl, kv_scales)
+
+
+def _flash_decode_entry(q, k_pages, v_pages, block_tables, seq_lens,
+                        scale, impl, kv_scales):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if impl not in (None, "interpret", "xla"):

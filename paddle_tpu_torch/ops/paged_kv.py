@@ -54,8 +54,10 @@ import numpy as np
 import torch
 
 from paddle_tpu_torch.core.types import NoCUDADeviceError, to_torch_dtype
+from paddle_tpu_torch.observability import device_trace as _obs_device
 from paddle_tpu_torch.observability import flight_recorder as _flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
+from paddle_tpu_torch.observability import tracing as _obs_trace
 
 __all__ = ["OutOfPagesError", "PagedKVCache", "quantize_kv",
            "dequantize_kv", "kv_scales_of", "resolve_device"]
@@ -733,7 +735,15 @@ class PagedKVCache:
         len(slots) are batch padding and scatter into the sink page.  One
         scatter per pool; new pages come off the free list as sequences
         cross page boundaries, shared pages are copied first, and
-        OutOfPagesError leaves lengths, tables and refcounts untouched."""
+        OutOfPagesError leaves lengths, tables and refcounts untouched.
+        With tracing on, the batched append is a device-trace annotation
+        site (a decode-step hot spot worth its own lane)."""
+        if _obs_trace._tracer is not None:
+            with _obs_device.annotate("paged_kv_append"):
+                return self._append_inner(slots, k, v)
+        return self._append_inner(slots, k, v)
+
+    def _append_inner(self, slots, k, v):
         slots = list(slots)
         k = _as_tensor(k, self.device)
         v = _as_tensor(v, self.device)

@@ -42,9 +42,10 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
 ``ModelRegistry(configure=lambda c: c.disable_gpu())``) runs on the
 CPU.  Not ported yet, each raising ``NotImplementedError`` that names
 its ROADMAP Queue 1 item: mesh-sliced replicas and
-``replicate_predictor_params`` (item 5); the metrics exporter and the
-fleet collector (item 4.3); ``DecodeServer``'s ``metrics_port``,
-``collector`` and ``disagg_prefill`` (item 4.4).
+``replicate_predictor_params`` (item 5); the fleet collector of both
+servers (``collector``, item 4.3); ``DecodeServer``'s
+``disagg_prefill`` (item 4.4).  ``metrics_port`` mounts the ``/metrics``
+exporter on either server.
 """
 
 from paddle_tpu_torch.serving.admission import (  # noqa: F401

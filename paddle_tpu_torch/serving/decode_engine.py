@@ -42,11 +42,12 @@ Three options, each off by default (``DecodeConfig`` knob or flag):
     ``decode.spec_accept_length`` takes the longest agreeing prefix, and
     rejection is a page-pointer rewind (``PagedKVCache.truncate``).
 
-Not ported yet, and refused with NotImplementedError by
-``DecodeConfig``: the disaggregated prefill/decode tiers
-(``disagg_prefill``), the HTTP metrics exporter (``metrics_port``) and
-the fleet collector (``collector``); they wait for ROADMAP Queue 1 item
-4.4.
+``DecodeConfig(metrics_port=...)`` (or ``PADDLE_TPU_METRICS_PORT``)
+mounts the ``/metrics`` exporter (``observability/export.py``) from
+``start()`` to ``stop()``.  Not ported yet, and refused with
+NotImplementedError by ``DecodeConfig``: the fleet collector
+(``collector``, ``PADDLE_TPU_COLLECTOR``; ROADMAP Queue 1 item 4.3) and
+the disaggregated prefill/decode tiers (``disagg_prefill``; item 4.4).
 
 Model adapter protocol (duck-typed; ``TinyDecodeLM`` is the built-in):
 
@@ -61,6 +62,7 @@ raises without a card unless given ``"cpu"``.
 
 from __future__ import annotations
 
+import os
 import queue as queue_mod
 import threading
 import time
@@ -74,6 +76,8 @@ from paddle_tpu_torch.distributed import faultinject
 from paddle_tpu_torch.observability import flight_recorder as _flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _trace
+from paddle_tpu_torch.observability.export import (MetricsHTTPServer,
+                                                   metrics_port_from_env)
 from paddle_tpu_torch.ops.epilogue import greedy_logits_tail
 from paddle_tpu_torch.ops.flash_decode import flash_decode
 from paddle_tpu_torch.ops.paged_kv import (OutOfPagesError, PagedKVCache,
@@ -107,6 +111,9 @@ _M_ACTIVE = _obs_metrics.gauge(
 
 _SERVING_TIER = ("is not ported yet: it waits for the serving-tier's "
                  "ROADMAP Queue 1 item 4.4")
+_COLLECTOR = ("is not ported yet: it waits for ROADMAP Queue 1 item 4.3 "
+              "(observability/collector.py over distributed/rpc.py's "
+              "transport)")
 
 
 class TinyDecodeLM(nn.Module):
@@ -169,8 +176,8 @@ class TinyDecodeLM(nn.Module):
 
 class DecodeConfig:
     """Decode-server knobs, the JAX package's less the serving tier's
-    (``disagg_prefill``, ``metrics_port``, ``collector`` raise;
-    ``n_prefill_replicas`` is not taken), ``impl`` (the kernel is chosen
+    (``disagg_prefill`` and ``collector`` raise; ``n_prefill_replicas``
+    is not taken), ``impl`` (the kernel is chosen
     by the device) and ``head_pack`` (the kernel has nothing to pack), plus
     ``device``."""
 
@@ -204,15 +211,20 @@ class DecodeConfig:
         self.eos_id = int(eos_id)
         self.kv_int8 = kv_int8      # None -> the typed flag
         self.drain_timeout_s = float(drain_timeout_s)
-        if metrics_port is not None:
+        # /metrics + /varz on this server (None ->
+        # PADDLE_TPU_METRICS_PORT -> off; 0 = ephemeral)
+        if metrics_port is None:
+            metrics_port = metrics_port_from_env(None)
+        self.metrics_port = None if metrics_port is None \
+            else int(metrics_port)
+        # the fleet collector: None -> PADDLE_TPU_COLLECTOR -> off;
+        # anything but off raises
+        if collector is None:
+            collector = os.environ.get("PADDLE_TPU_COLLECTOR") or None
+        if collector:
             raise NotImplementedError(
-                "DecodeConfig(metrics_port=...): the HTTP metrics "
-                "exporter " + _SERVING_TIER)
-        if collector is not None:
-            raise NotImplementedError(
-                "DecodeConfig(collector=...): the fleet collector "
-                + _SERVING_TIER)
-        self.metrics_port = None
+                "DecodeConfig(collector=...) / PADDLE_TPU_COLLECTOR: the "
+                "fleet collector " + _COLLECTOR)
         self.collector = None
         if trace_sample is not None:
             trace_sample = float(trace_sample)
@@ -349,6 +361,7 @@ class DecodeServer:
                           "handoffs_lost": 0, "handoffs_expired": 0,
                           "prefill_kills": 0}
         self._step_ms = []          # bounded rolling inter-token record
+        self.metrics_server = None
         self._started = False
         self._stopped = False
 
@@ -358,6 +371,12 @@ class DecodeServer:
             self._started = True
             if self.config.trace_sample is not None:
                 _trace.set_sample_rate(self.config.trace_sample)
+            if self.config.metrics_port is not None:
+                try:
+                    self.metrics_server = MetricsHTTPServer(
+                        port=self.config.metrics_port).start()
+                except OSError:
+                    self.metrics_server = None
             self._sup.start()
         return self
 
@@ -1001,6 +1020,9 @@ class DecodeServer:
                 self._release_seq(rep, s)
             rep.active = []
             rep.prefilling = []
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
         return leftovers
 
     # -- observability ------------------------------------------------------

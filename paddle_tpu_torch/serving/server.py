@@ -3,9 +3,10 @@
 Counterpart of ``paddle_tpu/serving/server.py``.  The server runs where
 its Predictors run: ``inference.Config`` puts them on the card unless
 ``disable_gpu()`` is called, and every replica of one server shares
-that card.  The metrics exporter (``metrics_port``,
-``PADDLE_TPU_METRICS_PORT``) and the fleet collector (``collector``,
-``PADDLE_TPU_COLLECTOR``) raise ``NotImplementedError`` (ROADMAP Queue 1
+that card.  ``metrics_port`` (or ``PADDLE_TPU_METRICS_PORT``) mounts the
+``/metrics`` exporter (``observability/export.py``) from ``start()`` to
+``stop()``.  The fleet collector (``collector``,
+``PADDLE_TPU_COLLECTOR``) raises ``NotImplementedError`` (ROADMAP Queue 1
 item 4.3); mesh slices (``mesh_plan``, ``devices``) too (item 5).
 
 Pipeline: submit() -> AdmissionController (bounded queue, typed
@@ -37,6 +38,8 @@ import numpy as np
 
 from paddle_tpu_torch.concurrency import Supervisor
 from paddle_tpu_torch.observability import tracing as _trace
+from paddle_tpu_torch.observability.export import (MetricsHTTPServer,
+                                                   metrics_port_from_env)
 from paddle_tpu_torch.serving.admission import (AdmissionController,
                                                 ReplicaFailedError,
                                                 ShutdownError, TenantQuota)
@@ -48,7 +51,8 @@ __all__ = ["ServingConfig", "InferenceServer"]
 
 _NOT_PORTED = ("{} is not ported yet: it waits for ROADMAP Queue 1 item "
                "{}")
-_EXPORT = "4.3 (observability/export.py and collector.py on the port)"
+_COLLECTOR = ("4.3 (observability/collector.py over distributed/rpc.py's "
+              "transport on the port)")
 _MESH = "5 (parallelism on torch.distributed)"
 
 
@@ -107,16 +111,13 @@ class ServingConfig:
                 prewarm = bool(
                     os.environ.get("PADDLE_TPU_COMPILE_CACHE_DIR"))
         self.prewarm = bool(prewarm)
-        # the /metrics + /varz exporter: None -> PADDLE_TPU_METRICS_PORT
-        # -> off, as in the JAX package; anything but off raises
+        # mount /metrics + /varz on this server.  None ->
+        # PADDLE_TPU_METRICS_PORT -> off; 0 binds an ephemeral port (read
+        # server.metrics_server.port)
         if metrics_port is None:
-            env = os.environ.get("PADDLE_TPU_METRICS_PORT")
-            metrics_port = None if env is None or env == "" else int(env)
-        if metrics_port is not None:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "ServingConfig(metrics_port=...) / PADDLE_TPU_METRICS_PORT"
-                ": the HTTP metrics exporter", _EXPORT))
-        self.metrics_port = None
+            metrics_port = metrics_port_from_env(None)
+        self.metrics_port = None if metrics_port is None \
+            else int(metrics_port)
         # head-based trace sampling: None defers to the
         # tracer's own rate (PADDLE_TPU_TRACE_SAMPLE); a float in
         # [0.0, 1.0] is applied at start() — 0.0 uninstalls the tracer
@@ -133,7 +134,7 @@ class ServingConfig:
         if collector:
             raise NotImplementedError(_NOT_PORTED.format(
                 "ServingConfig(collector=...) / PADDLE_TPU_COLLECTOR: the "
-                "fleet collector", _EXPORT))
+                "fleet collector", _COLLECTOR))
         self.collector = None
         # multi-tenant fleet: per-tenant admission quotas
         # ({tenant: TenantQuota | {max_outstanding/qps/burst/weight}
@@ -181,6 +182,7 @@ class InferenceServer:
             restart=True)
         self._validator = self.pool.replicas[0].predictor \
             if self.pool.replicas else None
+        self.metrics_server = None
         self._started = False
         self._stopped = False
 
@@ -191,6 +193,13 @@ class InferenceServer:
         self._started = True
         if self.config.trace_sample is not None:
             _trace.set_sample_rate(self.config.trace_sample)
+        if self.config.metrics_port is not None:
+            try:
+                self.metrics_server = MetricsHTTPServer(
+                    port=self.config.metrics_port).start()
+            except OSError:
+                self.metrics_server = None   # scrape endpoint is an
+                #                              optimization, not a crash
         self.pool.start()
         if self.config.prewarm:
             self.prewarm_buckets()
@@ -299,6 +308,9 @@ class InferenceServer:
         self._stopped = True
         self._sup.stop(join_timeout=2.0)
         self.pool.stop(join_timeout=2.0)
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+            self.metrics_server = None
         return leftovers
 
     # -- observability ------------------------------------------------------

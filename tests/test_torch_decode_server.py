@@ -273,10 +273,12 @@ def test_submit_validation_and_refusals():
             srv.submit(np.asarray([2] * 10000))          # never fits
     finally:
         srv.stop()
-    for knob in (dict(disagg_prefill=True), dict(metrics_port=0),
-                 dict(collector="localhost:1")):
-        with pytest.raises(NotImplementedError, match="serving-tier"):
+    for knob, item in ((dict(disagg_prefill=True), "item 4.4"),
+                       (dict(collector="localhost:1"), "item 4.3")):
+        with pytest.raises(NotImplementedError, match=item):
             serving.DecodeConfig(device="cpu", **knob)
+    assert serving.DecodeConfig(device="cpu",
+                                metrics_port=0).metrics_port == 0
 
 
 def test_decode_entry_points_refuse_the_cpu_unless_asked():

@@ -166,7 +166,9 @@ class _FireAfterFirstSwap:
 def test_registry_versioning_dedupe_and_typed_errors(tmp_path):
     """Versions are monotonic per name, deduped by program fingerprint
     (the same dir twice -> the SAME ModelVersion), lookups fail typed
-    with the JAX codes; the fingerprints are the JAX registry's."""
+    with the JAX codes; the JAX registry tells the same dirs apart (its
+    values differ: its fingerprint is a salted ``hash``, the port's a
+    digest that holds across processes)."""
     d1 = _build_model(tmp_path, hidden=16)
     d2 = _build_model(tmp_path, hidden=24)
     reg = _registry()
@@ -181,8 +183,9 @@ def test_registry_versioning_dedupe_and_typed_errors(tmp_path):
     assert reg.models() == ["m"]
     assert reg.find_by_fingerprint("m", v2.fingerprint) is v2
     jreg = jax_serving.ModelRegistry()
-    assert [jreg.register("m", d).fingerprint for d in (d1, d2)] == \
-        [v1.fingerprint, v2.fingerprint]
+    j1, j2 = (jreg.register("m", d) for d in (d1, d2))
+    assert j1.fingerprint != j2.fingerprint
+    assert jreg.register("m", d1) is j1
 
     with pytest.raises(serving.ModelNotFoundError) as ei:
         reg.get("nope")
@@ -225,7 +228,8 @@ def test_registry_register_program_serializes(tmp_path):
 def test_registry_persists_and_readopts(tmp_path):
     """ModelRegistry(root) re-adopts its versions from the manifest:
     version numbers and dedupe intact, the manifest written by atomic
-    rename and in the JAX registry's layout."""
+    rename and in the JAX registry's layout, which the JAX registry
+    parses up to the fingerprints."""
     d1 = _build_model(tmp_path, hidden=16)
     d2 = _build_model(tmp_path, hidden=32)
     root = str(tmp_path / "registry")
@@ -256,9 +260,11 @@ def test_registry_persists_and_readopts(tmp_path):
     d3 = _build_model(tmp_path, hidden=64)
     assert reg2.register("m", d3).version == 3
     assert _registry(root).adopted == 3
-    # the JAX registry reads the port's manifest (same layout, same
-    # fingerprints in one process)
-    assert jax_serving.ModelRegistry(root).adopted == 3
+    # the JAX registry reads the port's manifest (same layout) as far
+    # as its fingerprints, which are the port's digests, not its hashes
+    with pytest.raises(jax_serving.ManifestMismatchError,
+                       match="m@v1: on-disk ProgramDesc fingerprint"):
+        jax_serving.ModelRegistry(root)
     assert v1.version == 1
 
 
