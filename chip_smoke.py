@@ -76,11 +76,13 @@ Phases, none of which catches its own failure:
      SLOMonitor of fleet_availability (2 s window): twice phase 3b's
      1-replica rows/s for 3 s scales up (the new replica from
      v2.prewarm, bitwise equal to v2's lone Predictor), no down while
-     the overload holds; a quiet trickle then scales down through the
-     drain with every request answered.  The rollout's wall, each
-     swap's seconds, p50/p99 before and during the rollout, the seconds
-     from overload to up, the phase's seconds and peak memory are
-     logged beside the card's line;
+     the overload holds, the admitted p99 under the 1 s deadline; a
+     quiet trickle then scales down through the drain with every
+     request answered.  The rollout's wall, each swap's seconds,
+     p50/p99 and the largest request before and during the rollout, the
+     replays that ended while each prewarm captured (at least one in the
+     rollout's), the seconds from overload to up, the phase's seconds
+     and peak memory are logged beside the card's line;
   3d. (run once every kernel is built, after phase 10, in a process of
      its own: torch.profiler drops graph-replay records in this long
      one) the serving tier's observability on that LM, saved again from
@@ -205,6 +207,25 @@ Phases, none of which catches its own failure:
      joiner's to its run alone, zero page leaks, flash_decode on a table
      wider than 256 pages, and the streams' inter-token p99 during the
      join (under 0.25 s) and after it logged;
+ 12b. disaggregated prefill/decode, DecodeConfig(disagg_prefill=True,
+     n_prefill_replicas=2) at those widths: 64 prompts of 64-128 tokens,
+     32 new tokens each, over one shared pool of 192 pages, with 1 decode
+     replica at max_batch 64 and with 2 at 32, each beside a single-tier
+     run of the same replicas and batch: every stream's tokens equal to
+     the single tier's, all 64 handoffs adopted, flash_decode launches
+     == iterations, nothing in use or in transit on the shared pool after
+     stop(); flash_decode held to its plain version (DECODE_TOL f32) on
+     the shared pool's own tables at the first iteration with at least
+     32 live streams and a fragmented table (the share of non-consecutive
+     page pairs logged) and timed there by graph replay beside its bound,
+     and timed on the bench's strided handoff layout beside contiguous
+     tables; tokens/s, inter-token p50/p99, handoff latency p50/p99 (the
+     paddle_tpu_disagg_handoff_seconds histogram) and a profiled run's
+     device idle share of both tiers and the single tier; then the first
+     configuration under serving_prefill@1:kill (restart_dead=False) and
+     under serving_decode@2:kill (tools/chaos_soak.py's pinned windows):
+     every request answered once, one kill, a failover, the fault-free
+     single tier's tokens, nothing leaked;
  13. runs 8 of those prompts through the CPU DecodeServer, plain and
      with int8 pools, and holds the card's plain, speculative (both
      drafts) and int8 tokens to them, token for token up to the first
@@ -2106,14 +2127,13 @@ def rss_gb():
 
 
 def overload(srv, rows, rate_rows, seed, seconds=TIER_OVERLOAD_S,
-             what="serving tier overload", bound_p99=True):
+             what="serving tier overload"):
     """Open loop at twice the closed-loop rate for ``seconds``: requests
     over capacity get the typed OverloadedError at submit, every
     admitted one is answered or expires at its deadline (its latency from
     admission), none dropped silently; the admitted p99 stays under the
-    deadline where ``bound_p99`` (not while a scale-up's prewarm
-    captures hold the card alone, which stalls the replays behind
-    them)."""
+    deadline (a scale-up's prewarm captures included: replays do not
+    wait for them)."""
     import queue as queue_mod
     import threading
 
@@ -2196,7 +2216,7 @@ def overload(srv, rows, rate_rows, seed, seconds=TIER_OVERLOAD_S,
     log(f"{what} " + json.dumps(row))
     if not shed["overloaded"] or shed["other"] or \
             set(outcomes) - {"ok", "expired"} or not st["accounted"] or \
-            bound_p99 and not p99 < TIER_DEADLINE_S * 1e3:
+            not p99 < TIER_DEADLINE_S * 1e3:
         raise AssertionError(f"{what}: {row}")
     return row
 
@@ -2484,6 +2504,7 @@ def serving_tier(seed, workdir, reference, card):
     # -- warm-up under traffic: two cold replicas, no prewarm -------------
     cold = [predictor(), predictor()]
     rows.serves(cold, lone)
+    caps0 = len(compiled_captures())
     srv2 = serving.InferenceServer(lambda i: cold[i], serving.ServingConfig(
         max_batch=8, n_replicas=2, prewarm=False)).start()
     placed2 = TierPlacement(srv2)
@@ -2522,6 +2543,7 @@ def serving_tier(seed, workdir, reference, card):
         "captures": sum(1 for r in placed2.runs if r[2]),
         "replays": sum(1 for r in placed2.runs if not r[2]),
         "captures_overlapping_a_replay": placed2.overlaps(),
+        "capture_windows": captures_since(caps0),
         "batches_failed": st["pool"]["batches_failed"],
         "requeues": st["pool"]["requeues"],
         "answered_ok": st["admission"]["answered_ok"],
@@ -2638,10 +2660,32 @@ class FleetTraffic:
 
 
 def fleet_latency(records, t0, t1):
-    """Requests submitted in [t0, t1): count, p50 and p99 (ms)."""
+    """Requests submitted in [t0, t1): count, p50, p99 and the largest
+    (ms)."""
     lat = [dt * 1e3 for t, dt, _ in records if t0 <= t < t1]
     return {"requests": len(lat), "p50_ms": _pct(lat, 50),
-            "p99_ms": _pct(lat, 99)}
+            "p99_ms": _pct(lat, 99), "max_ms": max(lat, default=None)}
+
+
+def compiled_captures():
+    """The compiled path's record of its warm-up-and-capture windows on
+    the card: (seconds, the compiled runs that ended inside) each."""
+    import torch
+
+    from paddle_tpu_torch.core import compiler
+
+    return compiler._device_lock(torch.device("cuda", 0)).captures
+
+
+def captures_since(n0):
+    """The windows recorded after the first ``n0``: their count, each
+    one's ms and the runs (other instances' replays) that ended inside
+    each, and those runs' sum."""
+    caps = list(compiled_captures())[n0:]
+    return {"captures": len(caps),
+            "capture_ms": [s * 1e3 for s, _ in caps],
+            "runs_ended_in_each": [n for _, n in caps],
+            "runs_ended_in_captures": sum(n for _, n in caps)}
 
 
 def fleet(seed, workdir, reference, card, tier):
@@ -2688,6 +2732,10 @@ def fleet(seed, workdir, reference, card, tier):
         "card": card, "rollout_wall_s": out["rollout"]["wall_s"],
         "swap_s": out["rollout"]["swap_s"],
         "before": out["rollout"]["before"], "during": out["rollout"]["during"],
+        "runs_ended_in_rollout_captures": out["rollout"]["prewarm_captures"][
+            "runs_ended_in_captures"],
+        "overload_admitted_p99_ms": out["autoscale"]["overload"][
+            "admitted_p99_ms"],
         "overload_to_up_s": out["autoscale"]["overload_to_up_s"],
         "overload_to_replica_s": out["autoscale"]["overload_to_replica_s"],
         "phase_s": out["seconds"]["phase"],
@@ -2781,6 +2829,7 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
     time.sleep(FLEET_LEAD_S)
     mon = KillAfterFirstSwap()
     reset_kernel_counts()
+    caps0 = len(compiled_captures())
     t_roll = time.perf_counter()
     try:
         res = serving.RolloutController(srv, reg, monitor=mon).rollout(
@@ -2789,6 +2838,7 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
         faultinject.uninstall()
     t_done = time.perf_counter()
     host = kernel_counts()
+    prewarms = captures_since(caps0)
     time.sleep(FLEET_AFTER_S)
     records = traffic.stop()
     t_end = time.perf_counter() + TIER_WAIT_S
@@ -2826,9 +2876,13 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
         "accounted": st["accounted"], "outstanding": st["outstanding"],
         "model_version": st["model_version"],
         "before": fleet_latency(records, 0.0, t_roll),
-        "during": fleet_latency(records, t_roll, t_done)}
+        "during": fleet_latency(records, t_roll, t_done),
+        "prewarm_captures": prewarms}
     log("the fleet rollout " + json.dumps(out["rollout"]))
     ro = out["rollout"]
+    if not prewarms["captures"] or not prewarms["runs_ended_in_captures"]:
+        raise AssertionError(f"the fleet rollout: no replay ended while the "
+                             f"prewarms captured: {prewarms}")
     if not res.converged or [e[2] for e in ro["kill_log"]] != ["kill"] or \
             ro["requeues"] < 1 or not ro["all_on_v2"] or \
             not all(r.alive for r in pool.replicas) or \
@@ -2933,8 +2987,9 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
     sc.start(interval_s=FLEET_TICK_S)
     rate = tier["closed_loop_1"]["rows_per_s"]
     t_over = time.monotonic()
+    caps0 = len(compiled_captures())
     row = overload(srv, rows, rate, seed + 400, seconds=FLEET_OVERLOAD_S,
-                   what="the fleet overload", bound_p99=False)
+                   what="the fleet overload")
     t_over_end = time.monotonic()
     # an up records its event once the replica it prewarms is added,
     # which can be after the overload that decided it
@@ -2942,6 +2997,7 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
     while not [d for _, d, _ in sc.scale_events() if d == "up"] and \
             time.monotonic() < t_end:
         time.sleep(0.01)
+    up_captures = captures_since(caps0)
     ups = [t for t, d, _ in sc.scale_events() if d == "up" and t < t_over_end]
     downs = [t for t, d, _ in sc.scale_events() if d == "down"]
     if not added or not ups or [t for t in downs if t < t_over_end]:
@@ -2976,6 +3032,7 @@ def _fleet(seed, workdir, reference, tier, root, out, lap):
         "overload_to_replica_s": added[0][0] - t_over,
         "overload_s": t_over_end - t_over,
         "down_after_overload_s": t_down - t_over_end,
+        "up_prewarm_captures": up_captures,
         "added_serves_v2_bitwise": new_ok,
         "trickle_answered": len(records), "accounted": st["accounted"],
         "outstanding": st["outstanding"], "leftovers": leftovers,
@@ -5031,6 +5088,285 @@ def decode_join_phase(device, seed):
     return run["launches"], row
 
 
+# phase 12b: disaggregated prefill/decode (DecodeConfig(disagg_prefill=
+# True)) at DECODE_MODEL's widths: DISAGG_PROMPTS prompts over one shared
+# pool of 3 * DECODE_STREAMS pages, in each (decode replicas, max_batch)
+# of DISAGG_CONFIGS with DISAGG_PREFILL prefill replicas, each held to a
+# single-tier run of the same replicas and batch.  flash_decode is held to
+# its plain version on the shared pool's own tables at the first iteration
+# with at least DISAGG_LIVE live streams and a fragmented table.  The
+# first configuration runs again under each of DISAGG_CHAOS, the two
+# pinned kills of tools/chaos_soak.py's run_disagg_iteration.
+DISAGG_CONFIGS = ((1, 64), (2, 32))
+DISAGG_PREFILL = 2
+DISAGG_PROMPTS = 64
+DISAGG_LIVE = 32
+DISAGG_CHAOS = (("serving_prefill", 1, dict(restart_dead=False)),
+                ("serving_decode", 2, {}))
+
+
+class SharedPoolProbe:
+    """For one run, wraps the engine's ``flash_decode`` (its module
+    attribute; the server's code is not changed).  At the first launch
+    over at least ``live`` streams with a table that is not one run of
+    consecutive pages, it keeps clones of that launch's q, pools, tables,
+    lengths and output (in stream order, so the pools are as the launch
+    read them) and each stream's page list.  The launch is the main
+    path's own: nothing more is launched.  Until then each launch's
+    tables and lengths are read on the host."""
+
+    def __init__(self, live):
+        self.live, self.snap, self.pages = live, None, None
+
+    def __enter__(self):
+        from paddle_tpu_torch.serving import decode_engine
+
+        self._attend = attend = decode_engine.flash_decode
+
+        def kept_attend(q, k, v, tables, lens, *args, **kw):
+            out = attend(q, k, v, tables, lens, *args, **kw)
+            if self.snap is None:
+                ps = k.shape[2]
+                pages = [row[:-(-n // ps)] for row, n in zip(
+                    tables.tolist(), lens.tolist()) if n > 0]
+                if len(pages) >= self.live and any(
+                        b != a + 1 for p in pages for a, b in zip(p, p[1:])):
+                    self.snap = {n: t.clone() for n, t in (
+                        ("q", q), ("k", k), ("v", v), ("tables", tables),
+                        ("lens", lens), ("out", out))}
+                    self.pages = pages
+            return out
+
+        decode_engine.flash_decode = kept_attend
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.serving import decode_engine
+
+        decode_engine.flash_decode = self._attend
+        return False
+
+    def check(self, what, device):
+        """The kept launch's output against flash_decode_plain on the
+        same inputs (DECODE_TOL["float32"] of the output's scale), its
+        tables' fragmentation (the share of a table's neighbouring page
+        pairs that are not consecutive pages), and on the card the
+        kernel's time by graph replay on those inputs beside the plain
+        version's and the bound."""
+        import torch
+
+        from paddle_tpu_torch.ops import flash_decode as fd
+
+        if self.snap is None:
+            raise AssertionError(f"{what}: no launch over {self.live} or more "
+                                 "streams had a fragmented table")
+        s = self.snap
+        ref = fd.flash_decode_plain(s["q"], s["k"], s["v"], s["tables"],
+                                    s["lens"])
+        scale = max(1.0, ref.float().abs().max().item())
+        err = (s["out"].float() - ref.float()).abs().max().item()
+        pairs = [(a, b) for p in self.pages for a, b in zip(p, p[1:])]
+        lens = [int(x) for x in s["lens"].cpu() if x > 0]
+        row = dict(streams=len(self.pages), live_tokens=sum(lens),
+                   table_width=int(s["tables"].shape[1]),
+                   fragmented_tables=sum(any(
+                       b != a + 1 for a, b in zip(p, p[1:]))
+                       for p in self.pages),
+                   non_consecutive_pair_share=sum(
+                       b != a + 1 for a, b in pairs) / max(1, len(pairs)),
+                   max_abs_err=err, err_rel_to_scale=err / scale,
+                   tol=DECODE_TOL["float32"])
+        if device == "cuda":
+            h, d = s["q"].shape[-2:]
+            args = [s[n] for n in ("q", "k", "v", "tables", "lens")]
+            row["ms"] = graph_ms(lambda: fd.flash_decode(*args), 20)
+            row["plain_ms"] = graph_ms(lambda: fd.flash_decode_plain(*args),
+                                       20)
+            row["bound_ms"], row["bound_by"], _ = decode_bound_ms(
+                lens, 1, h, d, int(s["k"].shape[2]), "float32")
+        log(f"{what}: flash_decode on the shared pool's tables "
+            + json.dumps(row))
+        if not err <= DECODE_TOL["float32"] * scale:
+            raise AssertionError(f"{what}: flash_decode disagrees with its "
+                                 f"plain version on the shared pool: {row}")
+        self.snap = None
+        return row
+
+
+def handoff_buckets():
+    """The handoff-latency histogram's bucket counts (its one series)."""
+    from paddle_tpu_torch.serving import decode_engine
+
+    hist = decode_engine._M_HANDOFF_SECONDS
+    series = list(hist.series())
+    return list(series[0][1].counts) if series \
+        else [0] * (len(hist.buckets) + 1)
+
+
+def handoff_pct(before, after, p):
+    """The p-th percentile (ms) of the handoffs observed between two
+    ``handoff_buckets`` readings: the upper bound of its bucket, as the
+    instrument reports (``_HistogramSeries.percentile``)."""
+    from paddle_tpu_torch.serving import decode_engine
+
+    bounds = decode_engine._M_HANDOFF_SECONDS.buckets
+    counts = [b - a for a, b in zip(before, after)]
+    n = sum(counts)
+    if not n:
+        return None
+    target, acc = max(1, -(-int(p * n) // 100)), 0
+    for i, c in enumerate(counts):
+        acc += c
+        if acc >= target:
+            return bounds[i] * 1e3 if i < len(bounds) else float("inf")
+    return None
+
+
+def disagg_run(what, device, seed, prompts, n_replicas, max_batch,
+               disagg, window=None, **cfg):
+    """``run_decode`` at (n_replicas, max_batch), with DISAGG_PREFILL
+    prefill replicas when ``disagg``; adds the disaggregated bars (every
+    prompt's handoff adopted, nothing in use or in transit on the shared
+    pool after stop()) and the handoff latency's p50/p99 from the
+    ``paddle_tpu_disagg_handoff_seconds`` histogram.  Returns (tokens,
+    stats, the run's row)."""
+    if disagg:
+        cfg.update(disagg_prefill=True, n_prefill_replicas=DISAGG_PREFILL)
+    h0 = handoff_buckets()
+    outs, st, res, srv = run_decode(
+        what, device, seed, prompts, window=window, n_replicas=n_replicas,
+        max_batch=max_batch, **cfg)
+    h1 = handoff_buckets()
+    res = dict(res, decode_replicas=n_replicas, max_batch=max_batch)
+    if disagg:
+        sc, dis = srv._shared_cache, st["disagg"]
+        res.update(
+            handoffs_offered=dis["handoffs_offered"],
+            handoffs_adopted=dis["handoffs_adopted"],
+            handoffs_lost=dis["handoffs_lost"],
+            prefill_kills=dis["prefill_kills"],
+            kills=st["decode"]["kills"], failovers=st["decode"]["failovers"],
+            prefills_by_replica={i: p["prefills"] for i, p in
+                                 dis["prefill_replicas"].items()},
+            shared_pool_pages=sc.num_pages,
+            peak_in_use_pages=sc.stats()["peak_in_use_pages"],
+            handoff_p50_ms=handoff_pct(h0, h1, 50),
+            handoff_p99_ms=handoff_pct(h0, h1, 99),
+            after_stop={"in_use": sc.in_use_pages(),
+                        "in_transit": sc.in_transit_pages()})
+        log(f"{what} (the tiers) " + json.dumps({k: res[k] for k in (
+            "handoffs_offered", "handoffs_adopted", "handoffs_lost",
+            "prefill_kills", "kills", "failovers", "prefills_by_replica",
+            "shared_pool_pages", "peak_in_use_pages", "handoff_p50_ms",
+            "handoff_p99_ms", "after_stop")}))
+        if sc.in_use_pages() or sc.in_transit_pages() or \
+                dis["handoffs_adopted"] < len(prompts) or \
+                not st["accounted"]:
+            raise AssertionError(f"{what}: a handoff was not adopted or the "
+                                 f"shared pool leaked: {res}")
+    return outs, st, res
+
+
+def disagg_phase(device, seed):
+    """Phase 12b: each configuration single-tier, disaggregated (the
+    kernel held on the shared pool's tables), then both again under the
+    profiler; the first configuration under each pinned kill.  Bars:
+    each stream's tokens equal to the single-tier run's (under the kills
+    too), every prompt's handoff adopted, flash_decode launches ==
+    iterations, zero pages in use or in transit after stop(), every
+    request answered once.  Returns the launches by path and the rows."""
+    from paddle_tpu_torch.distributed import faultinject
+
+    vocab = DECODE_MODEL["vocab"]
+    prompts = decode_prompts(seed + 13, DISAGG_PROMPTS, *DECODE_PROMPT,
+                             vocab)
+    launches, rows, reference = {}, {}, {}
+    for n_rep, batch in DISAGG_CONFIGS:
+        name = f"{n_rep}x{batch}"
+        single, _, srow = disagg_run(
+            f"decode single tier {name}", device, seed, prompts, n_rep,
+            batch, False)
+        probe = SharedPoolProbe(min(DISAGG_LIVE, batch))
+        with probe:
+            tiers, _, drow = disagg_run(
+                f"decode disaggregated {name}", device, seed, prompts, n_rep,
+                batch, True)
+        drow["kernel_on_shared_pool"] = probe.check(
+            f"decode disaggregated {name}", device)
+        drow["tokens_equal_single_tier"] = tiers == single
+        if tiers != single:
+            raise AssertionError(
+                f"decode disaggregated {name}: tokens differ from the single "
+                f"tier's in {sum(a != b for a, b in zip(tiers, single))} "
+                "streams")
+        if device == "cuda":
+            launches[f"decode_disagg_{name}"] = drow["launches"]
+            for what, row, disagg in (("single tier", srow, False),
+                                      ("disaggregated", drow, True)):
+                prof = {}
+
+                def profiled(fn, label=f"served run of {DISAGG_PROMPTS} "
+                             f"decode requests, {what} {name}", prof=prof):
+                    out, prof["p"] = profile(label, fn)
+                    return out
+
+                disagg_run(f"decode {what} {name} profiled", device, seed,
+                           prompts, n_rep, batch, disagg, window=profiled)
+                row["profiled"] = {k: prof["p"][k] for k in (
+                    "wall_ms", "device_ms", "device_idle_share")}
+        rows[name] = {"single_tier": srow, "disaggregated": drow}
+        reference[n_rep, batch] = single
+    n_rep, batch = DISAGG_CONFIGS[0]
+    for msg, index, extra in DISAGG_CHAOS:
+        what = f"decode disaggregated {n_rep}x{batch}, {msg}@{index}:kill"
+        plan = faultinject.FaultPlan().on(msg, index, "kill")
+
+        def faulted(fn, plan=plan):
+            with faultinject.installed(plan):
+                return fn()
+
+        outs, st, crow = disagg_run(what, device, seed, prompts, n_rep, batch,
+                                    True, window=faulted, **extra)
+        killed = crow["prefill_kills"] if msg == "serving_prefill" \
+            else crow["kills"]
+        crow["tokens_equal_single_tier"] = outs == reference[n_rep, batch]
+        if killed != 1 or crow["failovers"] < 1 or \
+                not crow["tokens_equal_single_tier"] or \
+                st["answered"] != DISAGG_PROMPTS:
+            raise AssertionError(f"{what}: {crow}")
+        rows[f"{msg}@{index}:kill"] = crow
+    if device == "cuda":
+        rows["layouts"] = disagg_layouts(seed)
+    log("decode disaggregated numbers " + json.dumps({
+        name: {side: {k: r.get(k) for k in (
+            "tokens_per_s", "inter_token_p50_ms", "inter_token_p99_ms",
+            "handoff_p50_ms", "handoff_p99_ms", "iterations", "profiled")}
+            for side, r in pair.items()}
+        for name, pair in rows.items() if "single_tier" in pair}))
+    return launches, rows
+
+
+def disagg_layouts(seed):
+    """flash_decode by graph replay at phase 11's main shape (64 streams
+    of 64-160 tokens, 8 heads of 128, page 128, f32) with the bench's
+    handoff-strided tables (bench.py:1258-1262) and contiguous ones, on
+    the same lengths, each beside its bound."""
+    from paddle_tpu_torch.ops import flash_decode as fd
+
+    lens = decode_lens((64, 64, 160), np.random.RandomState(seed + 14))
+    row = {}
+    for strided in (True, False):
+        q, k, v, tab, ln, _ = decode_inputs(seed + 14, lens, 1, 8, 128, 128,
+                                            "float32", strided, "cuda")
+        row["strided" if strided else "contiguous"] = graph_ms(
+            lambda: fd.flash_decode(q, k, v, tab, ln), 20)
+        del q, k, v
+    row["bound_ms"], row["bound_by"], _ = decode_bound_ms(lens, 1, 8, 128,
+                                                          128, "float32")
+    log("flash_decode by layout at the main shape " + json.dumps(row))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 15-22: conv-net inference in bf16 and int8 (the bench's six
 # inference legs, bench.py:1767-1793, the infer leg's A/B lever, and the
@@ -6702,6 +7038,9 @@ def run_phases(args, card, device):
     decode_launches["decode_chunked_join"], join_row = decode_join_phase(
         "cuda", args.seed)
     phase("LLM decode and the chunked join")
+    disagg_launches, disagg_rows = disagg_phase("cuda", args.seed)
+    decode_launches.update(disagg_launches)
+    phase("disaggregated decode")
 
     # conv-net inference: the six legs, the lever, the Predictor, then the
     # s8 kernel and #5 at their shapes
@@ -6965,6 +7304,12 @@ def run_phases(args, card, device):
         "bound_share": main_row["bound_share"],
         "bound_share_by_case": {n: r["bound_share"]
                                 for n, r in decode_rows.items()},
+        "disaggregated": {
+            "on_the_shared_pool": {
+                name: disagg_rows[name]["disaggregated"][
+                    "kernel_on_shared_pool"]
+                for name in (f"{n}x{b}" for n, b in DISAGG_CONFIGS)},
+            "by_layout_at_the_main_shape": disagg_rows["layouts"]},
         "design": "a CTA per (sequence, head, up to 16 rows, split of 16 "
                   "pages), a cp.async ring of 2-4 stages, splits merged "
                   "in order",

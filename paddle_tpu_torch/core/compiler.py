@@ -31,27 +31,31 @@ shapes, fetch names and a structural program fingerprint (``:97-185``,
   names, program fingerprint) runs the plan eagerly on a side stream:
   its results are real (the step updates the state and is returned), and
   it builds each hand kernel on first use and initialises cuBLAS and
-  cuDNN.  The device segments run under ``torch.cuda.set_sync_debug_mode
-  ("error")`` there, so an op that would synchronise inside a capture
-  fails by name first.  Then each segment is captured into a CUDA graph
-  on that stream, with the feeds in fixed buffers that later runs copy
-  into before they replay.  All graphs of one CompiledProgram share one
-  memory pool, freed with it.  A capture or replay failure raises:
-  nothing falls back to the interpreter (a capture that fails after its
-  warm-up leaves the warm-up's step applied).  Fetches are copied out (to
-  page-locked host memory, or cloned with ``return_numpy=False``), so the
-  caller never holds memory that the next replay overwrites.
+  cuDNN.  Then each segment is captured into a CUDA graph on that
+  stream, with the feeds in fixed buffers that later runs copy into
+  before they replay.  All graphs of one CompiledProgram share one
+  memory pool, freed with it.  An op that synchronises (``.item()``, a
+  copy to pageable memory, a device synchronise) is an error inside a
+  capture: the capture fails and ``run`` raises, caching nothing.  A
+  capture or replay failure raises: nothing falls back to the
+  interpreter (a capture that fails after its warm-up leaves the
+  warm-up's step applied).  Fetches are copied out (to page-locked host
+  memory, or cloned with ``return_numpy=False``), so the caller never
+  holds memory that the next replay overwrites.
 - On ``CPUPlace`` the same plan runs eagerly every step.
-- More than one caller on a card.  ``torch.cuda.set_sync_debug_mode`` is
-  process-wide, not per thread, and a capture in the default (global)
-  mode fails when any thread synchronises or allocates device memory
-  while it runs.  So every ``CompiledProgram`` on a device shares one
-  readers-writer lock (``_device_lock``): a key's warm-up and capture
-  hold it exclusively, and a run of a cached key (its feed copies, its
-  replay, its fetch into host memory) holds it shared.  Two instances
-  replay side by side; a new key waits for the replays in flight and
-  holds every other instance's runs until its graphs are captured.  Runs
-  of one instance stay in order under its own lock, taken first.
+- More than one caller on a card.  A capture runs in CUDA's thread-local
+  mode (``capture_error_mode="thread_local"``) on its instance's side
+  stream, a non-blocking stream that PyTorch made: only the capturing
+  thread is held to the capture's rules, and PyTorch's caching allocator
+  sends only that stream's allocations to the graph's pool.  Other
+  threads may launch graphs, allocate, copy to pinned memory and
+  synchronise their own streams while it runs.  So a run of a cached key
+  (its feed copies, its replay, its fetch) never waits for another
+  instance's warm-up or capture, and they never wait for it.  Warm-ups
+  and captures on one device still take one lock (``_device_lock``), one
+  at a time: the kernel wrappers count their launches in process-wide
+  counters, and a capture records their deltas.  Runs of one instance
+  stay in order under its own lock.
 
 The kernel wrappers count their launches on the host, so their counts
 tick while the plan runs eagerly or captures, never on a replay: each
@@ -61,6 +65,7 @@ capture records the counts' deltas (``ops.kernel_launches``), and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 import time
@@ -270,54 +275,45 @@ def program_fingerprint(program):
 
 
 class _DeviceLock:
-    """A readers-writer lock for the compiled path on one device: many
-    runs of cached keys hold it shared, a warm-up and capture holds it
-    alone.  A waiting capture keeps new shared holders out, so replays
-    in a loop cannot starve it."""
+    """The compiled path's lock on one device: warm-ups and captures hold
+    it one at a time (``capture``); runs of cached keys (``run``) never
+    wait for it.  It counts the runs that end while a capture holds it:
+    ``captures`` keeps, for each recent capture, its seconds and that
+    count."""
 
     def __init__(self):
-        self._cond = threading.Condition()
-        self._readers = 0
-        self._writer = False
-        self._writers_waiting = 0
+        self._capture = threading.Lock()
+        self._guard = threading.Lock()
+        self._runs = 0
+        self.captures = collections.deque(maxlen=4096)
 
     @contextlib.contextmanager
-    def shared(self):
-        with self._cond:
-            while self._writer or self._writers_waiting:
-                self._cond.wait()
-            self._readers += 1
-        try:
-            yield
-        finally:
-            with self._cond:
-                self._readers -= 1
-                if not self._readers:
-                    self._cond.notify_all()
-
-    @contextlib.contextmanager
-    def exclusive(self):
-        with self._cond:
-            self._writers_waiting += 1
+    def capture(self):
+        with self._capture:
+            with self._guard:
+                runs = self._runs
+            t0 = time.perf_counter()
             try:
-                while self._writer or self._readers:
-                    self._cond.wait()
+                yield
             finally:
-                self._writers_waiting -= 1
-            self._writer = True
+                with self._guard:
+                    self.captures.append((time.perf_counter() - t0,
+                                          self._runs - runs))
+
+    @contextlib.contextmanager
+    def run(self):
         try:
             yield
         finally:
-            with self._cond:
-                self._writer = False
-                self._cond.notify_all()
+            with self._guard:
+                self._runs += 1
 
 
 class _NoLock:
     """The lock of a device that needs none (the CPU: each instance's
     own lock orders its runs)."""
 
-    shared = exclusive = staticmethod(contextlib.nullcontext)
+    run = capture = staticmethod(contextlib.nullcontext)
 
 
 _DEVICE_LOCKS = {}
@@ -648,20 +644,10 @@ class CompiledProgram:
                 f"the compiled program ({item.reason}); run this program "
                 "through the interpreted executor")
 
-    def _run_eager(self, entry, env, device, sync_check):
+    def _run_eager(self, entry, env, device):
         for item in entry.items:
             if isinstance(item, _HostOp):
                 self._run_host(item, env, device)
-            elif sync_check:
-                # process-wide: the caller holds the device's lock
-                # exclusively, so no other thread's synchronising fetch
-                # or pageable copy runs (and raises) inside this window
-                previous = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    self._run_segment(item, env, device)
-                finally:
-                    torch.cuda.set_sync_debug_mode(previous)
             else:
                 self._run_segment(item, env, device)
         return [self._fetched(entry, env, f) for f in entry.fetch_names]
@@ -678,9 +664,9 @@ class CompiledProgram:
         return v
 
     def _capture(self, entry, feeds, device):
-        """Capture each segment of ``entry`` on the side stream, its
-        inputs in fixed buffers; records each capture's launch deltas and
-        the fetched tensors."""
+        """Capture each segment of ``entry`` on the side stream (the
+        current one), its inputs in fixed buffers; records each
+        capture's launch deltas and the fetched tensors."""
         from paddle_tpu_torch.ops import kernel_launches
 
         if self._pool is None:
@@ -702,13 +688,15 @@ class CompiledProgram:
                         if n in self._state else torch.empty_like(v)
                 item.outputs = None        # the eager run's tensors
                 continue
-            # a global-mode capture: the device's lock, held
-            # exclusively, keeps every other compiled run (its syncs,
-            # its allocations) out of it
+            # thread-local mode: other threads' replays, fetches and
+            # allocations go on beside it (the module docstring); the
+            # device's lock keeps other warm-ups and captures, whose
+            # launches would enter the deltas, out of it
             before = kernel_launches()
             graph = torch.cuda.CUDAGraph()
-            torch.cuda.synchronize(device)
-            graph.capture_begin(pool=self._pool)
+            torch.cuda.current_stream(device).synchronize()
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
             try:
                 self._run_segment(item, env, device)
             except BaseException as e:
@@ -759,7 +747,7 @@ class CompiledProgram:
         env = _TraceEnv(self._state)
         if device.type != "cuda":
             env.update(feeds)
-            return entry, self._run_eager(entry, env, device, False)
+            return entry, self._run_eager(entry, env, device)
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         stream = self._stream
@@ -770,7 +758,7 @@ class CompiledProgram:
             # cloned on the side stream, whose work the caller's stream
             # waits for: nothing the warm-up allocated is read elsewhere
             fetched = [v.clone() for v in
-                       self._run_eager(entry, env, device, True)]
+                       self._run_eager(entry, env, device)]
             del env
             self._capture(entry, feeds, device)
         torch.cuda.current_stream(device).wait_stream(stream)
@@ -790,15 +778,15 @@ class CompiledProgram:
         tracer = _obs_trace._tracer
         lock = _device_lock(device)
         with self._lock, torch.no_grad():
-            with lock.shared():
-                self._sync_state(scope, device)
-                entry = self._cache.get(key)
-                if entry is not None:
+            self._sync_state(scope, device)
+            entry = self._cache.get(key)
+            if entry is not None:
+                with lock.run():
                     t0 = time.perf_counter()
                     # the span and the device-trace annotation hold the
                     # fetch too: its copy to the host is the step's last
-                    # transfer.  Copied out under the locks, before any
-                    # other replay
+                    # transfer.  Copied out under the instance's lock,
+                    # before its next replay
                     if tracer is not None:
                         with tracer.span("executor.step"), \
                                 _obs_device.annotate("executor.step"):
@@ -809,9 +797,10 @@ class CompiledProgram:
                     return self._fetch(self._step(entry, feeds, device),
                                        fetch_names, return_numpy, t0,
                                        device.type == "cuda")
-            # a cache miss: a new (shapes, fetch, program) entry, built
-            # with the device to itself (the module docstring)
-            with lock.exclusive():
+            # a cache miss: a new (shapes, fetch, program) entry, its
+            # warm-up and capture alone among the device's (the module
+            # docstring)
+            with lock.capture():
                 t0 = time.perf_counter()
                 _M_COMPILES.inc()
                 _obs_flight.record("executor", "compile",
@@ -834,7 +823,7 @@ class CompiledProgram:
         if device.type != "cuda":
             env = _TraceEnv(self._state)
             env.update(feeds)
-            return self._run_eager(entry, env, device, False)
+            return self._run_eager(entry, env, device)
         return self._replay(entry, feeds, device)
 
     def _fetch(self, fetched, fetch_names, return_numpy, t0, replayed):

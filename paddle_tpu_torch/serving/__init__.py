@@ -27,8 +27,9 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
                     iteration-level batching of LLM decode over paged
                     KV-caches and ``flash_decode``, with chunked prefill
                     (``prefill_chunk``), copy-on-write prefix sharing
-                    (``kv_share``) and lossless speculative decoding
-                    (``spec_k``)
+                    (``kv_share``), lossless speculative decoding
+                    (``spec_k``) and disaggregated prefill/decode tiers
+                    over one shared page pool (``disagg_prefill``)
 
     from paddle_tpu_torch import inference, serving
 
@@ -43,8 +44,7 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
 CPU.  Not ported yet, each raising ``NotImplementedError`` that names
 its ROADMAP Queue 1 item: mesh-sliced replicas and
 ``replicate_predictor_params`` (item 5); the fleet collector of both
-servers (``collector``, item 4.3); ``DecodeServer``'s
-``disagg_prefill`` (item 4.4).  ``metrics_port`` mounts the ``/metrics``
+servers (``collector``, item 4.3).  ``metrics_port`` mounts the ``/metrics``
 exporter on either server.
 """
 
@@ -77,6 +77,7 @@ from paddle_tpu_torch.serving.replica_pool import (  # noqa: F401
 )
 from paddle_tpu_torch.serving.decode_engine import (  # noqa: F401
     MSG_DECODE,
+    MSG_PREFILL,
     DecodeConfig,
     DecodeServer,
     TinyDecodeLM,
@@ -104,7 +105,8 @@ from paddle_tpu_torch.serving.fleet import (  # noqa: F401
 __all__ = [
     "AdmissionController", "Batch", "DeadlineExpiredError",
     "DecodeConfig", "DecodeServer", "HandoffError", "InferenceServer",
-    "MSG_DECODE", "MSG_HEALTH", "MSG_INFER", "ManifestMismatchError",
+    "MSG_DECODE", "MSG_HEALTH", "MSG_INFER", "MSG_PREFILL",
+    "ManifestMismatchError",
     "ModelNotFoundError", "ModelRegistry", "ModelVersion",
     "OverloadedError", "PrewarmFailedError", "QuotaExceededError",
     "RegistryError", "Replica", "ReplicaFailedError", "ReplicaKilled",

@@ -1,6 +1,6 @@
 """Continuous decode batching: the LLM-serving request type.
 
-Counterpart of ``paddle_tpu/serving/decode_engine.py``, single tier.
+Counterpart of ``paddle_tpu/serving/decode_engine.py``.
 Iteration-level (Orca-style) scheduling over N decode replicas: each
 replica owns a model adapter and ONE paged KV-cache
 (``ops/paged_kv.PagedKVCache``) and runs a supervised iteration loop.
@@ -42,12 +42,32 @@ Three options, each off by default (``DecodeConfig`` knob or flag):
     ``decode.spec_accept_length`` takes the longest agreeing prefix, and
     rejection is a page-pointer rewind (``PagedKVCache.truncate``).
 
+Disaggregated prefill/decode tiers (``disagg_prefill``): the server
+splits into a PREFILL pool of ``n_prefill_replicas`` workers (prompt
+projections and page writes) and the decode pool behind the same
+admission, every decode replica reading ONE shared page pool.  A
+finished prefill reaches the decode tier as a page-list handoff
+(``PagedKVCache.detach``/``adopt``: block-table entries and refcounts,
+no K/V bytes moved), with the typed ``HandoffError`` when its attempt
+budget is spent, the deadline carried across the tier boundary (expiry
+in transit releases the pages and answers typed), and exactly-once
+answers when a replica on either side dies mid-handoff: a prefill kill
+after allocation releases the handoff and a survivor re-prefills; a
+decode kill after adoption frees only its slots on the shared pool
+(never a wholesale reset) and the prefill tier re-prefills from token
+history.  The fault point ``serving_prefill`` sits between the detach
+and the offer.  Ordering on the card: every tier's thread issues its
+work on the device's default stream, the one stream they share, so a
+prefill's page writes are queued before the adopting replica's
+``flash_decode`` reads them (the handoff queue orders the two on the
+host), and a freed page's last read is queued before any later write
+into it.  No tier has a stream of its own, so no event rides a handoff.
+
 ``DecodeConfig(metrics_port=...)`` (or ``PADDLE_TPU_METRICS_PORT``)
 mounts the ``/metrics`` exporter (``observability/export.py``) from
 ``start()`` to ``stop()``.  Not ported yet, and refused with
 NotImplementedError by ``DecodeConfig``: the fleet collector
-(``collector``, ``PADDLE_TPU_COLLECTOR``; ROADMAP Queue 1 item 4.3) and
-the disaggregated prefill/decode tiers (``disagg_prefill``; item 4.4).
+(``collector``, ``PADDLE_TPU_COLLECTOR``; ROADMAP Queue 1 item 4.3).
 
 Model adapter protocol (duck-typed; ``TinyDecodeLM`` is the built-in):
 
@@ -84,13 +104,18 @@ from paddle_tpu_torch.ops.paged_kv import (OutOfPagesError, PagedKVCache,
                                            resolve_device)
 from paddle_tpu_torch.serving.admission import (AdmissionController,
                                                 DeadlineExpiredError,
+                                                HandoffError,
                                                 ReplicaFailedError,
                                                 ShutdownError)
 from paddle_tpu_torch.serving.replica_pool import ReplicaKilled
 
-__all__ = ["MSG_DECODE", "TinyDecodeLM", "DecodeConfig", "DecodeServer"]
+__all__ = ["MSG_DECODE", "MSG_PREFILL", "TinyDecodeLM", "DecodeConfig",
+           "DecodeServer"]
 
 MSG_DECODE = faultinject.register_msg_type("serving_decode")
+# the disaggregated prefill tier: one decision per prefill, consulted
+# after its pages are allocated and detached into the handoff
+MSG_PREFILL = faultinject.register_msg_type("serving_prefill")
 
 _M_DECODE = _obs_metrics.counter(
     "paddle_tpu_decode_events_total",
@@ -108,9 +133,25 @@ _M_ACTIVE = _obs_metrics.gauge(
     "paddle_tpu_decode_active_seqs",
     "sequences in the running batch, by replica index",
     max_series=64)
+# the disaggregated tiers: handoff outcomes and latency (the p99 bucket's
+# exemplar names a sampled trace), live replicas by tier, shared-pool pages
+_M_HANDOFFS = _obs_metrics.counter(
+    "paddle_tpu_disagg_handoffs_total",
+    "prefill->decode page-list handoffs by outcome (offered / "
+    "adopted / lost / expired / orphaned / killed)")
+_M_HANDOFF_SECONDS = _obs_metrics.histogram(
+    "paddle_tpu_disagg_handoff_seconds",
+    "prefill-complete -> decode-adoption latency of page-list "
+    "handoffs")
+_G_TIER_REPLICAS = _obs_metrics.gauge(
+    "paddle_tpu_disagg_tier_replicas",
+    "live replicas per disaggregated tier (prefill / decode)",
+    max_series=8)
+_G_TIER_PAGES = _obs_metrics.gauge(
+    "paddle_tpu_disagg_pages",
+    "shared-pool page occupancy of the disaggregated server "
+    "(in_use / in_transit / free)", max_series=8)
 
-_SERVING_TIER = ("is not ported yet: it waits for the serving-tier's "
-                 "ROADMAP Queue 1 item 4.4")
 _COLLECTOR = ("is not ported yet: it waits for ROADMAP Queue 1 item 4.3 "
               "(observability/collector.py over distributed/rpc.py's "
               "transport)")
@@ -175,11 +216,9 @@ class TinyDecodeLM(nn.Module):
 
 
 class DecodeConfig:
-    """Decode-server knobs, the JAX package's less the serving tier's
-    (``disagg_prefill`` and ``collector`` raise; ``n_prefill_replicas``
-    is not taken), ``impl`` (the kernel is chosen
-    by the device) and ``head_pack`` (the kernel has nothing to pack), plus
-    ``device``."""
+    """Decode-server knobs, the JAX package's less ``collector`` (it
+    raises), ``impl`` (the kernel is chosen by the device) and
+    ``head_pack`` (the kernel has nothing to pack), plus ``device``."""
 
     def __init__(self, max_batch=8, max_new_tokens=32, num_pages=None,
                  page_size=16, queue_capacity=None,
@@ -189,7 +228,8 @@ class DecodeConfig:
                  metrics_port=None, trace_sample=None,
                  prefill_chunk=None, kv_share=None, spec_k=None,
                  draft_factory=None, preempt_slack_s=0.25,
-                 collector=None, disagg_prefill=None, device="cuda"):
+                 collector=None, disagg_prefill=None,
+                 n_prefill_replicas=1, device="cuda"):
         from paddle_tpu_torch.flags import get_flag
 
         self.device = resolve_device(device)
@@ -248,12 +288,20 @@ class DecodeConfig:
         # deadline slack (plus a per-history-token allowance) to be
         # considered re-prefillable
         self.preempt_slack_s = float(preempt_slack_s)
+        # disaggregated prefill/decode tiers: None defers to the typed
+        # flag.  On: every decode replica reads one shared page pool,
+        # prompt prefill runs on n_prefill_replicas workers of its own,
+        # and a finished prefill reaches the decode tier as a page-list
+        # handoff
         self.disagg_prefill = bool(get_flag("disagg_prefill")) \
             if disagg_prefill is None else bool(disagg_prefill)
-        if self.disagg_prefill:
-            raise NotImplementedError(
-                "DecodeConfig(disagg_prefill=True): the disaggregated "
-                "prefill/decode tiers " + _SERVING_TIER)
+        self.n_prefill_replicas = int(n_prefill_replicas)
+        if self.n_prefill_replicas < 1:
+            raise ValueError("n_prefill_replicas must be >= 1")
+        if self.disagg_prefill and self.spec_k:
+            raise ValueError(
+                "disagg_prefill and spec_k are mutually exclusive (the "
+                "speculative verify window stays single-tier)")
 
 
 class _Seq:
@@ -282,20 +330,59 @@ class _Seq:
         return self.prompt + self.generated
 
 
+class _PrefillReplica:
+    """One prefill-tier worker: a model adapter computing prompt
+    projections and page writes into the shared pool.  No decode state;
+    a kill loses only the handoff in flight (released, the sequence
+    re-prefilled by a survivor)."""
+
+    __slots__ = ("index", "model", "alive", "busy", "prefills",
+                 "handoffs")
+
+    def __init__(self, index, model):
+        self.index = index
+        self.model = model
+        self.alive = True
+        self.busy = False
+        self.prefills = 0
+        self.handoffs = 0
+
+
+class _Handoff:
+    """One in-flight prefill->decode transfer: the sequence, the
+    detached page-list handle (host metadata only: physical page ids and
+    token length), and the offer time the adoption-latency histogram
+    reads."""
+
+    __slots__ = ("seq", "handle", "offered_t")
+
+    def __init__(self, seq, handle, offered_t):
+        self.seq = seq
+        self.handle = handle
+        self.offered_t = offered_t
+
+
+def _new_pool(cfg, model):
+    return PagedKVCache(
+        num_pages=cfg.num_pages, page_size=cfg.page_size,
+        num_heads=model.num_heads, head_dim=model.head_dim,
+        kv_int8=cfg.kv_int8, kv_share=cfg.kv_share, device=cfg.device)
+
+
 class _DecodeReplica:
     """Model and paged cache (plus the draft model and its paged cache
-    under spec_k) and the sequences currently riding it."""
+    under spec_k) and the sequences currently riding it.  Under
+    disaggregated serving every decode replica shares ONE pool
+    (``cache`` given, ``owns_cache`` False), so a prefill-tier page list
+    is adoptable by any of them with no bytes moved."""
 
-    def __init__(self, index, model, cfg, draft_model=None):
+    def __init__(self, index, model, cfg, draft_model=None, cache=None):
         self.index = index
         self.model = model
         self.cfg = cfg
         self.alive = True
-        self.cache = PagedKVCache(
-            num_pages=cfg.num_pages, page_size=cfg.page_size,
-            num_heads=model.num_heads, head_dim=model.head_dim,
-            kv_int8=cfg.kv_int8, kv_share=cfg.kv_share,
-            device=cfg.device)
+        self.owns_cache = cache is None
+        self.cache = cache if cache is not None else _new_pool(cfg, model)
         self.draft_model = draft_model
         self.draft_cache = None
         if draft_model is not None:
@@ -333,9 +420,19 @@ class DecodeServer:
         # failover/preemption lane: unbounded on purpose (total sequences
         # stay bounded by admission capacity + max_batch * n_replicas)
         self._retry = BoundedQueue()
+        # disaggregated tiers: ONE shared page pool that every decode
+        # replica reads and the prefill tier writes, so the handoff is a
+        # page-list move; the handoff queue is the tier boundary
+        # (unbounded: its sequences already took admission capacity)
+        self._disagg = bool(cfg.disagg_prefill)
+        self._shared_cache = None
+        self._handoff_q = BoundedQueue()
+        if self._disagg:
+            probe_model = factory(0)
+            self._shared_cache = _new_pool(cfg, probe_model)
         self.replicas = []
         for i in range(cfg.n_replicas):
-            model = factory(i)
+            model = probe_model if self._disagg and i == 0 else factory(i)
             draft = None
             if cfg.spec_k > 0:
                 # replicas must agree on the draft too: a failed-over
@@ -344,11 +441,24 @@ class DecodeServer:
                     else TinyDecodeLM(vocab=model.vocab, d_model=32,
                                       num_heads=2, head_dim=16, seed=0,
                                       device=cfg.device)
-            self.replicas.append(_DecodeReplica(i, model, cfg, draft))
+            self.replicas.append(_DecodeReplica(
+                i, model, cfg, draft, cache=self._shared_cache))
+        # the prefill tier's models at offset indices (the factory
+        # contract: same-seed models agree with the decode tier, which
+        # a failover's re-prefill depends on)
+        self.prefill_replicas = []
+        if self._disagg:
+            self.prefill_replicas = [
+                _PrefillReplica(i, factory(cfg.n_replicas + i))
+                for i in range(cfg.n_prefill_replicas)]
         self._sup = Supervisor(restart_backoff=0.02, max_backoff=0.5)
         for rep in self.replicas:
             self._sup.add_worker("decode-%d" % rep.index,
                                  self._make_worker(rep),
+                                 restart=cfg.restart_dead)
+        for prep in self.prefill_replicas:
+            self._sup.add_worker("prefill-%d" % prep.index,
+                                 self._make_prefill_worker(prep),
                                  restart=cfg.restart_dead)
         self._meta = {}             # req.id -> max_new
         self._lock = threading.Lock()
@@ -378,6 +488,7 @@ class DecodeServer:
                 except OSError:
                     self.metrics_server = None
             self._sup.start()
+            self._export_tier_gauges()
         return self
 
     def __enter__(self):
@@ -490,7 +601,12 @@ class DecodeServer:
 
     def _admit(self, rep):
         """Join new and failed-over sequences into this replica's batch
-        (iteration-level batching: called every step)."""
+        (iteration-level batching: called every step).  Under
+        disaggregated serving the decode tier joins only adopted
+        handoffs: raw admissions and re-prefills belong to the prefill
+        tier."""
+        if self._disagg:
+            return self._admit_handoffs(rep)
         cfg = self.config
         while len(rep.active) + len(rep.prefilling) < cfg.max_batch:
             seq = self._next_seq()
@@ -528,6 +644,211 @@ class DecodeServer:
                            chunked=not ready)
             (rep.active if ready else rep.prefilling).append(seq)
 
+    # -- disaggregated tiers -------------------------------------------------
+    def _admit_handoffs(self, rep):
+        """Decode-tier join: adopt offered page-list handoffs into this
+        replica's running batch (``PagedKVCache.adopt``: block-table
+        entries reinstated on a fresh slot, no device bytes moved).  The
+        deadline crosses the tier boundary: a handoff whose request
+        expired in transit is released (pages freed) and answered with
+        the typed expiry, never parked."""
+        cfg = self.config
+        while len(rep.active) < cfg.max_batch:
+            try:
+                h = self._handoff_q.get_nowait()
+            except queue_mod.Empty:
+                return
+            seq = h.seq
+            now = time.monotonic()
+            with rep.cache.lock:
+                if seq.req.done():
+                    rep.cache.release_in_transit(h.handle)
+                    self._count_handoff("orphaned")
+                    continue
+                if seq.req.expired(now):
+                    rep.cache.release_in_transit(h.handle)
+                    self._count_handoff("expired")
+                    self._count(handoffs_expired=1)
+                    seq.req.fail(DeadlineExpiredError(
+                        "request %s: deadline passed in the "
+                        "prefill->decode handoff" % seq.req.id))
+                    continue
+                try:
+                    seq.slot = rep.cache.adopt(h.handle)
+                except OutOfPagesError:
+                    # no free sequence slot now: the handle stays in
+                    # transit, offered again to a later iteration or
+                    # another replica
+                    self._handoff_q.put(h)
+                    return
+            seq.last_token = int(seq.history()[-1])
+            seq.last_emit_t = now
+            self._count(handoffs_adopted=1)
+            self._count_handoff("adopted", latency_s=now - h.offered_t,
+                                trace=seq.trace)
+            if _trace._tracer is not None:
+                sp = _trace._tracer.instant(
+                    "decode.adopt", parent=seq.trace,
+                    request_id=seq.req.id, replica=rep.index,
+                    pages=len(h.handle["pages"]),
+                    handoff_ms=round((now - h.offered_t) * 1e3, 3))
+                if seq.trace is not None:
+                    seq.trace = sp.ctx
+            _flight.record("decode", "handoff_adopted",
+                           request_id=seq.req.id, replica=rep.index,
+                           pages=len(h.handle["pages"]))
+            rep.active.append(seq)
+
+    def _make_prefill_worker(self, prep):
+        """Prefill-tier worker loop: take a sequence from the retry lane
+        or admission, write its prompt K/V into the shared pool, detach
+        the pages into a handoff and offer it to the decode tier."""
+        def loop():
+            if not prep.alive and self.config.restart_dead:
+                prep.alive = True
+            while self._sup.running:
+                if not prep.alive:
+                    return
+                seq = self._next_seq()
+                if seq is None:
+                    time.sleep(0.001)
+                    continue
+                now = time.monotonic()
+                if seq.req.done():
+                    continue            # answered elsewhere
+                if seq.req.expired(now):
+                    seq.req.fail(DeadlineExpiredError(
+                        "request %s: deadline passed before prefill"
+                        % seq.req.id))
+                    continue
+                if seq.attempts >= self.config.max_attempts:
+                    seq.req.fail(HandoffError(
+                        "request %s: handoff/prefill failed after %d "
+                        "attempts" % (seq.req.id, seq.attempts)))
+                    continue
+                prep.busy = True
+                try:
+                    self._prefill_handoff(prep, seq)
+                finally:
+                    prep.busy = False
+        return loop
+
+    def _prefill_handoff(self, prep, seq):
+        """ONE prefill: project the prompt prefix, write it into the
+        shared pool, detach the page list, consult the fault plan
+        (MSG_PREFILL, the window after allocation and before adoption),
+        offer the handoff.  Raises ReplicaKilled on an injected kill
+        (the worker dies; the sequence re-prefills elsewhere)."""
+        cache = self._shared_cache
+        hist = seq.history()
+        prefix = hist[:-1]
+        # projections outside the pool lock; page writes and the detach
+        # inside it
+        if prefix:
+            shared = cache.shared_prefix_tokens(prefix)
+            tail = prefix[shared:]
+            k, v = self._proj_pow2(prep.model, tail) if tail \
+                else (_empty_kv(prep.model),) * 2
+        try:
+            with cache.lock:
+                if prefix:
+                    slot = cache.prefill(
+                        k, v, tokens=prefix if cache.kv_share else None)
+                else:
+                    slot = cache.alloc(1)
+                handle = cache.detach(slot)
+        except OutOfPagesError:
+            # pool pressure: nothing allocated (prefill is atomic); back
+            # on the lane until the decode tier retires pages
+            self._retry.put(seq)
+            time.sleep(0.002)
+            return
+        except ValueError:
+            # kv_share race: another prefill registered more shared pages
+            # between our radix walk and the locked write, so the
+            # projected tail no longer fits; project again
+            self._retry.put(seq)
+            return
+        prep.prefills += 1
+        self._count(prefills=1)
+        # the seeded fault point: pages allocated and in transit, not
+        # adopted yet
+        inj = faultinject.maybe_injector()
+        if inj is not None:
+            act = inj.decide(MSG_PREFILL)
+            if act is not None:
+                for kind, arg in faultinject.steps_of(act):
+                    if kind == "delay":
+                        time.sleep(arg)
+                        continue
+                    with cache.lock:
+                        cache.release_in_transit(handle)
+                    seq.attempts += 1
+                    if kind == "kill":
+                        prep.alive = False
+                        self._count(kills=1, prefill_kills=1)
+                        self._count_handoff("killed")
+                        self._requeue_or_fail_handoff(seq)
+                        self._export_tier_gauges()
+                        _flight.record("decode", "prefill_replica_killed",
+                                       replica=prep.index,
+                                       request_id=seq.req.id)
+                        _flight.dump(reason="prefill_replica_death")
+                        raise ReplicaKilled(
+                            "prefill replica %d killed mid-handoff "
+                            "(fault injection)" % prep.index)
+                    # close / drop / truncate: the handoff is lost in
+                    # transit; pages freed, the sequence re-prefills
+                    # (exactly-once holds: only the Request answers)
+                    self._count(handoffs_lost=1)
+                    self._count_handoff("lost")
+                    self._requeue_or_fail_handoff(seq)
+                    return
+        h = _Handoff(seq, handle, time.monotonic())
+        prep.handoffs += 1
+        self._count(handoffs_offered=1)
+        self._count_handoff("offered")
+        _flight.record("decode", "handoff_offered", request_id=seq.req.id,
+                       replica=prep.index, pages=len(handle["pages"]),
+                       tokens=handle["length"])
+        self._handoff_q.put(h)
+        self._export_tier_gauges()
+
+    def _requeue_or_fail_handoff(self, seq):
+        """The re-prefill fallback: the sequence goes back on the lane
+        unless its attempt budget is spent (the typed HandoffError)."""
+        if seq.req.done():
+            return
+        if seq.attempts >= self.config.max_attempts:
+            seq.req.fail(HandoffError(
+                "request %s: handoff lost %d times; giving up"
+                % (seq.req.id, seq.attempts)))
+        else:
+            self._count(failovers=1)
+            self._retry.put(seq)
+
+    def _count_handoff(self, outcome, latency_s=None, trace=None):
+        _M_HANDOFFS.inc(outcome=outcome)
+        if latency_s is not None:
+            exemplar = None
+            if _trace._tracer is not None and trace is not None \
+                    and _trace._tracer._head_sampled(trace[0]):
+                exemplar = trace[0]
+            _M_HANDOFF_SECONDS.observe(latency_s, exemplar=exemplar)
+
+    def _export_tier_gauges(self):
+        if not self._disagg:
+            return
+        _G_TIER_REPLICAS.set(
+            sum(1 for p in self.prefill_replicas if p.alive),
+            tier="prefill")
+        _G_TIER_REPLICAS.set(sum(1 for r in self.replicas if r.alive),
+                             tier="decode")
+        c = self._shared_cache
+        _G_TIER_PAGES.set(c.in_use_pages(), kind="in_use")
+        _G_TIER_PAGES.set(c.in_transit_pages(), kind="in_transit")
+        _G_TIER_PAGES.set(c.free_pages(), kind="free")
+
     @staticmethod
     def _proj_pow2(model, toks):
         """Whole-prefill projections at the span padded to a power of two
@@ -555,7 +876,8 @@ class DecodeServer:
     def _release_seq(self, rep, seq):
         """Free whatever cache state the sequence holds on this replica
         (both caches under spec_k); resets the chunk cursor so a
-        re-prefill starts clean."""
+        re-prefill starts clean.  Under the pool's lock: the
+        disaggregated tiers share one pool across worker threads."""
         with rep.cache.lock:
             if seq.slot is not None:
                 rep.cache.free(seq.slot)
@@ -950,15 +1272,24 @@ class DecodeServer:
 
     def _fail_over(self, rep):
         """Kill path: every live sequence (full token history) onto the
-        retry lane; the dead replica's caches are reset (all pages freed,
-        accounting intact)."""
+        retry lane; the dead replica's cache state is released (all its
+        pages freed, accounting intact).  A replica that owns its cache
+        resets it; a disaggregated replica shares the pool with live
+        tiers, so only its sequences' slots are freed (a decode kill
+        right after adoption frees the adopted pages, and the prefill
+        tier re-prefills from token history)."""
         rep.alive = False
         moved = rep.active + rep.prefilling
         rep.active = []
         rep.prefilling = []
-        rep.cache.reset()
+        if rep.owns_cache:
+            rep.cache.reset()
+        else:
+            for s in moved:
+                self._release_seq(rep, s)
         if rep.draft_cache is not None:
             rep.draft_cache.reset()
+        self._export_tier_gauges()
         _flight.record("decode", "replica_killed", replica=rep.index,
                        live_seqs=len(moved))
         # post-mortem: the ring holds the chaos action, the kill and
@@ -994,6 +1325,8 @@ class DecodeServer:
         while time.monotonic() < deadline:
             busy = any(r.active or r.prefilling for r in self.replicas) \
                 or not self._retry.empty() \
+                or not self._handoff_q.empty() \
+                or any(p.busy for p in self.prefill_replicas) \
                 or self.admission.outstanding_count() > 0
             if not busy:
                 break
@@ -1020,6 +1353,20 @@ class DecodeServer:
                 self._release_seq(rep, s)
             rep.active = []
             rep.prefilling = []
+        # the disaggregated sweep: handoffs never adopted (their requests
+        # were answered by the drain above) still hold pages; release
+        # every queued offer and any straggler in transit
+        if self._shared_cache is not None:
+            while True:
+                try:
+                    h = self._handoff_q.get_nowait()
+                except queue_mod.Empty:
+                    break
+                with self._shared_cache.lock:
+                    self._shared_cache.release_in_transit(h.handle)
+            with self._shared_cache.lock:
+                self._shared_cache.release_in_transit()
+            self._export_tier_gauges()
         if self.metrics_server is not None:
             self.metrics_server.stop()
             self.metrics_server = None
@@ -1078,9 +1425,26 @@ class DecodeServer:
         if counters.get("spec_proposed"):
             acceptance = round(counters["spec_accepted"]
                                / counters["spec_proposed"], 4)
+        disagg = None
+        if self._disagg:
+            sc = self._shared_cache
+            disagg = {
+                "prefill_replicas": {
+                    p.index: {"alive": p.alive, "prefills": p.prefills,
+                              "handoffs": p.handoffs}
+                    for p in self.prefill_replicas},
+                "handoff_queue": self._handoff_q.qsize(),
+                "handoffs_offered": counters["handoffs_offered"],
+                "handoffs_adopted": counters["handoffs_adopted"],
+                "handoffs_lost": counters["handoffs_lost"],
+                "handoffs_expired": counters["handoffs_expired"],
+                "prefill_kills": counters["prefill_kills"],
+                "in_transit_pages": sc.in_transit_pages(),
+                "shared_pool": sc.stats(),
+            }
         return {
             "spec_acceptance_rate": acceptance,
-            "disagg": None,
+            "disagg": disagg,
             "admission": c,
             "outstanding": self.admission.outstanding_count(),
             "answered": answered,

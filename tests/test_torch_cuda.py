@@ -92,6 +92,7 @@ long-context program (2 heads of 512 tokens, d 64 and 128) launches
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import pytest
@@ -1897,9 +1898,11 @@ def test_persistables_keep_their_addresses_across_replays(cuda):
     ("_test_sync_always", "warm-up"),
     ("_test_sync_in_capture", "capture")])
 def test_a_synchronising_op_makes_run_raise(cuda, planted, stage):
-    """An op that synchronises fails the warm-up (run under sync-debug
-    "error") or the capture; ``run`` raises, caches nothing, and the card
-    is usable after (the interpreter runs the same program)."""
+    """An op that synchronises (always, so in the eager warm-up too, or
+    only while a stream captures) fails the capture, the check of the
+    compiled path; ``run`` raises, caches nothing, no sync-debug mode is
+    left set, and the card is usable after (the interpreter runs the
+    same program)."""
     import paddle_tpu_torch as pt
 
     _register_planted_ops()
@@ -1909,8 +1912,7 @@ def test_a_synchronising_op_makes_run_raise(cuda, planted, stage):
         exe = pt.Executor(pt.CUDAPlace(0))
         exe.run(pt.default_startup_program())
         prog = pt.CompiledProgram(main)
-        match = "synchroniz" if stage == "warm-up" else "capturing segment"
-        with pytest.raises(RuntimeError, match=match):
+        with pytest.raises(RuntimeError, match="capturing segment"):
             exe.run(prog, feed={"x": _mlp_x(8)}, fetch_list=[loss])
         assert prog._cache == {}
         assert torch.cuda.get_sync_debug_mode() == 0
@@ -1950,11 +1952,11 @@ def _lm_feed(batch, seed):
 
 @pytest.mark.cuda
 def test_two_compiled_programs_capture_and_replay_side_by_side(cuda):
-    """One thread builds new keys (warm-up under sync-debug "error", then
-    capture) of one CompiledProgram while another replays a second
-    CompiledProgram of the same model in a loop, as two serving replicas
-    on one card do: no error in either, and every result equals the
-    serial run's bits for its feed."""
+    """One thread builds new keys (warm-up, then a thread-local capture)
+    of one CompiledProgram while another replays a second CompiledProgram
+    of the same model in a loop, as two serving replicas on one card do:
+    no error in either, and every result equals the serial run's bits
+    for its feed."""
     import threading
 
     import paddle_tpu_torch as pt
@@ -2018,6 +2020,86 @@ def test_two_compiled_programs_capture_and_replay_side_by_side(cuda):
                                        "graphs": len(batches),
                                        "replays": len(batches)}
         assert torch.cuda.get_sync_debug_mode() == 0
+
+
+@pytest.mark.cuda
+def test_replays_go_on_while_another_program_captures(cuda):
+    """While one thread warms up and captures new keys of one
+    CompiledProgram, another thread's replays of a second one of the same
+    model go on: runs end inside the capture windows (the device lock
+    counts them), every result equals the serial run's bits, and the
+    capturing instance's graph pool holds only memory that its capture
+    stream asked for (the replays and their fetches allocated none of
+    it)."""
+    import threading
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import compiler
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    with fresh_port_programs():
+        fetch = transformer_encoder_model(**TINY_LM)["logits"].name
+        main = pt.default_main_program()
+        startup = pt.default_startup_program()
+        batches = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12)
+        feeds = {b: _lm_feed(b, 100 + b) for b in (16,) + batches}
+
+        def replica():
+            exe = pt.Executor(pt.CUDAPlace(0))
+            scope = pt.Scope()
+            np.random.seed(0)
+            exe.run(startup, scope=scope)
+            prog = pt.CompiledProgram(main)
+            return lambda b: exe.run(prog, feed=feeds[b], scope=scope,
+                                     fetch_list=[fetch])[0], prog
+
+        serial, _ = replica()
+        want = {b: serial(b) for b in feeds}
+        replayer, rprog = replica()
+        capturer, cprog = replica()
+        replayer(16)                              # its one key, captured
+        lock = compiler._device_lock(torch.device("cuda", 0))
+        seen = len(lock.captures)
+        done, errors, replayed = threading.Event(), [], []
+
+        def replay_loop():
+            try:
+                while not done.is_set():
+                    replayed.append(np.array_equal(replayer(16), want[16]))
+            except BaseException as e:   # reported below
+                errors.append(("replayer", e))
+
+        def build_keys():
+            try:
+                time.sleep(0.05)
+                for b in batches:
+                    assert np.array_equal(capturer(b), want[b]), b
+            except BaseException as e:
+                errors.append(("capturer", e))
+            finally:
+                done.set()
+
+        threads = [threading.Thread(target=replay_loop, daemon=True),
+                   threading.Thread(target=build_keys, daemon=True)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        assert not errors, errors
+        assert replayed and all(replayed)
+        windows = list(lock.captures)[seen:]
+        assert len(windows) == len(batches)
+        print("runs ended in each capture window, and its ms:",
+              [(n, round(s * 1e3, 2)) for s, n in windows])
+        assert sum(n for _, n in windows) > 0
+        assert cprog.graph_stats()["graphs"] == len(batches)
+        pool = tuple(cprog._pool)
+        segs = [g for g in torch.cuda.memory_snapshot()
+                if tuple(g["segment_pool_id"]) == pool]
+        assert segs
+        assert {g["stream"] for g in segs} == {cprog._stream.cuda_stream}
 
 
 # ---------------------------------------------------------------------------

@@ -273,10 +273,8 @@ def test_submit_validation_and_refusals():
             srv.submit(np.asarray([2] * 10000))          # never fits
     finally:
         srv.stop()
-    for knob, item in ((dict(disagg_prefill=True), "item 4.4"),
-                       (dict(collector="localhost:1"), "item 4.3")):
-        with pytest.raises(NotImplementedError, match=item):
-            serving.DecodeConfig(device="cpu", **knob)
+    with pytest.raises(NotImplementedError, match="item 4.3"):
+        serving.DecodeConfig(device="cpu", collector="localhost:1")
     assert serving.DecodeConfig(device="cpu",
                                 metrics_port=0).metrics_port == 0
 

@@ -534,12 +534,13 @@ def test_tiny_lm_served_by_two_replicas_matches_the_jax_predictor(
 # ---------------------------------------------------------------------------
 
 def test_device_lock_orders_captures_against_replays():
-    """Every CompiledProgram on one device shares one readers-writer
-    lock: runs of cached keys share it, a warm-up and capture holds it
-    alone, and a waiting capture keeps new runs out.  Stressed with more
-    threads than cores and a short switch interval: no shared holder
-    ever overlaps an exclusive one, and the exclusive holders all get
-    in while shared holders loop."""
+    """Every CompiledProgram on one device shares one lock: warm-ups and
+    captures hold it one at a time, and runs of cached keys never wait
+    for it.  Stressed with more threads than cores and a short switch
+    interval: no two captures ever overlap, the runs go on while a
+    capture holds the lock (the runs the test saw end inside capture
+    windows, and the lock's own count of them), and every capture gets
+    in while the runs loop."""
     import sys
     import threading
 
@@ -553,46 +554,49 @@ def test_device_lock_orders_captures_against_replays():
     assert compiler._device_lock(torch.device("cpu")) is compiler._NoLock
 
     lock = compiler._DeviceLock()
-    state = {"readers": 0, "writer": False, "bad": 0, "writes": 0}
+    state = {"capturing": 0, "bad": 0, "captures": 0, "runs": 0,
+             "runs_in_captures": 0}
     guard = threading.Lock()
     stop = threading.Event()
 
-    def reader():
+    def runner():
         while not stop.is_set():
-            with lock.shared():
-                with guard:
-                    state["readers"] += 1
-                    state["bad"] += state["writer"]
+            with lock.run():
                 time.sleep(0.0002)
-                with guard:
-                    state["readers"] -= 1
+            with guard:
+                state["runs"] += 1
+                state["runs_in_captures"] += state["capturing"] > 0
 
-    def writer():
+    def capturer():
         for _ in range(20):
-            with lock.exclusive():
+            with lock.capture():
                 with guard:
-                    state["bad"] += state["writer"] or state["readers"] > 0
-                    state["writer"] = True
-                time.sleep(0.0002)
+                    state["bad"] += state["capturing"] > 0
+                    state["capturing"] += 1
+                time.sleep(0.002)
                 with guard:
-                    state["writer"] = False
-                    state["writes"] += 1
+                    state["capturing"] -= 1
+                    state["captures"] += 1
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)
     try:
-        readers = [threading.Thread(target=reader, daemon=True)
+        runners = [threading.Thread(target=runner, daemon=True)
                    for _ in range(12)]
-        writers = [threading.Thread(target=writer, daemon=True)
-                   for _ in range(3)]
-        for th in readers + writers:
+        capturers = [threading.Thread(target=capturer, daemon=True)
+                     for _ in range(3)]
+        for th in runners + capturers:
             th.start()
-        for th in writers:
+        for th in capturers:
             th.join(timeout=30)
         stop.set()
-        for th in readers:
+        for th in runners:
             th.join(timeout=30)
     finally:
         sys.setswitchinterval(old)
-    assert not any(th.is_alive() for th in readers + writers)
-    assert state["writes"] == 60 and state["bad"] == 0
+    assert not any(th.is_alive() for th in runners + capturers)
+    assert state["captures"] == 60 and state["bad"] == 0
+    assert state["runs_in_captures"] > 0
+    assert len(lock.captures) == 60
+    assert sum(n for _, n in lock.captures) > 0
+    assert all(s > 0 for s, _ in lock.captures)
