@@ -106,6 +106,29 @@ Phases, none of which catches its own failure:
      a merged trace whose device lanes hold its 6 flash slices under its
      trace id; then the request's p50/p99 over 200 requests of 8 rows
      with tracing off, at sample 0 and at sample 1.0;
+  3e. (after 3d, in a process of its own, --ps) parameter-server
+     training: phase 5's LM, f32 Adam(1e-4), batch 8 on phase 5's batch,
+     transpiled by DistributeTranspiler for 1 trainer and 2 pservers in
+     sync mode, the pservers in processes of their own on the card
+     (--ps-node), the trainer here: a warm-up and 5 counted steps whose
+     losses and final parameters are torch.equal to a local
+     Executor.run of the untranspiled program from the same pushed
+     start (else within twice two local runs' spread, logged), 12/6/6
+     flash launches a step; the step's ms beside the local step's, the
+     bytes sent and received, the trainer's RPC ms (send, the barriers,
+     recv) and the pservers' optimize ms a step.  The same cluster over
+     PADDLE_TPU_RPC_TRANSPORT=http gives the same bits, under a
+     CollectorServer (http_port=0) in this process: the trainer pushes
+     at step boundaries (PADDLE_TPU_COLLECTOR), the pservers push their
+     spans and are polled over varz, a seeded plan drops or closes 6 of
+     the first 24 pushes, start/stop_remote_profiler over steps 1-2 make
+     each pserver write a chrome trace holding its optimize kernels; an
+     InferenceServer of two LM replicas and a DecodeServer push with
+     collector=; then /fleetz lists the trainer, both pservers and both
+     servers, none stale, a trainer send's trace is complete with the
+     pserver's server span in it, and the trainer's every span landed
+     exactly once.  Beside it, 2 trainers in sync and in async mode: the
+     losses finite and falling;
  4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -5449,6 +5472,7 @@ def init_infer_scope(main, startup, seed, device, side):
     import torch
 
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.executor import RuntimeCtx
 
     scope = pt.Scope()
     exe = pt.Executor(pt.CUDAPlace(0))
@@ -5460,6 +5484,7 @@ def init_infer_scope(main, startup, seed, device, side):
                 for n in op.input_names()}
     feed = infer_feed(main, seed + 23, BN_CALIB_IMAGES, side)
     exe._feed_data(main, feed, scope)
+    ctx = RuntimeCtx(exe, main)
     with torch.no_grad():
         for op in block.ops:
             if op.type == "batch_norm":
@@ -5477,7 +5502,7 @@ def init_infer_scope(main, startup, seed, device, side):
                     if isinstance(value, np.ndarray):
                         value = torch.from_numpy(value.astype(np.float32))
                     scope.var(op.inputs[slot][0]).set(value.to(device))
-            exe._run_op(op, scope)
+            exe._run_op(op, block, scope, ctx)
     return scope
 
 
@@ -6775,6 +6800,663 @@ def training_legs_apart(seed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: parameter-server training over the RPC transport, the fleet
+# collector and the remote profiler (a process of its own, ``--ps``)
+# ---------------------------------------------------------------------------
+
+PS_PSERVERS = 2            # pservers of every cluster
+PS_TRAINERS = 2            # trainers of the sync and async runs
+PS_WAIT_S = 300.0          # every cluster wait's bound: ports, barriers, exits
+PS_PUSH_S = 0.2            # the collector pushers' interval
+PS_PUSH_FAULTS = 6         # collector pushes the seeded plan drops or closes
+PS_PUSH_FAULT_SPAN = 24    # ... among the first this many pushes
+PS_SERVE_REQUESTS = 4      # requests to each server that pushes
+PS_RPC_OPS = ("send", "send_barrier", "recv", "fetch_barrier")
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def ps_place(device):
+    import paddle_tpu_torch as pt
+
+    return pt.CUDAPlace(0) if device == "cuda" else pt.CPUPlace()
+
+
+def ps_transpile(built, trainer_id, endpoints, trainers, sync):
+    """The LM's programs for one node of a cluster, every process
+    transpiling the same program alike (build_train_program's names
+    come from a fresh unique_name guard)."""
+    import paddle_tpu_torch as pt
+
+    _, main, startup, _ = built
+    cfg = pt.transpiler.DistributeTranspilerConfig()
+    cfg.barrier_timeout = PS_WAIT_S
+    t = pt.transpiler.DistributeTranspiler(cfg)
+    t.transpile(trainer_id, program=main, startup_program=startup,
+                pservers=",".join(endpoints), trainers=trainers,
+                sync_mode=sync)
+    return t
+
+
+def ps_pserver(spec):
+    """One pserver (``--ps-node``): its startup, then listen_and_serv
+    until every trainer completed, each optimize block timed on the card
+    (synchronised around it).  With ``collector`` it traces every request
+    and pushes its spans there under the name the collector's varz poll
+    gives it.  Writes {"block_ms", "blocks_a_step"} to ``out``."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core import executor as ex
+
+    device = spec["device"]
+    built = build_train_program()
+    t = ps_transpile(built, 0, spec["endpoints"], spec["trainers"],
+                     spec["sync"])
+    ep = spec["current"]
+    pusher = None
+    if spec.get("collector"):
+        from paddle_tpu_torch.observability import collector, tracing
+
+        tracing.start_tracing(sample=1.0)
+        pusher = collector.CollectorPusher(
+            spec["collector"], role="pserver", process="pserver@" + ep,
+            interval_s=PS_PUSH_S).start()
+    block_ms = []
+    run_block = ex.RuntimeCtx.run_block
+
+    def timed_block(ctx, idx, scope):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_block(ctx, idx, scope)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+
+    ex.RuntimeCtx.run_block = timed_block
+    main, startup = t.get_pserver_programs(ep)
+    exe, scope = pt.Executor(ps_place(device)), pt.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(main, scope=scope)          # serves until the trainers complete
+    if pusher is not None:
+        pusher.stop(final_push=True)
+    with open(spec["out"], "w") as f:
+        json.dump({"block_ms": block_ms, "blocks_a_step": len(
+            main.global_block().ops[-1].attrs["grad_blocks"])}, f)
+
+
+def ps_trainer_setup(built, spec):
+    """A trainer's executor, scope and program after its startup (trainer
+    0 pushes the initial parameters, every trainer pulls them)."""
+    import paddle_tpu_torch as pt
+
+    eps = spec["endpoints"]
+    t = ps_transpile(built, spec["trainer_id"], eps, spec["trainers"],
+                     spec["sync"])
+    pt.transpiler.wait_server_ready(eps, timeout=PS_WAIT_S)
+    exe, scope = pt.Executor(ps_place(spec["device"])), pt.Scope()
+    np.random.seed(spec["seed"])
+    exe.run(t.get_trainer_startup_program(), scope=scope)
+    return exe, scope, t.get_trainer_program(wait_port=False)
+
+
+def ps_complete(spec):
+    from paddle_tpu_torch.distributed.rpc import global_rpc_client
+
+    for ep in spec["endpoints"]:
+        global_rpc_client().send_complete(
+            ep, peer_id="trainer%d" % spec["trainer_id"])
+
+
+def ps_trainer(spec):
+    """A trainer of the 2-trainer runs (``--ps-node``): a warm-up step
+    and TRAIN_STEPS steps on its own fixed batch; writes its losses."""
+    built = build_train_program()
+    model = built[0]
+    exe, scope, prog = ps_trainer_setup(built, spec)
+    feed = train_batch(spec["seed"] + 1 + spec["trainer_id"], spec["batch"])
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[model["loss"]],
+                            scope=scope)[0])
+              for _ in range(TRAIN_STEPS + 1)]
+    ps_complete(spec)
+    with open(spec["out"], "w") as f:
+        json.dump({"losses": losses}, f)
+
+
+def ps_node(spec_json):
+    spec = json.loads(spec_json)
+    MODEL.update(spec["model"])
+    (ps_pserver if spec["role"] == "pserver" else ps_trainer)(spec)
+
+
+class PSCluster:
+    """Pserver (and trainer) processes of one cluster, each from
+    ``--ps-node`` with an explicit CUDA_VISIBLE_DEVICES and the
+    transport in its environment; ``wait()`` bounds every exit by
+    PS_WAIT_S and fails the run on a non-zero one; ``kill()`` ends what
+    still runs."""
+
+    def __init__(self, tmp, name, device, seed, trainers, sync,
+                 transport="socket", collector=None, spawn_trainers=()):
+        self.endpoints = [f"127.0.0.1:{_free_port()}"
+                          for _ in range(PS_PSERVERS)]
+        self.name, self.procs, self.outs = name, [], {}
+        base = {"endpoints": self.endpoints, "trainers": trainers,
+                "sync": sync, "device": device, "seed": seed,
+                "batch": BATCH, "model": MODEL}
+        self.spec = dict(base, role="trainer", trainer_id=0)
+        env = dict(os.environ, PADDLE_TPU_RPC_TRANSPORT=transport,
+                   CUDA_VISIBLE_DEVICES=os.environ.get(
+                       "CUDA_VISIBLE_DEVICES", "0"))
+        env.pop("PADDLE_TPU_COLLECTOR", None)
+        nodes = [dict(base, role="pserver", current=ep, collector=collector)
+                 for ep in self.endpoints]
+        nodes += [dict(base, role="trainer", trainer_id=k)
+                  for k in spawn_trainers]
+        for i, node in enumerate(nodes):
+            node["out"] = os.path.join(tmp, f"{name}_{i}.json")
+            self.outs[node["out"]] = node
+            self.procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--ps-node", json.dumps(node)], env=env))
+
+    def wait(self):
+        end = time.perf_counter() + PS_WAIT_S
+        for p in self.procs:
+            try:
+                rc = p.wait(timeout=max(1.0, end - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                self.kill()
+                raise AssertionError(f"ps {self.name}: a node outlasted "
+                                     f"{PS_WAIT_S:.0f} s")
+            if rc != 0:
+                self.kill()
+                raise AssertionError(f"ps {self.name}: a node exited {rc}")
+        res = {"pservers": [], "trainers": []}
+        for path, node in self.outs.items():
+            with open(path) as f:
+                res[node["role"] + "s"].append(json.load(f))
+        return res
+
+    def kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def ps_params(built, scope):
+    """The LM's parameters in ``scope``, by name (tensors)."""
+    return {p.name: scope.find_var(p.name).get() for p, _ in built[3]}
+
+
+class PSCounters:
+    """The in-process trainer's RPC numbers over a window: the bytes its
+    frames carried each way (socket framing: ``rpc._send_msg`` and
+    ``rpc._recv_exact`` wrapped; the heartbeat sender's beats share the
+    module and are counted too) and the seconds its send, barrier and
+    recv ops took (the executor's handlers wrapped)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.core import executor as ex
+        from paddle_tpu_torch.distributed import rpc
+
+        self.sent = self.received = 0
+        self.op_s = {t: 0.0 for t in PS_RPC_OPS}
+        self._saved = [(rpc, "_send_msg", rpc._send_msg),
+                       (rpc, "_recv_exact", rpc._recv_exact)]
+        send_msg, recv_exact = rpc._send_msg, rpc._recv_exact
+        counters = self
+
+        class Counting:
+            def __init__(self, sock):
+                self.sock = sock
+
+            def sendall(self, b):
+                counters.sent += len(b)
+                return self.sock.sendall(b)
+
+        def counted_send(sock, obj):
+            return send_msg(Counting(sock), obj)
+
+        def counted_recv(sock, n):
+            counters.received += n
+            return recv_exact(sock, n)
+
+        rpc._send_msg, rpc._recv_exact = counted_send, counted_recv
+        self._ops = dict(ex._SPECIAL_OPS)
+        for t in PS_RPC_OPS:
+            self._wrap(ex._SPECIAL_OPS, t)
+
+    def reset(self):
+        self.sent = self.received = 0
+        self.op_s = {t: 0.0 for t in PS_RPC_OPS}
+
+    def _wrap(self, table, t):
+        fn = table[t]
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            fn(*a)
+            self.op_s[t] += time.perf_counter() - t0
+
+        table[t] = timed
+
+    def close(self):
+        from paddle_tpu_torch.core import executor as ex
+
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+        ex._SPECIAL_OPS.update(self._ops)
+
+
+def ps_steps(exe, scope, prog, model, feed, device, between=None):
+    """A warm-up step, then TRAIN_STEPS steps (``between(i)`` before
+    step i of those): their losses, each step's ms and the launches of
+    the counted steps."""
+    import torch
+
+    losses = [float(exe.run(prog, feed=feed, fetch_list=[model["loss"]],
+                            scope=scope)[0])]
+    step_ms = []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_kernel_counts()
+    for i in range(TRAIN_STEPS):
+        if between is not None:
+            between(i)
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(prog, feed=feed,
+                                    fetch_list=[model["loss"]],
+                                    scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, kernel_counts()
+
+
+def ps_local(built, seed, device, feed):
+    """The untranspiled program's run on ``device``: its losses, step
+    ms, launches, the initial and the final parameters."""
+    import paddle_tpu_torch as pt
+
+    model, main, startup, _ = built
+    exe, scope = pt.Executor(ps_place(device)), pt.Scope()
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    init = {n: t.clone() for n, t in ps_params(built, scope).items()}
+    losses, step_ms, counts = ps_steps(exe, scope, main, model, feed, device)
+    return {"losses": losses, "step_ms": step_ms, "counts": counts,
+            "init": init, "final": ps_params(built, scope)}
+
+
+def ps_same(a, b):
+    """Names whose tensors differ in any bit, over the parameters."""
+    import torch
+
+    return sorted(n for n in a if not torch.equal(a[n], b[n]))
+
+
+def ps_spread(a, b):
+    """Max abs difference of two runs: losses and parameters."""
+    return {"loss": max(abs(x - y) for x, y in zip(a["losses"],
+                                                    b["losses"])),
+            "param": max(float((a["final"][n] - b["final"][n]).abs().max())
+                         for n in a["final"])}
+
+
+def ps_hold(what, run, local, built, seed, device, feed, spread):
+    """The bar: ``run``'s losses and final parameters bitwise those of
+    ``local``; where they are not, within twice the spread of two local
+    runs (computed once, into ``spread``)."""
+    diff = ps_same(local["final"], run["final"])
+    same_losses = run["losses"] == local["losses"]
+    if same_losses and not diff:
+        return {"bitwise": True}
+    if not spread:
+        spread.update(ps_spread(local, ps_local(built, seed, device, feed)))
+    got = ps_spread(local, run)
+    row = {"bitwise": False, "losses_equal": same_losses,
+           "params_differing": len(diff), "spread_of_two_local": spread,
+           "spread_to_local": got}
+    log(f"ps {what}: not bitwise the local run " + json.dumps(row))
+    if got["loss"] > 2 * spread["loss"] or got["param"] > 2 * spread["param"]:
+        raise AssertionError(f"ps {what}: beyond twice the local spread")
+    return row
+
+
+def ps_collected(coll, tracer, eps, http_url):
+    """The collector's bars: /fleetz lists the trainer, both pservers and
+    both servers; a trainer send's trace is complete with the pserver's
+    server span in it; the trainer's every span landed exactly once."""
+    doc = json.loads(_get(http_url + "/fleetz")[0])
+    procs = doc["processes"]
+    roles = {}
+    for name, p in procs.items():
+        roles.setdefault(p["role"], []).append(name)
+    missing = [r for r in ("trainer", "serving", "decode") if not roles.get(r)]
+    if sorted(roles.get("pserver", [])) != sorted("pserver@" + e
+                                                  for e in eps):
+        missing.append("pserver")
+    sends = [s for s in tracer.spans() if s.name == "rpc.client:send_var"]
+    tid = sends[0].trace_id if sends else None
+    trace = coll.trace(tid) if tid else []
+    server = [s for s in trace if s["name"] == "rpc.server:send_var"
+              and s["process"].startswith("pserver@")]
+    mine = {(s.trace_id, s.span_id) for s in tracer.spans()}
+    trainer = roles["trainer"][0] if roles.get("trainer") else None
+    landed = [(s["trace_id"], s["span_id"])
+              for t in coll.trace_ids() for s in coll.trace(t)
+              if s["process"] == trainer]
+    row = {"processes": {r: sorted(n) for r, n in roles.items()},
+           "stale": sorted(n for n, p in procs.items() if p["stale"]),
+           "send_trace": tid, "send_trace_spans": len(trace),
+           "send_trace_complete": bool(tid) and coll.trace_complete(tid),
+           "server_spans_in_it": len(server),
+           "trainer_spans": len(mine), "landed": len(landed),
+           "landed_distinct": len(set(landed)),
+           "trainer_span_count": procs[trainer]["span_count"]
+           if trainer else None}
+    if missing or row["stale"] or not row["send_trace_complete"] or \
+            not server or set(landed) != mine or \
+            len(landed) != len(mine) or \
+            row["trainer_span_count"] != len(mine):
+        raise AssertionError(f"ps: the collector's bars failed "
+                             f"(missing {missing}) " + json.dumps(row))
+    return row
+
+
+def ps_profiles(paths, eps, block_counts):
+    """Each pserver's chrome trace from the remote profiler: its device
+    kernel slices (events on the device lanes, re-based past any host
+    pid) at least as many as the optimize blocks it ran in the window."""
+    rows = {}
+    for ep, path in zip(eps, paths):
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        names = {e["pid"]: e["args"]["name"] for e in events
+                 if e.get("ph") == "M" and e.get("name") == "process_name"}
+        device = [e for e in events if e.get("ph") == "X" and
+                  names.get(e.get("pid"), "").startswith("device:")]
+        top = {}
+        for e in device:
+            top[e["name"][:60]] = top.get(e["name"][:60], 0) + 1
+        rows[ep] = {"path": path, "events": len(events),
+                    "device_kernels": len(device),
+                    "optimize_blocks": block_counts[ep],
+                    "top": sorted(top.items(), key=lambda kv: -kv[1])[:4]}
+    log("ps: the remote profiler's traces " + json.dumps(rows))
+    if any(r["device_kernels"] < max(1, r["optimize_blocks"])
+           for r in rows.values()):
+        raise AssertionError("ps: a pserver's trace lacks its optimize "
+                             "kernels")
+    return rows
+
+
+def ps_serving(seed, workdir, device, endpoint):
+    """An InferenceServer over two LM Predictor replicas and a
+    DecodeServer, each pushing to the collector at ``endpoint``, each
+    answering PS_SERVE_REQUESTS requests."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import serving
+
+    save_lm(seed, workdir)
+
+    def replica(i):
+        cfg = pt.inference.Config(workdir)
+        if device != "cuda":
+            cfg.disable_gpu()
+        return pt.inference.create_predictor(cfg)
+
+    rng = np.random.RandomState(seed + 22)
+    srv = serving.InferenceServer(replica, serving.ServingConfig(
+        max_batch=1, n_replicas=2, collector=endpoint,
+        default_deadline_s=TIER_WAIT_S)).start()
+    try:
+        futs = [srv.submit({"src_ids": rng.randint(
+            0, MODEL["vocab_size"], (1, MODEL["max_len"], 1)).astype(
+                np.int64)}) for _ in range(PS_SERVE_REQUESTS)]
+        served = [f.result(timeout=TIER_WAIT_S)[0].shape for f in futs]
+    finally:
+        srv.stop()
+    dec = decode_server(device, seed, collector=endpoint).start()
+    try:
+        prompts = decode_prompts(seed + 23, PS_SERVE_REQUESTS,
+                                 *DECODE_PROMPT, DECODE_MODEL["vocab"])
+        decoded = [len(dec.submit(p).result(timeout=TIER_WAIT_S)[0])
+                   for p in prompts]
+    finally:
+        dec.stop()
+    return {"served": [list(s) for s in served], "decoded": decoded}
+
+
+def ps_phase(seed, device="cuda"):
+    """Phase 3e in this process: the LM of phase 5 (MODEL widths, f32,
+    Adam(TRAIN_LR), batch 8 on phase 5's batch) transpiled for 1 trainer
+    and 2 pservers in sync mode, the pservers in processes of their own
+    on the card, the trainer here: its losses and final parameters held
+    bitwise to the untranspiled program's local run from the same start,
+    12/6/6 flash launches a step; the same over the HTTP transport with
+    the fleet collector and the remote profiler, the same bits; 2
+    trainers in sync and in async mode, their losses finite and falling."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import faultinject, rpc
+    from paddle_tpu_torch.observability import collector as collector_mod
+    from paddle_tpu_torch.observability import tracing
+
+    t_phase = time.perf_counter()
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase
+
+    built = build_train_program()
+    model, main, _, params_grads = built
+    types = [op.type for op in main.global_block().ops]
+    feed = train_batch(seed, BATCH)
+    n_bytes = 4 * sum(int(np.prod(p.shape)) for p, _ in params_grads)
+    out = {"params": len(params_grads), "param_bytes": n_bytes}
+    clusters = []
+    tmp = tempfile.mkdtemp(prefix="ps_phase_")
+    try:
+        # the two 1-trainer clusters, over sockets and over HTTP (under
+        # the collector, which their pservers push their spans to): every
+        # pserver starts now, beside the local run
+        coll = collector_mod.CollectorServer(
+            "127.0.0.1:0", http_port=0, stale_after=PS_WAIT_S,
+            max_traces=1 << 16).start()
+        sock = PSCluster(tmp, "socket", device, seed, 1, True)
+        clusters.append(sock)
+        http = PSCluster(tmp, "http", device, seed, 1, True,
+                         transport="http", collector=coll.endpoint)
+        clusters.append(http)
+        import paddle_tpu_torch as pt
+
+        pt.transpiler.wait_server_ready(sock.endpoints, timeout=PS_WAIT_S)
+        lap("pservers up")
+        local = ps_local(built, seed, device, feed)
+        lap("local run")
+        exe, scope, prog = ps_trainer_setup(built, sock.spec)
+        lap("trainer startup (push, pull)")
+        start_diff = ps_same(local["init"], ps_params(built, scope))
+        if start_diff:
+            raise AssertionError(f"ps: the pushed start differs from the "
+                                 f"local start in {start_diff[:4]}")
+        counters = PSCounters()
+        try:
+            # the counters read the counted steps only
+            losses, step_ms, counts = ps_steps(
+                exe, scope, prog, model, feed, device,
+                lambda i: i == 0 and counters.reset())
+            rpc_s = dict(counters.op_s)
+            sent, received = counters.sent, counters.received
+        finally:
+            counters.close()
+        ps_complete(sock.spec)
+        run = {"losses": losses, "final": ps_params(built, scope)}
+        del exe, scope
+        res = sock.wait()
+        spread = {}
+        out["socket_vs_local"] = ps_hold("socket", run, local, built, seed,
+                                         device, feed, spread)
+        want = lm_expected(types, TRAIN_STEPS)
+        if counts != want or local["counts"] != want:
+            raise AssertionError(f"ps: launches {counts} (local "
+                                 f"{local['counts']}), expected {want}")
+        opt_ms = []
+        for r in res["pservers"]:
+            n = r["blocks_a_step"]
+            steps = [sum(r["block_ms"][i:i + n])
+                     for i in range(0, len(r["block_ms"]), n)]
+            opt_ms.append(float(np.mean(steps[1:])))
+        out["socket"] = {
+            "losses": losses, "local_losses": local["losses"],
+            "step_ms": float(np.mean(step_ms)),
+            "local_step_ms": float(np.mean(local["step_ms"])),
+            "bytes_sent_a_step": sent / TRAIN_STEPS,
+            "bytes_received_a_step": received / TRAIN_STEPS,
+            "rpc_ms_a_step": {t: s * 1e3 / TRAIN_STEPS
+                              for t, s in rpc_s.items()},
+            "rpc_ms_a_step_total": sum(rpc_s.values()) * 1e3 / TRAIN_STEPS,
+            "pserver_optimize_ms_a_step": opt_ms,
+            "launches_a_step": {k: v // TRAIN_STEPS
+                                for k, v in counts.items() if v}}
+        out["launches"] = counts
+        del local["init"]
+        lap("socket run")
+        log("ps: 1 trainer, 2 pservers, sockets " + json.dumps(
+            out["socket"]))
+
+        # the 2-trainer runs, sync and async, beside the HTTP run
+        sync2 = PSCluster(tmp, "sync2", device, seed, PS_TRAINERS, True,
+                          spawn_trainers=range(PS_TRAINERS))
+        clusters.append(sync2)
+        async2 = PSCluster(tmp, "async2", device, seed, PS_TRAINERS, False,
+                           spawn_trainers=range(PS_TRAINERS))
+        clusters.append(async2)
+
+        # the HTTP run under the collector: the trainer pushes at step
+        # boundaries (PADDLE_TPU_COLLECTOR), the pservers push their spans
+        # and are polled over varz, a seeded plan drops or closes pushes
+        tracer = tracing.start_tracing(sample=1.0)
+        os.environ.update(PADDLE_TPU_RPC_TRANSPORT="http",
+                          PADDLE_TPU_COLLECTOR=coll.endpoint,
+                          PADDLE_TPU_COLLECTOR_PUSH_INTERVAL=str(PS_PUSH_S))
+        collector_mod.reset_env_pusher()
+        rpc._global_client = None
+        rng = np.random.RandomState(seed + 22)
+        plan = faultinject.FaultPlan()
+        for k, i in enumerate(sorted(rng.choice(
+                PS_PUSH_FAULT_SPAN, PS_PUSH_FAULTS, replace=False))):
+            plan.on(collector_mod.MSG_PUSH, int(i),
+                    ("drop", "close")[k % 2])
+        inj = faultinject.install(plan)
+        exe, scope, prog = ps_trainer_setup(built, http.spec)
+        lap("http trainer startup")
+        prof_dir = tempfile.mkdtemp(prefix="ps_profiles_", dir=tmp)
+        paths = []
+
+        def between(i):
+            if i == 1:
+                profiler.start_remote_profiler(http.endpoints)
+            elif i == 3:
+                paths.extend(profiler.stop_remote_profiler(
+                    http.endpoints, os.path.join(prof_dir, "ps")))
+            for ep in http.endpoints:
+                coll.poll_varz(ep, role="pserver")
+
+        h_losses, h_ms, _ = ps_steps(exe, scope, prog, model, feed, device,
+                                     between)
+        h_run = {"losses": h_losses, "final": ps_params(built, scope)}
+        ps_complete(http.spec)
+        del exe, scope
+        h_res = http.wait()
+        diff = ps_same(run["final"], h_run["final"])
+        out["http_vs_socket"] = {"losses_equal": h_losses == losses,
+                                 "params_differing": len(diff),
+                                 "step_ms": float(np.mean(h_ms))}
+        if h_losses != losses or diff:
+            raise AssertionError("ps: the HTTP run's bits differ from the "
+                                 "socket run's " + json.dumps(
+                                     out["http_vs_socket"]))
+        # the profiled window ran steps 1 and 2: each pserver's blocks
+        blocks = {ep: 2 * r["blocks_a_step"]
+                  for ep, r in zip(http.endpoints, h_res["pservers"])}
+        out["remote_profiles"] = ps_profiles(paths, http.endpoints, blocks)
+        lap("http run")
+        with tempfile.TemporaryDirectory() as workdir:
+            out["serving"] = ps_serving(seed, workdir, device, coll.endpoint)
+        lap("servers")
+        faultinject.uninstall()
+        out["push_faults"] = [list(e) for e in inj.log]
+        if len(inj.log) != PS_PUSH_FAULTS:
+            raise AssertionError(f"ps: {len(inj.log)} push faults of "
+                                 f"{PS_PUSH_FAULTS} planned")
+        collector_mod._pusher.stop(final_push=True)
+        out["collector"] = ps_collected(coll, tracer, http.endpoints,
+                                        coll.http_server.url)
+        log("ps: the collector " + json.dumps(out["collector"]))
+        coll.stop()
+        tracing.stop_tracing()
+        os.environ.pop("PADDLE_TPU_COLLECTOR")
+        os.environ["PADDLE_TPU_RPC_TRANSPORT"] = "socket"
+        rpc._global_client = None
+
+        for name, cl in (("sync2", sync2), ("async2", async2)):
+            tl = [r["losses"] for r in cl.wait()["trainers"]]
+            out[name] = tl
+            if not all(np.isfinite(x).all() and x[-1] < x[0] for x in tl):
+                raise AssertionError(f"ps {name}: losses not finite and "
+                                     f"falling {tl}")
+        lap("2-trainer runs")
+        log("ps: 2 trainers, sync and async " + json.dumps(
+            {"sync2": out["sync2"], "async2": out["async2"]}))
+    finally:
+        for cl in clusters:
+            cl.kill()
+        faultinject.uninstall()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["laps_s"] = laps
+    return out
+
+
+def ps_apart(seed, card):
+    """Phase 3e in a process of its own (``--ps``), on the kernels built
+    here; returns its numbers."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res_path = os.path.join(tmp, "ps.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--ps", res_path], timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 3e failed in its process "
+                                 f"(exit {proc.returncode})")
+        with open(res_path) as f:
+            res = json.load(f)
+    log(f"ps ({card}) " + json.dumps({k: res[k] for k in (
+        "socket", "socket_vs_local", "http_vs_socket", "seconds",
+        "laps_s")}))
+    return res
+
+
 PORT_KERNEL = re.compile(
     r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
     r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
@@ -6852,6 +7534,13 @@ def main(argv=None):
                     help="run phase 3d alone (the kernels already built) "
                     "and write its numbers to RESULT_JSON; the whole "
                     "script runs it so, in a process of its own")
+    ap.add_argument("--ps", metavar="RESULT_JSON",
+                    help="run phase 3e alone (the kernels already built) "
+                    "and write its numbers to RESULT_JSON; the whole "
+                    "script runs it so, in a process of its own")
+    ap.add_argument("--ps-node", metavar="SPEC_JSON",
+                    help="run one pserver or trainer of phase 3e's "
+                    "clusters, as SPEC_JSON says (phase 3e starts these)")
     ap.add_argument("--cpu-references", metavar="DIR",
                     help="compute the batch-2 checks' CPU runs into DIR "
                     "(no card used); the whole script runs this in a "
@@ -6869,13 +7558,17 @@ def main(argv=None):
 
     import torch
 
+    mm = torch.backends.cuda.matmul
+    mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.ps_node:
+        # a node of phase 3e's clusters, on the device its spec names
+        ps_node(args.ps_node)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
-    mm = torch.backends.cuda.matmul
-    mm.allow_tf32 = mm.allow_bf16_reduced_precision_reduction = False
-    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     PREFETCH["dir"] = args.cpu_runs
     if args.training_legs:
@@ -6885,6 +7578,10 @@ def main(argv=None):
     if args.observability:
         with open(args.observability, "w") as f:
             json.dump(observability_phase(args.seed), f)
+        return 0
+    if args.ps:
+        with open(args.ps, "w") as f:
+            json.dump(ps_phase(args.seed), f)
         return 0
     import paddle_tpu_torch  # noqa: F401  (before any process starts)
 
@@ -7030,6 +7727,8 @@ def run_phases(args, card, device):
     phase("the rest of the kernels' build")
     obs = observability_apart(args.seed, card)
     phase("the serving tier's observability (its own process)")
+    ps = ps_apart(args.seed, card)
+    phase("parameter-server training and the collector (its own process)")
     card_tests()
     phase("the card tests")
     decode_rows = {r["name"]: r for r in check_flash_decode(device,
@@ -7084,6 +7783,7 @@ def run_phases(args, card, device):
                 "serving_tier": tier_launches[name],
                 "fleet": fleet_launches[name],
                 "observability": obs["launches"][name],
+                "ps_training": ps["launches"][name],
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

@@ -40,3 +40,4 @@ from paddle_tpu_torch import transpiler  # noqa: F401
 from paddle_tpu_torch import contrib  # noqa: F401
 from paddle_tpu_torch.flags import get_flag, set_flags  # noqa: F401
 from paddle_tpu_torch import profiler  # noqa: F401
+from paddle_tpu_torch import distributed  # noqa: F401

@@ -77,6 +77,7 @@ from paddle_tpu_torch.core.executor import (_SPECIAL_OPS, ResolvedOp,
 from paddle_tpu_torch.core.program import BlockRef, Program
 from paddle_tpu_torch.core.types import to_numpy
 from paddle_tpu_torch.observability import device_trace as _obs_device
+from paddle_tpu_torch.observability import collector as _obs_collector
 from paddle_tpu_torch.observability import flight_recorder as _obs_flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _obs_trace
@@ -829,8 +830,12 @@ class CompiledProgram:
     def _fetch(self, fetched, fetch_names, return_numpy, t0, replayed):
         """The run's fetches as the caller asked: numpy arrays, or tensors
         (a replay's cloned, since the next replay overwrites them).
-        Observes the step's seconds first."""
+        Observes the step's seconds first, then requests the trainer's
+        fleet push: a step boundary is its moment (rate-limited inside,
+        the push runs on the pusher's thread; one None check and one
+        memo check when off)."""
         _M_STEP_SECONDS.observe(time.perf_counter() - t0)
+        _obs_collector.maybe_step_push()
         if return_numpy:
             return [to_numpy(v, n) for v, n in zip(fetched, fetch_names)]
         if replayed:

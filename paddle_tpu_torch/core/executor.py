@@ -11,7 +11,12 @@ graphs, ``core/compiler.py``); a plain ``Program`` is interpreted here,
 the debug path, where the flags ``profile_ops`` (a ``RecordEvent`` span
 an op) and ``check_nan_inf`` (``FloatingPointError`` naming the output
 and the op) act, as in the JAX package.  Both resolve ops through
-``ResolvedOp``, so they run one contract.
+``ResolvedOp``, so they run one contract.  Host ops with a handler of
+their own (``register_special_op``: saves, loads, the parameter-server
+ops) run only here, with the JAX package's ``(op, block, scope, ctx)``
+signature; ``CompiledProgram`` leaves them out of its plan.  An
+``Executor.run`` is a trainer's step boundary, where the fleet
+collector's step push is requested (``observability/collector.py``).
 
 Every op runs under ``torch.no_grad()``: the forward keeps no autograd
 graph and no scope tensor requires grad.  Only a synthesised
@@ -35,9 +40,13 @@ from paddle_tpu_torch.core.registry import get_op_def
 from paddle_tpu_torch.core.scope import Scope, global_scope
 from paddle_tpu_torch.core.types import (CUDAPlace, Place, from_numpy,
                                          to_numpy, to_torch_dtype)
+from paddle_tpu_torch.observability import collector as _collector
 
 # op types executed by a python handler instead of a registry compute
-# (host IO: save/load of parameters)
+# (host IO: save/load of parameters; the parameter-server ops).  A
+# handler takes the JAX package's ``(op, block, scope, ctx)``: ``ctx``
+# gives the executor's device and runs sub-blocks (listen_and_serv's
+# optimize blocks)
 _SPECIAL_OPS: dict = {}
 
 
@@ -47,6 +56,23 @@ def register_special_op(type: str):
         return fn
 
     return deco
+
+
+class RuntimeCtx:
+    """Handed to special ops: the program being run, the executor's
+    device, and ``run_block`` to run one of the program's sub-blocks
+    (JAX ``core/executor.py`` ``RuntimeCtx``)."""
+
+    def __init__(self, executor, program):
+        self.executor = executor
+        self.program = program
+        self.device = executor.device
+
+    def run_block(self, block_idx: int, scope: Scope):
+        block = self.program.blocks[block_idx]
+        with torch.no_grad():
+            for op in block.ops:
+                self.executor._run_op(op, block, scope, self)
 
 
 class ResolvedOp:
@@ -143,26 +169,33 @@ class Executor:
             return program._run(self, dict(feed or {}), fetch_list or [],
                                 scope, return_numpy)
         self._feed_data(program, feed or {}, scope)
+        ctx = RuntimeCtx(self, program)
+        block = program.global_block()
         with torch.no_grad():
-            for op in program.global_block().ops:
-                self._run_op(op, scope)
-        return self._fetch(fetch_list or [], scope, return_numpy)
+            for op in block.ops:
+                self._run_op(op, block, scope, ctx)
+        out = self._fetch(fetch_list or [], scope, return_numpy)
+        # the trainer's fleet push: an Executor.run is the step boundary
+        # of the interpreted path (the compiled path pushes from its
+        # step); one None check and one memo check when off
+        _collector.maybe_step_push()
+        return out
 
     def _feed_data(self, program: Program, feed, scope: Scope):
         for name, value in feed.items():
             scope.var(name).set(feed_tensor(program, name, value).to(
                 self.device, non_blocking=True))
 
-    def _run_op(self, op, scope: Scope):
+    def _run_op(self, op, block, scope: Scope, ctx: RuntimeCtx):
         from paddle_tpu_torch import flags
 
         if flags.get_flag("profile_ops"):
             from paddle_tpu_torch import profiler
 
             with profiler.RecordEvent(op.type):
-                self._run_op_inner(op, scope)
+                self._run_op_inner(op, block, scope, ctx)
         else:
-            self._run_op_inner(op, scope)
+            self._run_op_inner(op, block, scope, ctx)
         if flags.get_flag("check_nan_inf"):
             self._check_nan_inf(op, scope)
 
@@ -179,10 +212,10 @@ class Executor:
                         f"NaN/Inf in output '{n}' of op {op.type} "
                         f"({op!r})")
 
-    def _run_op_inner(self, op, scope: Scope):
+    def _run_op_inner(self, op, block, scope: Scope, ctx: RuntimeCtx):
         special = _SPECIAL_OPS.get(op.type)
         if special is not None:
-            special(op, scope, self.device)
+            special(op, block, scope, ctx)
             return
         rop = ResolvedOp(op)
         outs = rop.compute(rop.gather(lambda n: _scope_value(scope, n)),

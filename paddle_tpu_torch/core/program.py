@@ -381,6 +381,21 @@ class Program:
     def current_block(self) -> Block:
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None) -> Block:
+        """A new block, child of the current one unless ``parent_idx``
+        says otherwise, made current (``_rollback`` returns to its
+        parent)."""
+        parent = (
+            self.current_block_idx if parent_idx is None else parent_idx
+        )
+        b = Block(self, len(self.blocks), parent)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def list_vars(self):
         for b in self.blocks:
             yield from b.vars.values()

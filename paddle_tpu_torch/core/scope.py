@@ -1,13 +1,38 @@
 """Scope / Variable: hierarchical name -> value store for execution.
 
 Counterpart of ``paddle_tpu/core/scope.py``.  Values held are torch
-tensors on the executor's device.
+tensors on the executor's device (or ``SelectedRows`` of them).
 """
 
 from __future__ import annotations
 
 import contextlib
 from typing import Optional
+
+import torch
+
+
+class SelectedRows:
+    """Sparse rows (reference framework/selected_rows.h:32): row indices
+    into a logically tall tensor plus the dense values of those rows."""
+
+    def __init__(self, rows, values, height: int):
+        self.rows = rows          # int tensor [n]
+        self.values = values      # [n, ...] dense values
+        self.height = height      # logical number of rows
+
+    def to_dense(self):
+        out_shape = (self.height,) + tuple(self.values.shape[1:])
+        dense = torch.zeros(out_shape, dtype=self.values.dtype,
+                            device=self.values.device)
+        return dense.index_add(0, torch.as_tensor(self.rows).long().to(
+            self.values.device), self.values)
+
+    def __repr__(self):
+        return (
+            f"SelectedRows(height={self.height}, nrows="
+            f"{None if self.rows is None else len(self.rows)})"
+        )
 
 
 class Variable:

@@ -1,4 +1,16 @@
-"""Distributed pieces of the port: the seeded fault injector
-(``faultinject``) and the health-probe interval knob (``rpc``); the
-transports and collectives are not ported yet (ROADMAP Queue 1 item
-5)."""
+"""Distributed control plane of the port.
+
+Counterpart of ``paddle_tpu/distributed/``: the socket RPC transport
+(``rpc``) and its HTTP framing (``http_transport``, chosen by
+``PADDLE_TPU_RPC_TRANSPORT=http``), the wire both packages share, and
+the seeded fault injector (``faultinject``).  The parameter-server ops
+that ride on them are ``ops/ps_ops.py``.  The elastic crash-resume
+loop (``elastic.py``), Downpour and the collective server are not
+ported yet (ROADMAP Queue 1 item 5).
+"""
+
+from paddle_tpu_torch.distributed.faultinject import (  # noqa: F401
+    FaultInjector, FaultPlan)
+from paddle_tpu_torch.distributed.rpc import (  # noqa: F401
+    BarrierTimeoutError, CircuitOpenError, RPCClient, RPCDeadlineExceeded,
+    RPCServer)

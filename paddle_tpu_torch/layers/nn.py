@@ -14,7 +14,8 @@ from paddle_tpu_torch.layers.helper import LayerHelper
 
 __all__ = [
     "fc", "embedding", "layer_norm", "scale", "reshape", "transpose",
-    "flash_attention", "mean", "softmax_with_cross_entropy",
+    "flash_attention", "mean", "square_error_cost",
+    "softmax_with_cross_entropy",
     "sigmoid_cross_entropy_with_logits", "cast", "conv2d", "pool2d",
     "batch_norm", "softmax", "topk", "accuracy", "dropout",
     # activations
@@ -270,6 +271,16 @@ def accuracy(input, label, k=1, correct=None, total=None):
 
 def mean(x, name=None):
     return _single_out("mean", x)
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(
+        type="square_error_cost", inputs={"X": input, "Y": label},
+        outputs={"Out": out},
+    )
+    return out
 
 
 def cast(x, dtype):

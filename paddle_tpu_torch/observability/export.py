@@ -10,9 +10,9 @@ own registry, flight recorder, tracer and SLO engine.
     /varz       the registry snapshot as one JSON document
     /flightz    recent flight-recorder events (JSON)
     /tracez     finished-span summary when tracing is on (JSON)
-    /fleetz     the fleet collector's view: {"enabled": false}, the JAX
-                package's answer when no collector is installed (the
-                collector is not ported, ROADMAP Queue 1 item 4.3)
+    /fleetz     the installed fleet collector's snapshot
+                (observability/collector.py), or {"enabled": false}
+                when this process runs no collector
     /sloz       the SLO engine's evaluation (objectives, attainment,
                 fast/slow burn rates, firing alerts — observability/
                 slo.py; evaluates on request)
@@ -130,10 +130,18 @@ class MetricsHTTPServer:
                         {"enabled": t is not None, "spans": spans}),
                         "application/json")
                 elif path == "/fleetz":
-                    # fleet view: the route exists on every server so a
-                    # scraper can probe without knowing which process
-                    # collects; the port has no collector to install
-                    self._send('{"enabled": false}', "application/json")
+                    # fleet view: the installed collector's snapshot, or
+                    # an explicit disabled marker — the route exists on
+                    # every server so a scraper can probe without
+                    # knowing which process collects
+                    from paddle_tpu_torch.observability import \
+                        collector as _collector
+
+                    c = _collector.maybe_collector()
+                    self._send(
+                        json.dumps(c.snapshot(), sort_keys=True)
+                        if c is not None else '{"enabled": false}',
+                        "application/json")
                 elif path == "/sloz":
                     from paddle_tpu_torch.observability import slo as _slo
 

@@ -445,6 +445,11 @@ def sigmoid_cross_entropy_with_logits(ins, attrs, device):
     return {"Out": loss}
 
 
+@register_op("square_error_cost", inputs=("X", "Y"), outputs=("Out",))
+def square_error_cost(ins, attrs, device):
+    return {"Out": torch.square(ins["X"] - ins["Y"])}
+
+
 @register_op("lookup_table", inputs=("W", "Ids"), outputs=("Out",),
              attrs={"padding_idx": -1, "is_sparse": False,
                     "is_distributed": False})

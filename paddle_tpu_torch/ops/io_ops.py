@@ -19,7 +19,7 @@ from paddle_tpu_torch.core.types import from_numpy, to_numpy
 
 
 @register_special_op("save_combine")
-def save_combine_op(op, scope, device):
+def save_combine_op(op, block, scope, ctx):
     path = op.attrs["file_path"]
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
@@ -36,13 +36,13 @@ def _save_combine_compute(ins, attrs, device):
 
 
 @register_special_op("load_combine")
-def load_combine_op(op, scope, device):
+def load_combine_op(op, block, scope, ctx):
     path = op.attrs["file_path"]
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as data:
         for n in op.outputs["Out"]:
-            scope.var(n).set(from_numpy(data[n], n).to(device))
+            scope.var(n).set(from_numpy(data[n], n).to(ctx.device))
 
 
 @register_op("load_combine", inputs=(), outputs=("Out",),

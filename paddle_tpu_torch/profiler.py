@@ -15,8 +15,9 @@ The device half is ``observability.device_trace.DeviceTraceSession`` on
 recording the card unless ``state`` is ``"CPU"``, and
 ``device_trace(logdir)`` is a capture into ``logdir``.  Remote profiling
 (``start_remote_profiler``/``stop_remote_profiler``) drives the
-parameter servers through the RPC client, which is not ported (ROADMAP
-Queue 1 item 5).
+parameter servers' ``profile`` handler (``ops/ps_ops.py``) through the
+RPC client: each pserver opens such a session on its device and writes
+the merged chrome trace when profiling stops.
 """
 
 from __future__ import annotations
@@ -181,19 +182,30 @@ def reset_profiler():
         _prof_tracer.clear()
 
 
-_REMOTE = ("{}: remote profiling drives the parameter servers through "
-           "the RPC client, which is not ported yet (ROADMAP Queue 1 item "
-           "5, parameter-server mode)")
-
-
 def start_remote_profiler(endpoints):
     """Switch profiling ON across the cluster's pservers (reference
-    send_recv.proto.in:81 VariableMessage.profile).  Not ported: raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(_REMOTE.format("start_remote_profiler"))
+    send_recv.proto.in:81 VariableMessage.profile — the trainer-driven
+    remote profiling trigger)."""
+    from paddle_tpu_torch.distributed.rpc import global_rpc_client
+
+    client = global_rpc_client()
+    return [client.call(ep, "profile", "start") for ep in endpoints]
 
 
 def stop_remote_profiler(endpoints, profile_path=None):
-    """Switch remote profiling OFF.  Not ported: raises
-    ``NotImplementedError``."""
-    raise NotImplementedError(_REMOTE.format("stop_remote_profiler"))
+    """Switch remote profiling OFF; each pserver writes its chrome trace
+    (default ``profile_ps_<endpoint>`` in its temporary directory, the
+    reference's ``/tmp/profile_ps_*`` convention) and returns the path.
+    An explicit profile_path gets a per-endpoint suffix when there are
+    several endpoints — co-hosted pservers must not clobber one trace
+    file."""
+    from paddle_tpu_torch.distributed.rpc import global_rpc_client
+
+    client = global_rpc_client()
+    out = []
+    for ep in endpoints:
+        path = profile_path
+        if path is not None and len(endpoints) > 1:
+            path = "%s.%s" % (path, ep.replace(":", "_"))
+        out.append(client.call(ep, "profile", ("stop", path)))
+    return out

@@ -65,9 +65,9 @@ into it.  No tier has a stream of its own, so no event rides a handoff.
 
 ``DecodeConfig(metrics_port=...)`` (or ``PADDLE_TPU_METRICS_PORT``)
 mounts the ``/metrics`` exporter (``observability/export.py``) from
-``start()`` to ``stop()``.  Not ported yet, and refused with
-NotImplementedError by ``DecodeConfig``: the fleet collector
-(``collector``, ``PADDLE_TPU_COLLECTOR``; ROADMAP Queue 1 item 4.3).
+``start()`` to ``stop()``, and ``collector`` (or ``PADDLE_TPU_COLLECTOR``)
+runs a fleet ``CollectorPusher`` (``observability/collector.py``) over
+the same span.
 
 Model adapter protocol (duck-typed; ``TinyDecodeLM`` is the built-in):
 
@@ -82,7 +82,6 @@ raises without a card unless given ``"cpu"``.
 
 from __future__ import annotations
 
-import os
 import queue as queue_mod
 import threading
 import time
@@ -96,6 +95,8 @@ from paddle_tpu_torch.distributed import faultinject
 from paddle_tpu_torch.observability import flight_recorder as _flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _trace
+from paddle_tpu_torch.observability.collector import (CollectorPusher,
+                                                      collector_endpoint)
 from paddle_tpu_torch.observability.export import (MetricsHTTPServer,
                                                    metrics_port_from_env)
 from paddle_tpu_torch.ops.epilogue import greedy_logits_tail
@@ -151,11 +152,6 @@ _G_TIER_PAGES = _obs_metrics.gauge(
     "paddle_tpu_disagg_pages",
     "shared-pool page occupancy of the disaggregated server "
     "(in_use / in_transit / free)", max_series=8)
-
-_COLLECTOR = ("is not ported yet: it waits for ROADMAP Queue 1 item 4.3 "
-              "(observability/collector.py over distributed/rpc.py's "
-              "transport)")
-
 
 class TinyDecodeLM(nn.Module):
     """Deterministic seeded single-layer attention LM, the built-in model
@@ -216,9 +212,9 @@ class TinyDecodeLM(nn.Module):
 
 
 class DecodeConfig:
-    """Decode-server knobs, the JAX package's less ``collector`` (it
-    raises), ``impl`` (the kernel is chosen by the device) and
-    ``head_pack`` (the kernel has nothing to pack), plus ``device``."""
+    """Decode-server knobs, the JAX package's less ``impl`` (the kernel
+    is chosen by the device) and ``head_pack`` (the kernel has nothing to
+    pack), plus ``device``."""
 
     def __init__(self, max_batch=8, max_new_tokens=32, num_pages=None,
                  page_size=16, queue_capacity=None,
@@ -257,15 +253,11 @@ class DecodeConfig:
             metrics_port = metrics_port_from_env(None)
         self.metrics_port = None if metrics_port is None \
             else int(metrics_port)
-        # the fleet collector: None -> PADDLE_TPU_COLLECTOR -> off;
-        # anything but off raises
+        # fleet collector (same contract as ServingConfig.collector):
+        # None -> PADDLE_TPU_COLLECTOR -> off
         if collector is None:
-            collector = os.environ.get("PADDLE_TPU_COLLECTOR") or None
-        if collector:
-            raise NotImplementedError(
-                "DecodeConfig(collector=...) / PADDLE_TPU_COLLECTOR: the "
-                "fleet collector " + _COLLECTOR)
-        self.collector = None
+            collector = collector_endpoint()
+        self.collector = collector
         if trace_sample is not None:
             trace_sample = float(trace_sample)
             if not 0.0 <= trace_sample <= 1.0:
@@ -472,6 +464,7 @@ class DecodeServer:
                           "prefill_kills": 0}
         self._step_ms = []          # bounded rolling inter-token record
         self.metrics_server = None
+        self.collector_pusher = None
         self._started = False
         self._stopped = False
 
@@ -487,6 +480,9 @@ class DecodeServer:
                         port=self.config.metrics_port).start()
                 except OSError:
                     self.metrics_server = None
+            if self.config.collector:
+                self.collector_pusher = CollectorPusher(
+                    self.config.collector, role="decode").start()
             self._sup.start()
             self._export_tier_gauges()
         return self
@@ -1367,6 +1363,9 @@ class DecodeServer:
             with self._shared_cache.lock:
                 self._shared_cache.release_in_transit()
             self._export_tier_gauges()
+        if self.collector_pusher is not None:
+            self.collector_pusher.stop(final_push=True)
+            self.collector_pusher = None
         if self.metrics_server is not None:
             self.metrics_server.stop()
             self.metrics_server = None

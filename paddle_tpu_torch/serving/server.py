@@ -5,9 +5,10 @@ its Predictors run: ``inference.Config`` puts them on the card unless
 ``disable_gpu()`` is called, and every replica of one server shares
 that card.  ``metrics_port`` (or ``PADDLE_TPU_METRICS_PORT``) mounts the
 ``/metrics`` exporter (``observability/export.py``) from ``start()`` to
-``stop()``.  The fleet collector (``collector``,
-``PADDLE_TPU_COLLECTOR``) raises ``NotImplementedError`` (ROADMAP Queue 1
-item 4.3); mesh slices (``mesh_plan``, ``devices``) too (item 5).
+``stop()``, and ``collector`` (or ``PADDLE_TPU_COLLECTOR``) runs a fleet
+``CollectorPusher`` over the same span (``observability/collector.py``).
+Mesh slices (``mesh_plan``, ``devices``) raise ``NotImplementedError``
+(ROADMAP Queue 1 item 5).
 
 Pipeline: submit() -> AdmissionController (bounded queue, typed
 shedding) -> ShapeBucketBatcher (pad-to-bucket, max-wait timer) ->
@@ -38,6 +39,8 @@ import numpy as np
 
 from paddle_tpu_torch.concurrency import Supervisor
 from paddle_tpu_torch.observability import tracing as _trace
+from paddle_tpu_torch.observability.collector import (CollectorPusher,
+                                                      collector_endpoint)
 from paddle_tpu_torch.observability.export import (MetricsHTTPServer,
                                                    metrics_port_from_env)
 from paddle_tpu_torch.serving.admission import (AdmissionController,
@@ -51,8 +54,6 @@ __all__ = ["ServingConfig", "InferenceServer"]
 
 _NOT_PORTED = ("{} is not ported yet: it waits for ROADMAP Queue 1 item "
                "{}")
-_COLLECTOR = ("4.3 (observability/collector.py over distributed/rpc.py's "
-              "transport on the port)")
 _MESH = "5 (parallelism on torch.distributed)"
 
 
@@ -127,15 +128,11 @@ class ServingConfig:
             if not 0.0 <= trace_sample <= 1.0:
                 raise ValueError("trace_sample must be in [0.0, 1.0]")
         self.trace_sample = trace_sample
-        # the fleet collector's endpoint: None -> PADDLE_TPU_COLLECTOR
-        # -> off; anything but off raises
+        # fleet collector: the endpoint the server's pusher targets.
+        # None -> PADDLE_TPU_COLLECTOR -> off
         if collector is None:
-            collector = os.environ.get("PADDLE_TPU_COLLECTOR") or None
-        if collector:
-            raise NotImplementedError(_NOT_PORTED.format(
-                "ServingConfig(collector=...) / PADDLE_TPU_COLLECTOR: the "
-                "fleet collector", _COLLECTOR))
-        self.collector = None
+            collector = collector_endpoint()
+        self.collector = collector
         # multi-tenant fleet: per-tenant admission quotas
         # ({tenant: TenantQuota | {max_outstanding/qps/burst/weight}
         # dict}) and the probe-flake tolerance K (docs/FLEET.md)
@@ -183,6 +180,7 @@ class InferenceServer:
         self._validator = self.pool.replicas[0].predictor \
             if self.pool.replicas else None
         self.metrics_server = None
+        self.collector_pusher = None
         self._started = False
         self._stopped = False
 
@@ -200,6 +198,12 @@ class InferenceServer:
             except OSError:
                 self.metrics_server = None   # scrape endpoint is an
                 #                              optimization, not a crash
+        if self.config.collector:
+            # fleet collector push loop: snapshot + span batches + dump
+            # refs on a timer; a dead collector costs one short-deadline
+            # failure per tick, never the server
+            self.collector_pusher = CollectorPusher(
+                self.config.collector, role="serving").start()
         self.pool.start()
         if self.config.prewarm:
             self.prewarm_buckets()
@@ -308,6 +312,10 @@ class InferenceServer:
         self._stopped = True
         self._sup.stop(join_timeout=2.0)
         self.pool.stop(join_timeout=2.0)
+        if self.collector_pusher is not None:
+            # final push so the drain's last spans/counters land
+            self.collector_pusher.stop(final_push=True)
+            self.collector_pusher = None
         if self.metrics_server is not None:
             self.metrics_server.stop()
             self.metrics_server = None

@@ -114,8 +114,8 @@ def test_disagg_flag_off_is_single_tier():
 
 
 def test_disagg_config_on_the_cpu():
-    """The flag and the knob resolve as the JAX package's do; the
-    collector still raises, naming its ROADMAP item."""
+    """The flag and the knob resolve as the JAX package's do, and so
+    does the collector beside them."""
     from paddle_tpu_torch.flags import set_flags
 
     cfg = serving.DecodeConfig(device="cpu", disagg_prefill=True)
@@ -129,9 +129,9 @@ def test_disagg_config_on_the_cpu():
     with pytest.raises(ValueError, match="n_prefill_replicas"):
         serving.DecodeConfig(device="cpu", disagg_prefill=True,
                              n_prefill_replicas=0)
-    with pytest.raises(NotImplementedError, match="item 4.3"):
-        serving.DecodeConfig(device="cpu", disagg_prefill=True,
-                             collector="localhost:1")
+    cfg = serving.DecodeConfig(device="cpu", disagg_prefill=True,
+                               collector="localhost:1")
+    assert cfg.disagg_prefill and cfg.collector == "localhost:1"
 
 
 def test_disagg_outputs_token_identical_and_zero_copy(single_tier):

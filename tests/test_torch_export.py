@@ -7,7 +7,8 @@
   accept_and_reject`` (tests/test_fleet_observability.py) and
   ``test_sloz_endpoint_and_healthz_degrades``
   (tests/test_perf_observability.py); ``/fleetz`` answers
-  ``{"enabled": false}``, the JAX answer with no collector installed.
+  ``{"enabled": false}`` with no collector installed and the installed
+  collector's snapshot with one, as in the JAX package.
 - The two ``parse_prometheus_text`` accept and reject the same inputs,
   and give the same samples and exemplars; each parses the other
   package's exposition of the same instruments.
@@ -68,6 +69,13 @@ def test_metrics_http_server_endpoints():
         assert json.loads(_get(base + "/healthz")) == {"status": "ok"}
         flightz = json.loads(_get(base + "/flightz"))
         assert "events" in flightz and "dumps" in flightz
+        assert json.loads(_get(base + "/fleetz")) == {"enabled": False}
+        from paddle_tpu_torch.observability import collector
+
+        with collector.CollectorServer("127.0.0.1:0") as coll:
+            fleet = json.loads(_get(base + "/fleetz"))
+            assert fleet["metric"] == "fleet_snapshot"
+            assert fleet["endpoint"] == coll.endpoint
         assert json.loads(_get(base + "/fleetz")) == {"enabled": False}
         tracez = json.loads(_get(base + "/tracez"))
         assert tracez == {"enabled": False, "spans": []}

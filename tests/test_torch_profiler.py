@@ -230,11 +230,53 @@ def test_device_trace_captures_into_logdir(tmp_path):
     assert "aten::sum" in names
 
 
-def test_remote_profiler_raises_naming_its_item():
-    for fn, args in ((profiler.start_remote_profiler, (["h:1"],)),
-                     (profiler.stop_remote_profiler, (["h:1"], "/x"))):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            fn(*args)
+def test_remote_profiler_raises_naming_its_item(tmp_path):
+    """start_remote_profiler / stop_remote_profiler drive a pserver's
+    ``profile`` handler, as in the JAX package: profiling switches on
+    there, and the stop writes its chrome trace (here a CPU pserver's:
+    its host ops, the SGD block's among them) and returns the path."""
+    import threading
+
+    from paddle_tpu_torch.core.scope import Scope
+    from paddle_tpu_torch.distributed.rpc import (RPCServer,
+                                                  global_rpc_client)
+
+    with fresh_port_programs():
+        main, startup = pt.Program(), pt.Program()
+        with pt.program_guard(main, startup):
+            x = pt.layers.data("x", shape=[4], dtype="float32")
+            loss = pt.layers.mean(pt.layers.fc(x, size=1))
+            pt.optimizer.SGD(0.1).minimize(loss)
+        srv = RPCServer("127.0.0.1:0")
+        ep = srv.endpoint
+        srv.stop()
+        t = pt.transpiler.DistributeTranspiler()
+        t.transpile(0, program=main, startup_program=startup, pservers=ep,
+                    trainers=1)
+        ps_main, ps_startup = t.get_pserver_programs(ep)
+        exe = pt.Executor(pt.CPUPlace())
+        ps_scope = Scope()
+        exe.run(ps_startup, scope=ps_scope)
+        th = threading.Thread(target=exe.run, args=(ps_main,),
+                              kwargs={"scope": ps_scope}, daemon=True)
+        th.start()
+        try:
+            pt.transpiler.wait_server_ready([ep], timeout=30)
+            scope = Scope()
+            exe.run(t.get_trainer_startup_program(), scope=scope)
+            assert profiler.start_remote_profiler([ep]) == ["profiling"]
+            exe.run(t.get_trainer_program(wait_port=False),
+                    feed={"x": np.ones((2, 4), np.float32)},
+                    fetch_list=[loss], scope=scope)
+            path = str(tmp_path / "ps_trace.json")
+            assert profiler.stop_remote_profiler([ep], path) == [path]
+        finally:
+            global_rpc_client().send_complete(ep, peer_id="trainer0")
+            th.join(timeout=30)
+    assert not th.is_alive()
+    with open(path) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    assert any(n.startswith("aten::") for n in names)
 
 
 # ---------------------------------------------------------------------------

@@ -440,23 +440,25 @@ def test_replicate_predictor_params_raises_typed(tmp_path):
 
 
 def test_exporter_and_collector_raise_typed(monkeypatch):
-    """``collector``, given or from the env, names the ROADMAP item it
-    waits for; ``metrics_port``, given or from the env, is taken as the
-    JAX package takes it (the exporter itself:
-    tests/test_torch_export.py); unset, nothing changes."""
+    """``collector`` and ``metrics_port``, given or from the env, are
+    taken as the JAX package takes them (the exporter itself:
+    tests/test_torch_export.py; the pusher: tests/test_torch_collector.
+    py); unset, nothing changes and nothing raises."""
+    from paddle_tpu.serving import ServingConfig as JaxServingConfig
+
     monkeypatch.delenv("PADDLE_TPU_METRICS_PORT", raising=False)
     monkeypatch.delenv("PADDLE_TPU_COLLECTOR", raising=False)
     cfg = serving.ServingConfig()
     assert cfg.metrics_port is None and cfg.collector is None
     assert serving.ServingConfig(metrics_port=0).metrics_port == 0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
-        serving.ServingConfig(collector="localhost:1")
+    assert serving.ServingConfig(collector="localhost:1").collector == \
+        JaxServingConfig(collector="localhost:1").collector == "localhost:1"
     monkeypatch.setenv("PADDLE_TPU_METRICS_PORT", "0")
     assert serving.ServingConfig().metrics_port == 0
     monkeypatch.delenv("PADDLE_TPU_METRICS_PORT")
     monkeypatch.setenv("PADDLE_TPU_COLLECTOR", "localhost:1")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
-        serving.ServingConfig()
+    assert serving.ServingConfig().collector == \
+        JaxServingConfig().collector == "localhost:1"
     monkeypatch.setenv("PADDLE_TPU_COLLECTOR", "")
     assert serving.ServingConfig().collector is None
 
