@@ -129,6 +129,41 @@ Phases, none of which catches its own failure:
      pserver's server span in it, and the trainer's every span landed
      exactly once.  Beside it, 2 trainers in sync and in async mode: the
      losses finite and falling;
+  3f. (after 3e, in a process of its own, --ctr, started beside the card
+     tests) Downpour CTR training and the rest of parameter-server
+     training, every cluster's pservers on the card in processes of their
+     own (--ps-node), all started at once: (a) DeepFM at the bench's
+     widths with both tables is_distributed, SGD(0.1), batch 2048, 1
+     trainer here against 2 async pservers, DownpourRunner in lockstep
+     (push_window 1, pull_dense_every 1) for 10 batches: every loss and
+     every parameter and table pulled back torch.equal to the local SGD
+     run, the step split into pull, compute and push, the bytes each way,
+     the last step profiled; (b, d) 2 trainer processes, each through
+     exe.train_from_dataset over a QueueDataset of its 2 MultiSlot files
+     of 20 batches (written from --seed; ids Zipf(1.2) folded into the
+     vocabulary, the label whether the ids' truth id % 5 - 2 sums above
+     0), _fleet_opt selecting DistMultiTrainer / DownpourSGD and the
+     runner's transpile coming from fleet's role contract, against 2
+     pservers up through fleet.init(PaddleCloudRoleMaker), the "pserver"
+     strategy, init_server and run_server, push_window 3,
+     pull_dense_every 2: each trainer's mean of its last 5 losses under
+     0.6 x its first, native.NATIVE true everywhere; (c) the local
+     train_from_dataset loop (one reader thread, DeviceFeeder) over one of
+     those files, its losses torch.equal to Executor.run on the batches
+     fed by hand, with the parser's seconds a file; (e) the LM of phase 5,
+     f32, batch 8, the worker program's grads put to the async
+     Communicator against 2 async Adam pservers for 10 steps, its recv
+     thread swapping the parameters in: the loss falls, no error or
+     restart, every merged grad's sections run on the pservers, 12/6/6
+     flash launches a step, the step's ms; (f) that LM under
+     ElasticTrainer(AsyncCheckpointer, save_every 3, each save waited for,
+     the pservers' snapshots) against 2 sync Adam pservers: a clean run of
+     8 steps (a process of its own), and a cluster whose trainer process
+     os._exits after step 4, relaunched here: resume() returns 3, steps
+     3-7 torch.equal to the clean run's, both pservers' step_3 snapshots
+     with their manifests, 12/6/6 flash launches a resumed step, the
+     checkpoint and resume seconds.  Each leg records whether the card
+     tests still ran beside it;
  4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -379,6 +414,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -6831,15 +6867,18 @@ def ps_place(device):
     return pt.CUDAPlace(0) if device == "cuda" else pt.CPUPlace()
 
 
-def ps_transpile(built, trainer_id, endpoints, trainers, sync):
-    """The LM's programs for one node of a cluster, every process
-    transpiling the same program alike (build_train_program's names
-    come from a fresh unique_name guard)."""
+def ps_transpile(built, trainer_id, endpoints, trainers, sync,
+                 heartbeat_timeout=None):
+    """A program's transpile for one node of a cluster, every process
+    transpiling the same program alike (build_train_program's and
+    build_ctr_program's names come from a fresh unique_name guard)."""
     import paddle_tpu_torch as pt
 
     _, main, startup, _ = built
     cfg = pt.transpiler.DistributeTranspilerConfig()
     cfg.barrier_timeout = PS_WAIT_S
+    if heartbeat_timeout is not None:
+        cfg.heartbeat_timeout = heartbeat_timeout
     t = pt.transpiler.DistributeTranspiler(cfg)
     t.transpile(trainer_id, program=main, startup_program=startup,
                 pservers=",".join(endpoints), trainers=trainers,
@@ -6847,30 +6886,13 @@ def ps_transpile(built, trainer_id, endpoints, trainers, sync):
     return t
 
 
-def ps_pserver(spec):
-    """One pserver (``--ps-node``): its startup, then listen_and_serv
-    until every trainer completed, each optimize block timed on the card
-    (synchronised around it).  With ``collector`` it traces every request
-    and pushes its spans there under the name the collector's varz poll
-    gives it.  Writes {"block_ms", "blocks_a_step"} to ``out``."""
+def time_blocks(device):
+    """Times every optimize block a pserver runs from here on (on the
+    card, synchronised around it): the list the times land in."""
     import torch
 
-    import paddle_tpu_torch as pt
     from paddle_tpu_torch.core import executor as ex
 
-    device = spec["device"]
-    built = build_train_program()
-    t = ps_transpile(built, 0, spec["endpoints"], spec["trainers"],
-                     spec["sync"])
-    ep = spec["current"]
-    pusher = None
-    if spec.get("collector"):
-        from paddle_tpu_torch.observability import collector, tracing
-
-        tracing.start_tracing(sample=1.0)
-        pusher = collector.CollectorPusher(
-            spec["collector"], role="pserver", process="pserver@" + ep,
-            interval_s=PS_PUSH_S).start()
     block_ms = []
     run_block = ex.RuntimeCtx.run_block
 
@@ -6884,30 +6906,86 @@ def ps_pserver(spec):
         block_ms.append((time.perf_counter() - t0) * 1e3)
 
     ex.RuntimeCtx.run_block = timed_block
-    main, startup = t.get_pserver_programs(ep)
-    exe, scope = pt.Executor(ps_place(device)), pt.Scope()
-    exe.run(startup, scope=scope)
-    exe.run(main, scope=scope)          # serves until the trainers complete
+    return block_ms
+
+
+def ps_pserver(spec):
+    """One pserver (``--ps-node``) of the LM (``program`` "lm") or of
+    DeepFM ("ctr"): its startup, then listen_and_serv until every trainer
+    completed, each optimize block timed (``time_blocks``); with a list
+    of endpoints in ``current``, a pserver for each on threads of this
+    process.  With ``fleet`` it comes up through fleet's PS mode
+    (``fleet.init``, ``distributed_optimizer``, ``init_server``,
+    ``run_server``).  With ``collector`` it traces every request and
+    pushes its spans there under the name the collector's varz poll gives
+    it.  Writes {"block_ms", "blocks_a_step", "fleet"} to ``out`` (the
+    blocks of every endpoint served here)."""
+    import paddle_tpu_torch as pt
+
+    device = spec["device"]
+    ep = spec["current"]
+    pusher = None
+    if spec.get("collector"):
+        from paddle_tpu_torch.observability import collector, tracing
+
+        tracing.start_tracing(sample=1.0)
+        pusher = collector.CollectorPusher(
+            spec["collector"], role="pserver", process="pserver@" + ep,
+            interval_s=PS_PUSH_S).start()
+    if spec.get("fleet"):
+        fleet = ctr_fleet_node(spec, "PSERVER")[0]
+        block_ms = time_blocks(device)
+        fleet.init_server(place=ps_place(device))
+        fleet.run_server(place=ps_place(device))
+        mains = [fleet._ps_main]
+    else:
+        built = NODE_PROGRAMS[spec.get("program", "lm")]()
+        t = ps_transpile(built, 0, spec["endpoints"], spec["trainers"],
+                         spec["sync"], spec.get("heartbeat_timeout"))
+        block_ms = time_blocks(device)
+        mains, errors = [], []
+
+        def serve(ep):
+            try:
+                main, startup = t.get_pserver_programs(ep)
+                mains.append(main)
+                exe, scope = pt.Executor(ps_place(device)), pt.Scope()
+                exe.run(startup, scope=scope)
+                exe.run(main, scope=scope)  # until the trainers complete
+            except BaseException as e:  # noqa: BLE001 (raised below)
+                errors.append(e)
+
+        threads = [threading.Thread(target=serve, args=(e,))
+                   for e in (ep if isinstance(ep, list) else [ep])]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        if errors:
+            raise errors[0]
     if pusher is not None:
         pusher.stop(final_push=True)
     with open(spec["out"], "w") as f:
-        json.dump({"block_ms": block_ms, "blocks_a_step": len(
-            main.global_block().ops[-1].attrs["grad_blocks"])}, f)
+        json.dump({"block_ms": block_ms, "fleet": bool(spec.get("fleet")),
+                   "blocks_a_step": sum(
+                       len(m.global_block().ops[-1].attrs["grad_blocks"])
+                       for m in mains)}, f)
 
 
 def ps_trainer_setup(built, spec):
-    """A trainer's executor, scope and program after its startup (trainer
-    0 pushes the initial parameters, every trainer pulls them)."""
+    """A trainer's executor, scope, program and transpiler after its
+    startup (trainer 0 pushes the initial parameters, every trainer pulls
+    them)."""
     import paddle_tpu_torch as pt
 
     eps = spec["endpoints"]
     t = ps_transpile(built, spec["trainer_id"], eps, spec["trainers"],
-                     spec["sync"])
+                     spec["sync"], spec.get("heartbeat_timeout"))
     pt.transpiler.wait_server_ready(eps, timeout=PS_WAIT_S)
     exe, scope = pt.Executor(ps_place(spec["device"])), pt.Scope()
     np.random.seed(spec["seed"])
     exe.run(t.get_trainer_startup_program(), scope=scope)
-    return exe, scope, t.get_trainer_program(wait_port=False)
+    return exe, scope, t.get_trainer_program(wait_port=False), t
 
 
 def ps_complete(spec):
@@ -6923,7 +7001,7 @@ def ps_trainer(spec):
     and TRAIN_STEPS steps on its own fixed batch; writes its losses."""
     built = build_train_program()
     model = built[0]
-    exe, scope, prog = ps_trainer_setup(built, spec)
+    exe, scope, prog, _ = ps_trainer_setup(built, spec)
     feed = train_batch(spec["seed"] + 1 + spec["trainer_id"], spec["batch"])
     losses = [float(exe.run(prog, feed=feed, fetch_list=[model["loss"]],
                             scope=scope)[0])
@@ -6934,58 +7012,87 @@ def ps_trainer(spec):
 
 
 def ps_node(spec_json):
+    global DEEPFM_BATCH, CTR_LR
+
     spec = json.loads(spec_json)
     MODEL.update(spec["model"])
-    (ps_pserver if spec["role"] == "pserver" else ps_trainer)(spec)
+    CTR.update(spec["ctr"])
+    DEEPFM_BATCH, CTR_LR = spec["ctr_batch"], spec["ctr_lr"]
+    {"pserver": ps_pserver, "trainer": ps_trainer,
+     "ctr_trainer": ctr_trainer,
+     "elastic_trainer": elastic_trainer}[spec["role"]](spec)
 
 
 class PSCluster:
     """Pserver (and trainer) processes of one cluster, each from
     ``--ps-node`` with an explicit CUDA_VISIBLE_DEVICES and the
-    transport in its environment; ``wait()`` bounds every exit by
-    PS_WAIT_S and fails the run on a non-zero one; ``kill()`` ends what
-    still runs."""
+    transport in its environment; ``pserver`` and ``trainer`` add to the
+    nodes' specs (a trainer's ``role``: "trainer", "ctr_trainer" or
+    "elastic_trainer"; its ``exit_code``, 0 unless given); with
+    ``one_process`` the pservers are threads of one node.  ``wait()``
+    bounds every exit by PS_WAIT_S and fails the run on an unexpected
+    one; ``wait_trainers()`` waits for the spawned trainers only;
+    ``kill()`` ends what still runs."""
 
     def __init__(self, tmp, name, device, seed, trainers, sync,
-                 transport="socket", collector=None, spawn_trainers=()):
+                 transport="socket", collector=None, spawn_trainers=(),
+                 pserver=None, trainer=None, one_process=False):
         self.endpoints = [f"127.0.0.1:{_free_port()}"
                           for _ in range(PS_PSERVERS)]
         self.name, self.procs, self.outs = name, [], {}
         base = {"endpoints": self.endpoints, "trainers": trainers,
                 "sync": sync, "device": device, "seed": seed,
-                "batch": BATCH, "model": MODEL}
-        self.spec = dict(base, role="trainer", trainer_id=0)
+                "batch": BATCH, "model": MODEL, "ctr": CTR,
+                "ctr_batch": DEEPFM_BATCH, "ctr_lr": CTR_LR}
+        self.spec = dict(base, role="trainer", trainer_id=0,
+                         **(pserver or {}))
         env = dict(os.environ, PADDLE_TPU_RPC_TRANSPORT=transport,
                    CUDA_VISIBLE_DEVICES=os.environ.get(
                        "CUDA_VISIBLE_DEVICES", "0"))
         env.pop("PADDLE_TPU_COLLECTOR", None)
-        nodes = [dict(base, role="pserver", current=ep, collector=collector)
-                 for ep in self.endpoints]
-        nodes += [dict(base, role="trainer", trainer_id=k)
+        nodes = [{**base, "role": "pserver", "current": ep,
+                  "collector": collector, **(pserver or {})}
+                 for ep in ([self.endpoints] if one_process
+                            else self.endpoints)]
+        self.n_pserver_nodes = len(nodes)
+        nodes += [{**base, "role": "trainer", "trainer_id": k,
+                   **(pserver or {}), **(trainer or {})}
                   for k in spawn_trainers]
+        self.exit_codes = []
         for i, node in enumerate(nodes):
             node["out"] = os.path.join(tmp, f"{name}_{i}.json")
             self.outs[node["out"]] = node
+            self.exit_codes.append(node.get("exit_code", 0)
+                                   if node["role"] != "pserver" else 0)
             self.procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--seed",
                  str(seed), "--ps-node", json.dumps(node)], env=env))
 
-    def wait(self):
-        end = time.perf_counter() + PS_WAIT_S
-        for p in self.procs:
+    def _wait(self, procs, end):
+        for p, want in procs:
             try:
                 rc = p.wait(timeout=max(1.0, end - time.perf_counter()))
             except subprocess.TimeoutExpired:
                 self.kill()
                 raise AssertionError(f"ps {self.name}: a node outlasted "
                                      f"{PS_WAIT_S:.0f} s")
-            if rc != 0:
+            if rc != want:
                 self.kill()
-                raise AssertionError(f"ps {self.name}: a node exited {rc}")
+                raise AssertionError(f"ps {self.name}: a node exited {rc} "
+                                     f"(expected {want})")
+
+    def wait_trainers(self):
+        self._wait(list(zip(self.procs, self.exit_codes))[
+            self.n_pserver_nodes:], time.perf_counter() + PS_WAIT_S)
+
+    def wait(self):
+        self._wait(list(zip(self.procs, self.exit_codes)),
+                   time.perf_counter() + PS_WAIT_S)
         res = {"pservers": [], "trainers": []}
         for path, node in self.outs.items():
             with open(path) as f:
-                res[node["role"] + "s"].append(json.load(f))
+                res[("pserver" if node["role"] == "pserver" else "trainer")
+                    + "s"].append(json.load(f))
         return res
 
     def kill(self):
@@ -7286,7 +7393,7 @@ def ps_phase(seed, device="cuda"):
         lap("pservers up")
         local = ps_local(built, seed, device, feed)
         lap("local run")
-        exe, scope, prog = ps_trainer_setup(built, sock.spec)
+        exe, scope, prog, _ = ps_trainer_setup(built, sock.spec)
         lap("trainer startup (push, pull)")
         start_diff = ps_same(local["init"], ps_params(built, scope))
         if start_diff:
@@ -7361,7 +7468,7 @@ def ps_phase(seed, device="cuda"):
             plan.on(collector_mod.MSG_PUSH, int(i),
                     ("drop", "close")[k % 2])
         inj = faultinject.install(plan)
-        exe, scope, prog = ps_trainer_setup(built, http.spec)
+        exe, scope, prog, _ = ps_trainer_setup(built, http.spec)
         lap("http trainer startup")
         prof_dir = tempfile.mkdtemp(prefix="ps_profiles_", dir=tmp)
         paths = []
@@ -7457,6 +7564,706 @@ def ps_apart(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: Downpour CTR training over the dataset path and fleet's PS mode,
+# the async Communicator and elastic crash-resume (a process of its own,
+# ``--ctr``)
+# ---------------------------------------------------------------------------
+
+# DeepFM at the bench's widths with its tables sharded over the pservers;
+# SGD, since the pservers' table blocks are sparse_sgd whatever the
+# optimizer (the JAX test's 0.5, at its tiny width, diverges with 2 async
+# trainers at these).  The ids of the data are Zipf(CTR_ZIPF) draws folded
+# into the vocabulary (CTR features are heavy-tailed); a label is whether
+# the truth of its ids (id % 5 - 2) sums above 0 (the JAX package's
+# Downpour test, tests/test_dist_ps.py:700-818).
+CTR = dict(DEEPFM, is_distributed=True)
+CTR_LR = 0.1
+CTR_ZIPF = 1.2
+CTR_SEED = 31               # the data's seed, past --seed
+CTR_LOCKSTEP_STEPS = 10     # (a), the last one profiled
+CTR_PUSH_WINDOW = 3         # (b), the JAX test's
+CTR_PULL_DENSE_EVERY = 2
+CTR_FILES = 2               # (b): a trainer's files ...
+CTR_FILE_BATCHES = 20       # ... of this many batches each
+COMM_STEPS = 10             # (e)
+ELASTIC_STEPS = 8           # (f): the clean run's steps
+ELASTIC_SAVE_EVERY = 3
+ELASTIC_DIE_AFTER = 4       # the crashing trainer exits after step 4 ...
+ELASTIC_EXIT_CODE = 41      # ... with this code, before its checkpoint 6
+ELASTIC_RESUME_AT = 3
+
+
+def build_ctr_program():
+    """DeepFM (CTR) under SGD(CTR_LR), in programs of its own.  Returns
+    (model, main, startup, params_grads)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.deepfm import deepfm_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = deepfm_model(**CTR)
+        _, params_grads = pt.optimizer.SGD(CTR_LR).minimize(model["loss"])
+    return model, main, startup, params_grads
+
+
+NODE_PROGRAMS = {"lm": build_train_program, "ctr": build_ctr_program}
+
+
+def ctr_fleet_node(spec, role):
+    """DeepFM through fleet's PS mode, as a node of PaddleCloudRoleMaker's
+    env contract (set here from ``spec``): ``fleet.init``, a
+    ``distributed_optimizer`` of strategy mode "pserver", async, and its
+    ``minimize``.  Returns (fleet, model, main)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fleet import (DistributedStrategy,
+                                        PaddleCloudRoleMaker, fleet)
+    from paddle_tpu_torch.models.deepfm import deepfm_model
+
+    os.environ.update(
+        TRAINING_ROLE=role, PADDLE_TRAINERS_NUM=str(spec["trainers"]),
+        PADDLE_PSERVERS_IP_PORT_LIST=",".join(spec["endpoints"]),
+        PADDLE_CURRENT_ENDPOINT=spec.get("current", ""),
+        PADDLE_TRAINER_ID=str(spec.get("trainer_id", 0)))
+    fleet.init(PaddleCloudRoleMaker(is_collective=False))
+    strategy = DistributedStrategy()
+    strategy.mode, strategy.sync_mode = "pserver", False
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = deepfm_model(**CTR)
+        if role == "TRAINER":
+            pt.transpiler.wait_server_ready(spec["endpoints"],
+                                            timeout=PS_WAIT_S)
+        fleet.distributed_optimizer(pt.optimizer.SGD(CTR_LR),
+                                    strategy).minimize(model["loss"])
+    return fleet, model, main
+
+
+def ctr_dataset(model, files):
+    """A QueueDataset of one reader thread over ``files``, batches of
+    DEEPFM_BATCH."""
+    import paddle_tpu_torch as pt
+
+    ds = pt.DatasetFactory().create_dataset("QueueDataset")
+    ds.set_batch_size(DEEPFM_BATCH)
+    ds.set_thread(1)
+    ds.set_filelist(files)
+    ds.set_use_var([model["sparse_ids"], model["dense_x"], model["label"]])
+    return ds
+
+
+def recording(exe, fetched):
+    """Wraps ``exe.run`` on the instance: each call's first fetch lands
+    in ``fetched`` (train_from_dataset and the Downpour runner call it)."""
+    run = exe.run
+
+    def run_and_keep(*a, **k):
+        out = run(*a, **k)
+        if out:
+            fetched.append(out[0])
+        return out
+
+    exe.run = run_and_keep
+
+
+def ctr_trainer(spec):
+    """A trainer of (b) (``--ps-node``): fleet's PS mode, then
+    ``train_from_dataset`` over its MultiSlot files with the program's
+    ``_fleet_opt`` selecting DistMultiTrainer / DownpourSGD and no
+    transpiler, so the Downpour runner comes from fleet's role contract.
+    Writes its losses, the runner's stats, the seconds and NATIVE."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import native
+
+    fleet, model, main = ctr_fleet_node(spec, "TRAINER")
+    exe = pt.Executor(ps_place(spec["device"]))
+    np.random.seed(spec["seed"])
+    exe.run(fleet.startup_program)
+    main._fleet_opt = {"trainer": "DistMultiTrainer",
+                       "device_worker": "DownpourSGD",
+                       "push_window": CTR_PUSH_WINDOW,
+                       "pull_dense_every": CTR_PULL_DENSE_EVERY}
+    losses = []
+    recording(exe, losses)
+    t0 = time.perf_counter()
+    files = spec["files"][str(spec["trainer_id"])]
+    end = time.perf_counter() + PS_WAIT_S    # the phase writes them
+    while not all(map(os.path.exists, files)) and time.perf_counter() < end:
+        time.sleep(0.1)
+    exe.train_from_dataset(main, ctr_dataset(model, files),
+                           fetch_list=[model["loss"]])
+    seconds = time.perf_counter() - t0
+    runner = main._fleet_opt["downpour_runner"]
+    stats = dict(runner.stats)
+    runner.finish()
+    ps_complete(spec)
+    with open(spec["out"], "w") as f:
+        json.dump({"losses": [float(x) for x in losses], "stats": stats,
+                   "seconds": seconds, "native": native.NATIVE,
+                   "transpiled_by_fleet_contract":
+                       main._fleet_opt["transpiler"] is not fleet._transpiler
+                       and main._fleet_opt["transpiler"].endpoints
+                       == spec["endpoints"]}, f)
+
+
+def elastic_batch(spec, step):
+    """(f)'s data, keyed by the step."""
+    return train_batch(spec["seed"] + 100 + step, spec["batch"])
+
+
+def elastic_run(spec, exe, scope, prog, t, model, ckpt_dir, ps_dir,
+                steps, die_after=None):
+    """The LM's elastic loop: ElasticTrainer over an AsyncCheckpointer
+    (save_every ELASTIC_SAVE_EVERY, each save waited for, the pservers'
+    snapshots in ``ps_dir``), resumed, then ``steps`` steps of
+    step-keyed data.  Returns (start, {step: loss}, resume s, checkpoint
+    s each, step ms each)."""
+    from paddle_tpu_torch.contrib.checkpoint import AsyncCheckpointer
+    from paddle_tpu_torch.distributed.elastic import ElasticTrainer
+
+    ck = AsyncCheckpointer(ckpt_dir)
+    el = ElasticTrainer(ck, transpiler=t, save_every=ELASTIC_SAVE_EVERY,
+                        wait_each_save=True, program=prog, scope=scope,
+                        ps_state_dir=ps_dir)
+    t0 = time.perf_counter()
+    start = el.resume()
+    resume_s = time.perf_counter() - t0
+    losses, ckpt_s, step_ms = {}, [], []
+    for step in range(start, steps):
+        t0 = time.perf_counter()
+        losses[step] = float(exe.run(prog, feed=elastic_batch(spec, step),
+                                     fetch_list=[model["loss"]],
+                                     scope=scope)[0])
+        t1 = time.perf_counter()
+        el.step_done(step)
+        t2 = time.perf_counter()
+        step_ms.append((t1 - t0) * 1e3)
+        if (step + 1) % ELASTIC_SAVE_EVERY == 0:
+            ckpt_s.append(t2 - t1)
+        if die_after is not None and step == die_after:
+            return start, losses, resume_s, ckpt_s, step_ms
+    el.finish()
+    ck.close()
+    return start, losses, resume_s, ckpt_s, step_ms
+
+
+def elastic_trainer(spec):
+    """A trainer of (f) (``--ps-node``): the elastic loop over
+    ELASTIC_STEPS steps (the clean run), or with ``die_after`` until that
+    step, then ``os._exit`` with ELASTIC_EXIT_CODE: no complete, no
+    goodbye, and its last checkpoint ELASTIC_RESUME_AT's.  Writes its
+    start, losses, checkpoint seconds and step ms first."""
+    built = build_train_program()
+    exe, scope, prog, t = ps_trainer_setup(built, spec)
+    die = spec.get("die_after")
+    start, losses, _, ckpt_s, step_ms = elastic_run(
+        spec, exe, scope, prog, t, built[0], spec["ckpt_dir"],
+        spec["ps_dir"], ELASTIC_STEPS, die)
+    if die is None:
+        ps_complete(spec)
+    with open(spec["out"], "w") as f:
+        json.dump({"start": start, "losses": losses, "checkpoint_s": ckpt_s,
+                   "step_ms": step_ms}, f)
+    if die is not None:
+        sys.stdout.flush()
+        os._exit(ELASTIC_EXIT_CODE)
+
+
+def write_ctr_files(seed, tmp):
+    """Each (b) trainer's CTR_FILES MultiSlot files (26 ids, 13 floats, the
+    label a line) from ``seed``: {trainer: [paths]}."""
+    v, f, d = CTR["vocab_size"], CTR["num_fields"], CTR["dense_dim"]
+    n = CTR_FILE_BATCHES * DEEPFM_BATCH
+    line = f"{f} " + " ".join(["%d"] * f) + f" {d} " + \
+        " ".join(["%.6f"] * d) + " 1 %d"
+    files = {}
+    for k in range(PS_TRAINERS):
+        rng = np.random.RandomState(seed + CTR_SEED + k)
+        files[k] = []
+        for i in range(CTR_FILES):
+            ids = (rng.zipf(CTR_ZIPF, (n, f)) - 1) % v
+            x = rng.rand(n, d).astype(np.float32)
+            label = ((ids % 5 - 2).sum(1) > 0).astype(np.int64)
+            lines = [line % (*a, *b, c) for a, b, c in zip(
+                ids.tolist(), x.tolist(), label.tolist())]
+            path = os.path.join(tmp, f"ctr_{k}_{i}.txt")
+            with open(path + ".tmp", "w") as fh:
+                fh.write("\n".join(lines) + "\n")
+            os.replace(path + ".tmp", path)
+            files[k].append(path)
+    return files
+
+
+def ctr_file_names(tmp):
+    """The paths ``write_ctr_files`` gives ``tmp``'s files, by trainer."""
+    return {k: [os.path.join(tmp, f"ctr_{k}_{i}.txt")
+                for i in range(CTR_FILES)] for k in range(PS_TRAINERS)}
+
+
+def ctr_parse_seconds(path):
+    """Seconds the MultiSlot parser takes over one file (read beforehand),
+    and the file's lines."""
+    from paddle_tpu_torch import native
+
+    with open(path, "rb") as fh:
+        text = fh.read()
+    parser = native.MultiSlotParser(["int64", "float", "int64"])
+    t0 = time.perf_counter()
+    n, _ = parser.parse(text)
+    return time.perf_counter() - t0, n
+
+
+def ctr_params(built, scope):
+    """DeepFM's parameters and tables in ``scope``, by name (tensors)."""
+    return {p.name: scope.find_var(p.name).get() for p, _ in built[3]}
+
+
+def ctr_local(built, seed, device, feeds):
+    """The untranspiled CTR program's SGD run: its losses, step ms and
+    final parameters."""
+    import paddle_tpu_torch as pt
+
+    model, main, startup, _ = built
+    exe, scope = pt.Executor(ps_place(device)), pt.Scope()
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    losses, step_ms = [], []
+    for feed in feeds:
+        t0 = time.perf_counter()
+        losses.append(exe.run(main, feed=feed, fetch_list=[model["loss"]],
+                              scope=scope)[0])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, step_ms, ctr_params(built, scope)
+
+
+def ctr_lockstep(built, seed, device, cluster, feeds):
+    """(a): 1 trainer, the runner in lockstep (push_window 1,
+    pull_dense_every 1) against the cluster's 2 async pservers; its
+    losses and every parameter and table pulled back from the pservers
+    torch.equal to the local SGD run; the step split into pull, compute
+    and push over the steps after the first, the last profiled."""
+    import torch
+
+    from paddle_tpu_torch.distributed.downpour_worker import DownpourRunner
+
+    model, main = built[0], built[1]
+    local, local_ms, local_final = ctr_local(built, seed, device, feeds)
+    exe, scope, _, t = ps_trainer_setup(built, cluster.spec)
+    runner = DownpourRunner(t, program=main, scope=scope, executor=exe,
+                            push_window=1, pull_dense_every=1)
+    losses, prof = [], None
+    for i, feed in enumerate(feeds):
+        if i == 1:
+            runner.reset_stats()
+        if i == len(feeds) - 1:
+            stats = dict(runner.stats)
+            res, prof = profile("Downpour CTR step (lockstep)",
+                                lambda: runner.run_step(feed,
+                                                        [model["loss"]]))
+        else:
+            res = runner.run_step(feed, [model["loss"]])
+        losses.append(res[0])
+    runner.drain()
+    pulled = {n: torch.from_numpy(v)
+              for n, v in runner._fleet_pull.pull_dense_vars_sync().items()}
+    for w in runner.table_ids:
+        ids, rows = runner._fleet_pull.pull_sparse_rows_sync(
+            w, np.arange(CTR["vocab_size"]))
+        if ids.size != CTR["vocab_size"]:
+            raise AssertionError(f"ctr (a): table {w} pulled {ids.size} rows")
+        pulled[w] = torch.from_numpy(rows)
+    runner.finish()
+    ps_complete(cluster.spec)
+    differ = sorted(n for n, v in local_final.items()
+                    if n not in pulled or not torch.equal(v.cpu(), pulled[n]))
+    same_losses = all(torch.equal(torch.from_numpy(a), torch.from_numpy(b))
+                      for a, b in zip(losses, local))
+    n = stats["steps"]
+    row = {"losses": [float(x) for x in losses],
+           "local_losses": [float(x) for x in local],
+           "bitwise": same_losses and not differ,
+           "params_and_tables_compared": len(local_final),
+           "differing": differ,
+           "step_ms": {k: stats[k + "_s"] * 1e3 / n
+                       for k in ("pull", "compute", "push")},
+           "bytes_pulled_a_step": stats["pulled_bytes"] / n,
+           "bytes_pushed_a_step": stats["pushed_bytes"] / n,
+           "local_step_ms": float(np.mean(local_ms[1:])),
+           "profiled_step": {k: prof[k] for k in (
+               "wall_ms", "device_ms", "device_idle_share")}}
+    if not row["bitwise"]:
+        raise AssertionError("ctr (a): the lockstep Downpour run is not "
+                             "bitwise the local SGD run " + json.dumps(row))
+    return row
+
+
+def ctr_hogwild(built, seed, device, files):
+    """(c): train_from_dataset's local loop over ``files`` with one reader
+    thread, through DeviceFeeder, against Executor.run on the same batches
+    fed by hand: every loss torch.equal; the step ms of each, and the
+    seconds the dataset takes to read, parse and batch the files alone."""
+    import torch
+
+    import paddle_tpu_torch as pt
+
+    model, main, startup, _ = built
+    t0 = time.perf_counter()
+    batches = list(ctr_dataset(model, files)._iter_batches())
+    batching_s = time.perf_counter() - t0
+    runs = {}
+    for how in ("hand", "dataset"):
+        exe, scope = pt.Executor(ps_place(device)), pt.Scope()
+        np.random.seed(seed)
+        exe.run(startup, scope=scope)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        losses = []
+        t0 = time.perf_counter()
+        if how == "dataset":
+            recording(exe, losses)
+            exe.train_from_dataset(main, ctr_dataset(model, files),
+                                   scope=scope, fetch_list=[model["loss"]])
+        else:
+            for feed in batches:
+                losses.append(exe.run(main, feed=feed,
+                                      fetch_list=[model["loss"]],
+                                      scope=scope)[0])
+        runs[how] = (losses, (time.perf_counter() - t0) * 1e3
+                     / max(1, len(losses)))
+    a, b = runs["dataset"][0], runs["hand"][0]
+    row = {"batches": len(b), "bitwise": len(a) == len(b) and all(
+        torch.equal(torch.from_numpy(x), torch.from_numpy(y))
+        for x, y in zip(a, b)),
+        "step_ms_through_device_feeder": runs["dataset"][1],
+        "step_ms_hand_fed": runs["hand"][1],
+        "read_parse_batch_s": batching_s,
+        "first_loss": float(b[0]), "last_loss": float(b[-1])}
+    if not row["bitwise"]:
+        raise AssertionError("ctr (c): train_from_dataset's losses differ "
+                             "from the hand-fed run's " + json.dumps(row))
+    return row
+
+
+def comm_leg(seed, device, cluster):
+    """(e): the LM's worker program (forward and backward, the optimize
+    ops dropped) on the trainer, each grad put to the Communicator, whose
+    recv thread refreshes the parameters: the loss on the parameters it
+    brings back once the steps are done (after two more rounds) is below
+    the first step's, no error and no restart, every merged grad's
+    sections reach the pservers (their optimize blocks, counted after
+    stop()), 12/6/6 flash launches a step."""
+    import torch
+
+    from paddle_tpu_torch.communicator import Communicator
+    from paddle_tpu_torch.core.program import OPTIMIZE
+
+    built = build_train_program()
+    model = built[0]
+    exe, scope, _, t = ps_trainer_setup(built, cluster.spec)
+    worker = built[1].clone()
+    gb = worker.global_block()
+    gb.ops = [op for op in gb.ops if op.op_role != OPTIMIZE]
+    types = [op.type for op in gb.ops]
+    comm = Communicator(t, scope)
+    sent = {"merged": 0, "sections": 0}
+    send = comm._send_grad
+
+    def counted(gname, merged):
+        send(gname, merged)
+        sent["merged"] += 1
+        sent["sections"] += len(t.param_plan[comm._grad_to_param[gname]])
+
+    comm._send_grad = counted
+    comm.start()
+    feed = train_batch(seed, BATCH)
+    losses, step_ms = [], []
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_kernel_counts()
+    puts = 0
+    for _ in range(COMM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(worker, feed=feed,
+                                    fetch_list=[model["loss"]],
+                                    scope=scope)[0]))
+        for pname in t.param_plan:
+            gname = t.grad_of[pname]
+            comm.put(gname, scope.find_var(gname).get())
+            puts += 1
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = kernel_counts()
+    # the parameters the recv thread brings back once the grads landed:
+    # the loss on them, after a round that began after the last put
+    rounds = len(comm.recv_round_s)
+    end = time.perf_counter() + PS_WAIT_S
+    while len(comm.recv_round_s) < rounds + 2 and time.perf_counter() < end:
+        time.sleep(0.05)
+    refreshed = float(exe.run(worker, feed=feed, fetch_list=[model["loss"]],
+                              scope=scope)[0])
+    comm.stop()
+    left = sum(q.qsize() for q in comm._queues.values())
+    ps_complete(cluster.spec)
+    res = cluster.wait()
+    blocks = sum(len(r["block_ms"]) for r in res["pservers"])
+    row = {"losses": losses, "loss_after_refresh": refreshed,
+           "step_ms": float(np.mean(step_ms[1:])),
+           "step_ms_each": step_ms, "puts": puts, "merged_sends": sent[
+               "merged"], "sections_sent": sent["sections"],
+           "pserver_blocks_run": blocks, "left_in_queues": left,
+           "recv_rounds": len(comm.recv_round_s),
+           "recv_round_s": comm.recv_round_s,
+           "errors": [f"{n}: {e!r}" for n, e in comm.errors()],
+           "restarts": comm.restarts(),
+           "launches_a_step": {k: v // COMM_STEPS
+                               for k, v in counts.items() if v}}
+    want = lm_expected(types, COMM_STEPS)
+    if not (refreshed < losses[0]) or row["errors"] or \
+            len(comm.recv_round_s) < rounds + 2 or \
+            any(row["restarts"].values()) or left or \
+            blocks != sent["sections"] or counts != want:
+        raise AssertionError("ctr (e): the Communicator's bars failed "
+                             + json.dumps({**row, "want": want,
+                                           "counts": counts}))
+    return row, counts
+
+
+def trainer_out(cluster):
+    """What the cluster's spawned trainer wrote."""
+    with open(next(p for p, n in cluster.outs.items()
+                   if n["role"] != "pserver")) as f:
+        return json.load(f)
+
+
+def elastic_leg(seed, device, clean, crash):
+    """(f): the clean run's ELASTIC_STEPS steps (a process of clean's);
+    the crashing trainer (a process of crash's) exits after step
+    ELASTIC_DIE_AFTER; its relaunch here resumes at ELASTIC_RESUME_AT and
+    steps 3-7 are torch.equal to the clean run's; the pservers' step
+    snapshots exist with their manifests; 12/6/6 flash launches a resumed
+    step."""
+    import glob
+
+    import torch
+
+    built = build_train_program()
+    model = built[0]
+    clean.wait_trainers()
+    cleaned = trainer_out(clean)
+    clean_losses = {int(k): v for k, v in cleaned["losses"].items()}
+    crash.wait_trainers()
+    died = trainer_out(crash)
+    exe, scope, prog, t = ps_trainer_setup(built, crash.spec)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_kernel_counts()
+    start, resumed, resume_s, ckpt_s, step_ms = elastic_run(
+        crash.spec, exe, scope, prog, t, model, crash.spec["ckpt_dir"],
+        crash.spec["ps_dir"], ELASTIC_STEPS)
+    counts = kernel_counts()
+    ps_complete(crash.spec)
+    snaps = sorted(glob.glob(os.path.join(crash.spec["ps_dir"], "ps_*",
+                                          f"step_{ELASTIC_RESUME_AT}")))
+    row = {"start": start, "crashed_after": max(map(int, died["losses"])),
+           "clean_losses": [clean_losses[k] for k in sorted(clean_losses)],
+           "resumed_losses": [resumed[k] for k in sorted(resumed)],
+           "equal_from_resume": all(
+               resumed[k] == clean_losses[k] for k in resumed),
+           "crashed_run_equal": all(
+               v == clean_losses[int(k)] for k, v in died["losses"].items()),
+           "snapshots": [os.path.relpath(p, crash.spec["ps_dir"])
+                         for p in snaps],
+           "manifests": all(os.path.exists(os.path.join(p, "MANIFEST.json"))
+                            for p in snaps),
+           "resume_s": resume_s,
+           "checkpoint_s": cleaned["checkpoint_s"] + ckpt_s,
+           "step_ms": float(np.mean(cleaned["step_ms"][1:])),
+           "launches_a_step": {k: v // len(resumed)
+                               for k, v in counts.items() if v}}
+    want = lm_expected([op.type for op in built[1].global_block().ops],
+                       len(resumed))
+    if start != ELASTIC_RESUME_AT or sorted(resumed) != list(
+            range(ELASTIC_RESUME_AT, ELASTIC_STEPS)) or \
+            not row["equal_from_resume"] or not row["crashed_run_equal"] \
+            or len(snaps) != PS_PSERVERS or not row["manifests"] or \
+            counts != want:
+        raise AssertionError("ctr (f): elastic resume's bars failed "
+                             + json.dumps({**row, "counts": counts,
+                                           "want": want}))
+    return row, counts
+
+
+def ctr_phase(seed, device="cuda", card_tests_done=None):
+    """Phase 3f in this process.  Every cluster's pservers start first, on
+    the card: (a) DeepFM's 2 async pservers for the lockstep Downpour run
+    (threads of one process), (b/d) 2 more through fleet's PS mode (a
+    process each, fleet being one per process) for the 2 trainer
+    processes that run ``train_from_dataset`` over their MultiSlot
+    files, (e) the LM's 2 async Adam pservers for the Communicator, (f)
+    2 sync Adam pservers for the clean elastic run and 2 for the crashing
+    one (threads of one process a cluster), with each of those two
+    trainers in a process of its own.  Then the data files (the fleet
+    trainers wait for them), the legs (a), (c), (e) and (f)'s relaunch
+    in this process, and (b)'s results.  ``card_tests_done``: a file
+    that exists once the card tests beside this phase ended (each leg
+    records whether it did)."""
+    import torch
+
+    from paddle_tpu_torch import native
+
+    t_phase = time.perf_counter()
+    laps, out, clusters = {}, {}, []
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase
+
+    def beside():
+        return card_tests_done is not None and \
+            not os.path.exists(card_tests_done)
+
+    tmp = tempfile.mkdtemp(prefix="ctr_phase_")
+    try:
+        files = ctr_file_names(tmp)     # written once the nodes start
+        def cluster(*a, **k):
+            clusters.append(PSCluster(tmp, *a, **k))
+            return clusters[-1]
+
+        def elastic(what, **trainer):
+            return cluster(
+                "elastic_" + what, device, seed, 1, True, one_process=True,
+                spawn_trainers=[0],
+                pserver={"heartbeat_timeout": PS_WAIT_S,
+                         "ckpt_dir": os.path.join(tmp, "ck_" + what),
+                         "ps_dir": os.path.join(tmp, "ps_" + what)},
+                trainer={"role": "elastic_trainer", **trainer})
+
+        lock = cluster("ctr_lockstep", device, seed, 1, False,
+                       pserver={"program": "ctr"}, one_process=True)
+        fleet_cl = cluster(
+            "ctr_fleet", device, seed, PS_TRAINERS, False,
+            spawn_trainers=range(PS_TRAINERS),
+            pserver={"program": "ctr", "fleet": True},
+            trainer={"role": "ctr_trainer", "files": files})
+        comm = cluster("comm", device, seed, 1, False, one_process=True)
+        clean = elastic("clean")
+        crash = elastic("crash", die_after=ELASTIC_DIE_AFTER,
+                        exit_code=ELASTIC_EXIT_CODE)
+        lap("nodes started")
+        if write_ctr_files(seed, tmp) != files:
+            raise AssertionError("ctr: the data files' names moved")
+        lap("data written")
+        out["native"] = native.NATIVE
+        out["parse"] = [dict(zip(("seconds", "lines"), ctr_parse_seconds(p)))
+                        for p in files[0]]
+        built = build_ctr_program()
+        feeds = list(ctr_dataset(built[0], files[1][:1])._iter_batches())
+        out["lockstep"] = dict(ctr_lockstep(
+            built, seed, device, lock, feeds[:CTR_LOCKSTEP_STEPS]),
+            beside_card_tests=beside())
+        lock.wait()
+        lap("(a) lockstep")
+        log("ctr: (a) lockstep Downpour " + json.dumps(out["lockstep"]))
+        out["hogwild"] = dict(ctr_hogwild(built, seed, device, files[0][:1]),
+                              beside_card_tests=beside())
+        lap("(c) hogwild")
+        out["communicator"], out["launches_communicator"] = comm_leg(
+            seed, device, comm)
+        out["communicator"]["beside_card_tests"] = beside()
+        lap("(e) communicator")
+        log("ctr: (e) the Communicator " + json.dumps(out["communicator"]))
+        out["elastic"], out["launches_elastic"] = elastic_leg(
+            seed, device, clean, crash)
+        out["elastic"]["beside_card_tests"] = beside()
+        clean.wait()
+        crash.wait()
+        lap("(f) elastic")
+        log("ctr: (f) elastic " + json.dumps(out["elastic"]))
+        res = fleet_cl.wait()
+        rows = []
+        for r in res["trainers"]:
+            st, tl = r["stats"], r["losses"]
+            rows.append({
+                "losses": tl, "first": tl[0],
+                "last5_mean": float(np.mean(tl[-5:])),
+                "ratio": float(np.mean(tl[-5:]) / tl[0]),
+                "step_ms": {k: st[k + "_s"] * 1e3 / st["steps"]
+                            for k in ("pull", "compute", "push")},
+                "bytes_pulled_a_step": st["pulled_bytes"] / st["steps"],
+                "bytes_pushed_a_step": st["pushed_bytes"] / st["steps"],
+                "seconds": r["seconds"], "native": r["native"],
+                "transpiled_by_fleet_contract":
+                    r["transpiled_by_fleet_contract"]})
+        out["async"] = {"trainers": rows,
+                        "pservers_through_fleet": [r["fleet"] for r in
+                                                   res["pservers"]]}
+        lap("(b, d) async Downpour through fleet")
+        log("ctr: (b, d) async Downpour " + json.dumps(out["async"]))
+        want = CTR_FILES * CTR_FILE_BATCHES
+        if not out["native"] or not all(r["native"] for r in rows) or \
+                not all(out["async"]["pservers_through_fleet"]) or \
+                any(len(r["losses"]) != want or not r["ratio"] < 0.6
+                    or not r["transpiled_by_fleet_contract"] for r in rows):
+            raise AssertionError("ctr (b, d): the async Downpour bars failed "
+                                 + json.dumps(out["async"]))
+    finally:
+        for cl in clusters:
+            cl.kill()
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["laps_s"] = laps
+    return out
+
+
+def ctr_start(seed, tmp):
+    """Starts phase 3f in a process of its own (``--ctr``) beside what
+    runs next; ``ctr_wait`` collects it.  The file ``card_tests_done``
+    in ``tmp`` is made once the card tests beside it ended."""
+    import torch
+
+    torch.cuda.empty_cache()
+    res_path = os.path.join(tmp, "ctr.json")
+    done = os.path.join(tmp, "card_tests_done")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+         "--ctr", res_path, "--beside", done])
+    return proc, res_path, done
+
+
+def ctr_wait(started, card):
+    """Waits for phase 3f's process; logs the phase's numbers on one line
+    and returns them."""
+    proc, res_path, _ = started
+    if proc.wait(timeout=900) != 0:
+        raise AssertionError(f"phase 3f failed in its process "
+                             f"(exit {proc.returncode})")
+    with open(res_path) as f:
+        res = json.load(f)
+    lock, comm, el = res["lockstep"], res["communicator"], res["elastic"]
+    log(f"ctr ({card}) " + json.dumps({
+        "native": res["native"], "parse_s_a_file": res["parse"],
+        "lockstep": {k: lock[k] for k in (
+            "bitwise", "step_ms", "local_step_ms", "bytes_pulled_a_step",
+            "bytes_pushed_a_step", "profiled_step", "beside_card_tests")},
+        "async": [{k: r[k] for k in (
+            "first", "last5_mean", "ratio", "step_ms", "bytes_pulled_a_step",
+            "bytes_pushed_a_step", "seconds", "native")}
+            for r in res["async"]["trainers"]],
+        "pservers_through_fleet": res["async"]["pservers_through_fleet"],
+        "hogwild": res["hogwild"],
+        "communicator": {k: comm[k] for k in (
+            "loss_after_refresh", "step_ms", "merged_sends", "sections_sent",
+            "pserver_blocks_run", "recv_rounds", "recv_round_s",
+            "launches_a_step", "beside_card_tests")},
+        "elastic": {k: el[k] for k in (
+            "start", "equal_from_resume", "step_ms", "checkpoint_s",
+            "resume_s", "snapshots", "launches_a_step", "beside_card_tests")},
+        "seconds": res["seconds"], "laps_s": res["laps_s"]}))
+    return res
+
+
 PORT_KERNEL = re.compile(
     r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
     r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
@@ -7538,9 +8345,17 @@ def main(argv=None):
                     help="run phase 3e alone (the kernels already built) "
                     "and write its numbers to RESULT_JSON; the whole "
                     "script runs it so, in a process of its own")
+    ap.add_argument("--ctr", metavar="RESULT_JSON",
+                    help="run phase 3f alone (the kernels already built) "
+                    "and write its numbers to RESULT_JSON; the whole "
+                    "script runs it so, in a process of its own beside "
+                    "the card tests")
+    ap.add_argument("--beside", metavar="FILE",
+                    help="with --ctr: a file made once the card tests "
+                    "running beside the phase ended")
     ap.add_argument("--ps-node", metavar="SPEC_JSON",
-                    help="run one pserver or trainer of phase 3e's "
-                    "clusters, as SPEC_JSON says (phase 3e starts these)")
+                    help="run one pserver or trainer of phase 3e's or 3f's "
+                    "clusters, as SPEC_JSON says (the phases start these)")
     ap.add_argument("--cpu-references", metavar="DIR",
                     help="compute the batch-2 checks' CPU runs into DIR "
                     "(no card used); the whole script runs this in a "
@@ -7582,6 +8397,10 @@ def main(argv=None):
     if args.ps:
         with open(args.ps, "w") as f:
             json.dump(ps_phase(args.seed), f)
+        return 0
+    if args.ctr:
+        with open(args.ctr, "w") as f:
+            json.dump(ctr_phase(args.seed, card_tests_done=args.beside), f)
         return 0
     import paddle_tpu_torch  # noqa: F401  (before any process starts)
 
@@ -7729,8 +8548,19 @@ def run_phases(args, card, device):
     phase("the serving tier's observability (its own process)")
     ps = ps_apart(args.seed, card)
     phase("parameter-server training and the collector (its own process)")
-    card_tests()
-    phase("the card tests")
+    with tempfile.TemporaryDirectory() as ctr_tmp:
+        started = ctr_start(args.seed, ctr_tmp)
+        try:
+            card_tests()
+        except BaseException:
+            started[0].kill()
+            started[0].wait()
+            raise
+        open(started[2], "w").close()
+        phase("the card tests (phase 3f beside them)")
+        ctr = ctr_wait(started, card)
+    phase("Downpour CTR, the Communicator, elastic resume (its own process, "
+          "after the card tests)")
     decode_rows = {r["name"]: r for r in check_flash_decode(device,
                                                             args.seed)}
     decode_launches, *_ = decode_phase("cuda", args.seed)
@@ -7784,6 +8614,8 @@ def run_phases(args, card, device):
                 "fleet": fleet_launches[name],
                 "observability": obs["launches"][name],
                 "ps_training": ps["launches"][name],
+                "ps_communicator": ctr["launches_communicator"][name],
+                "ps_elastic_resumed": ctr["launches_elastic"][name],
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

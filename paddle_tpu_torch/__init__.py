@@ -8,8 +8,10 @@ The port imports no JAX and nothing of ``paddle_tpu``; a program or an
 inference model saved by either package loads in the other.
 
 Entry points run on the GPU unless asked for the CPU: ``Executor()``
-means ``CUDAPlace(0)`` and ``inference.Config`` uses the GPU until
-``disable_gpu()``.  Without a CUDA device they raise.
+means ``CUDAPlace(0)`` (and so ``train_from_dataset``, ``AsyncExecutor``,
+``DownpourRunner`` and fleet's servers by default) and
+``inference.Config`` uses the GPU until ``disable_gpu()``.  Without a
+CUDA device they raise.
 """
 
 from paddle_tpu_torch.core.types import (CPUPlace, CUDAPlace,  # noqa: F401
@@ -41,3 +43,9 @@ from paddle_tpu_torch import contrib  # noqa: F401
 from paddle_tpu_torch.flags import get_flag, set_flags  # noqa: F401
 from paddle_tpu_torch import profiler  # noqa: F401
 from paddle_tpu_torch import distributed  # noqa: F401
+from paddle_tpu_torch import reader  # noqa: F401
+from paddle_tpu_torch import dataset  # noqa: F401
+from paddle_tpu_torch import native  # noqa: F401
+from paddle_tpu_torch.dataset import (DatasetFactory,  # noqa: F401
+                                      InMemoryDataset, QueueDataset)
+from paddle_tpu_torch import fleet as fleet_pkg  # noqa: F401

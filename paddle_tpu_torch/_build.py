@@ -1,4 +1,5 @@
-"""Builds the CUDA kernels of ``csrc/`` into shared libraries at first use.
+"""Builds the CUDA kernels of ``csrc/`` and the host C++ runtime of
+``native/src/`` into shared libraries at first use.
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<digest>.so``, where the
@@ -7,6 +8,12 @@ the flags, and is loaded with ``ctypes``.
 Nothing is built at import: the first call of a kernel's wrapper on a
 CUDA tensor builds it, or ``build()`` builds several at once, one
 ``nvcc`` process per source, all started together.
+
+The host runtime (the blocking queue, recordio and the MultiSlot parser
+of ``native/``) is plain C++: ``build_host()`` compiles its sources with
+``g++`` into ``_build/libpt_native-<digest>.so``, the digest covering
+every source and header under ``native/src/`` and the flags, at the
+first use of ``native``.
 """
 
 from __future__ import annotations
@@ -23,6 +30,10 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+HOST_SRC_DIR = PKG_DIR / "native" / "src"
+HOST_SOURCES = ("blocking_queue.cc", "recordio.cc", "data_feed.cc")
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-shared")
 
 _LIBS: dict = {}
 
@@ -113,3 +124,38 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
+
+
+def host_library_path() -> Path:
+    """The host runtime's library; its digest covers every source and
+    header under ``native/src/`` and the flags."""
+    digest = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for path in sorted(HOST_SRC_DIR.glob("*")):
+        if path.suffix in (".cc", ".h"):
+            digest.update(path.name.encode() + path.read_bytes())
+    return BUILD_DIR / f"libpt_native-{digest.hexdigest()[:16]}.so"
+
+
+def build_host() -> Path:
+    """Compile the host runtime with ``g++`` unless its library exists
+    (a temporary file renamed into place, so processes building at once
+    never load a half-written one).  Raises RuntimeError with the
+    compiler's output when it fails or no C++ compiler is found."""
+    target = host_library_path()
+    if target.exists():
+        return target
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler found: set CXX or put g++ on "
+                           "PATH")
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [cxx, *CXX_FLAGS, "-o", str(tmp),
+         *(str(HOST_SRC_DIR / src) for src in HOST_SOURCES), "-lpthread"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{cxx} failed for native/src:\n{proc.stdout}")
+    os.replace(tmp, target)
+    return target

@@ -26,6 +26,14 @@ names; an optimizer's ``ParamOut`` is named after its ``Param``, so here
 the new tensor replaces the old one in the scope (no update in place;
 the compiled path copies it back into the persistable's fixed buffer).
 
+``train_from_dataset`` (JAX ``core/executor.py:269-375``) drives a
+``Dataset``: the trainer descriptor from ``program._fleet_opt`` picks
+the loop.  ``DownpourSGD`` hands it to a ``DownpourRunner``
+(``distributed/downpour_worker.py``: pull, forward and backward, async
+push against the parameter servers); otherwise batches come through a
+``DeviceFeeder`` (``reader.py``), on the card ahead of the step, into
+``run``.
+
 ``Executor()`` with no place means ``CUDAPlace(0)``; resolving it raises
 ``NoCUDADeviceError`` when no CUDA device is present, so nothing runs on
 the CPU unless the caller passed ``CPUPlace()``.
@@ -180,6 +188,112 @@ class Executor:
         # step); one None check and one memo check when off
         _collector.maybe_step_push()
         return out
+
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """Dataset-driven training (reference executor.py:927
+        train_from_dataset -> framework/executor.cc:120 RunFromDataset).
+
+        The trainer descriptor comes from ``program._fleet_opt`` through
+        ``TrainerFactory``, as in the reference's ``_prepare_trainer``.
+        Its ``DownpourSGD`` worker runs the Downpour loop: the runner in
+        ``_fleet_opt["downpour_runner"]``, else one made from the
+        transpiler in ``_fleet_opt["transpiler"]``, else one from a
+        transpile of ``program`` by fleet's role contract (its pserver
+        endpoints, worker index and count; async mode).  Otherwise the
+        dataset's batches run through ``run`` one by one, each put on
+        the device ahead of its step by a ``DeviceFeeder``.  Returns
+        None, as the JAX package does."""
+        from paddle_tpu_torch import framework
+        from paddle_tpu_torch.reader import DeviceFeeder
+        from paddle_tpu_torch.trainer_desc import TrainerFactory
+
+        if dataset is None:
+            raise ValueError("dataset is required")
+        if program is None:
+            program = framework.default_main_program()
+        if scope is None:
+            scope = global_scope()
+        if thread:
+            dataset.set_thread(thread)
+        fetch_list = fetch_list or []
+        fetch_info = fetch_info or [fetch_name(f) for f in fetch_list]
+        opt_info = getattr(program, "_fleet_opt", None) or {}
+        trainer = TrainerFactory()._create_trainer(opt_info)
+        trainer._set_program(program)
+        trainer._set_thread(thread or dataset._thread)
+        trainer._set_debug(debug)
+        trainer._set_fetch_var_and_info(fetch_list, fetch_info, print_period)
+        trainer._gen_trainer_desc()
+        runner = opt_info.get("downpour_runner")
+        if runner is None and opt_info.get("device_worker") == "DownpourSGD":
+            runner = self._downpour_runner(program, scope, opt_info)
+        if runner is not None:
+            runner.train_from_dataset(dataset, fetch_list)
+            return None
+        step = 0
+        feeder = DeviceFeeder(dataset._iter_batches(),
+                              capacity=max(4, 2 * (thread or 1)),
+                              place=self.place)
+        try:
+            for feed in feeder:
+                results = self.run(program, feed=feed,
+                                   fetch_list=fetch_list, scope=scope)
+                step += 1
+                if debug and fetch_list and step % print_period == 0:
+                    msg = ", ".join(
+                        f"{name}={val.ravel()[:4]}"
+                        for name, val in zip(fetch_info, results))
+                    print(f"step {step}: {msg}")
+        finally:
+            feeder.stop()
+        return None
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        """reference executor.py infer_from_dataset (the same loop; the
+        test-mode program is the caller's, by ``Program.clone(True)``)."""
+        return self.train_from_dataset(program, dataset, scope, thread,
+                                       debug, fetch_list, fetch_info,
+                                       print_period)
+
+    def _downpour_runner(self, program, scope, opt_info):
+        """The Downpour runner of ``program``'s ``_fleet_opt``, made once
+        and kept there (``downpour_runner``)."""
+        from paddle_tpu_torch.distributed.downpour_worker import (
+            DownpourRunner)
+
+        t = opt_info.get("transpiler")
+        if t is None:
+            # the fleet role contract (reference: the pslib fleet init is
+            # what wires DownpourWorker to its parameter servers)
+            from paddle_tpu_torch.fleet import fleet
+            from paddle_tpu_torch.transpiler import (
+                DistributeTranspiler, DistributeTranspilerConfig)
+
+            rm = fleet._role_maker
+            eps = ",".join(rm.get_pserver_endpoints()) if rm else ""
+            if not eps:
+                raise RuntimeError(
+                    "DownpourSGD device worker needs parameter servers: "
+                    "fleet.init(role_maker) with pserver endpoints, or a "
+                    "configured DistributeTranspiler in "
+                    "program._fleet_opt['transpiler'] (async mode), or a "
+                    "ready DownpourRunner in ['downpour_runner']")
+            cfg = DistributeTranspilerConfig()
+            cfg.sync_mode = False
+            t = DistributeTranspiler(cfg)
+            t.transpile(rm.worker_index(), program=program, pservers=eps,
+                        trainers=rm.worker_num(), sync_mode=False)
+            opt_info["transpiler"] = t
+        runner = DownpourRunner(
+            t, program=program, scope=scope, executor=self,
+            push_window=int(opt_info.get("push_window", 4)),
+            pull_dense_every=int(opt_info.get("pull_dense_every", 1)))
+        opt_info["downpour_runner"] = runner
+        return runner
 
     def _feed_data(self, program: Program, feed, scope: Scope):
         for name, value in feed.items():

@@ -114,17 +114,22 @@ class BFloat16NumpyError(TypeError):
     which gives numpy its bfloat16 type, is not installed."""
 
 
-def to_numpy(t: torch.Tensor, name: str) -> np.ndarray:
+def to_numpy(t: torch.Tensor, name: str, pinned: bool = True) -> np.ndarray:
     """A host numpy copy of tensor ``t`` (the var ``name``).  A CUDA
     tensor is copied into page-locked memory from PyTorch's caching
     host allocator (a ``non_blocking`` copy, then a synchronise on the
     current stream), and the array is a view of that host tensor: a
     pageable copy of a 500 MB fetch runs at a fraction of the link's
-    rate.  bfloat16 becomes an ``ml_dtypes.bfloat16`` array of the same
-    bits, through a 16-bit integer view (numpy has no bfloat16 of its
-    own)."""
+    rate.  ``pinned=False`` copies into pageable memory instead, for an
+    array that lives on (queued, or written out later): page-locked
+    blocks that stay in use make the allocator lock new ones, and that
+    costs more than the slower copy.  bfloat16 becomes an
+    ``ml_dtypes.bfloat16`` array of the same bits, through a 16-bit
+    integer view (numpy has no bfloat16 of its own)."""
     t = t.detach()
-    if t.device.type == "cuda":
+    if t.device.type == "cuda" and not pinned:
+        t = t.cpu()
+    elif t.device.type == "cuda":
         host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         host.copy_(t, non_blocking=True)
         torch.cuda.current_stream(t.device).synchronize()

@@ -9,8 +9,9 @@ and variable names as the JAX package's program.  ``is_sparse`` is an
 attr of the lookups: the JAX package densifies a sparse grad before the
 optimizer (``paddle_tpu/ops/optim.py:24-27``), and the port's grads are
 dense, so both values train alike.  ``is_distributed`` marks the tables
-for parameter-server sharding, which is not ported (ROADMAP Queue 1 item
-5): on one card it is an attr and nothing reads it.
+for parameter-server sharding: ``DistributeTranspiler`` shards them over
+the pservers, and Downpour (``distributed/downpour_worker.py``) pulls and
+pushes their rows; a local run ignores it.
 """
 
 from __future__ import annotations

@@ -231,7 +231,13 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
     for m in ("optimizer", "backward", "ops.optim",
               "ops.flash_attention", "flags", "ops.amp", "ops.epilogue",
               "contrib.mixed_precision.decorator",
-              "transpiler.epilogue_transpiler"):
+              "transpiler.epilogue_transpiler", "native", "dataset",
+              "reader", "recordio_writer", "data_feed_desc",
+              "device_worker", "trainer_desc", "async_executor",
+              "communicator", "fleet", "fleet.role_maker",
+              "fleet.fleet_wrapper", "distributed.downpour",
+              "distributed.downpour_worker", "distributed.ps_instance",
+              "distributed.elastic", "contrib.checkpoint"):
         assert f"paddle_tpu_torch.{m}" in mods
 
     for path in _port_files():
