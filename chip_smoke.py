@@ -164,6 +164,35 @@ Phases, none of which catches its own failure:
      with their manifests, 12/6/6 flash launches a resumed step, the
      checkpoint and resume seconds.  Each leg records whether the card
      tests still ran beside it;
+  3g. (after 3e, in a process of its own, --collective) collective
+     data-parallel training: 2 ranks on the one card, started through the
+     port's launcher (python -m paddle_tpu_torch.launch --nproc_per_node
+     2 chip_smoke.py --collective-rank SPEC), each through
+     fleet.init(PaddleCloudRoleMaker()) on the backend parallel.env's rule
+     picks (gloo: two ranks share the card), each feeding its half of
+     phase 5's batch 8: (a) the LM, f32 Adam(1e-4), through
+     fleet.distributed_optimizer(...).minimize and fleet.main_program, a
+     warm-up and 5 counted steps: the ranks' losses and every parameter
+     torch.equal, the run bitwise a reference in the phase's process that
+     reproduces its sums (each half's forward and backward, the gradients
+     averaged, then the optimizer's ops; else within twice two such
+     references' spread), 12/6/6 flash launches a step a rank, the step's
+     ms beside the local batch-8 step's, the gradient collectives' bytes
+     a step and one all-reduce's ms, each collective's route, a profiled
+     step's idle share; (b) the same with strategy.zero_stage = 1: its
+     losses within (a)'s bar, a rank's optimizer state half of (a)'s, the
+     peak memory of both; (c) the LM with Adam transpiled by
+     GradAllReduce through Executor.run: its global losses within (a)'s
+     bar; (d) conv2d_bn_train (kernels #6 and #7, bf16) at ResNet-50's
+     stage-1 3x3 shape, batch 128 split over the ranks, in a
+     data-parallel step: Output, SavedMean, SavedVariance and the grads of
+     Input, Filter, Scale and BNBias against the op on the whole batch at
+     phase 8's scaled tolerances, 2 conv_stats and 2 bn_apply launches a
+     rank; (e) in the phase's process, a one-rank nccl group: the LM's
+     compiled data-parallel step bitwise the compiled step without, its
+     all-reduce captured in the CUDA graph; (f) each rank publishes (c)'s
+     step-1 local loss and a gradient on a CollectiveServer: rank 0's
+     CollectiveClient.gather equals c_allgather of the same values;
  4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -323,10 +352,11 @@ Phases, none of which catches its own failure:
      INFER_RUNS requests of 128 images, and a batch-2 request against the
      CPU's f32 Predictor (planted fault: its last folded shift zeroed);
  18. conv_int8 torch.equal to its plain version at every distinct int8
-     shape of phase 16 and of ResNet-32 on cifar at 512 (the fc as a
-     1x1 convolution) with every epilogue subset of I8_SUBSETS and every
-     one the legs run there (Bias and Residual in the dtypes the run
-     gave them); each (shape, epilogue) of the two legs timed by graph
+     shape of phase 16 and of ResNet-32 on cifar (the fc as a 1x1
+     convolution) over 16 images (I8_SWEEP_BATCH) with every epilogue
+     subset of I8_SUBSETS and every one the legs run there (Bias and
+     Residual in the dtypes the run gave them), and at the legs' batch
+     with the legs' own; each (shape, epilogue) of the two legs timed by graph
      replay and by events beside the plain version, the first design
      (the mma.sync route, the parent's kernel, which must give the same
      bits), torch._int_mm on an explicit im2col and cuDNN's bf16
@@ -1347,15 +1377,27 @@ def scaled_err(got, want):
         1.0, want.abs().max().item())
 
 
+def device_generator(rng, device):
+    """A torch generator on ``device`` seeded from ``rng``: a batch-128
+    operand is drawn on the card, where numpy's draw of it takes seconds
+    of host time."""
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(int(rng.randint(1 << 30)))
+    return g
+
+
 def conv_operands(rng, device, n, h, w, cin, cout, k, dtype):
     """x ~ N(0, 1) NHWC and w ~ N(0, 1/K) OIHW, so the outputs are of
     unit scale at every K."""
     import torch
 
+    g = device_generator(rng, device)
+
     def t(shape, scale):
-        return torch.from_numpy((rng.standard_normal(shape) * scale)
-                                .astype(np.float32)).to(device,
-                                                        getattr(torch, dtype))
+        return (torch.randn(shape, generator=g, device=device) * scale).to(
+            getattr(torch, dtype))
 
     return t((n, h, w, cin), 1.0), t((cout, cin, k, k), (k * k * cin) ** -0.5)
 
@@ -1492,10 +1534,11 @@ def check_bn_apply(device, seed, bns):
     from paddle_tpu_torch.ops import conv_epilogue as cep
 
     rng = np.random.RandomState(seed + 6)
+    gen = device_generator(rng, device)
 
     def t(shape, dtype="bfloat16"):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to(device, getattr(torch, dtype))
+        return torch.randn(shape, generator=gen, device=device).to(
+            getattr(torch, dtype))
 
     def vectors(c):
         mean, scale, shift = (t((c,), "float32") for _ in range(3))
@@ -5965,6 +6008,11 @@ def predictor_leg(seed, device, workdir):
 
 # (out dtype, bias, residual, relu, OutScale): every epilogue subset the
 # kernel takes, as tests/test_torch_cuda.py's I8_EPILOGUES
+# images of the subset sweep of check_conv_int8 (every int8 shape with
+# every subset of I8_SUBSETS): once 128, where its host draws took most
+# of the phase's ~100 s; the legs' own (shape, subset) pairs stay
+# held at the legs' batch in the timed rows
+I8_SWEEP_BATCH = 16
 I8_SUBSETS = [
     ("int32", None, None, False, False),
     ("float32", None, None, False, False),
@@ -6038,10 +6086,11 @@ def int8_times(n, h, w, cin, cout, k, s, p, d, g, subset):
 
 def check_conv_int8(device, seed, shapes):
     """conv_int8 against its plain version, torch.equal, at every
-    distinct shape of ``shapes`` (the int8 legs' ops at their batch, the
-    cifar nets' convolutions) with every epilogue subset of I8_SUBSETS
-    and every one ``shapes`` has there; then, at each (shape, subset) the
-    legs run, its times by graph replay and by events beside the plain
+    distinct shape of ``shapes`` (the int8 legs' ops, the cifar nets'
+    convolutions) over I8_SWEEP_BATCH images with every epilogue subset of
+    I8_SUBSETS and every one ``shapes`` has there; then, at each (shape,
+    subset) the legs run, at the legs' batch and held torch.equal there
+    too, its times by graph replay and by events beside the plain
     version and two library calls on the same shape: torch._int_mm (the
     same s8 product in cuBLASLt) on an explicit im2col, made outside the
     timing, and cuDNN's channels-last bf16 convolution, which the bf16
@@ -6054,10 +6103,11 @@ def check_conv_int8(device, seed, shapes):
 
     def int8_case(rng, geo, subset):
         n, h, w, cin, cout, k, s, p, d, g = geo
-        x8 = torch.from_numpy(rng.randint(-127, 128, (n, h, w, cin))
-                              .astype(np.int8)).to(device)
-        wt = torch.from_numpy(rng.randint(-127, 128, (cout, cin // g, k, k))
-                              .astype(np.int8)).to(device)
+        gen = device_generator(rng, device)
+        x8 = torch.randint(-127, 128, (n, h, w, cin), generator=gen,
+                           device=device, dtype=torch.int8)
+        wt = torch.randint(-127, 128, (cout, cin // g, k, k), generator=gen,
+                           device=device, dtype=torch.int8)
         oh = (h + 2 * p - (k - 1) * d - 1) // s + 1
         ow = (w + 2 * p - (k - 1) * d - 1) // s + 1
         ops = int8_operands(rng, device, (n, oh, ow, cout), subset)
@@ -6089,17 +6139,18 @@ def check_conv_int8(device, seed, shapes):
         subsets = list(I8_SUBSETS)
         subsets += sorted({key[10] for key in shapes if key[:10] == geo
                            and key[10] not in subsets}, key=str)
-        x8, wt, _, conv = int8_case(rng, geo, I8_SUBSETS[0])
+        sweep = (I8_SWEEP_BATCH,) + geo[1:]
+        x8, wt, _, conv = int8_case(rng, sweep, I8_SUBSETS[0])
         acc = plain_acc(x8, wt, conv)
-        shape = (geo[0], acc.shape[1], acc.shape[2], geo[4])
+        shape = (sweep[0], acc.shape[1], acc.shape[2], geo[4])
         for subset in subsets:
             held(x8, wt, int8_operands(rng, device, shape, subset), conv,
-                 acc, f"{geo} {subset}")
+                 acc, f"{sweep} {subset}")
             n_checked += 1
         del acc
     log(f"conv_int8 torch.equal to its plain version over {len(geos)} "
-        f"shapes x {len(I8_SUBSETS)} epilogue subsets and the legs' own "
-        f"({n_checked} cases)")
+        f"shapes at {I8_SWEEP_BATCH} images x {len(I8_SUBSETS)} epilogue "
+        f"subsets and the legs' own ({n_checked} cases)")
 
     rows = []
     for key, count in sorted(shapes.items(), key=lambda kv: str(kv[0])):
@@ -6234,12 +6285,13 @@ def int8_operands(rng, device, shape, subset):
 
     out, bias, res, relu, outscale = subset
     cout = shape[3]
+    gen = device_generator(rng, device)
 
     def make(dtype, shp):
         if dtype is None:
             return None
-        return torch.from_numpy(rng.standard_normal(shp).astype(
-            np.float32)).to(device, getattr(torch, dtype))
+        return torch.randn(shp, generator=gen, device=device).to(
+            getattr(torch, dtype))
 
     return dict(
         alpha=torch.tensor(rng.uniform(1e-6, 1e-5), dtype=torch.float32,
@@ -6352,18 +6404,28 @@ def infer_phases(device, seed, workdir):
     import torch
 
     launches, rows, programs = {}, {}, {}
+    laps, t = {}, time.perf_counter()
+
+    def lap(what):
+        nonlocal t
+        laps[what] = time.perf_counter() - t
+        t = time.perf_counter()
+
     for leg in ("infer", "infer_convep", "vgg_infer", "vgg_cifar",
                 "rn32_cifar"):
         launches[leg], rows[leg], programs[leg] = bf16_leg(leg, seed,
                                                            device)
         torch.cuda.empty_cache()
+        lap(leg)
     leg_shapes = {}
     for leg in ("infer_i8", "infer_i8_inter"):
         launches[leg], rows[leg], leg_shapes[leg] = int8_leg(leg, seed,
                                                              device)
         torch.cuda.empty_cache()
+        lap(leg)
     launches["predictor"], rows["predictor"] = predictor_leg(
         seed, device, workdir)
+    lap("predictor")
     shapes = {}
     for leg, counts in leg_shapes.items():
         for key, count in counts.items():
@@ -6381,9 +6443,12 @@ def infer_phases(device, seed, workdir):
             count for key, count in counts.items()
             if list(key[:4]) == row["shape"] and key[11] == row["dtype"])
             for leg, counts in leg_shapes.items()}
+    lap("conv_int8 and quantize_act at their shapes")
     ep_rows = conv_epilogue_infer_rows(device, seed,
                                        programs["infer_convep"],
                                        INFER_LEGS["infer_convep"][1])
+    lap("conv_epilogue at the lever's shapes")
+    log("inference seconds " + json.dumps(laps))
     return launches, rows, i8_rows, q_rows, ep_rows
 
 
@@ -8264,6 +8329,703 @@ def ctr_wait(started, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3g: collective data-parallel training (a process of its own,
+# ``--collective``; its ranks start through the port's launcher,
+# ``--collective-rank``)
+# ---------------------------------------------------------------------------
+
+COLL_RANKS = 2              # ranks of the 2-rank legs, on the one card
+COLL_WAIT_S = 600.0         # every wait's bound: the ranks, the nccl leg
+COLL_NCCL_STEPS = 3         # (e): steps after the warm-up, both runs
+# (d): a ResNet-50 stage shape of phase 8 (NHWC; batch 128 split over the
+# ranks): the 3x3 conv of stage 1, 64 -> 64 channels, relu
+COLL_CONV = dict(batch=128, h=56, w=56, cin=64, cout=64, k=3, s=1, p=1)
+COLL_CONV_DTYPE = "bfloat16"
+
+
+def coll_place(spec):
+    import paddle_tpu_torch as pt
+
+    return pt.CPUPlace() if spec["device"] == "cpu" else None
+
+
+def coll_lm(optimizer_fn):
+    """The LM of phase 5 in programs of its own, ``optimizer_fn(loss)``
+    appending its optimizer: (model, main, startup)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer_encoder_model(**dict(MODEL, is_test=False))
+        optimizer_fn(model["loss"])
+    return model, main, startup
+
+
+def coll_expected(spec, types):
+    """The LM's launches over the counted steps, the kernels' names with
+    a count (on the CPU the plain versions run: 0 each)."""
+    want = {k: v for k, v in lm_expected(types, TRAIN_STEPS).items() if v}
+    return want if spec["device"] != "cpu" else dict.fromkeys(want, 0)
+
+
+def coll_feed(seed, rank, ranks):
+    """This rank's rows of phase 5's batch."""
+    half = BATCH // ranks
+    return {n: v[rank * half:(rank + 1) * half]
+            for n, v in train_batch(seed, BATCH).items()}
+
+
+def coll_sync(spec):
+    import torch
+
+    if spec["device"] != "cpu":
+        torch.cuda.synchronize()
+
+
+def coll_equal_across(named, group, ranks):
+    """Names whose tensors differ in any bit between the ranks (each
+    tensor all-gathered)."""
+    import torch
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    return sorted(n for n, t in named.items()
+                  if not all(torch.equal(g, penv.collective(
+                      "all_gather", t, group, ranks)[0])
+                      for g in penv.collective("all_gather", t, group,
+                                               ranks)[1:]))
+
+
+def coll_fleet_leg(spec, zero):
+    """(a) / (b): the LM through fleet's collective mode (ZeRO stage
+    ``zero``): a warm-up and TRAIN_STEPS counted steps on this rank's rows;
+    the losses, step ms, replayed launches, the optimizer state's bytes,
+    the peak memory, the bytes the gradient collectives moved, a profiled
+    step (rank 0) and the parameters equal across the ranks."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fleet import DistributedStrategy, fleet
+    from paddle_tpu_torch.parallel import env as penv
+    from paddle_tpu_torch.parallel.zero import collect_optimizer_state
+
+    rank, ranks = penv.rank(), penv.world_size()
+    strategy = DistributedStrategy()
+    strategy.zero_stage = zero
+    model, main, startup = coll_lm(
+        lambda loss: fleet.distributed_optimizer(
+            pt.optimizer.Adam(TRAIN_LR), strategy).minimize(loss))
+    prog = fleet.main_program
+    exe, scope = pt.Executor(coll_place(spec)), pt.Scope()
+    np.random.seed(spec["seed"])
+    exe.run(startup, scope=scope)
+    feed = coll_feed(spec["seed"], rank, ranks)
+
+    def step():
+        return float(exe.run(prog, feed=feed, fetch_list=[model["loss"]],
+                             scope=scope)[0])
+
+    # the phase's own runs share the card until it makes this file
+    t_go = time.perf_counter()
+    while not os.path.exists(spec["go"]):
+        if time.perf_counter() - t_go > COLL_WAIT_S:
+            raise AssertionError("phase 3g: the phase's runs never ended")
+        time.sleep(0.05)
+    if spec["device"] != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    warm = step()
+    coll_sync(spec)
+    before, routes0 = prog.replayed_launches(), penv.routes()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    after, routes1 = prog.replayed_launches(), penv.routes()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in set(after) | set(before)}
+    moved = {k: (v["bytes"] - routes0.get(k, {}).get("bytes", 0))
+             / TRAIN_STEPS for k, v in routes1.items()
+             if k.split()[0] in ("all_reduce", "reduce_scatter",
+                                 "all_gather")}
+    # ZeRO's rows stay in the compiled program, out of the scope
+    rows = prog.sharded_state()
+    state_bytes = sum(t.numel() * t.element_size() for t in (
+        rows[n] if n in rows else scope.find_var(n).get()
+        for n in collect_optimizer_state(main)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if spec["device"] != "cpu" else None
+    group = penv.get_mesh().group("dp")
+    params = {p.name: scope.find_var(p.name).get().clone()
+              for p in main.all_parameters()}
+    differing = coll_equal_across(params, group, ranks)
+    # one step more, profiled on rank 0 (the other ranks step beside it)
+    if rank == 0 and spec["device"] != "cpu":
+        _, prof = profile(f"collective step (zero {zero})", step)
+    else:
+        step()
+        prof = None
+    coll_sync(spec)
+    types = [op.type for op in main.global_block().ops]
+    want = coll_expected(spec, types)
+    got = {k: launches.get(k, 0) for k in want}
+    res = {"zero_stage": zero, "warmup_loss": warm, "losses": losses,
+           "step_ms": step_ms, "launches": got, "launches_expected": want,
+           "optimizer_state_bytes": state_bytes,
+           "max_memory_allocated_gb": peak,
+           "collective_bytes_a_step": moved,
+           "params_differing_across_ranks": differing,
+           "profiled_step": prof, "backend": penv.backend()}
+    if rank == 0:
+        final = {n: t.detach().to("cpu") for n, t in params.items()}
+        torch.save(final, os.path.join(spec["dir"], f"params_zero{zero}.pt"))
+    del prog, exe, scope, params
+    fleet._compiled = None
+    if spec["device"] != "cpu":
+        torch.cuda.empty_cache()
+    return res
+
+
+def coll_transpiled_leg(spec):
+    """(c): the LM with Adam, transpiled by GradAllReduce, through
+    Executor.run on this rank's rows: the global loss (the ranks' local
+    losses averaged) a step, the launches, and step 1's local loss and
+    one reduced gradient (for (f))."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import env as penv
+
+    rank, ranks = penv.rank(), penv.world_size()
+    model, main, startup = coll_lm(
+        lambda loss: pt.optimizer.Adam(TRAIN_LR).minimize(loss))
+    eps = os.environ["PADDLE_TRAINER_ENDPOINTS"]
+    pt.transpiler.GradAllReduce().transpile(
+        startup, main, rank, eps, os.environ["PADDLE_CURRENT_ENDPOINT"])
+    types = [op.type for op in main.global_block().ops]
+    exe, scope = pt.Executor(coll_place(spec)), pt.Scope()
+    np.random.seed(spec["seed"])
+    exe.run(startup, scope=scope)
+    feed = coll_feed(spec["seed"], rank, ranks)
+    group = penv.get_mesh().group("dp")
+    grad = main.all_parameters()[0].name + "@GRAD"
+
+    def step(fetch=()):
+        out = exe.run(main, feed=feed, fetch_list=[model["loss"], *fetch],
+                      scope=scope, return_numpy=False)
+        local = out[0].reshape(1).float()
+        mean = penv.collective("all_reduce", local, group, ranks) / ranks
+        return float(mean.item()), out
+
+    warm, first = step(fetch=(grad,))
+    coll_sync(spec)
+    reset_kernel_counts()
+    losses, step_ms = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step()[0])
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kernel_counts()
+    want = coll_expected(spec, types)
+    res = {"losses": losses, "warmup_loss": warm, "step_ms": step_ms,
+           "allreduce_ops": types.count("c_allreduce_sum"),
+           "launches": {k: launches.get(k, 0) for k in want},
+           "launches_expected": want}
+    published = {"loss1": first[0].reshape(1).float(),
+                 "grad1": first[1].float()}
+    del exe, scope
+    return res, published
+
+
+def coll_conv_bn_leg(spec):
+    """(d): conv2d_bn_train (kernels #6 and #7, flag conv_bn_stats "on")
+    at COLL_CONV on this rank's images in a data-parallel step, forward
+    and grad, against the op on the whole batch on one rank: Output,
+    SavedMean, SavedVariance and the grads of Input, Filter, Scale and
+    BNBias by scaled error (rank 0 compares); the DP call's launches."""
+    import torch
+
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.parallel import env as penv
+
+    rank, ranks = penv.rank(), penv.world_size()
+    mesh = penv.get_mesh()
+    group = mesh.group("dp")
+    c = COLL_CONV
+    device = torch.device("cpu") if spec["device"] == "cpu" \
+        else torch.device("cuda", penv.default_device_id())
+    rng = np.random.RandomState(spec["seed"] + 41)
+    x, w = conv_operands(rng, device, c["batch"], c["h"], c["w"], c["cin"],
+                         c["cout"], c["k"], COLL_CONV_DTYPE)
+
+    def f32(shape, lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(
+            np.float32)).to(device)
+
+    scale, shift = f32((c["cout"],), 0.5, 1.5), f32((c["cout"],), -0.5, 0.5)
+    mean_in, var_in = f32((c["cout"],), -0.1, 0.1), f32((c["cout"],), 0.5, 2)
+    oh = (c["h"] + 2 * c["p"] - c["k"]) // c["s"] + 1
+    ow = (c["w"] + 2 * c["p"] - c["k"]) // c["s"] + 1
+    dy = torch.from_numpy(rng.standard_normal(
+        (c["batch"], oh, ow, c["cout"])).astype(np.float32)).to(
+        device, x.dtype)
+    attrs = {"strides": [c["s"]] * 2, "paddings": [c["p"]] * 2,
+             "act": "relu", "groups": 1, "epsilon": 1e-5, "momentum": 0.9,
+             "data_format": "NHWC", "epilogue": ""}
+    fwd = get_op_def("conv2d_bn_train")
+    bwd = get_op_def("conv2d_bn_train_grad")
+
+    def run(xs, dys):
+        ins = {"Input": xs, "Filter": w, "Scale": scale, "BNBias": shift,
+               "Mean": mean_in, "Variance": var_in}
+        out = fwd.compute(ins, attrs, device)
+        grads = bwd.compute({**ins, "Output@GRAD": dys}, attrs, device)
+        return out, grads
+
+    half = c["batch"] // ranks
+    mine = slice(rank * half, (rank + 1) * half)
+    with kernel_flag("conv_bn_stats", "on" if spec["device"] != "cpu"
+                     else "interpret"):
+        with torch.no_grad():
+            whole = run(x, dy) if rank == 0 else None
+            coll_sync(spec)
+            reset_kernel_counts()
+            with penv.data_parallel(mesh, "dp"):
+                out, grads = run(x[mine], dy[mine])
+            coll_sync(spec)
+            launches = kernel_counts()
+    gathered = {
+        "Output": penv.collective("all_gather", out["Output"], group,
+                                  ranks).reshape(c["batch"], oh, ow,
+                                                 c["cout"]),
+        "Input@GRAD": penv.collective(
+            "all_gather", grads["Input@GRAD"], group, ranks).reshape(
+            x.shape),
+        **{k: penv.collective("all_reduce", grads[k], group, ranks)
+           for k in ("Filter@GRAD", "Scale@GRAD", "BNBias@GRAD")},
+        "SavedMean": out["SavedMean"], "SavedVariance": out["SavedVariance"]}
+    stats_equal = not coll_equal_across(
+        {"SavedMean": out["SavedMean"],
+         "SavedVariance": out["SavedVariance"]}, group, ranks)
+    res = {"shape": [c["batch"], c["h"], c["w"], c["cin"], c["cout"],
+                     c["k"], c["s"], c["p"]], "dtype": COLL_CONV_DTYPE,
+           "launches": {k: launches[k] for k in ("conv_stats", "bn_apply")},
+           "stats_equal_across_ranks": stats_equal}
+    if rank == 0:
+        tol = {"Output": BN_TOL[COLL_CONV_DTYPE],
+               "SavedMean": STATS_TOL[COLL_CONV_DTYPE],
+               "SavedVariance": STATS_TOL[COLL_CONV_DTYPE],
+               **{k: CONV_TOL[COLL_CONV_DTYPE] for k in (
+                   "Input@GRAD", "Filter@GRAD", "Scale@GRAD",
+                   "BNBias@GRAD")}}
+        want = {**whole[0], **whole[1]}
+        res["scaled_err"] = {k: scaled_err(gathered[k], want[k])
+                             for k in tol}
+        res["tolerance"] = tol
+        res["held"] = all(res["scaled_err"][k] <= tol[k] for k in tol)
+    return res
+
+
+def coll_server_leg(spec, published):
+    """(f): each rank publishes (c)'s step-1 local loss and one reduced
+    gradient on a CollectiveServer; rank 0's CollectiveClient.gather
+    equals c_allgather of the same values."""
+    from paddle_tpu_torch.core.registry import get_op_def
+    from paddle_tpu_torch.distributed import (CollectiveClient,
+                                              CollectiveServer)
+    from paddle_tpu_torch.parallel import env as penv
+
+    import torch.distributed as dist
+
+    rank, ranks = penv.rank(), penv.world_size()
+    server = CollectiveServer().start()
+    for name, value in published.items():
+        server.register_var(name, value)
+    eps = [None] * ranks
+    dist.all_gather_object(eps, server.endpoint)
+    allgather = get_op_def("c_allgather")
+    via_op = {n: allgather.compute({"X": v}, {"ring_id": 0, "nranks": ranks},
+                                   v.device)["Out"]
+              for n, v in published.items()}
+    res = {"endpoints": eps}
+    if rank == 0:
+        client = CollectiveClient()
+        t0 = time.perf_counter()
+        got = {n: client.gather([(ep, n) for ep in eps])
+               for n in published}
+        res["gather_s"] = time.perf_counter() - t0
+        client.close()
+        res["equal"] = {n: bool(np.array_equal(
+            np.concatenate([np.asarray(a) for a in got[n]]),
+            via_op[n].float().cpu().numpy())) for n in published}
+        res["losses_gathered"] = [float(np.asarray(a).reshape(-1)[0])
+                                  for a in got["loss1"]]
+    penv.barrier()
+    server.stop()
+    return res
+
+
+def coll_allreduce_ms(spec, nbytes, reps=3):
+    """The median ms of one all-reduce of ``nbytes`` of f32 on this rank's
+    device (every rank calls it), synchronised on both sides."""
+    import torch
+
+    from paddle_tpu_torch.parallel import env as penv
+
+    device = "cpu" if spec["device"] == "cpu" \
+        else f"cuda:{penv.default_device_id()}"
+    t = torch.ones(int(nbytes) // 4, device=device)
+    group = penv.get_mesh().group("dp")
+    times = []
+    for _ in range(reps):
+        coll_sync(spec)
+        penv.barrier()
+        t0 = time.perf_counter()
+        penv.collective("all_reduce", t, group, penv.world_size())
+        coll_sync(spec)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def collective_rank(spec_path):
+    """One rank of phase 3g (``--collective-rank``), started by the port's
+    launcher with the PADDLE_* contract: legs (a), (b), (c), (d) and (f);
+    writes ``rank<r>.json`` into the spec's directory."""
+    global BATCH
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    MODEL.update(spec["model"])
+    BATCH = spec["batch"]
+    COLL_CONV.update(spec["conv"])
+    from paddle_tpu_torch.fleet import PaddleCloudRoleMaker, fleet
+    from paddle_tpu_torch.parallel import env as penv
+
+    t0 = time.perf_counter()
+    fleet.init(PaddleCloudRoleMaker(), place=coll_place(spec))
+    rank = penv.rank()
+    laps = {"init": time.perf_counter() - t0}
+    res = {"rank": rank, "world": penv.world_size(),
+           "backend": penv.backend(), "device": str(penv.device())}
+    for key, fn in (("fleet", lambda: coll_fleet_leg(spec, 0)),
+                    ("zero1", lambda: coll_fleet_leg(spec, 1))):
+        t = time.perf_counter()
+        res[key] = fn()
+        laps[key] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["transpiled"], published = coll_transpiled_leg(spec)
+    laps["transpiled"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["conv_bn"] = coll_conv_bn_leg(spec)
+    laps["conv_bn"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["server"] = coll_server_leg(spec, published)
+    laps["server"] = time.perf_counter() - t
+    grad_bytes = sum(res["fleet"]["collective_bytes_a_step"].values())
+    res["allreduce_ms"] = coll_allreduce_ms(spec, grad_bytes)
+    res["routes"] = penv.routes()
+    res["laps_s"] = laps
+    fleet.barrier_worker()
+    penv.shutdown()
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def coll_local_runs(seed, device):
+    """In this process, the LM compiled at batch 8 from the same start as
+    the ranks: (e) a one-rank nccl group (the backend's rule picks nccl
+    for one rank on the card), the plain step against the data-parallel
+    one bitwise, whose gradient all-reduce is captured in the graph; and
+    the reference of (a) that reproduces its sums: each half's forward
+    and backward, their gradients averaged as the ranks' all-reduce
+    averages them, then the optimizer's ops."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.core.data_parallel import PlanStep, step_grads
+    from paddle_tpu_torch.parallel import env as penv
+
+    place = pt.CPUPlace() if device == "cpu" else pt.CUDAPlace(0)
+    backend = penv.init_parallel_env(0, 1, f"127.0.0.1:{_free_port()}",
+                                     place=place)
+    model, main, startup = coll_lm(
+        lambda loss: pt.optimizer.Adam(TRAIN_LR).minimize(loss))
+    loss = model["loss"]
+    feed = train_batch(seed, BATCH)
+
+    def start():
+        exe, scope = pt.Executor(place), pt.Scope()
+        np.random.seed(seed)
+        exe.run(startup, scope=scope)
+        return exe, scope
+
+    def params(scope):
+        return {p.name: scope.find_var(p.name).get().detach().to(
+            "cpu").clone() for p in main.all_parameters()}
+
+    runs = {}
+    for what in ("plain", "data_parallel"):
+        exe, scope = start()
+        prog = pt.CompiledProgram(main)
+        if what == "data_parallel":
+            prog = prog.with_data_parallel(loss_name=loss.name)
+        losses, step_ms = [], []
+        for i in range(1 + TRAIN_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                        scope=scope)[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        captured = any(
+            seg.graph is not None and any(isinstance(rop, PlanStep)
+                                          for rop, _ in seg.steps)
+            for e in prog._cache.values() for seg in e.segments)
+        runs[what] = {"losses": losses, "step_ms": step_ms[1:],
+                      "final": params(scope), "captured": captured,
+                      "graphs": prog.graph_stats()}
+        del exe, scope, prog
+    plain, dp = runs["plain"], runs["data_parallel"]
+    nccl = {"backend": backend, "routes": penv.routes(),
+            "losses_equal": plain["losses"] == dp["losses"],
+            "losses": dp["losses"],
+            "params_differing": sorted(
+                n for n in plain["final"]
+                if not torch.equal(plain["final"][n], dp["final"][n])),
+            "all_reduce_captured": dp["captured"], "graphs": dp["graphs"]}
+    penv.shutdown()
+
+    # the reference of the 2-rank run: halves, gradients averaged
+    ops = main.global_block().ops
+    _, grads = step_grads(ops)
+    grad_prog, opt_prog = main.clone(), main.clone()
+    grad_prog.global_block().ops = [op for op in grad_prog.global_block().ops
+                                    if op.op_role != "optimize"]
+    opt_prog.global_block().ops = [op for op in opt_prog.global_block().ops
+                                   if op.op_role == "optimize"]
+    half = BATCH // COLL_RANKS
+
+    def emulated():
+        exe, scope = start()
+        losses = []
+        for _ in range(1 + TRAIN_STEPS):
+            outs = [exe.run(grad_prog, feed={
+                n: v[r * half:(r + 1) * half] for n, v in feed.items()},
+                fetch_list=[loss, *grads], scope=scope, return_numpy=False)
+                for r in range(COLL_RANKS)]
+            total = outs[0]
+            for o in outs[1:]:
+                total = [a + b for a, b in zip(total, o)]
+            losses.append(float((total[0] / COLL_RANKS).reshape(-1)[0]))
+            for g, v in zip(grads, total[1:]):
+                scope.var(g).set(v / COLL_RANKS)
+            exe.run(opt_prog, scope=scope)
+        out = {"losses": losses, "final": params(scope)}
+        del exe, scope
+        return out
+
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return {"plain": plain, "nccl": nccl, "emulated": emulated()}, emulated
+
+
+def coll_spawn(tmp, spec, nproc):
+    """The port's launcher starting ``nproc`` ranks of ``--collective-rank``
+    with ``spec``; returns the launcher's process."""
+    port = _free_port()
+    path = os.path.join(tmp, f"spec_{spec['leg']}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.launch", "--nproc_per_node",
+         str(nproc), "--started_port", str(port), os.path.abspath(__file__),
+         "--collective-rank", path], env=env, cwd=root)
+
+
+def coll_wait(proc, what):
+    try:
+        code = proc.wait(timeout=COLL_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"phase 3g: {what} outlasted {COLL_WAIT_S} s")
+    if code != 0:
+        raise AssertionError(f"phase 3g: {what} failed (exit {code})")
+
+
+def coll_gap(a, b):
+    """Max abs difference of two runs: losses and parameters."""
+    return {"loss": max(abs(x - y) for x, y in zip(a["losses"],
+                                                   b["losses"])),
+            "param": max(float((a["final"][n] - b["final"][n]).abs().max())
+                         for n in a["final"])}
+
+
+def collective_phase(seed, device="cuda"):
+    """Phase 3g (see the module docstring): the 2-rank legs through the
+    launcher, started first; beside their start, this process's own runs
+    ((e) and the reference of (a)); then every bar."""
+    import torch
+
+    t_phase = time.perf_counter()
+    laps = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        go = os.path.join(tmp, "go")
+        spec = {"seed": seed, "device": device, "dir": tmp, "model": MODEL,
+                "batch": BATCH, "conv": COLL_CONV, "leg": "ranks", "go": go}
+        proc = coll_spawn(tmp, spec, COLL_RANKS)
+        try:
+            t = time.perf_counter()
+            local, emulate = coll_local_runs(seed, device)
+            laps["local_runs"] = time.perf_counter() - t
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        open(go, "w").close()          # the ranks' counted steps may start
+        t = time.perf_counter()
+        coll_wait(proc, "the 2-rank legs")
+        laps["ranks_after_local_runs"] = time.perf_counter() - t
+        ranks = []
+        for r in range(COLL_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        dp_run = {"losses": None, "final": torch.load(
+            os.path.join(tmp, "params_zero0.pt"))}
+    r0 = ranks[0]
+    fl, zr, tr = r0["fleet"], r0["zero1"], r0["transpiled"]
+    dp_run["losses"] = [fl["warmup_loss"]] + fl["losses"]
+    failures = []
+    for leg in ("fleet", "zero1"):
+        if any(r[leg]["losses"] != r0[leg]["losses"] for r in ranks):
+            failures.append(f"{leg}: the ranks' losses differ")
+        if r0[leg]["params_differing_across_ranks"]:
+            failures.append(f"{leg}: parameters differ across the ranks: "
+                            f"{r0[leg]['params_differing_across_ranks'][:5]}")
+    for leg in ("fleet", "zero1", "transpiled"):
+        for r in ranks:
+            if r[leg]["launches"] != r[leg]["launches_expected"]:
+                failures.append(f"{leg} rank {r['rank']}: launches "
+                                f"{r[leg]['launches']}, expected "
+                                f"{r[leg]['launches_expected']}")
+    # (a) against the reference that reproduces its sums: bitwise, else
+    # within twice the spread of two such references
+    ref = local["emulated"]
+    gap = coll_gap(dp_run, ref)
+    bitwise = gap == {"loss": 0.0, "param": 0.0}
+    spread = None
+    if not bitwise:
+        spread = coll_gap(ref, emulate())
+        if gap["loss"] > 2 * spread["loss"] or \
+                gap["param"] > 2 * spread["param"]:
+            failures.append(f"fleet: {gap} from the reference, beyond twice "
+                            f"its spread {spread}")
+    bar_loss = 2 * spread["loss"] if spread else 0.0
+    # (b), (c): their losses within (a)'s bar of the same reference
+    others = {}
+    for leg, row in (("zero1", zr), ("transpiled", tr)):
+        d = max(abs(a - b) for a, b in zip(
+            [row["warmup_loss"]] + row["losses"], ref["losses"]))
+        others[leg] = d
+        if d > bar_loss:
+            failures.append(f"{leg}: losses {d} from the reference, beyond "
+                            f"(a)'s bar {bar_loss}")
+    state_share = zr["optimizer_state_bytes"] / fl["optimizer_state_bytes"]
+    if not 0.45 <= state_share <= 0.55:
+        failures.append(f"zero1: a rank's optimizer state is {state_share} "
+                        "of (a)'s")
+    cb, nccl = r0["conv_bn"], local["nccl"]
+    if not cb["held"] or not cb["stats_equal_across_ranks"]:
+        failures.append(f"conv_bn: {cb}")
+    if device != "cpu" and any(r["conv_bn"]["launches"] != {
+            "conv_stats": 2, "bn_apply": 2} for r in ranks):
+        failures.append("conv_bn: launches "
+                        f"{[r['conv_bn']['launches'] for r in ranks]}")
+    if not nccl["losses_equal"] or nccl["params_differing"]:
+        failures.append(f"nccl: the data-parallel step differs from the "
+                        f"plain one: {nccl['params_differing'][:5]}")
+    if device != "cpu" and (nccl["backend"] != "nccl"
+                            or not nccl["all_reduce_captured"]):
+        failures.append(f"nccl: backend {nccl['backend']}, captured "
+                        f"{nccl['all_reduce_captured']}")
+    if not all(r0["server"]["equal"].values()):
+        failures.append(f"server: {r0['server']['equal']}")
+    res = {
+        "backend": sorted({r["backend"] for r in ranks}),
+        "fleet": {"losses": fl["losses"], "step_ms": fl["step_ms"],
+                  "local_step_ms": local["plain"]["step_ms"],
+                  "bitwise_reference": bitwise, "to_reference": gap,
+                  "spread_of_two_references": spread,
+                  "to_plain_batch8": coll_gap(dp_run, local["plain"]),
+                  "launches": fl["launches"],
+                  "collective_bytes_a_step": fl["collective_bytes_a_step"],
+                  "allreduce_ms": [r["allreduce_ms"] for r in ranks],
+                  "profiled_step": fl["profiled_step"] and {
+                      k: fl["profiled_step"][k] for k in (
+                          "wall_ms", "device_ms", "device_idle_share")},
+                  "max_memory_allocated_gb": [r["fleet"][
+                      "max_memory_allocated_gb"] for r in ranks],
+                  "optimizer_state_bytes": fl["optimizer_state_bytes"]},
+        "zero1": {"losses": zr["losses"], "step_ms": zr["step_ms"],
+                  "loss_to_reference": others["zero1"],
+                  "losses_equal_to_fleet": zr["losses"] == fl["losses"],
+                  "optimizer_state_bytes": zr["optimizer_state_bytes"],
+                  "state_share_of_replicated": state_share,
+                  "collective_bytes_a_step": zr["collective_bytes_a_step"],
+                  "profiled_step": zr["profiled_step"] and {
+                      k: zr["profiled_step"][k] for k in (
+                          "wall_ms", "device_ms", "device_idle_share")},
+                  "max_memory_allocated_gb": [r["zero1"][
+                      "max_memory_allocated_gb"] for r in ranks]},
+        "transpiled": {"losses": tr["losses"], "step_ms": tr["step_ms"],
+                       "loss_to_reference": others["transpiled"],
+                       "losses_equal_to_fleet": tr["losses"] == fl["losses"],
+                       "allreduce_ops": tr["allreduce_ops"],
+                       "launches": tr["launches"]},
+        "conv_bn": cb, "nccl": nccl, "server": r0["server"],
+        "routes": [r["routes"] for r in ranks],
+        "rank_laps_s": [r["laps_s"] for r in ranks],
+        "laps_s": laps, "seconds": time.perf_counter() - t_phase}
+    log("collective " + json.dumps(res))
+    if failures:
+        raise AssertionError("phase 3g: " + "; ".join(failures))
+    return res
+
+
+def collective_apart(seed, card):
+    """Phase 3g in a process of its own (``--collective``); returns its
+    numbers, logged beside the card's line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        res_path = os.path.join(tmp, "collective.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--collective", res_path], timeout=COLL_WAIT_S * 2)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 3g failed in its process "
+                                 f"(exit {proc.returncode})")
+        with open(res_path) as f:
+            res = json.load(f)
+    fl = res["fleet"]
+    log(f"collective ({card}) " + json.dumps({
+        "backend": res["backend"], "step_ms": fl["step_ms"],
+        "local_step_ms": fl["local_step_ms"],
+        "allreduce_ms": fl["allreduce_ms"],
+        "bytes_a_step": fl["collective_bytes_a_step"],
+        "idle": fl["profiled_step"], "zero1_state_share":
+            res["zero1"]["state_share_of_replicated"],
+        "nccl_captured": res["nccl"]["all_reduce_captured"],
+        "seconds": res["seconds"]}))
+    return res
+
+
 PORT_KERNEL = re.compile(
     r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
     r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
@@ -8353,6 +9115,13 @@ def main(argv=None):
     ap.add_argument("--beside", metavar="FILE",
                     help="with --ctr: a file made once the card tests "
                     "running beside the phase ended")
+    ap.add_argument("--collective", metavar="RESULT_JSON",
+                    help="run phase 3g alone (the flash kernels already "
+                    "built) and write its numbers to RESULT_JSON; the whole "
+                    "script runs it so, in a process of its own")
+    ap.add_argument("--collective-rank", metavar="SPEC_PATH",
+                    help="run one rank of phase 3g's legs, as the spec file "
+                    "says (the phase starts these through the launcher)")
     ap.add_argument("--ps-node", metavar="SPEC_JSON",
                     help="run one pserver or trainer of phase 3e's or 3f's "
                     "clusters, as SPEC_JSON says (the phases start these)")
@@ -8380,6 +9149,9 @@ def main(argv=None):
         # a node of phase 3e's clusters, on the device its spec names
         ps_node(args.ps_node)
         return 0
+    if args.collective_rank:
+        collective_rank(args.collective_rank)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -8397,6 +9169,10 @@ def main(argv=None):
     if args.ps:
         with open(args.ps, "w") as f:
             json.dump(ps_phase(args.seed), f)
+        return 0
+    if args.collective:
+        with open(args.collective, "w") as f:
+            json.dump(collective_phase(args.seed), f)
         return 0
     if args.ctr:
         with open(args.ctr, "w") as f:
@@ -8548,6 +9324,9 @@ def run_phases(args, card, device):
     phase("the serving tier's observability (its own process)")
     ps = ps_apart(args.seed, card)
     phase("parameter-server training and the collector (its own process)")
+    coll = collective_apart(args.seed, card)
+    phase("collective data-parallel training (its own process, its ranks "
+          "through the launcher)")
     with tempfile.TemporaryDirectory() as ctr_tmp:
         started = ctr_start(args.seed, ctr_tmp)
         try:
@@ -8616,6 +9395,9 @@ def run_phases(args, card, device):
                 "ps_training": ps["launches"][name],
                 "ps_communicator": ctr["launches_communicator"][name],
                 "ps_elastic_resumed": ctr["launches_elastic"][name],
+                "collective_training": coll["fleet"]["launches"].get(name, 0),
+                "collective_conv_bn_train": coll["conv_bn"]["launches"].get(
+                    name, 0),
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],
                 **{leg: counts[name] for leg, counts in tf_launches.items()},

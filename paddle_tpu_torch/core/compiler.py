@@ -61,6 +61,21 @@ The kernel wrappers count their launches on the host, so their counts
 tick while the plan runs eagerly or captures, never on a replay: each
 capture records the counts' deltas (``ops.kernel_launches``), and
 ``replayed_launches`` multiplies them by the replays.
+
+Data parallelism (``with_data_parallel``, ``with_sharding_rules``): one
+process a device, each rank feeding its local shard of the batch.  The
+plan reduces the gradients between the backward ops and the optimizer's,
+and ZeRO updates sharded parameters in rows (``core/data_parallel.py``);
+the program itself is left as it is.  Every step first checks that the
+ranks' feeds have the same batch size (else the JAX package's
+``ValueError`` naming "divide"); batch-reducing ops take the global
+batch's statistics (``parallel.env.data_parallel``); the ``loss_name``
+fetch is the global mean, a batch-major fetch is gathered in rank order,
+persistables and reduced gradients come back as they are, and any other
+fetch raises ``DataParallelFetchError``.  Collectives run in the plan's
+order on every rank.  On ``gloo`` a collective, and an op that issues
+one (``ops/collective.py``, the batch statistics' ops), is a host step
+between two CUDA graphs; on ``nccl`` it is captured in the graph.
 """
 
 from __future__ import annotations
@@ -72,15 +87,18 @@ import time
 
 import torch
 
+from paddle_tpu_torch.core import data_parallel as _dp
 from paddle_tpu_torch.core.executor import (_SPECIAL_OPS, ResolvedOp,
                                             feed_tensor, fetch_name)
 from paddle_tpu_torch.core.program import BlockRef, Program
+from paddle_tpu_torch.core.registry import get_op_def
 from paddle_tpu_torch.core.types import to_numpy
 from paddle_tpu_torch.observability import device_trace as _obs_device
 from paddle_tpu_torch.observability import collector as _obs_collector
 from paddle_tpu_torch.observability import flight_recorder as _obs_flight
 from paddle_tpu_torch.observability import metrics as _obs_metrics
 from paddle_tpu_torch.observability import tracing as _obs_trace
+from paddle_tpu_torch.parallel import env as _penv
 
 # executor observability: per-step wall time and compile events ride the
 # process registry next to the serving instruments
@@ -105,6 +123,11 @@ _HOST_SKIP_SILENT = {
     "fetch_barrier", "listen_and_serv", "create_py_reader", "read",
     "py_reader", "fake_init", "ps_sync_init", "get_places",
 }
+
+# ops that issue a collective in a data-parallel step (the batch
+# statistics): a host step on gloo, as ops/collective.py's are
+_BATCH_STAT_OPS = frozenset(("batch_norm", "batch_norm_grad",
+                             "conv2d_bn_train", "conv2d_bn_train_grad"))
 
 # the JAX package lowers these to lax control flow; the port has none yet
 _CONTROL_FLOW = {"while", "conditional_block", "conditional_block_infer",
@@ -331,12 +354,6 @@ def _device_lock(device):
         return _DEVICE_LOCKS.setdefault(index, _DeviceLock())
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"CompiledProgram.{what}: more than one device is not ported yet "
-        "(ROADMAP Queue 1 item 5, parallelism on torch.distributed)")
-
-
 def _storage(t):
     return t.untyped_storage().data_ptr()
 
@@ -411,6 +428,13 @@ class ExecutionStrategy:
         self.num_iteration_per_drop_scope = 1
 
 
+def _scope_holding(scope, name):
+    """The scope of ``scope``'s chain whose own entry ``name`` is."""
+    while name not in scope.vars:
+        scope = scope.parent
+    return scope
+
+
 class CompiledProgram:
     """reference compiler.py:48."""
 
@@ -426,26 +450,79 @@ class CompiledProgram:
         self._state_storages = set()
         self._pool = None
         self._stream = None
+        # data parallelism: the mesh and its data axis, the loss, ZeRO's
+        # rule and, once bound, this rank's rows; the fetch rules' cache
+        self._mesh = None
+        self._data_axis = "dp"
+        self._loss_name = None
+        self._sharding_fn = None
+        self._zero = {}
+        self._rules = self._rules_key = None
 
     # -- parity API -------------------------------------------------------
     def with_data_parallel(self, loss_name=None, build_strategy=None,
                            exec_strategy=None, share_vars_from=None,
                            places=None, mesh=None):
-        """One device: the JAX path on a one-device mesh, the block run as
-        it is (the loss name and the strategies change nothing).  More
-        places, or a mesh, raise (ROADMAP Queue 1 item 5)."""
-        if mesh is not None or (places is not None and len(places) > 1):
-            raise _not_ported("with_data_parallel")
+        """Data parallelism over the mesh's data axis ('dp', else its first
+        axis): ``mesh``, else the current one, else a 1-D mesh over the
+        world, set as current.  One process drives one device: more
+        ``places`` than the world's ranks raise, naming the launcher.  On a
+        world of one (no process group) the block runs as it is."""
+        if loss_name is not None and not isinstance(loss_name, str):
+            loss_name = loss_name.name
+        if places is not None and len(places) > _penv.world_size():
+            raise NotImplementedError(
+                f"CompiledProgram.with_data_parallel: {len(places)} places "
+                f"for a world of {_penv.world_size()} process(es); the "
+                "port drives one device a process: start one a device with "
+                f"python -m paddle_tpu_torch.launch --nproc_per_node "
+                f"{len(places)}")
+        self._loss_name = loss_name
+        if mesh is None:
+            mesh = _penv.get_mesh() or _penv.make_mesh()
+        self._set_mesh(mesh)
         return self
+
+    def _set_mesh(self, mesh):
+        self._mesh = _penv.set_mesh(mesh)
+        self._data_axis = "dp" if "dp" in mesh.axis_names \
+            else mesh.axis_names[0]
+        self._cache.clear()
+        self._scope = None        # ZeRO's rows rebind with the mesh
 
     def with_inference_optimize(self, config=None):
         """Nothing differs for inference: the same plan and graphs."""
         return self
 
     def with_sharding_rules(self, fn, mesh=None):
-        """Sharding persistable state over devices: not ported, raises
-        (ROADMAP Queue 1 item 5)."""
-        raise _not_ported("with_sharding_rules")
+        """``fn(var_name, shape) -> PartitionSpec or None`` for persistable
+        state.  The port runs ZeRO's rules (``parallel.zero``: optimizer
+        accumulators sharded on dim 0 over the data axis, stages 1 and 2):
+        each rank holds and updates its rows, which ``sharded_state``
+        returns; the scope's entry of such an accumulator refuses a read
+        (``data_parallel.ShardedVariable``).  A rule that shards a
+        parameter (stage 3), or takes another spec, raises here, naming
+        the gspmd item."""
+        if mesh is not None:
+            self._set_mesh(mesh)
+        axis = self._data_axis
+        if self._mesh is not None and axis not in self._mesh.axis_names:
+            axis = self._mesh.axis_names[0]
+        _dp.zero_layout(self._program, fn, axis)
+        self._sharding_fn = fn
+        self._cache.clear()
+        self._scope = None
+        return self
+
+    def _dp(self):
+        """(group, ranks) of the data axis, or None (no mesh, or a world
+        of one with no process group)."""
+        if self._mesh is None:
+            return None
+        group = self._mesh.group(self._data_axis)
+        if group is None:
+            return None
+        return group, self._mesh.shape[self._data_axis]
 
     # -- what a run can read back -----------------------------------------
     def replayed_launches(self) -> dict:
@@ -473,11 +550,108 @@ class CompiledProgram:
                 if not v.is_data]
 
     # -- the plan ---------------------------------------------------------
+    def _dp_steps(self, ops):
+        """A data-parallel step's plan steps (``core/data_parallel.py``):
+        ({op index: [steps before it]}, {op index: [steps after it]},
+        {optimize op index: {parameter: ZeroRows}})."""
+        dp = self._dp()
+        if dp is None:
+            return {}, {}, {}
+        group, size = dp
+        first, grads = _dp.step_grads(ops)
+        if first is None or not grads:
+            return {}, {}, {}
+        zero = self._zero
+        grad_of = {}
+        for op in ops:
+            if op.op_role == "optimize" and "Grad" in op.inputs \
+                    and "Param" in op.inputs:
+                for p, g in zip(op.inputs["Param"], op.inputs["Grad"]):
+                    if p in zero:
+                        grad_of[g] = p
+        before = []
+        plain = [g for g in grads if g not in grad_of]
+        if plain:
+            before.append(_dp.all_reduce_step(plain, group, size))
+        sharded = [g for g in grads if g in grad_of]
+        if sharded:
+            before.append(_dp.reduce_scatter_step(
+                sharded, [zero[grad_of[g]] for g in sharded], group, size))
+        after, wraps = {}, {}
+        if zero:
+            last, rows_only = None, set(sharded)
+            for i, op in enumerate(ops):
+                if op.op_role != "optimize":
+                    continue
+                read = rows_only.intersection(op.input_names())
+                if any(p in zero for p in op.inputs.get("Param", ())):
+                    wraps[i] = {p: zero[p] for p in op.inputs["Param"]
+                                if p in zero}
+                    last = i
+                    stray = [g for p, g in zip(op.inputs["Param"],
+                                               op.inputs["Grad"])
+                             if p in zero and g not in rows_only]
+                    if stray:
+                        raise NotImplementedError(
+                            f"with_sharding_rules: '{op.type}' updates a "
+                            f"ZeRO-sharded parameter from {stray}, which "
+                            "no backward op writes; only a gradient of "
+                            "the backward can be reduce-scattered into "
+                            f"rows (waits for {_dp.GSPMD_ITEM})")
+                elif op.type == "check_finite_and_unscale" and read:
+                    # its flag saw this rank's rows only
+                    zero_on_inf = get_op_def(op.type).canonical_attrs(
+                        op.attrs)["zero_on_inf"]
+                    after.setdefault(i, []).append(_dp.found_inf_step(
+                        op.outputs["FoundInfinite"][0], op.outputs["Out"],
+                        zero_on_inf, group, size))
+                elif read:
+                    raise NotImplementedError(
+                        f"with_sharding_rules: optimize op '{op.type}' "
+                        f"reads the ZeRO-sharded gradients {sorted(read)}, "
+                        "of which each rank holds its rows only; an "
+                        "optimize op but the parameter's own update and "
+                        "AMP's check on sharded gradients waits for "
+                        f"{_dp.GSPMD_ITEM}")
+            params = list(zero)
+            after.setdefault(last, []).append(_dp.all_gather_step(
+                params, [zero[p] for p in params], group, size))
+        return {first: before}, after, wraps
+
+    def _host_step(self, op_type, device):
+        """Whether an op of ``op_type`` (or a collective step) runs as a
+        host step between graphs: a collective on gloo on the card."""
+        from paddle_tpu_torch.ops.collective import COLLECTIVE_OPS
+
+        if device.type != "cuda" or _penv.backend() == "nccl":
+            return False
+        if op_type in COLLECTIVE_OPS:
+            return True
+        dp = self._dp()
+        return op_type in _BATCH_STAT_OPS and dp is not None and dp[1] > 1
+
     def _build_fn(self, fetch_names, device):
         """The plan of the global block: segments of device ops split at
-        host-only ops (see the module docstring)."""
+        host-only ops (see the module docstring), with a data-parallel
+        step's collectives and ZeRO's updates."""
         items, seg, constants = [], None, set()
-        for op in self._program.global_block().ops:
+        ops = self._program.global_block().ops
+        before, after, wraps = self._dp_steps(ops)
+
+        def add(step, host):
+            nonlocal seg
+            if host:
+                seg = None
+                items.append(_HostOp(step))
+                return
+            if seg is None:
+                seg = _Segment()
+                items.append(seg)
+            seg.steps.append((step, None))
+
+        for i, op in enumerate(ops):
+            for step in before.get(i, ()):
+                add(step, self._host_step(step.op.type, device))
             if op.type in _SKIP_IN_TRACE:
                 continue
             if op.type in _CONTROL_FLOW:
@@ -491,6 +665,13 @@ class CompiledProgram:
                 if op.type not in _HOST_SKIP_SILENT:
                     items.append(_HostOp(rop))
                 continue
+            if i in wraps:
+                rop = _dp.ZeroOpt(rop, wraps[i])
+            if self._host_step(op.type, device):
+                add(rop, True)
+                for step in after.get(i, ()):
+                    add(step, self._host_step(step.op.type, device))
+                continue
             if seg is None:
                 seg = _Segment()
                 items.append(seg)
@@ -499,6 +680,8 @@ class CompiledProgram:
                 const = rop.compute({}, device)
                 rop.scatter(const, lambda n, v: constants.add(_storage(v)))
             seg.steps.append((rop, const))
+            for step in after.get(i, ()):
+                add(step, self._host_step(step.op.type, device))
         state = set(self._persistable_names)
         live = set(fetch_names)
         for item in reversed(items):
@@ -525,19 +708,63 @@ class CompiledProgram:
         self._pool = None
         self._scope, self._device = scope, device
         self._state, self._state_storages = {}, set()
+        self._zero = self._zero_rows()
+        self._rules_key = None
+        acc_rows = {a: r for r in self._zero.values()
+                    for a in r.accumulators}
+        used = None
         for n in self._persistable_names:
             var = scope.find_var(n)
-            t = None if var is None else var.get()
-            if t is None:
-                raise RuntimeError(
-                    f"CompiledProgram: persistable '{n}' is uninitialized —"
-                    " run the startup program first")
+            r = acc_rows.get(n)
+            if isinstance(var, _dp.ShardedVariable) and var.value is None:
+                if r is not None and var.holds(r):
+                    t = var.rows
+                else:
+                    if used is None:
+                        used = {m for op in self._program.global_block().ops
+                                for m in op.input_names() + op.output_names()}
+                    if n not in used:
+                        continue    # another program's rows, unread here
+                    var.get()       # raises, naming ZeRO
+            else:
+                t = None if var is None else var.get()
+                if t is None:
+                    raise RuntimeError(
+                        f"CompiledProgram: persistable '{n}' is "
+                        "uninitialized — run the startup program first")
+                if r is not None and t.shape[0] == r.rows_total:
+                    t = t[r.lo:r.hi]
             if t.device != device or not t.is_contiguous() or \
-                    _storage(t) in self._state_storages:
+                    _storage(t) in self._state_storages or r is not None:
                 t = t.to(device).clone(memory_format=torch.contiguous_format)
+            if r is not None:
+                # ZeRO: this rank's rows stay here; the scope's entry
+                # refuses a read
+                _scope_holding(scope, n).vars[n] = _dp.ShardedVariable(
+                    n, t, r)
+            elif t is not var.get():
                 var.set(t)
             self._state[n] = t
             self._state_storages.add(_storage(t))
+
+    def sharded_state(self) -> dict:
+        """{accumulator: this rank's rows} of the ZeRO-sharded optimizer
+        state, once a run has bound it ({} without ZeRO)."""
+        return {a: self._state[a] for r in self._zero.values()
+                for a in r.accumulators if a in self._state}
+
+    def _zero_rows(self):
+        """{parameter: ZeroRows} of this rank under ZeRO's rule, or {}."""
+        dp = self._dp()
+        if self._sharding_fn is None or dp is None or dp[1] == 1:
+            return {}
+        index = self._mesh.axis_index(self._data_axis)
+        block = self._program.global_block()
+        return {p: _dp.ZeroRows(int(block.var(p).shape[0]), dp[1], index,
+                                accs)
+                for p, accs in _dp.zero_layout(
+                    self._program, self._sharding_fn,
+                    self._data_axis).items()}
 
     def _sync_state(self, scope, device):
         """Before a run: every persistable in the scope is its buffer.  A
@@ -548,6 +775,9 @@ class CompiledProgram:
             return
         for n, buf in self._state.items():
             var = scope.find_var(n)
+            if isinstance(var, _dp.ShardedVariable) and var.rows is buf \
+                    and var.value is None:
+                continue
             t = None if var is None else var.get()
             if t is buf:
                 continue
@@ -778,7 +1008,12 @@ class CompiledProgram:
         )
         tracer = _obs_trace._tracer
         lock = _device_lock(device)
-        with self._lock, torch.no_grad():
+        dp = self._dp()
+        with self._lock, torch.no_grad(), (
+                _penv.data_parallel(self._mesh, self._data_axis)
+                if dp is not None else contextlib.nullcontext()):
+            if dp is not None:
+                self._check_batch(feeds, dp, device)
             self._sync_state(scope, device)
             entry = self._cache.get(key)
             if entry is not None:
@@ -827,13 +1062,79 @@ class CompiledProgram:
             return self._run_eager(entry, env, device)
         return self._replay(entry, feeds, device)
 
+    def _check_batch(self, feeds, dp, device):
+        """A data-parallel step's feeds: every rank's local batch (dim 0 of
+        each feed) must be the same, so the global batch divides evenly
+        over the data axis.  One all-gather of the sizes, every step."""
+        group, size = dp
+        names = sorted(n for n, t in feeds.items() if t.dim() >= 1)
+        if size == 1 or not names:
+            return
+        on = device if _penv.backend() == "nccl" else torch.device("cpu")
+        got = _penv.collective("all_gather", torch.tensor(
+            [feeds[n].shape[0] for n in names], dtype=torch.int64,
+            device=on), group, size).cpu()
+        for j, n in enumerate(names):
+            col = got[:, j].tolist()
+            if len(set(col)) > 1:
+                raise ValueError(
+                    f"data-parallel feed '{n}': local batches {col} of the "
+                    f"{size} ranks do not divide the global batch "
+                    f"({sum(col)}) evenly over the '{self._data_axis}' "
+                    "axis; feed an evenly divisible per-process shard")
+
+    def _dp_fetched(self, fetched, fetch_names):
+        """A data-parallel step's fetches made global (the module
+        docstring's rules)."""
+        group, size = self._dp()
+        block = self._program.global_block()
+        persist, grads, rows = self._fetch_rules()
+        out = []
+        for v, n in zip(fetched, fetch_names):
+            if n == self._loss_name:
+                v = _penv.collective("all_reduce", v, group, size) / size
+            elif n in rows and v.shape[0] != rows[n].rows_total:
+                v = _dp.gather_rows(v, rows[n], group, size)
+            elif n in persist or n in grads:
+                pass
+            elif v.dim() >= 1 and block.has_var(n) and \
+                    block.var(n).shape and block.var(n).shape[0] in (-1,
+                                                                     None):
+                got = _penv.collective("all_gather", v, group, size)
+                v = got.reshape((size * v.shape[0],) + tuple(v.shape[1:]))
+            else:
+                raise _dp.DataParallelFetchError(n)
+            out.append(v)
+        return out
+
+    def _fetch_rules(self):
+        """(persistables, reduced gradients, {name: ZeroRows} of the
+        ZeRO-sharded accumulators and gradients), once a program
+        fingerprint and binding."""
+        key = _program_fingerprint(self._program)
+        if self._rules_key != key:
+            block = self._program.global_block()
+            _, grads = _dp.step_grads(block.ops)
+            rows = {a: r for r in self._zero.values()
+                    for a in r.accumulators}
+            for op in block.ops:
+                if "Grad" in op.inputs and "Param" in op.inputs:
+                    rows.update((g, self._zero[p]) for p, g in zip(
+                        op.inputs["Param"], op.inputs["Grad"])
+                        if p in self._zero)
+            self._rules = (set(self._persistable_names), set(grads), rows)
+            self._rules_key = key
+        return self._rules
+
     def _fetch(self, fetched, fetch_names, return_numpy, t0, replayed):
         """The run's fetches as the caller asked: numpy arrays, or tensors
-        (a replay's cloned, since the next replay overwrites them).
-        Observes the step's seconds first, then requests the trainer's
-        fleet push: a step boundary is its moment (rate-limited inside,
-        the push runs on the pusher's thread; one None check and one
-        memo check when off)."""
+        (a replay's cloned, since the next replay overwrites them); a
+        data-parallel step's made global first.  Observes the step's
+        seconds first, then requests the trainer's fleet push: a step
+        boundary is its moment (rate-limited inside, the push runs on the
+        pusher's thread; one None check and one memo check when off)."""
+        if self._dp() is not None:
+            fetched = self._dp_fetched(fetched, fetch_names)
         _M_STEP_SECONDS.observe(time.perf_counter() - t0)
         _obs_collector.maybe_step_push()
         if return_numpy:

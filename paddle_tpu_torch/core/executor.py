@@ -34,7 +34,8 @@ push against the parameter servers); otherwise batches come through a
 ``DeviceFeeder`` (``reader.py``), on the card ahead of the step, into
 ``run``.
 
-``Executor()`` with no place means ``CUDAPlace(0)``; resolving it raises
+``Executor()`` with no place means ``CUDAPlace(0)`` (a rank of a
+collective job: its own device, ``parallel.env``); resolving it raises
 ``NoCUDADeviceError`` when no CUDA device is present, so nothing runs on
 the CPU unless the caller passed ``CPUPlace()``.
 """
@@ -161,7 +162,12 @@ class Executor:
     hands a ``CompiledProgram`` to its own ``_run``."""
 
     def __init__(self, place: Place = None):
-        self.place = place if place is not None else CUDAPlace(0)
+        if place is None:
+            from paddle_tpu_torch.parallel import env as penv
+
+            # a rank of a collective job takes its own device
+            place = CUDAPlace(penv.default_device_id())
+        self.place = place
         self.device = self.place.torch_device()
 
     def run(self, program=None, feed=None, fetch_list=None, scope=None,

@@ -9,9 +9,13 @@ CTR path (``downpour.py``'s ``DownpourSGD`` and ``downpour_worker.py``'s
 ``DownpourRunner``), PS role arithmetic (``ps_instance.py``) and the
 elastic crash-resume loop (``elastic.py``'s ``ElasticTrainer``); the
 async ``Communicator`` is ``communicator.py`` beside this package and
-fleet's parameter-server mode ``fleet/``.  The collective server and the
-collective mode are not ported yet (ROADMAP Queue 1 item 5).
+fleet's parameter-server mode ``fleet/``.  ``collective_server.py``'s
+monomer gather (``CollectiveServer``, ``CollectiveClient``) rides the same
+transport; the collective mode's process group is ``parallel/env.py``.
 """
+
+from paddle_tpu_torch.distributed.collective_server import (  # noqa: F401
+    CollectiveClient, CollectiveServer)
 
 from paddle_tpu_torch.distributed.elastic import ElasticTrainer  # noqa: F401
 from paddle_tpu_torch.distributed.faultinject import (  # noqa: F401

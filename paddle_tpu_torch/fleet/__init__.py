@@ -1,7 +1,21 @@
-"""Fleet: the unified distributed-training facade, parameter-server mode.
+"""Fleet: the unified distributed-training facade, collective and
+parameter-server modes.
 
-Counterpart of ``paddle_tpu/fleet/__init__.py``.  The parameter-server
-mode is ported: ``distributed_optimizer`` with ``strategy.mode =
+Counterpart of ``paddle_tpu/fleet/__init__.py``.
+
+The collective mode: ``init`` brings ``torch.distributed`` up from the
+``PADDLE_*`` contract when there is more than one worker (rank
+``PADDLE_TRAINER_ID`` of ``PADDLE_TRAINERS_NUM``, the store at
+``PADDLE_COORDINATOR_ENDPOINT``, else at the first trainer endpoint; the
+backend by ``parallel.env``'s rule; a second ``init`` changes nothing, as
+in the JAX package, which brings ``jax.distributed`` up there).
+``distributed_optimizer(...).minimize(loss)`` builds the normal program
+and ``main_program`` is then a ``CompiledProgram`` over it in data
+parallelism (ZeRO's rules with ``strategy.zero_stage``), which each rank
+runs on its shard of the batch (``python -m paddle_tpu_torch.launch``
+starts the ranks).  ``barrier_worker`` is a barrier across the workers.
+
+The parameter-server mode: ``distributed_optimizer`` with ``strategy.mode =
 "pserver"`` (or a role maker naming pserver endpoints) returns a
 ``ParameterServerOptimizer`` whose ``minimize`` transpiles the program
 with ``DistributeTranspiler``; a server then runs ``init_server()`` (its
@@ -11,14 +25,11 @@ completed); a worker runs ``startup_program`` and ``main_program``.
 Servers run on ``CUDAPlace(0)`` unless ``place`` names another place
 (the JAX package's servers run on the CPU).
 
-The collective mode (``CollectiveOptimizer``), a collective ``init``
-with more than one worker and a ``barrier_worker`` across processes
-need data parallelism over ``torch.distributed``, which is not ported:
-they raise ``NotImplementedError`` naming ROADMAP Queue 1 item 5.
-
 Reference parity (SURVEY.md §2.4 "Fleet API"):
   - Fleet base + fleet.init/distributed_optimizer/minimize:
     python/paddle/fluid/incubate/fleet/base/fleet_base.py:37,230
+  - collective impl: incubate/fleet/collective/__init__.py:215
+    (CollectiveOptimizer)
   - the parameter-server optimizer:
     incubate/fleet/parameter_server/distribute_transpiler/__init__.py
   - role makers: incubate/fleet/base/role_maker.py
@@ -38,20 +49,17 @@ from paddle_tpu_torch.fleet.role_maker import (
 )
 
 __all__ = ["fleet", "DistributedStrategy", "PaddleCloudRoleMaker",
-           "UserDefinedRoleMaker", "RoleMakerBase", "Role"]
-
-
-def _not_ported(what):
-    return NotImplementedError(
-        f"fleet: {what} is not ported yet (ROADMAP Queue 1 item 5, "
-        "parallelism on torch.distributed); the parameter-server mode "
-        "(strategy.mode = 'pserver') is")
+           "UserDefinedRoleMaker", "RoleMakerBase", "Role",
+           "CollectiveOptimizer"]
 
 
 class DistributedStrategy:
-    """reference collective DistributedStrategy knobs, kept for
-    introspection; ``mode`` and ``sync_mode`` drive the
-    parameter-server mode."""
+    """reference collective DistributedStrategy knobs: ``mode``,
+    ``use_amp`` with ``amp_loss_scaling`` and ``zero_stage`` (1 and 2; 3
+    waits for gspmd) drive the collective mode, ``sync_mode`` the
+    parameter-server mode; the rest are kept for introspection (the
+    gradients always ride one bucket a dtype, as if
+    ``fuse_all_reduce_ops``)."""
 
     def __init__(self):
         self.mode = "collective"
@@ -78,17 +86,40 @@ class _Fleet:
         self._is_initialized = False
 
     # -- lifecycle (reference fleet_base.py Fleet) ------------------------
-    def init(self, role_maker=None):
+    def init(self, role_maker=None, place=None):
+        """``place``: this rank's device for a collective job (default:
+        ``cuda:(local rank % device count)``; a CPU place runs on gloo)."""
         if role_maker is None:
             role_maker = PaddleCloudRoleMaker(is_collective=True)
         role_maker.generate_role()
-        if not role_maker.is_server() and \
-                not role_maker.get_pserver_endpoints() and \
-                role_maker.worker_num() > 1:
-            raise _not_ported("a collective job of more than one worker")
         self._role_maker = role_maker
+        self._maybe_init_distributed(place)
         self._is_initialized = True
         return self
+
+    def _maybe_init_distributed(self, place):
+        """A collective job of more than one worker: bring
+        ``torch.distributed`` up from the PADDLE_* contract (the JAX
+        package brings ``jax.distributed`` up here).  Parameter-server
+        processes are no part of it."""
+        from paddle_tpu_torch.parallel import env as penv
+
+        rm = self._role_maker
+        if rm.is_server() or rm.get_pserver_endpoints():
+            return
+        n = rm.worker_num()
+        if n <= 1:
+            return
+        eps = rm.get_trainer_endpoints()
+        coordinator = os.environ.get("PADDLE_COORDINATOR_ENDPOINT") or (
+            eps[0] if eps else None)
+        if not coordinator:
+            raise RuntimeError(
+                "fleet.init: a collective job of more than one worker needs "
+                "PADDLE_COORDINATOR_ENDPOINT or PADDLE_TRAINER_ENDPOINTS")
+        penv.init_parallel_env(rm.worker_index(), n, coordinator,
+                               place=place, endpoints=eps,
+                               current=rm.get_current_endpoint())
 
     # -- introspection ----------------------------------------------------
     def is_worker(self):
@@ -114,8 +145,10 @@ class _Fleet:
 
     @property
     def main_program(self):
-        """A worker's program after a PS-mode ``minimize``: the trainer
-        program, which sends grads and receives parameters."""
+        """The program to run after ``minimize``: in the collective mode a
+        ``CompiledProgram`` in data parallelism over the mesh; in PS mode
+        the trainer program, which sends grads and receives
+        parameters."""
         return self._compiled
 
     @property
@@ -177,12 +210,16 @@ class _Fleet:
         pass
 
     def barrier_worker(self):
-        """One process is its own barrier; a barrier across the workers
-        of a collective job is not ported."""
-        rm = self._role_maker
-        if rm is not None and not rm.get_pserver_endpoints() and \
-                rm.worker_num() > 1:
-            raise _not_ported("barrier_worker across processes")
+        """A barrier across the workers of a collective job (the data
+        axis's group, else the world); one process is its own barrier."""
+        from paddle_tpu_torch.parallel import env as penv
+
+        mesh = penv.get_mesh()
+        group = None
+        if mesh is not None:
+            group = mesh.group("dp" if "dp" in mesh.axis_names
+                               else mesh.axis_names[0])
+        penv.barrier(group)
 
     # -- optimizer --------------------------------------------------------
     def distributed_optimizer(self, optimizer, strategy=None):
@@ -210,8 +247,12 @@ class _Fleet:
 
 
 class CollectiveOptimizer:
-    """reference incubate/fleet/collective/__init__.py:215: data
-    parallelism over the workers, which is not ported."""
+    """reference incubate/fleet/collective/__init__.py:215: ``minimize``
+    builds the program with the wrapped optimizer (under AMP with
+    ``strategy.use_amp``) and makes fleet's ``main_program`` a
+    ``CompiledProgram`` in data parallelism over the mesh (a 1-D 'dp'
+    mesh over the world unless one is set), with ZeRO's rules at
+    ``strategy.zero_stage``."""
 
     def __init__(self, fleet_obj, optimizer, strategy):
         self._fleet = fleet_obj
@@ -219,13 +260,37 @@ class CollectiveOptimizer:
         self._strategy = strategy
 
     def backward(self, *a, **k):
-        raise _not_ported("CollectiveOptimizer")
+        return self._optimizer.backward(*a, **k)
 
     def apply_gradients(self, *a, **k):
-        raise _not_ported("CollectiveOptimizer")
+        return self._optimizer.apply_gradients(*a, **k)
 
-    def minimize(self, *a, **k):
-        raise _not_ported("CollectiveOptimizer")
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from paddle_tpu_torch.core.compiler import CompiledProgram
+        from paddle_tpu_torch.parallel import env as penv
+        from paddle_tpu_torch.parallel.zero import zero_sharding_rules
+
+        opt = self._optimizer
+        if self._strategy.use_amp:
+            from paddle_tpu_torch.contrib import mixed_precision as amp
+
+            opt = amp.decorate(
+                opt, init_loss_scaling=self._strategy.amp_loss_scaling)
+        ret = opt.minimize(loss, startup_program, parameter_list,
+                           no_grad_set)
+        main = loss.block.program
+        self._fleet._origin_program = main
+        if penv.get_mesh() is None:
+            penv.set_mesh(penv.make_mesh())
+        compiled = CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=penv.get_mesh())
+        if self._strategy.zero_stage:
+            compiled = compiled.with_sharding_rules(
+                zero_sharding_rules(stage=self._strategy.zero_stage,
+                                    program=main))
+        self._fleet._compiled = compiled
+        return ret
 
 
 class ParameterServerOptimizer:

@@ -15,6 +15,7 @@ from paddle_tpu_torch.ops import control_flow  # noqa: F401
 from paddle_tpu_torch.ops import quant  # noqa: F401
 from paddle_tpu_torch.ops import vision  # noqa: F401
 from paddle_tpu_torch.ops import ps_ops  # noqa: F401
+from paddle_tpu_torch.ops import collective  # noqa: F401
 
 
 def kernel_launches() -> dict:

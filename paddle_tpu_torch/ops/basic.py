@@ -109,6 +109,16 @@ def scale(ins, attrs, device):
     return {"Out": (x + attrs["bias"]) * attrs["scale"]}
 
 
+@register_op("increment", inputs=("X",), outputs=("Out",),
+             attrs={"step": 1.0}, differentiable=False,
+             in_place={"Out": "X"})
+def increment(ins, attrs, device):
+    """X + step, the step cast to X's dtype first (an int64 counter
+    counts in whole steps)."""
+    x = ins["X"]
+    return {"Out": x + torch.tensor(attrs["step"]).to(x.dtype)}
+
+
 def _operands(ins, axis):
     """X and Y of a binary op in their common dtype, Y broadcast.  Both
     are cast to ``promote_types`` first, as jnp promotes arrays: torch
@@ -175,6 +185,43 @@ _register_elementwise("elementwise_pow", torch.pow)
 _register_elementwise("elementwise_mod", _mod, differentiable=False)
 _register_elementwise("elementwise_floordiv", _floordiv,
                       differentiable=False)
+
+
+# ---------------------------------------------------------------------------
+# comparison, logical and selection (``paddle_tpu/ops/basic.py:712-740``)
+# ---------------------------------------------------------------------------
+
+def _register_cmp(name, fn):
+    @register_op(name, inputs=("X", "Y"), outputs=("Out",),
+                 attrs={"axis": -1}, differentiable=False)
+    def _op(ins, attrs, device, fn=fn):
+        x, y = ins["X"], ins["Y"]
+        return {"Out": fn(x, _bcast_y(x, y, attrs["axis"]))}
+    return _op
+
+
+_register_cmp("equal", torch.eq)
+_register_cmp("not_equal", torch.ne)
+_register_cmp("less_than", torch.lt)
+_register_cmp("less_equal", torch.le)
+_register_cmp("greater_than", torch.gt)
+_register_cmp("greater_equal", torch.ge)
+_register_cmp("logical_and", torch.logical_and)
+_register_cmp("logical_or", torch.logical_or)
+_register_cmp("logical_xor", torch.logical_xor)
+
+
+@register_op("logical_not", inputs=("X",), outputs=("Out",),
+             differentiable=False)
+def logical_not(ins, attrs, device):
+    return {"Out": torch.logical_not(ins["X"])}
+
+
+@register_op("where", inputs=("Condition", "X", "Y"), outputs=("Out",))
+def where_op(ins, attrs, device):
+    """X where Condition (any nonzero value) holds, else Y."""
+    return {"Out": torch.where(ins["Condition"].bool(), ins["X"],
+                               ins["Y"])}
 
 
 @register_op("mean", inputs=("X",), outputs=("Out",))

@@ -47,6 +47,12 @@ package's ``custom_vjp``s: the relu is masked by the saved output (so
 its gradient at 0 is 0), the BN backward is the closed form on the saved
 batch statistics, and dx and dw are PyTorch's convolution gradients, as
 the JAX package takes XLA's.
+
+In a data-parallel step (``parallel.env.batch_group``) the train chain's
+statistics are the global batch's, as the JAX package's GSPMD step sees
+the whole batch: #6's Σy and Σy² (or the composite's moments) are
+reduced over the ranks with the element count before #7 applies them,
+and the backward sums the statistics' cotangents over the ranks.
 """
 
 from __future__ import annotations
@@ -61,7 +67,9 @@ from paddle_tpu_torch.observability import device_trace as _obs_device
 from paddle_tpu_torch.observability import tracing as _obs_trace
 from paddle_tpu_torch.ops.epilogue import (apply_acc_stages, apply_bn_tail,
                                            apply_chain_stages)
-from paddle_tpu_torch.ops.nn import _moments_1pass, conv_nd
+from paddle_tpu_torch.ops.nn import (_moments_1pass, conv_nd,
+                                     global_moments, global_sums)
+from paddle_tpu_torch.parallel import env as _penv
 
 _CONV_LIB = "conv_epilogue"
 _BN_LIB = "bn_apply"
@@ -536,7 +544,11 @@ def _conv_bn_unfused(x, w, bias, scale, shift, residual, strides, padding,
     if bias is not None:
         y = y + bias.to(y.dtype)
     xf = y.to(scale.dtype)
-    mean, var = _moments_1pass(xf, (0, 1, 2))
+    dp = _penv.batch_group()
+    if dp is not None:
+        mean, var, _ = global_moments(xf, (0, 1, 2), dp)
+    else:
+        mean, var = _moments_1pass(xf, (0, 1, 2))
     t = (xf - mean) * torch.rsqrt(var + eps) * scale + shift
     t = t.to(y.dtype)
     if residual is not None:
@@ -554,8 +566,15 @@ def _conv_bn_core(x, w, bias, scale, shift, residual, strides, padding,
         stats = conv_stats_kernel if impl == "pallas" else conv_stats_plain
         apply = bn_apply_kernel if impl == "pallas" else bn_apply_plain
         y, s1, s2 = stats(x, w, bias, strides, padding)
-        mean, var = _finalize_stats(
-            s1, s2, float(y.shape[0] * y.shape[1] * y.shape[2]))
+        m = float(y.shape[0] * y.shape[1] * y.shape[2])
+        dp = _penv.batch_group()
+        if dp is not None:
+            # a data-parallel step: #6's sums, with the count, summed
+            # over the ranks before #7 applies the global statistics
+            s1, s2, m = global_sums(torch.sum(s1, dim=0),
+                                    torch.sum(s2, dim=0), count=m, dp=dp)
+            s1, s2 = s1[None], s2[None]
+        mean, var = _finalize_stats(s1, s2, m)
         out = apply(y, mean, torch.rsqrt(var + eps), scale.float(),
                     shift.float(), residual, act)
         return out, mean, var, y
@@ -582,6 +601,7 @@ class ConvBnAct(torch.autograd.Function):
                               out)
         ctx.strides, ctx.padding, ctx.act, ctx.eps = (strides, padding,
                                                       act, eps)
+        ctx.dp = _penv.batch_group()
         return out, mean, var
 
     @staticmethod
@@ -599,7 +619,13 @@ class ConvBnAct(torch.autograd.Function):
         x_hat = (yf - mean) * rstd
         dshift = torch.sum(dyf, dim=axes)
         dscale = torch.sum(dyf * x_hat, dim=axes)
-        dy = scale * rstd * (dyf - dshift / m - x_hat * (dscale / m))
+        sshift, sscale = dshift, dscale
+        if ctx.dp is not None:
+            # the statistics were the global batch's: their adjoints sum
+            # every rank's cotangents (one all-reduce, with the count)
+            sshift, sscale, g_mean, g_var, m = global_sums(
+                dshift, dscale, g_mean, g_var, count=m, dp=ctx.dp)
+        dy = scale * rstd * (dyf - sshift / m - x_hat * (sscale / m))
         dy = dy + g_mean / m + (yf - mean) * (2.0 / m * g_var)
         dy = dy.to(y.dtype)
         ct = torch.promote_types(x.dtype, w.dtype)

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from paddle_tpu_torch.core.registry import REQUIRED, register_op
+from paddle_tpu_torch.parallel import env as _penv
 
 
 def _pair(v):
@@ -199,6 +200,44 @@ def _moments_1pass(xf, axes):
     return mean, torch.maximum(var, torch.zeros_like(var))
 
 
+def global_moments(xf, axes, dp):
+    """(mean, var, count) over the global batch of a data-parallel step
+    (``dp`` = (group, ranks)), the counterpart of ``_moments_1pass`` over
+    the batch that the JAX package's GSPMD step sees whole.  Each rank
+    takes its batch's moments by ``_moments_1pass``; one all-gather
+    (differentiable) brings every rank's (count, mean, count * var), and
+    every rank combines them in rank order (Chan et al.'s pairwise
+    update): the same values on every rank, with no raw E[y^2] - mean^2
+    cancellation."""
+    group, size = dp
+    m = float(np.prod([xf.shape[a] for a in axes]))
+    mean, var = _moments_1pass(xf, axes)
+    packed = torch.cat([torch.full((1,), m, dtype=mean.dtype,
+                                   device=mean.device), mean, var * m])
+    rows = _penv.all_gather_stacked(packed, group, size)
+    c = mean.shape[0]
+    n, means, m2 = rows[:, :1], rows[:, 1:1 + c], rows[:, 1 + c:]
+    total = torch.sum(n)
+    gmean = torch.sum(n * means, dim=0) / total
+    gm2 = torch.sum(m2, dim=0) + torch.sum(n * (means - gmean) ** 2, dim=0)
+    var = gm2 / total
+    return gmean, torch.maximum(var, torch.zeros_like(var)), total
+
+
+def global_sums(*vecs, count, dp):
+    """The per-channel ``vecs`` and ``count`` summed over the ranks of a
+    data-parallel step, in one all-reduce: (sums..., total count)."""
+    group, size = dp
+    packed = torch.cat([v.reshape(-1) for v in vecs] + [torch.full(
+        (1,), count, dtype=vecs[0].dtype, device=vecs[0].device)])
+    total = _penv.all_reduce_sum(packed, group, size)
+    out, at = [], 0
+    for v in vecs:
+        out.append(total[at:at + v.numel()].reshape(v.shape))
+        at += v.numel()
+    return (*out, total[-1])
+
+
 def _bn_axes(x, layout):
     if x.ndim == 4 and layout == "NCHW":
         return (0, 2, 3)
@@ -227,7 +266,9 @@ def batch_norm(ins, attrs, device):
     MeanOut/VarianceOut are the updated running stats, which the layer
     wires back onto the same vars; SavedVariance is 1/sqrt(var + eps).
     BatchMean/BatchVariance, when given, replace the batch statistics in
-    train mode."""
+    train mode.  In a data-parallel step (``parallel.env.batch_group``)
+    the statistics are the global batch's (``global_moments``), as the
+    JAX package's GSPMD step computes them over the whole batch."""
     x = ins["X"]
     scale, bias = ins["Scale"], ins["Bias"]
     mean, var = ins["Mean"], ins["Variance"]
@@ -244,6 +285,9 @@ def batch_norm(ins, attrs, device):
         if "BatchMean" in ins and "BatchVariance" in ins:
             use_mean = ins["BatchMean"].to(mean.dtype)
             use_var = ins["BatchVariance"].to(var.dtype)
+        elif _penv.batch_group() is not None:
+            use_mean, use_var, _ = global_moments(xf, axes,
+                                                  _penv.batch_group())
         else:
             use_mean, use_var = _moments_1pass(xf, axes)
         mean_out = mean * mom + use_mean.detach() * (1 - mom)
@@ -282,7 +326,11 @@ def batch_norm_grad(ins, attrs, device):
       dx     = scale*rstd * dy                                 (global stats)
 
     The batch statistics are recomputed from X (or taken from
-    BatchMean/BatchVariance), in f32; dx comes out in X's dtype."""
+    BatchMean/BatchVariance), in f32; dx comes out in X's dtype.  In a
+    data-parallel step the statistics are the global batch's and dx takes
+    dbias and dscale summed over the ranks (one all-reduce, with the
+    count m); Scale@GRAD and Bias@GRAD stay this rank's sums, which the
+    step's gradient all-reduce adds up."""
     x, dy, scale = ins["X"], ins["Y@GRAD"], ins["Scale"]
     eps = attrs["epsilon"]
     layout = attrs["data_layout"]
@@ -301,18 +349,24 @@ def batch_norm_grad(ins, attrs, device):
         return {"X@GRAD": dx.to(x.dtype), "Scale@GRAD": dscale,
                 "Bias@GRAD": dbias}
     m = float(np.prod([x.shape[a] for a in axes]))
+    dp = _penv.batch_group()
     if "BatchMean" in ins and "BatchVariance" in ins:
         mean = ins["BatchMean"].to(f32)
         var = ins["BatchVariance"].to(f32)
+    elif dp is not None:
+        mean, var, _ = global_moments(xf, axes, dp)
     else:
         mean, var = _moments_1pass(xf, axes)
     rstd = torch.rsqrt(var + eps)
     x_hat = (xf - mean.reshape(shape)) * rstd.reshape(shape)
     dbias = torch.sum(dyf, dim=axes)
     dscale = torch.sum(dyf * x_hat, dim=axes)
+    sbias, sscale = dbias, dscale
+    if dp is not None:
+        sbias, sscale, m = global_sums(dbias, dscale, count=m, dp=dp)
     dx = (scale * rstd).reshape(shape) * (
-        dyf - (dbias / m).reshape(shape)
-        - x_hat * (dscale / m).reshape(shape))
+        dyf - (sbias / m).reshape(shape)
+        - x_hat * (sscale / m).reshape(shape))
     return {"X@GRAD": dx.to(x.dtype), "Scale@GRAD": dscale,
             "Bias@GRAD": dbias}
 
@@ -338,3 +392,63 @@ def layer_norm(ins, attrs, device):
         y = y + ins["Bias"].reshape(norm_shape)
     return {"Y": y.to(x.dtype), "Mean": mean.reshape(x.shape[:a]),
             "Variance": var.reshape(x.shape[:a])}
+
+
+@register_op("sync_batch_norm",
+             inputs=("X", "Scale", "Bias", "Mean", "Variance"),
+             outputs=("Y", "MeanOut", "VarianceOut", "SavedMean",
+                      "SavedVariance"),
+             attrs={"epsilon": 1e-5, "momentum": 0.9, "is_test": False,
+                    "data_layout": "NCHW", "use_global_stats": False,
+                    "sync_axis": "dp"})
+def sync_batch_norm(ins, attrs, device):
+    """Batch norm whose training statistics are means over the ranks of
+    ``sync_axis`` (``paddle_tpu/ops/nn.py:562-612``): the per-rank E[x]
+    and E[x^2] averaged by one differentiable all-reduce (a pmean, equal
+    shards), var = E[x^2] - E[x]^2 clamped at 0.  The axis's group is the
+    current mesh's when it has that axis over more than one rank, else a
+    data-parallel step's; with neither the statistics are local, as the
+    JAX op's are outside a named axis."""
+    x = ins["X"]
+    scale, bias = ins["Scale"], ins["Bias"]
+    mean, var = ins["Mean"], ins["Variance"]
+    eps, mom = attrs["epsilon"], attrs["momentum"]
+    layout = attrs["data_layout"]
+    axes = _bn_axes(x, layout)
+    xf = x.to(mean.dtype)
+    if attrs["is_test"] or attrs["use_global_stats"]:
+        use_mean, use_var = mean, var
+        mean_out, var_out = mean, var
+        saved_mean = torch.zeros_like(mean)
+        saved_var = torch.zeros_like(var)
+    else:
+        s1 = torch.mean(xf, dim=axes)
+        s2 = torch.mean(xf * xf, dim=axes)
+        sync = _sync_group(attrs.get("sync_axis") or "dp")
+        if sync is not None:
+            group, size = sync
+            both = _penv.all_reduce_sum(torch.cat([s1, s2]), group, size) \
+                / size
+            s1, s2 = both[:s1.shape[0]], both[s1.shape[0]:]
+        use_mean = s1
+        use_var = torch.maximum(s2 - s1 * s1, torch.zeros_like(s1))
+        mean_out = mean * mom + use_mean.detach() * (1 - mom)
+        var_out = var * mom + use_var.detach() * (1 - mom)
+        saved_mean = use_mean
+        saved_var = 1.0 / torch.sqrt(use_var + eps)
+    shape = _bn_shape(x, layout)
+    y = (xf - use_mean.reshape(shape)) * torch.rsqrt(
+        use_var.reshape(shape) + eps) * scale.reshape(shape) \
+        + bias.reshape(shape)
+    return {"Y": y.to(x.dtype), "MeanOut": mean_out,
+            "VarianceOut": var_out, "SavedMean": saved_mean,
+            "SavedVariance": saved_var}
+
+
+def _sync_group(axis):
+    """(group, ranks) that sync_batch_norm averages over, or None."""
+    mesh = _penv.get_mesh()
+    if mesh is not None and axis in mesh.shape and mesh.shape[axis] > 1 \
+            and mesh.group(axis) is not None:
+        return mesh.group(axis), mesh.shape[axis]
+    return _penv.batch_group()

@@ -1,3 +1,5 @@
+from paddle_tpu_torch.transpiler.collective import (  # noqa: F401
+    Collective, GradAllReduce, LocalSGD)
 from paddle_tpu_torch.transpiler.details import wait_server_ready  # noqa: F401
 from paddle_tpu_torch.transpiler.distribute_transpiler import (  # noqa: F401
     DistributeTranspiler, DistributeTranspilerConfig, slice_variable)

@@ -513,11 +513,28 @@ def test_refusals():
     with fresh_port_programs():
         main, startup, loss, _, _ = _sgd_mlp()
         prog = pt.CompiledProgram(main)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        # one process drives one device: more places than the world raise,
+        # naming the launcher
+        with pytest.raises(NotImplementedError,
+                           match="paddle_tpu_torch.launch --nproc_per_node"):
             prog.with_data_parallel(
                 loss_name=loss, places=[pt.CUDAPlace(0), pt.CUDAPlace(1)])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            prog.with_sharding_rules(lambda name, shape: None)
+        # ZeRO's rules are taken; a parameter sharded (stage 3) or another
+        # partition spec waits for the gspmd item
+        from paddle_tpu_torch.parallel.zero import (PartitionSpec,
+                                                    zero_sharding_rules)
+        assert prog.with_sharding_rules(lambda name, shape: None) is prog
+        with pytest.raises(NotImplementedError,
+                           match="gspmd.py, ROADMAP Queue 1 item 5"):
+            prog.with_sharding_rules(
+                zero_sharding_rules(stage=3, min_size=1, program=main))
+        params = {v.name for v in main.all_parameters()}
+        with pytest.raises(NotImplementedError,
+                           match="other partition specs wait for "
+                           "parallel/gspmd.py"):
+            prog.with_sharding_rules(
+                lambda name, shape: PartitionSpec("tp")
+                if name not in params and len(shape) == 1 else None)
         assert prog.with_data_parallel(loss_name=loss) is prog
         exe = pt.Executor(pt.CPUPlace())
         with pytest.raises(RuntimeError, match=(

@@ -11,9 +11,10 @@
   bar.
 - ``init_server(model_dir)`` warm-starts a server's shards from the files
   a ``checkpoint_notify`` wrote.
-- The collective mode raises ``NotImplementedError`` naming its ROADMAP
-  item; ``DownpourRunner``, fleet's servers, ``AsyncExecutor`` and
-  ``DeviceFeeder`` default to the card and refuse to run without one.
+- The collective mode's single-worker contract (its multi-worker runs
+  are ``tests/test_torch_fleet_collective.py``); ``DownpourRunner``,
+  fleet's servers, ``AsyncExecutor`` and ``DeviceFeeder`` default to the
+  card and refuse to run without one.
 """
 
 from __future__ import annotations
@@ -278,22 +279,49 @@ def test_init_server_warm_starts_from_notified_shards(tmp_path):
 
 
 def test_collective_mode_raises_its_roadmap_item(monkeypatch):
+    """The collective mode is ported (tests/test_torch_fleet_collective.py
+    trains through it): one worker brings no process group up, its
+    barrier is a no-op, the CollectiveOptimizer's backward,
+    apply_gradients and minimize delegate to the wrapped optimizer and
+    make main_program a data-parallel CompiledProgram.  What stands:
+    run_server needs the PS mode, and a job of two workers with no
+    coordinator endpoint raises."""
+    from paddle_tpu_torch.fleet import CollectiveOptimizer
     from paddle_tpu_torch.fleet import PaddleCloudRoleMaker
+    from paddle_tpu_torch.parallel import env as penv
 
     monkeypatch.delenv("PADDLE_PSERVERS_IP_PORT_LIST", raising=False)
     monkeypatch.delenv("TRAINING_ROLE", raising=False)
+    monkeypatch.delenv("PADDLE_TRAINER_ENDPOINTS", raising=False)
+    monkeypatch.delenv("PADDLE_COORDINATOR_ENDPOINT", raising=False)
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
     fl = _fresh_fleet()
     fl.init(PaddleCloudRoleMaker())
+    assert not penv.is_initialized()
     fl.barrier_worker()                     # one process: no barrier
-    opt = fl.distributed_optimizer(pt.optimizer.SGD(0.1))
-    for call in (opt.minimize, opt.backward, opt.apply_gradients):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            call(None)
+    penv.reset()
+    with fresh_port_programs():
+        x = pt.layers.data("x", shape=[4], dtype="float32")
+        loss = pt.layers.mean(pt.layers.fc(x, size=1))
+        opt = fl.distributed_optimizer(pt.optimizer.SGD(0.1))
+        assert isinstance(opt, CollectiveOptimizer)
+        params_grads = opt.backward(loss)
+        assert params_grads and all(g is not None for _, g in params_grads)
+        opt.apply_gradients(params_grads)
+        assert [op.type for op in pt.default_main_program().global_block()
+                .ops].count("sgd") == 2
+    with fresh_port_programs():
+        x = pt.layers.data("x", shape=[4], dtype="float32")
+        loss = pt.layers.mean(pt.layers.fc(x, size=1))
+        fl.distributed_optimizer(pt.optimizer.SGD(0.1)).minimize(loss)
+        assert isinstance(fl.main_program, pt.CompiledProgram)
+        assert fl.main_program._loss_name == loss.name
+        assert penv.get_mesh().shape == {"dp": 1}
+    penv.reset()
     with pytest.raises(RuntimeError, match="pserver"):
         fl.run_server()
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "2")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="PADDLE_COORDINATOR_ENDPOINT"):
         _fresh_fleet().init(PaddleCloudRoleMaker())
 
 

@@ -237,7 +237,10 @@ def test_port_imports_no_jax_and_nothing_of_paddle_tpu():
               "communicator", "fleet", "fleet.role_maker",
               "fleet.fleet_wrapper", "distributed.downpour",
               "distributed.downpour_worker", "distributed.ps_instance",
-              "distributed.elastic", "contrib.checkpoint"):
+              "distributed.elastic", "contrib.checkpoint", "parallel",
+              "parallel.env", "parallel.zero", "ops.collective",
+              "core.data_parallel", "transpiler.collective",
+              "distributed.collective_server", "launch"):
         assert f"paddle_tpu_torch.{m}" in mods
 
     for path in _port_files():

@@ -171,3 +171,66 @@ def assert_compiled_equals_interpreted(main, loss_name, feed, init):
                               to_numpy(b_grads[name])), name
     for name in a_end:
         assert torch.equal(a_end[name], b_end[name]), name
+
+
+def free_port():
+    """A port the OS hands out on 127.0.0.1 (never a fixed number)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_port_cluster(script, world, args=None, timeout=300):
+    """Runs ``script`` (a Python program's text) as ``world`` processes
+    under the PADDLE_* contract, on 127.0.0.1 ports from the OS, with
+    ``args`` (JSON) in PT_CLUSTER_ARGS and one torch thread each; returns
+    each rank's ``RESULT <json>`` line, parsed, in rank order.  Every
+    process is waited for at most ``timeout`` seconds, then killed."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    eps = [f"127.0.0.1:{free_port()}" for _ in range(world)]
+    procs = []
+    for rank in range(world):
+        penv = {
+            **os.environ,
+            "PADDLE_TRAINER_ID": str(rank),
+            "PADDLE_TRAINERS_NUM": str(world),
+            "PADDLE_TRAINER_ENDPOINTS": ",".join(eps),
+            "PADDLE_CURRENT_ENDPOINT": eps[rank],
+            "PADDLE_COORDINATOR_ENDPOINT": eps[0],
+            "PT_CLUSTER_ARGS": json.dumps(args or {}),
+            "OMP_NUM_THREADS": "1",
+            "JAX_PLATFORMS": "cpu",
+            "PYTHONPATH": os.pathsep.join(
+                [root, os.path.join(root, "tests")]
+                + [p for p in os.environ.get("PYTHONPATH", "").split(
+                    os.pathsep) if p]),
+        }
+        penv.pop("PADDLE_PSERVERS_IP_PORT_LIST", None)
+        penv.pop("TRAINING_ROLE", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script], env=penv, cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            assert p.returncode == 0, err.decode()[-4000:]
+            line = [ln for ln in out.decode().splitlines()
+                    if ln.startswith("RESULT ")]
+            assert line, out.decode()[-2000:] + err.decode()[-2000:]
+            results.append(json.loads(line[-1][len("RESULT "):]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
