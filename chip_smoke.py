@@ -193,6 +193,32 @@ Phases, none of which catches its own failure:
      all-reduce captured in the CUDA graph; (f) each rank publishes (c)'s
      step-1 local loss and a gradient on a CollectiveServer: rank 0's
      CollectiveClient.gather equals c_allgather of the same values;
+  3h. (right after the kernels' build, in a process of its own, --gspmd)
+     GSPMD training and the tp-sharded Predictor: 2 ranks on the one card
+     through the port's
+     launcher (--gspmd-rank SPEC, gloo), the bench's tf_train_gspmd
+     program (the LM with param_prefix "tfm", AMP decorate(Adam(1e-4))
+     with static loss scaling, one adam op a parameter, fc_epilogue off)
+     through set_flags({"gspmd": True}) and shard_program: (a) MeshPlan(dp=1,
+     tp=2), both ranks fed the same AMP_BATCH (32) rows, a warm-up and 3
+     counted steps: the ranks' fetches equal (sha256), the loss and the
+     gathered gradients of tfm_l0_self_q.w, tfm_l0_ffn_fc2.w and
+     tfm_out_fc.w within phase 7's AMP bars of the one-rank run of the
+     same program without shard_program (in the phase's process), 12/6/6
+     flash launches a step a rank on [32, 4, 512, 64] bf16, q.w's block
+     [512, 256]; a planted fault (the start restored, rank 1's column
+     block of tfm_l0_self_v.w zeroed before the first counted step) must
+     break the bar; (b) MeshPlan(dp=2, tp=1), ZeRO-3, 16 rows a rank, held
+     the same way, flash on [16, 8, 512, 64], a rank's parameter and Adam
+     moment bytes half the one-rank run's; (c) in the phase's process,
+     tf_train_gspmd as bench.py builds it on one card (tp clamped to the
+     device count, a one-device mesh): its replays torch.equal to the
+     program run without shard_program; (d) serving_tp_sharded's chain (256
+     -> 1024 x3 relu -> 256, batch 8) saved, loaded into a Predictor and
+     shard(MeshPlan(dp=1, tp=2)): its outputs equal to the lone
+     Predictor's (else the largest difference, within the logits bound),
+     sharding_info the [*, 512] blocks; each leg's ms a step by events and
+     a profiled step's idle share;
  4. holds the two flash-attention backward kernels (dq and dkv) against
      their plain version over the same cases plus one with an lse
      cotangent and two f32 ones at head dims 48 and 96 (each case's max
@@ -437,6 +463,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import json
 import math
 import os
@@ -9026,6 +9053,625 @@ def collective_apart(seed, card):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 3h: GSPMD training and the tp-sharded Predictor (a process of its
+# own, ``--gspmd``; its ranks start through the port's launcher,
+# ``--gspmd-rank``)
+# ---------------------------------------------------------------------------
+
+GSPMD_RANKS = 2
+GSPMD_STEPS = 3             # counted steps after the warm-up, every leg
+GSPMD_WAIT_S = 600.0
+# the sampled gradients, gathered by the fetch: (a)'s column- and
+# row-parallel weights and the output projection (ZeRO-3 in (b))
+GSPMD_GRADS = ("tfm_l0_self_q.w@GRAD", "tfm_l0_ffn_fc2.w@GRAD",
+               "tfm_out_fc.w@GRAD")
+GSPMD_FAULT = "tfm_l0_self_v.w"
+# the reference's steps whose gradients the legs are held to: the first
+# counted step (the planted fault's) and the last
+GSPMD_HELD_STEPS = (1, GSPMD_STEPS)
+# serving_tp_sharded's shape (bench.py:1108-1190): 256 -> 1024 x3 (relu)
+# -> 256 at batch 8
+TP_CHAIN = dict(batch=8, in_dim=256, hidden=1024, depth=3, out_dim=256)
+TP_RUNS = 20
+
+
+def gspmd_place(spec):
+    import paddle_tpu_torch as pt
+
+    return pt.CPUPlace() if spec["device"] == "cpu" else None
+
+
+def gspmd_program():
+    """tf_train_gspmd's program as bench.py:307-386 builds it with gspmd:
+    the LM with param_prefix "tfm", AMP decorate(Adam(TRAIN_LR)) with
+    static loss scaling 1.0, one adam op a parameter, fc_epilogue off:
+    (model, main, startup)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.contrib.mixed_precision import decorate
+    from paddle_tpu_torch.models.transformer import \
+        transformer_encoder_model
+
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        model = transformer_encoder_model(**dict(MODEL, is_test=False,
+                                                 param_prefix="tfm"))
+        decorate(pt.optimizer.Adam(TRAIN_LR, fuse=False),
+                 init_loss_scaling=1.0,
+                 use_dynamic_loss_scaling=False).minimize(model["loss"])
+    return model, main, startup
+
+
+def gspmd_steps(spec, exe, prog, scope, feed, fetch):
+    """A warm-up and GSPMD_STEPS counted steps of ``prog``: the fetches of
+    every step, each counted step's wall and event ms, the replayed
+    launches of the counted steps."""
+    import torch
+
+    cuda = spec["device"] != "cpu"
+    outs = [exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)]
+    before = prog.replayed_launches()
+    wall, event = [], []
+    for _ in range(GSPMD_STEPS):
+        if cuda:
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+        t0 = time.perf_counter()
+        outs.append(exe.run(prog, feed=feed, fetch_list=fetch, scope=scope))
+        wall.append((time.perf_counter() - t0) * 1e3)
+        if cuda:
+            e1.record()
+            e1.synchronize()
+            event.append(e0.elapsed_time(e1))
+    after = prog.replayed_launches()
+    launches = {k: after.get(k, 0) - before.get(k, 0)
+                for k in set(after) | set(before)
+                if after.get(k, 0) != before.get(k, 0)}
+    return outs, {"wall_ms": wall, "event_ms": event,
+                  "launches": launches}
+
+
+def gspmd_bar(losses, grads, ref_losses, ref_grads):
+    """The AMP bars of phase 7 against the one-rank run: each loss within
+    AMP_LOSS_RTOL; each sampled gradient within AMP_GRAD_NORM_RTOL of its
+    norm, within AMP_GRAD_BULK_RTOL of its scale in all but
+    AMP_GRAD_BULK_SHARE of its elements and within AMP_GRAD_MAX_RTOL
+    everywhere.  Returns (held, the numbers)."""
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    rows = {}
+    for n, want in ref_grads.items():
+        got = np.asarray(grads[n], dtype=np.float64)
+        want = np.asarray(want, dtype=np.float64)
+        diff = np.abs(got - want)
+        scale = max(float(np.abs(want).max()), 1e-30)
+        rows[n] = {"max_rel_to_scale": float(diff.max()) / scale,
+                   "share_beyond_bulk": float(
+                       (diff > AMP_GRAD_BULK_RTOL * scale).mean()),
+                   "norm_rel": float(np.linalg.norm(diff)) / max(
+                       float(np.linalg.norm(want)), 1e-30)}
+    held = loss_rel <= AMP_LOSS_RTOL and all(
+        r["max_rel_to_scale"] <= AMP_GRAD_MAX_RTOL
+        and r["share_beyond_bulk"] <= AMP_GRAD_BULK_SHARE
+        and r["norm_rel"] <= AMP_GRAD_NORM_RTOL for r in rows.values())
+    return held, {"loss_rel": loss_rel, "grads": rows}
+
+
+def _digest(a):
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def gspmd_wait_go(spec):
+    t_go = time.perf_counter()
+    while not os.path.exists(spec["go"]):
+        if time.perf_counter() - t_go > GSPMD_WAIT_S:
+            raise AssertionError("phase 3h: the phase's runs never ended")
+        time.sleep(0.05)
+
+
+def gspmd_train_leg(spec, plan_kw, fault):
+    """(a) / (b): the program through shard_program(MeshPlan(**plan_kw))
+    on this rank's rows of the data axis (AMP_BATCH rows in all): a
+    warm-up and GSPMD_STEPS counted steps held to the one-rank run, the
+    flash kernels' shapes, the blocks and their bytes, a profiled step;
+    with ``fault`` the planted fault's step after the start restored."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.parallel import env as penv
+    from paddle_tpu_torch.parallel.gspmd import MeshPlan
+    from paddle_tpu_torch.transpiler import shard_program
+
+    rank = penv.rank()
+    model, main, startup = gspmd_program()
+    exe, scope = pt.Executor(gspmd_place(spec)), pt.Scope()
+    np.random.seed(spec["seed"])
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.persistables() if not v.is_data]
+    start = {n: scope.find_var(n).get().clone() for n in names}
+    plan = MeshPlan(**plan_kw)
+    pt.set_flags({"gspmd": True})
+    try:
+        prog = shard_program(pt.CompiledProgram(main), plan,
+                             loss_name=model["loss"].name)
+    finally:
+        pt.set_flags({"gspmd": False})
+    di, dp = penv.get_mesh().axis_index("dp"), plan.axis_size("dp")
+    rows = AMP_BATCH // dp
+    feed = {k: v[di * rows:(di + 1) * rows]
+            for k, v in train_batch(spec["seed"], AMP_BATCH).items()}
+    fetch = [model["loss"].name, *GSPMD_GRADS]
+    # the flash kernels' operands, as the warm-up (eager, then the
+    # capture) hands them to the kernel entry (the forward op's and the
+    # grad op's, which recomputes the forward)
+    shapes = set()
+    entry = fa.flash_attention_lse
+
+    def rec(q, *a, **k):
+        shapes.add(("flash_attention_lse", tuple(q.shape), str(q.dtype)))
+        return entry(q, *a, **k)
+
+    gspmd_wait_go(spec)
+    if spec["device"] != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_lse = rec
+    try:
+        outs, timing = gspmd_steps(spec, exe, prog, scope, feed, fetch)
+    finally:
+        fa.flash_attention_lse = entry
+    blocks = prog.sharded_state()
+    tracked = [v.name for v in main.all_parameters()] + [
+        n for n in names if "_moment" in n]
+    held_bytes = sum((blocks[n] if n in blocks else start[n]).numel()
+                     * start[n].element_size() for n in tracked)
+    whole_bytes = sum(start[n].numel() * start[n].element_size()
+                      for n in tracked)
+    sharded_whole = sum(start[n].numel() * start[n].element_size()
+                        for n in tracked if n in blocks)
+    sharded_held = sum(blocks[n].numel() * blocks[n].element_size()
+                       for n in tracked if n in blocks)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if spec["device"] != "cpu" else None
+    ref = np.load(os.path.join(spec["dir"], "reference.npz"))
+    ref_losses = [float(x) for x in ref["losses"]]
+    losses = [float(np.asarray(o[0]).reshape(-1)[0]) for o in outs]
+    bars = {}
+    for s in GSPMD_HELD_STEPS:
+        bars[s] = gspmd_bar(
+            losses, dict(zip(GSPMD_GRADS, outs[s][1:])), ref_losses,
+            {n: ref[f"step{s}_{n}"] for n in GSPMD_GRADS})
+    # one step more, profiled on rank 0 (the other rank steps beside it)
+    step = lambda: exe.run(prog, feed=feed, fetch_list=fetch, scope=scope)
+    if rank == 0 and spec["device"] != "cpu":
+        _, prof = profile(f"gspmd step {plan!r}", step)
+        prof = {k: prof[k] for k in ("wall_ms", "device_ms",
+                                     "device_idle_share")}
+    else:
+        step()
+        prof = None
+    res = {"plan": plan.to_dict(), "rows": rows, "losses": losses,
+           "digests": [[_digest(np.asarray(x)) for x in o] for o in outs],
+           "bars": {str(s): {"held": b[0], **b[1]} for s, b in bars.items()},
+           "flash_shapes": sorted([k, list(s), d] for k, s, d in shapes),
+           **timing, "profiled_step": prof, "max_memory_allocated_gb": peak,
+           "blocks": {n: list(t.shape) for n, t in blocks.items()
+                      if n in ("tfm_l0_self_q.w", "tfm_l0_ffn_fc2.w",
+                               "tfm_emb.w", "tfm_out_fc.w", GSPMD_FAULT)},
+           "sharded_names": len(blocks),
+           "params_and_moments_bytes": {
+               "held": held_bytes, "one_rank": whole_bytes,
+               "share": held_bytes / whole_bytes,
+               "sharded_share": sharded_held / max(sharded_whole, 1)}}
+    if fault:
+        # the start restored in the buffers (no new capture), the
+        # warm-up's step replayed, then rank 1's column block of v.w
+        # zeroed before the first counted step
+        for n in names:
+            if n in blocks:
+                blocks[n].copy_(prog._shards[n].take(start[n]))
+            else:
+                scope.find_var(n).get().copy_(start[n])
+        step()
+        if rank == 1:
+            prog.sharded_state()[GSPMD_FAULT].zero_()
+        got = step()
+        held, nums = gspmd_bar(
+            [float(np.asarray(got[0]).reshape(-1)[0])],
+            dict(zip(GSPMD_GRADS, got[1:])), ref_losses[1:2],
+            {n: ref[f"step1_{n}"] for n in GSPMD_GRADS})
+        res["planted_fault"] = {"held": held, **nums}
+    del prog, scope, exe, start, blocks
+    if spec["device"] != "cpu":
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def gspmd_chain(d, seed):
+    """serving_tp_sharded's fc chain saved as an inference model to
+    ``d``, its weights from ``seed``; returns the probe batch."""
+    import paddle_tpu_torch as pt
+
+    c = TP_CHAIN
+    main, startup = pt.Program(), pt.Program()
+    with pt.program_guard(main, startup), pt.unique_name.guard():
+        x = pt.layers.data("x", shape=[c["in_dim"]], dtype="float32")
+        h = x
+        for _ in range(c["depth"]):
+            h = pt.layers.fc(h, size=c["hidden"], act="relu")
+        pred = pt.layers.fc(h, size=c["out_dim"])
+    exe, scope = pt.Executor(pt.CPUPlace()), pt.Scope()
+    np.random.seed(seed)
+    exe.run(startup, scope=scope)
+    with pt.scope_guard(scope):
+        pt.io.save_inference_model(d, ["x"], [pred], exe,
+                                   main_program=main)
+    return np.random.RandomState(seed + 3).rand(
+        c["batch"], c["in_dim"]).astype(np.float32)
+
+
+def gspmd_predictor_leg(spec):
+    """(d): the chain through a lone Predictor on this rank's device, then
+    through a Predictor sharded by shard(MeshPlan(dp=1, tp=2)): the
+    outputs against the lone one's, sharding_info, each one's ms a batch
+    by events, a profiled sharded batch."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel import env as penv
+    from paddle_tpu_torch.parallel.gspmd import MeshPlan
+
+    cuda = spec["device"] != "cpu"
+    probe = np.load(os.path.join(spec["dir"], "probe.npy"))
+
+    def predictor():
+        cfg = pt.inference.Config(os.path.join(spec["dir"], "chain"))
+        if not cuda:
+            cfg.disable_gpu()
+        return pt.inference.create_predictor(cfg)
+
+    def timed(p):
+        out = p.run([probe])[0]          # the capture
+        ms = []
+        for _ in range(TP_RUNS):
+            if cuda:
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+            t0 = time.perf_counter()
+            p.run([probe])
+            if cuda:
+                e1.record()
+                e1.synchronize()
+                ms.append(e0.elapsed_time(e1))
+            else:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    lone, lone_ms = timed(predictor())
+    p = predictor()
+    pt.set_flags({"serving_sharded": True})
+    try:
+        info = p.shard(MeshPlan(dp=1, tp=GSPMD_RANKS))
+        again = p.shard(MeshPlan(dp=1, tp=GSPMD_RANKS))
+    finally:
+        pt.set_flags({"serving_sharded": False})
+    out, ms = timed(p)
+    step = lambda: p.run([probe])
+    if penv.rank() == 0 and cuda:
+        _, prof = profile("tp-sharded Predictor batch", step)
+        prof = {k: prof[k] for k in ("wall_ms", "device_ms",
+                                     "device_idle_share")}
+    else:
+        step()
+        prof = None
+    diff = np.abs(out.astype(np.float64) - lone)
+    return {"equal": bool(np.array_equal(out, lone)),
+            "max_abs_diff": float(diff.max()),
+            "max_rel_diff": float((diff / np.maximum(
+                np.abs(lone), 1.0)).max()),
+            "annotated": info["annotated"],
+            "idempotent": again["annotated"] == info["annotated"],
+            "sharding_info": {n: [list(s) for s in v]
+                              for n, v in p.sharding_info().items()},
+            "digest": _digest(out), "lone_ms": lone_ms,
+            "sharded_ms": ms, "profiled_batch": prof}
+
+
+def gspmd_rank(spec_path):
+    """One rank of phase 3h (``--gspmd-rank``), started by the port's
+    launcher with the PADDLE_* contract: legs (a), (b) and (d); writes
+    ``rank<r>.json`` into the spec's directory."""
+    global MODEL, AMP_BATCH
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    MODEL = dict(MODEL, **spec["model"])
+    AMP_BATCH = spec["batch"]
+    TP_CHAIN.update(spec["chain"])
+    from paddle_tpu_torch.parallel import env as penv
+
+    t0 = time.perf_counter()
+    e = os.environ
+    penv.init_parallel_env(
+        int(e["PADDLE_TRAINER_ID"]), int(e["PADDLE_TRAINERS_NUM"]),
+        e["PADDLE_COORDINATOR_ENDPOINT"], place=gspmd_place(spec),
+        endpoints=e["PADDLE_TRAINER_ENDPOINTS"].split(","),
+        current=e["PADDLE_CURRENT_ENDPOINT"])
+    rank = penv.rank()
+    laps = {"init": time.perf_counter() - t0}
+    res = {"rank": rank, "world": penv.world_size(),
+           "backend": penv.backend(), "device": str(penv.device())}
+    for key, fn in (
+            ("tp", lambda: gspmd_train_leg(spec, dict(dp=1, tp=GSPMD_RANKS),
+                                           True)),
+            ("zero3", lambda: gspmd_train_leg(
+                spec, dict(dp=GSPMD_RANKS, tp=1), False)),
+            ("predictor", lambda: gspmd_predictor_leg(spec))):
+        t = time.perf_counter()
+        penv.reset()
+        res[key] = fn()
+        laps[key] = time.perf_counter() - t
+    res["routes"] = penv.routes()
+    res["laps_s"] = laps
+    penv.barrier()
+    penv.shutdown()
+    with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def gspmd_local_runs(spec):
+    """In this process, from the ranks' start: the one-rank run of the
+    program without shard_program (the reference of (a) and (b), its
+    losses and the held steps' gradients written for the ranks), and (c)
+    tf_train_gspmd as bench.py builds it on one card (tp clamped to the
+    device count, a one-device mesh), its fetches and parameters against
+    the reference's bitwise."""
+    import torch
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.parallel.gspmd import MeshPlan
+    from paddle_tpu_torch.transpiler import shard_program
+
+    cuda = spec["device"] != "cpu"
+    place = pt.CUDAPlace(0) if cuda else pt.CPUPlace()
+    runs = {}
+    for what in ("reference", "bench"):
+        model, main, startup = gspmd_program()
+        exe, scope = pt.Executor(place), pt.Scope()
+        np.random.seed(spec["seed"])
+        exe.run(startup, scope=scope)
+        prog = pt.CompiledProgram(main)
+        plan = None
+        if what == "bench":
+            # bench.py:370-380: tp clamped to the device count
+            ndev = torch.cuda.device_count() if cuda else 1
+            tp = max(1, min(2, ndev))
+            while ndev % tp:
+                tp -= 1
+            plan = MeshPlan(dp=ndev // tp, tp=tp)
+            pt.set_flags({"gspmd": True})
+            try:
+                prog = shard_program(prog, plan,
+                                     loss_name=model["loss"].name)
+            finally:
+                pt.set_flags({"gspmd": False})
+        fetch = [model["loss"].name, *GSPMD_GRADS]
+        outs, timing = gspmd_steps(spec, exe, prog, scope,
+                                   train_batch(spec["seed"], AMP_BATCH),
+                                   fetch)
+        runs[what] = {
+            "outs": outs, "timing": timing, "graphs": prog.graph_stats(),
+            "plan": plan and plan.to_dict(),
+            "mesh": None if prog._mesh is None else dict(prog._mesh.shape),
+            "sharded": len(prog.sharded_state()),
+            "final": {p.name: scope.find_var(p.name).get().detach().to(
+                "cpu").clone() for p in main.all_parameters()}}
+        del exe, scope, prog
+        if cuda:
+            gc.collect()
+            torch.cuda.empty_cache()
+    ref, bench = runs["reference"], runs["bench"]
+    np.savez(os.path.join(spec["dir"], "reference.npz"), losses=np.array(
+        [float(np.asarray(o[0]).reshape(-1)[0]) for o in ref["outs"]]),
+        **{f"step{s}_{n}": np.asarray(ref["outs"][s][1 + i])
+           for s in GSPMD_HELD_STEPS for i, n in enumerate(GSPMD_GRADS)})
+    equal = all(np.array_equal(np.asarray(a), np.asarray(b))
+                for oa, ob in zip(ref["outs"], bench["outs"])
+                for a, b in zip(oa, ob)) and all(
+        torch.equal(ref["final"][n], bench["final"][n]) for n in ref["final"])
+    return {"reference": {"losses": [float(np.asarray(o[0]).reshape(-1)[0])
+                                     for o in ref["outs"]],
+                          **ref["timing"], "graphs": ref["graphs"]},
+            "bench": {"equal_to_reference": equal, "plan": bench["plan"],
+                      "mesh": bench["mesh"], "sharded": bench["sharded"],
+                      **bench["timing"], "graphs": bench["graphs"]}}
+
+
+def gspmd_spawn(tmp, spec):
+    port = _free_port()
+    path = os.path.join(tmp, "spec_gspmd.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+            os.pathsep) if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.launch", "--nproc_per_node",
+         str(GSPMD_RANKS), "--started_port", str(port),
+         os.path.abspath(__file__), "--gspmd-rank", path], env=env, cwd=root)
+
+
+def gspmd_expected(spec):
+    """The flash launches of GSPMD_STEPS steps of the LM a rank: 12
+    forward (6 recomputed in the grads), 6 dq, 6 dkv a step (on the CPU
+    the plain versions run: 0 each)."""
+    n = MODEL["n_layer"] * GSPMD_STEPS if spec["device"] != "cpu" else 0
+    return {k: v for k, v in (("flash_attention_fwd", 2 * n),
+                              ("flash_attention_bwd_dq", n),
+                              ("flash_attention_bwd_dkv", n))}
+
+
+def gspmd_phase(seed, device="cuda"):
+    """Phase 3h (see the module docstring): the 2-rank legs through the
+    launcher, started first; beside their start, this process's runs (the
+    reference and (c)); then every bar."""
+    t_phase = time.perf_counter()
+    laps = {}
+    heads = MODEL["n_head"]
+    with tempfile.TemporaryDirectory() as tmp:
+        go = os.path.join(tmp, "go")
+        os.makedirs(os.path.join(tmp, "chain"))
+        probe = gspmd_chain(os.path.join(tmp, "chain"), seed)
+        np.save(os.path.join(tmp, "probe.npy"), probe)
+        spec = {"seed": seed, "device": device, "dir": tmp, "go": go,
+                "model": {k: MODEL[k] for k in MODEL if k != "is_test"},
+                "batch": AMP_BATCH, "chain": TP_CHAIN}
+        proc = gspmd_spawn(tmp, spec)
+        try:
+            t = time.perf_counter()
+            local = gspmd_local_runs(spec)
+            laps["local_runs"] = time.perf_counter() - t
+        except BaseException:
+            proc.kill()
+            proc.wait()
+            raise
+        open(go, "w").close()
+        t = time.perf_counter()
+        try:
+            code = proc.wait(timeout=GSPMD_WAIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"phase 3h: the ranks outlasted "
+                                 f"{GSPMD_WAIT_S} s")
+        if code != 0:
+            raise AssertionError(f"phase 3h: the ranks failed (exit {code})")
+        laps["ranks_after_local_runs"] = time.perf_counter() - t
+        ranks = []
+        for r in range(GSPMD_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    r0 = ranks[0]
+    failures = []
+    want = gspmd_expected(spec)
+    d_head = MODEL["d_model"] // heads
+    for leg, shape in (("tp", [AMP_BATCH, heads // GSPMD_RANKS,
+                               MODEL["max_len"], d_head]),
+                       ("zero3", [AMP_BATCH // GSPMD_RANKS, heads,
+                                  MODEL["max_len"], d_head])):
+        if any(r[leg]["digests"] != r0[leg]["digests"] for r in ranks):
+            failures.append(f"{leg}: the ranks' fetches differ")
+        for r in ranks:
+            got = {k: r[leg]["launches"].get(k, 0) for k in want}
+            if got != want:
+                failures.append(f"{leg} rank {r['rank']}: launches {got}, "
+                                f"expected {want}")
+            fs = {tuple(s) for _, s, _ in r[leg]["flash_shapes"]}
+            if fs != {tuple(shape)}:
+                failures.append(f"{leg} rank {r['rank']}: flash operands "
+                                f"{r[leg]['flash_shapes']}, expected "
+                                f"{shape}")
+        for s, b in r0[leg]["bars"].items():
+            if not b["held"]:
+                failures.append(f"{leg}: step {s} beyond the AMP bars of "
+                                f"the one-rank run: {b}")
+    tp, z3 = r0["tp"], r0["zero3"]
+    if tp["blocks"].get("tfm_l0_self_q.w") != [
+            MODEL["d_model"], MODEL["d_model"] // GSPMD_RANKS]:
+        failures.append(f"tp: q.w's block {tp['blocks']}")
+    if any(r["tp"]["planted_fault"]["held"] for r in ranks):
+        failures.append("tp: the planted fault (rank 1's block of "
+                        f"{GSPMD_FAULT} zeroed) held the bar")
+    share = z3["params_and_moments_bytes"]
+    if share["sharded_share"] != 1 / GSPMD_RANKS or not \
+            1 / GSPMD_RANKS <= share["share"] <= 1 / GSPMD_RANKS + 0.01:
+        failures.append(f"zero3: a rank holds {share} of the one-rank run's "
+                        "parameter and moment bytes")
+    if not local["bench"]["equal_to_reference"]:
+        failures.append("tf_train_gspmd: the replays differ from the "
+                        "program run without shard_program")
+    pr = [r["predictor"] for r in ranks]
+    if any(p["digest"] != pr[0]["digest"] for p in pr):
+        failures.append("predictor: the ranks' outputs differ")
+    for p in pr:
+        if not p["equal"] and (p["max_abs_diff"] > LOGITS_ATOL
+                               or p["max_rel_diff"] > LOGITS_RTOL):
+            failures.append(f"predictor: {p['max_abs_diff']} from the lone "
+                            "Predictor, beyond the logits bound")
+        c, half = TP_CHAIN, GSPMD_RANKS
+        widths = [c["in_dim"]] + [c["hidden"]] * c["depth"] + [c["out_dim"]]
+        want_blocks = {}
+        for i in range(c["depth"] + 1):
+            want_blocks[f"fc_{i}.w_0"] = [widths[i], widths[i + 1] // half]
+            want_blocks[f"fc_{i}.b_0"] = [widths[i + 1] // half]
+        if {k: v[1] for k, v in p["sharding_info"].items()} != \
+                want_blocks or not p["idempotent"]:
+            failures.append(f"predictor: sharding_info "
+                            f"{p['sharding_info']}")
+    res = {
+        "backend": sorted({r["backend"] for r in ranks}),
+        "tp": {k: tp[k] for k in (
+            "losses", "wall_ms", "event_ms", "launches", "flash_shapes",
+            "blocks", "bars", "planted_fault", "profiled_step",
+            "max_memory_allocated_gb")},
+        "zero3": {k: z3[k] for k in (
+            "losses", "wall_ms", "event_ms", "launches", "flash_shapes",
+            "blocks", "bars", "params_and_moments_bytes", "profiled_step",
+            "max_memory_allocated_gb")},
+        "tf_train_gspmd": local["bench"], "reference": local["reference"],
+        "predictor": {k: pr[0][k] for k in (
+            "equal", "max_abs_diff", "max_rel_diff", "sharding_info",
+            "lone_ms", "sharded_ms", "profiled_batch", "idempotent")},
+        "routes": [r["routes"] for r in ranks],
+        "rank_laps_s": [r["laps_s"] for r in ranks],
+        "laps_s": laps, "seconds": time.perf_counter() - t_phase}
+    log("gspmd " + json.dumps(res))
+    if failures:
+        raise AssertionError("phase 3h: " + "; ".join(failures))
+    return res
+
+
+def gspmd_apart(seed, card):
+    """Phase 3h in a process of its own (``--gspmd``); returns its
+    numbers, logged beside the card's line."""
+    import torch
+
+    torch.cuda.empty_cache()
+    log("phase 3h starts beside this process's "
+        f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved on the card")
+    with tempfile.TemporaryDirectory() as tmp:
+        res_path = os.path.join(tmp, "gspmd.json")
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--seed", str(seed),
+             "--gspmd", res_path], timeout=GSPMD_WAIT_S * 2)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 3h failed in its process "
+                                 f"(exit {proc.returncode})")
+        with open(res_path) as f:
+            res = json.load(f)
+
+    def med(xs):
+        return sorted(xs)[len(xs) // 2] if xs else None
+
+    log(f"gspmd ({card}) " + json.dumps({
+        "tp_step_event_ms": med(res["tp"]["event_ms"]),
+        "zero3_step_event_ms": med(res["zero3"]["event_ms"]),
+        "tf_train_gspmd_step_event_ms": med(
+            res["tf_train_gspmd"]["event_ms"]),
+        "reference_step_event_ms": med(res["reference"]["event_ms"]),
+        "predictor_ms": [med(res["predictor"]["lone_ms"]),
+                         med(res["predictor"]["sharded_ms"])],
+        "idle": [res["tp"]["profiled_step"], res["zero3"]["profiled_step"],
+                 res["predictor"]["profiled_batch"]],
+        "seconds": res["seconds"]}))
+    return res
+
+
 PORT_KERNEL = re.compile(
     r"(?:::|\d)((?:flash_(?:fwd|bwd_dq|bwd_dkv)_(?:bf16|f32|wide)"
     r"|flash_decode(?:_merge|_wide)?|fc_(?:ep_bf16|ep_f32|wgmma)"
@@ -9122,6 +9768,13 @@ def main(argv=None):
     ap.add_argument("--collective-rank", metavar="SPEC_PATH",
                     help="run one rank of phase 3g's legs, as the spec file "
                     "says (the phase starts these through the launcher)")
+    ap.add_argument("--gspmd", metavar="RESULT_JSON",
+                    help="run phase 3h alone (the flash kernels already "
+                    "built) and write its numbers to RESULT_JSON; the whole "
+                    "script runs it so, in a process of its own")
+    ap.add_argument("--gspmd-rank", metavar="SPEC_PATH",
+                    help="run one rank of phase 3h's legs, as the spec file "
+                    "says (the phase starts these through the launcher)")
     ap.add_argument("--ps-node", metavar="SPEC_JSON",
                     help="run one pserver or trainer of phase 3e's or 3f's "
                     "clusters, as SPEC_JSON says (the phases start these)")
@@ -9152,6 +9805,9 @@ def main(argv=None):
     if args.collective_rank:
         collective_rank(args.collective_rank)
         return 0
+    if args.gspmd_rank:
+        gspmd_rank(args.gspmd_rank)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -9173,6 +9829,10 @@ def main(argv=None):
     if args.collective:
         with open(args.collective, "w") as f:
             json.dump(collective_phase(args.seed), f)
+        return 0
+    if args.gspmd:
+        with open(args.gspmd, "w") as f:
+            json.dump(gspmd_phase(args.seed), f)
         return 0
     if args.ctr:
         with open(args.ctr, "w") as f:
@@ -9254,6 +9914,11 @@ def run_phases(args, card, device):
     log(f"kernels built in {built_s:.1f} s ({', '.join(LATE_KERNELS)} "
         "still building)")
     phase("the kernels' build")
+    # while this process holds next to nothing on the card: its two ranks
+    # and their CUDA graphs take ~31 GB each at the full width
+    gspmd = gspmd_apart(args.seed, card)
+    phase("GSPMD training and the tp-sharded Predictor (its own process, "
+          "its ranks through the launcher)")
 
     cases = check_flash(device, args.seed)
     f64_fwd = check_f32_vs_f64(device, args.seed, grads=False)
@@ -9397,6 +10062,10 @@ def run_phases(args, card, device):
                 "ps_elastic_resumed": ctr["launches_elastic"][name],
                 "collective_training": coll["fleet"]["launches"].get(name, 0),
                 "collective_conv_bn_train": coll["conv_bn"]["launches"].get(
+                    name, 0),
+                "gspmd_tp": gspmd["tp"]["launches"].get(name, 0),
+                "gspmd_zero3": gspmd["zero3"]["launches"].get(name, 0),
+                "tf_train_gspmd": gspmd["tf_train_gspmd"]["launches"].get(
                     name, 0),
                 "training": train_launches[name],
                 "amp_training": amp_launches[name],

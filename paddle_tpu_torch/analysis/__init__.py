@@ -1,11 +1,14 @@
-"""Static program analysis of the port: the structural IR verifier.
+"""Static program analysis of the port: the structural IR verifier and
+the static sharding check.
 
-Counterpart of ``paddle_tpu/analysis`` (``verifier.py`` whole, and
-``verify_level``/``verify_enabled`` of ``passes.py:35-44``).  The flag
+Counterpart of ``paddle_tpu/analysis`` (``verifier.py`` whole,
+``verify_level``/``verify_enabled`` of ``passes.py:35-44`` and
+``check_sharding`` of ``shape_check.py:206-312``).  The flag
 ``ir_verify`` ("off" by default) gates where the port calls ``verify``:
-the model registry at registration and at prewarm, and ``checked_pass``
-around the collective transpilers.  ``checked_pass`` around the other
-transpilers and the static shape check (``shape_check.py``) are not
+the model registry at registration and at prewarm, ``checked_pass``
+around the collective and sharding transpilers, and ``check_sharding``
+after the annotation passes.  ``checked_pass`` around the other
+transpilers and the static shape check of ``shape_check.py`` are not
 ported yet (ROADMAP Queue 1 item 6).
 """
 

@@ -62,11 +62,10 @@ tick while the plan runs eagerly or captures, never on a replay: each
 capture records the counts' deltas (``ops.kernel_launches``), and
 ``replayed_launches`` multiplies them by the replays.
 
-Data parallelism (``with_data_parallel``, ``with_sharding_rules``): one
-process a device, each rank feeding its local shard of the batch.  The
-plan reduces the gradients between the backward ops and the optimizer's,
-and ZeRO updates sharded parameters in rows (``core/data_parallel.py``);
-the program itself is left as it is.  Every step first checks that the
+Data parallelism (``with_data_parallel``): one process a device, each
+rank feeding its local shard of the batch.  The plan reduces the
+gradients between the backward ops and the optimizer's
+(``core/data_parallel.py``); the program itself is left as it is.  Every step first checks that the
 ranks' feeds have the same batch size (else the JAX package's
 ``ValueError`` naming "divide"); batch-reducing ops take the global
 batch's statistics (``parallel.env.data_parallel``); the ``loss_name``
@@ -76,6 +75,14 @@ fetch raises ``DataParallelFetchError``.  Collectives run in the plan's
 order on every rank.  On ``gloo`` a collective, and an op that issues
 one (``ops/collective.py``, the batch statistics' ops), is a host step
 between two CUDA graphs; on ``nccl`` it is captured in the graph.
+
+Sharding (``with_sharding_rules``, ``transpiler.shard_program``): any
+rule (ZeRO's stages, tensor layouts) makes the plan the layout engine's
+(``core/sharding.py``): each rank holds its block of every
+sharded persistable (the scope's entry a ``ShardedVariable``), the ops run
+on this rank's blocks with the collectives the layouts need between them,
+and a fetch of a sharded var is gathered to the global array.  A world of
+one with a plan of size 1 shards nothing: the plain captured step.
 """
 
 from __future__ import annotations
@@ -88,10 +95,10 @@ import time
 import torch
 
 from paddle_tpu_torch.core import data_parallel as _dp
+from paddle_tpu_torch.core import sharding as _sh
 from paddle_tpu_torch.core.executor import (_SPECIAL_OPS, ResolvedOp,
                                             feed_tensor, fetch_name)
 from paddle_tpu_torch.core.program import BlockRef, Program
-from paddle_tpu_torch.core.registry import get_op_def
 from paddle_tpu_torch.core.types import to_numpy
 from paddle_tpu_torch.observability import device_trace as _obs_device
 from paddle_tpu_torch.observability import collector as _obs_collector
@@ -450,13 +457,15 @@ class CompiledProgram:
         self._state_storages = set()
         self._pool = None
         self._stream = None
-        # data parallelism: the mesh and its data axis, the loss, ZeRO's
-        # rule and, once bound, this rank's rows; the fetch rules' cache
+        # data parallelism: the mesh and its data axis, the loss, the
+        # sharding rule and, once bound, the layout engine's plan and this
+        # rank's blocks; the fetch rules' cache
         self._mesh = None
         self._data_axis = "dp"
         self._loss_name = None
         self._sharding_fn = None
-        self._zero = {}
+        self._sharding = None
+        self._shards = {}
         self._rules = self._rules_key = None
 
     # -- parity API -------------------------------------------------------
@@ -488,7 +497,7 @@ class CompiledProgram:
         self._data_axis = "dp" if "dp" in mesh.axis_names \
             else mesh.axis_names[0]
         self._cache.clear()
-        self._scope = None        # ZeRO's rows rebind with the mesh
+        self._scope = None        # the blocks rebind with the mesh
 
     def with_inference_optimize(self, config=None):
         """Nothing differs for inference: the same plan and graphs."""
@@ -496,19 +505,22 @@ class CompiledProgram:
 
     def with_sharding_rules(self, fn, mesh=None):
         """``fn(var_name, shape) -> PartitionSpec or None`` for persistable
-        state.  The port runs ZeRO's rules (``parallel.zero``: optimizer
-        accumulators sharded on dim 0 over the data axis, stages 1 and 2):
-        each rank holds and updates its rows, which ``sharded_state``
-        returns; the scope's entry of such an accumulator refuses a read
-        (``data_parallel.ShardedVariable``).  A rule that shards a
-        parameter (stage 3), or takes another spec, raises here, naming
-        the gspmd item."""
-        if mesh is not None:
+        state, read as the JAX package reads it: an accumulator the rule
+        leaves None inherits its parameter's rule, a spec that does not
+        divide its dims evenly leaves the var replicated, an axis not in
+        the mesh raises.  The layout engine (``core/sharding.py``) runs
+        every rule: ZeRO's stages (``parallel.zero``), tensor layouts,
+        composed specs such as ("tp", "dp").  Each rank holds and updates
+        its blocks, which ``sharded_state`` returns; the scope's entry of
+        a sharded persistable refuses a read
+        (``data_parallel.ShardedVariable``)."""
+        if mesh is not None and mesh is not self._mesh:
             self._set_mesh(mesh)
-        axis = self._data_axis
-        if self._mesh is not None and axis not in self._mesh.axis_names:
-            axis = self._mesh.axis_names[0]
-        _dp.zero_layout(self._program, fn, axis)
+        elif self._mesh is None:
+            self._set_mesh(_penv.get_mesh() or _penv.make_mesh())
+        if self._data_axis not in self._mesh.axis_names:
+            self._data_axis = self._mesh.axis_names[0]
+        _sh.storage_specs(self._program, fn, self._mesh)   # raises early
         self._sharding_fn = fn
         self._cache.clear()
         self._scope = None
@@ -551,72 +563,15 @@ class CompiledProgram:
 
     # -- the plan ---------------------------------------------------------
     def _dp_steps(self, ops):
-        """A data-parallel step's plan steps (``core/data_parallel.py``):
-        ({op index: [steps before it]}, {op index: [steps after it]},
-        {optimize op index: {parameter: ZeroRows}})."""
+        """A data-parallel step's gradient all-reduce
+        (``core/data_parallel.py``): {op index: [steps before it]}."""
         dp = self._dp()
         if dp is None:
-            return {}, {}, {}
-        group, size = dp
+            return {}
         first, grads = _dp.step_grads(ops)
         if first is None or not grads:
-            return {}, {}, {}
-        zero = self._zero
-        grad_of = {}
-        for op in ops:
-            if op.op_role == "optimize" and "Grad" in op.inputs \
-                    and "Param" in op.inputs:
-                for p, g in zip(op.inputs["Param"], op.inputs["Grad"]):
-                    if p in zero:
-                        grad_of[g] = p
-        before = []
-        plain = [g for g in grads if g not in grad_of]
-        if plain:
-            before.append(_dp.all_reduce_step(plain, group, size))
-        sharded = [g for g in grads if g in grad_of]
-        if sharded:
-            before.append(_dp.reduce_scatter_step(
-                sharded, [zero[grad_of[g]] for g in sharded], group, size))
-        after, wraps = {}, {}
-        if zero:
-            last, rows_only = None, set(sharded)
-            for i, op in enumerate(ops):
-                if op.op_role != "optimize":
-                    continue
-                read = rows_only.intersection(op.input_names())
-                if any(p in zero for p in op.inputs.get("Param", ())):
-                    wraps[i] = {p: zero[p] for p in op.inputs["Param"]
-                                if p in zero}
-                    last = i
-                    stray = [g for p, g in zip(op.inputs["Param"],
-                                               op.inputs["Grad"])
-                             if p in zero and g not in rows_only]
-                    if stray:
-                        raise NotImplementedError(
-                            f"with_sharding_rules: '{op.type}' updates a "
-                            f"ZeRO-sharded parameter from {stray}, which "
-                            "no backward op writes; only a gradient of "
-                            "the backward can be reduce-scattered into "
-                            f"rows (waits for {_dp.GSPMD_ITEM})")
-                elif op.type == "check_finite_and_unscale" and read:
-                    # its flag saw this rank's rows only
-                    zero_on_inf = get_op_def(op.type).canonical_attrs(
-                        op.attrs)["zero_on_inf"]
-                    after.setdefault(i, []).append(_dp.found_inf_step(
-                        op.outputs["FoundInfinite"][0], op.outputs["Out"],
-                        zero_on_inf, group, size))
-                elif read:
-                    raise NotImplementedError(
-                        f"with_sharding_rules: optimize op '{op.type}' "
-                        f"reads the ZeRO-sharded gradients {sorted(read)}, "
-                        "of which each rank holds its rows only; an "
-                        "optimize op but the parameter's own update and "
-                        "AMP's check on sharded gradients waits for "
-                        f"{_dp.GSPMD_ITEM}")
-            params = list(zero)
-            after.setdefault(last, []).append(_dp.all_gather_step(
-                params, [zero[p] for p in params], group, size))
-        return {first: before}, after, wraps
+            return {}
+        return {first: [_dp.all_reduce_step(grads, *dp)]}
 
     def _host_step(self, op_type, device):
         """Whether an op of ``op_type`` (or a collective step) runs as a
@@ -630,13 +585,26 @@ class CompiledProgram:
         dp = self._dp()
         return op_type in _BATCH_STAT_OPS and dp is not None and dp[1] > 1
 
+    def _plan_ops(self, ops):
+        """[(program op or None, the step that runs it or None)]: the
+        layout engine's plan, or the ops with the gradient all-reduce
+        before the first optimize op."""
+        if self._sharding is not None:
+            return self._sharding.plan(
+                ops, lambda op: op.type in _SKIP_IN_TRACE
+                or op.type in _CONTROL_FLOW)
+        before = self._dp_steps(ops)
+        plan = []
+        for i, op in enumerate(ops):
+            plan += [(None, s) for s in before.get(i, ())]
+            plan.append((op, None))
+        return plan
+
     def _build_fn(self, fetch_names, device):
         """The plan of the global block: segments of device ops split at
         host-only ops (see the module docstring), with a data-parallel
-        step's collectives and ZeRO's updates."""
+        step's collectives, or a sharded plan's."""
         items, seg, constants = [], None, set()
-        ops = self._program.global_block().ops
-        before, after, wraps = self._dp_steps(ops)
 
         def add(step, host):
             nonlocal seg
@@ -649,9 +617,10 @@ class CompiledProgram:
                 items.append(seg)
             seg.steps.append((step, None))
 
-        for i, op in enumerate(ops):
-            for step in before.get(i, ()):
+        for op, step in self._plan_ops(self._program.global_block().ops):
+            if op is None:
                 add(step, self._host_step(step.op.type, device))
+                continue
             if op.type in _SKIP_IN_TRACE:
                 continue
             if op.type in _CONTROL_FLOW:
@@ -659,18 +628,14 @@ class CompiledProgram:
                     f"compile: op '{op.type}' (control flow) has no port "
                     "yet; run this program through the interpreted "
                     "executor (ROADMAP Queue 1 item 6)")
-            rop = ResolvedOp(op)
+            rop = step if step is not None else ResolvedOp(op)
             if rop.op_def.host_only:
                 seg = None
                 if op.type not in _HOST_SKIP_SILENT:
                     items.append(_HostOp(rop))
                 continue
-            if i in wraps:
-                rop = _dp.ZeroOpt(rop, wraps[i])
             if self._host_step(op.type, device):
                 add(rop, True)
-                for step in after.get(i, ()):
-                    add(step, self._host_step(step.op.type, device))
                 continue
             if seg is None:
                 seg = _Segment()
@@ -680,8 +645,6 @@ class CompiledProgram:
                 const = rop.compute({}, device)
                 rop.scatter(const, lambda n, v: constants.add(_storage(v)))
             seg.steps.append((rop, const))
-            for step in after.get(i, ()):
-                add(step, self._host_step(step.op.type, device))
         state = set(self._persistable_names)
         live = set(fetch_names)
         for item in reversed(items):
@@ -703,19 +666,23 @@ class CompiledProgram:
         """Make the scope's tensor of each persistable its fixed buffer
         (moved to ``device``, made dense or given a storage of its own
         where it is not); drops every entry built against other
-        buffers."""
+        buffers.  A sharded persistable's buffer is this rank's block, and
+        its scope entry a ``ShardedVariable``."""
         self._cache.clear()
         self._pool = None
         self._scope, self._device = scope, device
         self._state, self._state_storages = {}, set()
-        self._zero = self._zero_rows()
+        self._sharding = self._layouts()
+        self._shards = {} if self._sharding is None else {
+            n: _sh.Shard(lay, self._program.global_block().var(n).shape,
+                         self._mesh)
+            for n, lay in self._sharding.storage.items()}
         self._rules_key = None
-        acc_rows = {a: r for r in self._zero.values()
-                    for a in r.accumulators}
+        blocks = self._shards
         used = None
         for n in self._persistable_names:
             var = scope.find_var(n)
-            r = acc_rows.get(n)
+            r = blocks.get(n)
             if isinstance(var, _dp.ShardedVariable) and var.value is None:
                 if r is not None and var.holds(r):
                     t = var.rows
@@ -724,22 +691,22 @@ class CompiledProgram:
                         used = {m for op in self._program.global_block().ops
                                 for m in op.input_names() + op.output_names()}
                     if n not in used:
-                        continue    # another program's rows, unread here
-                    var.get()       # raises, naming ZeRO
+                        continue    # another program's block, unread here
+                    var.get()       # raises, naming the sharding
             else:
                 t = None if var is None else var.get()
                 if t is None:
                     raise RuntimeError(
                         f"CompiledProgram: persistable '{n}' is "
                         "uninitialized — run the startup program first")
-                if r is not None and t.shape[0] == r.rows_total:
-                    t = t[r.lo:r.hi]
+                if r is not None:
+                    t = r.take(t)
             if t.device != device or not t.is_contiguous() or \
                     _storage(t) in self._state_storages or r is not None:
                 t = t.to(device).clone(memory_format=torch.contiguous_format)
             if r is not None:
-                # ZeRO: this rank's rows stay here; the scope's entry
-                # refuses a read
+                # this rank's block stays here; the scope's entry refuses a
+                # read
                 _scope_holding(scope, n).vars[n] = _dp.ShardedVariable(
                     n, t, r)
             elif t is not var.get():
@@ -748,23 +715,20 @@ class CompiledProgram:
             self._state_storages.add(_storage(t))
 
     def sharded_state(self) -> dict:
-        """{accumulator: this rank's rows} of the ZeRO-sharded optimizer
-        state, once a run has bound it ({} without ZeRO)."""
-        return {a: self._state[a] for r in self._zero.values()
-                for a in r.accumulators if a in self._state}
+        """{persistable: this rank's block} of every persistable the
+        sharding rule shards, once a run has bound it ({} without
+        sharding)."""
+        return {n: self._state[n] for n in self._shards if n in self._state}
 
-    def _zero_rows(self):
-        """{parameter: ZeroRows} of this rank under ZeRO's rule, or {}."""
-        dp = self._dp()
-        if self._sharding_fn is None or dp is None or dp[1] == 1:
-            return {}
-        index = self._mesh.axis_index(self._data_axis)
-        block = self._program.global_block()
-        return {p: _dp.ZeroRows(int(block.var(p).shape[0]), dp[1], index,
-                                accs)
-                for p, accs in _dp.zero_layout(
-                    self._program, self._sharding_fn,
-                    self._data_axis).items()}
+    def _layouts(self):
+        """The layout engine's plan under the sharding rule, or None where
+        it shards nothing over this mesh."""
+        if self._sharding_fn is None or self._mesh is None:
+            return None
+        specs = _sh.storage_specs(self._program, self._sharding_fn,
+                                  self._mesh)
+        return _sh.ShardedPlan(self._program, self._mesh, self._data_axis,
+                               specs) if specs else None
 
     def _sync_state(self, scope, device):
         """Before a run: every persistable in the scope is its buffer.  A
@@ -1088,13 +1052,11 @@ class CompiledProgram:
         docstring's rules)."""
         group, size = self._dp()
         block = self._program.global_block()
-        persist, grads, rows = self._fetch_rules()
+        persist, grads = self._fetch_rules()
         out = []
         for v, n in zip(fetched, fetch_names):
             if n == self._loss_name:
                 v = _penv.collective("all_reduce", v, group, size) / size
-            elif n in rows and v.shape[0] != rows[n].rows_total:
-                v = _dp.gather_rows(v, rows[n], group, size)
             elif n in persist or n in grads:
                 pass
             elif v.dim() >= 1 and block.has_var(n) and \
@@ -1108,21 +1070,12 @@ class CompiledProgram:
         return out
 
     def _fetch_rules(self):
-        """(persistables, reduced gradients, {name: ZeroRows} of the
-        ZeRO-sharded accumulators and gradients), once a program
-        fingerprint and binding."""
+        """(persistables, reduced gradients), once a program
+        fingerprint."""
         key = _program_fingerprint(self._program)
         if self._rules_key != key:
-            block = self._program.global_block()
-            _, grads = _dp.step_grads(block.ops)
-            rows = {a: r for r in self._zero.values()
-                    for a in r.accumulators}
-            for op in block.ops:
-                if "Grad" in op.inputs and "Param" in op.inputs:
-                    rows.update((g, self._zero[p]) for p, g in zip(
-                        op.inputs["Param"], op.inputs["Grad"])
-                        if p in self._zero)
-            self._rules = (set(self._persistable_names), set(grads), rows)
+            _, grads = _dp.step_grads(self._program.global_block().ops)
+            self._rules = (set(self._persistable_names), set(grads))
             self._rules_key = key
         return self._rules
 
@@ -1133,6 +1086,11 @@ class CompiledProgram:
         seconds first, then requests the trainer's fleet push: a step
         boundary is its moment (rate-limited inside, the push runs on the
         pusher's thread; one None check and one memo check when off)."""
+        if self._sharding is not None:
+            final, mesh = self._sharding.final, self._mesh
+            fetched = [_sh.convert(v, final[n], _sh.REP, mesh)
+                       if final.get(n, _sh.REP) != _sh.REP else v
+                       for v, n in zip(fetched, fetch_names)]
         if self._dp() is not None:
             fetched = self._dp_fetched(fetched, fetch_names)
         _M_STEP_SECONDS.observe(time.perf_counter() - t0)

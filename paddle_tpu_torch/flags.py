@@ -182,3 +182,25 @@ define_flag("ir_verify", "off",
             "model registry at registration and at prewarm; 'full' = 'on' "
             "(the static shape check and the checks around every "
             "transpiler pass are not ported yet, ROADMAP Queue 1 item 6)")
+define_flag("gspmd", False,
+            "the sharding front-end (parallel/gspmd.py, "
+            "transpiler/sharding_transpiler.py): False = the data-parallel "
+            "and ZeRO 1-2 paths as they are (default; shard_program() "
+            "returns the CompiledProgram untouched and the step is bitwise "
+            "the same as never calling it); True = shard_program(plan) "
+            "writes PartitionSpec annotations on the Program IR (ZeRO-3 "
+            "over the data axis, the Megatron column/row splits over tp, "
+            "the flash ops tagged) and CompiledProgram runs them: each "
+            "rank holds its block of every annotated var, and the plan "
+            "(core/sharding.py) puts the collectives at the layout "
+            "boundaries, with flash attention on each rank's heads")
+define_flag("serving_sharded", False,
+            "tensor-parallel inference replicas: False = a Predictor is "
+            "one whole model on one device (default; Predictor.shard() is "
+            "a no-op returning None); True = Predictor.shard(plan) "
+            "annotates the inference program's fc weights column-parallel "
+            "over the plan's tp axis (parallel/gspmd.annotate_tp_inference) "
+            "and each rank keeps its column block of each annotated weight "
+            "and bias; the activation is all-gathered after each split "
+            "layer, every contraction stays full-width, and every rank "
+            "returns the whole output")

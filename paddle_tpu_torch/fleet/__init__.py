@@ -55,8 +55,8 @@ __all__ = ["fleet", "DistributedStrategy", "PaddleCloudRoleMaker",
 
 class DistributedStrategy:
     """reference collective DistributedStrategy knobs: ``mode``,
-    ``use_amp`` with ``amp_loss_scaling`` and ``zero_stage`` (1 and 2; 3
-    waits for gspmd) drive the collective mode, ``sync_mode`` the
+    ``use_amp`` with ``amp_loss_scaling`` and ``zero_stage`` (1, 2 or 3)
+    drive the collective mode, ``sync_mode`` the
     parameter-server mode; the rest are kept for introspection (the
     gradients always ride one bucket a dtype, as if
     ``fuse_all_reduce_ops``)."""

@@ -19,8 +19,9 @@ reference config scripts run unchanged.
 
 The swap surface (``program_fingerprint``, ``program_state``,
 ``swap_program``) lets the serving pool move a replica's Predictor onto
-another program and back; ``shard`` and ``sharding_info`` (mesh-sliced
-serving) raise ``NotImplementedError`` (ROADMAP Queue 1 item 5).
+another program and back.  ``shard`` (behind the ``serving_sharded``
+flag) splits the fc weights column-parallel over a ``MeshPlan``'s tp
+ranks, one process a device, and ``sharding_info`` reports the blocks.
 """
 
 from __future__ import annotations
@@ -33,10 +34,6 @@ import numpy as np
 __all__ = ["Config", "AnalysisConfig", "Predictor", "PaddleTensor",
            "FeedValidationError", "create_predictor",
            "create_paddle_predictor"]
-
-
-_NO_MESH = ("{}: mesh-sliced tensor-parallel serving is not ported yet "
-            "(ROADMAP Queue 1 item 5, parallelism on torch.distributed)")
 
 
 class FeedValidationError(ValueError):
@@ -285,14 +282,56 @@ class Predictor:
 
     zero_copy_run = run
 
-    # -- mesh-sliced tensor-parallel serving: not ported -------------------
+    # -- tensor-parallel sharding over the world's ranks ------------------
     def shard(self, plan, devices=None, axis="tp"):
-        """Sharding the Predictor over a mesh slice: not ported, raises
-        (ROADMAP Queue 1 item 5)."""
-        raise NotImplementedError(_NO_MESH.format("Predictor.shard"))
+        """Shards this Predictor over ``plan``'s ranks (one process a
+        device; ``devices``, when given, one a rank): the inference
+        program's fc weights annotated column-parallel over the plan's
+        ``axis`` (``parallel.gspmd.annotate_tp_inference``), the
+        annotations' rules installed on the compiled program, and each
+        rank keeping its column block of each annotated weight and bias
+        from now on.  A run gathers the activation after each split layer
+        and every rank returns the whole output.  Column-only splits keep
+        every contraction full-width.
+
+        Behind the typed ``serving_sharded`` flag: with it off this is a
+        no-op returning None (no byte of the program changes).
+        Idempotent.  Returns {"annotated": [...], "devices": n}."""
+        from paddle_tpu_torch.flags import get_flag
+
+        if not get_flag("serving_sharded"):
+            return None
+        from paddle_tpu_torch.parallel.gspmd import (MeshPlan,
+                                                     annotate_tp_inference,
+                                                     partition_spec_of)
+
+        if not isinstance(plan, MeshPlan):
+            raise TypeError(f"plan must be a MeshPlan, got {plan!r}")
+        annotated = annotate_tp_inference(self._program, plan, axis=axis)
+        mesh = plan.build_mesh(devices=devices)
+        program = self._program
+
+        def rule(name, shape):
+            var = program.global_block().vars.get(name)
+            if var is None:
+                return None
+            return partition_spec_of(var, plan, shape=shape)
+
+        self._compiled.with_sharding_rules(rule, mesh=mesh)
+        # the blocks now: each rank keeps its block of each annotated var
+        self._compiled._bind_state(self._scope, self.device)
+        self._mesh_plan = plan
+        self._tp_annotated = annotated
+        return {"annotated": annotated, "devices": plan.size()}
 
     def sharding_info(self):
-        raise NotImplementedError(_NO_MESH.format("Predictor.sharding_info"))
+        """{param: (spec, this rank's block shape)} of the annotated params
+        of a sharded Predictor ({} unsharded)."""
+        blocks = self._compiled.sharded_state()
+        block = self._program.global_block()
+        return {n: (tuple(block.var(n).sharding), tuple(blocks[n].shape))
+                for n in getattr(self, "_tp_annotated", ()) or ()
+                if n in blocks}
 
     # -- live program swap (the serving pool's swap_predictor) -------------
     # what a snapshot carries: the CompiledProgram with the Scope its

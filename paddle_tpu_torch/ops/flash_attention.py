@@ -419,9 +419,13 @@ def flash_attention_lse(q, k, v, causal=False, scale=None):
                     "block_k": 0, "gspmd_batch_axis": "",
                     "gspmd_head_axis": ""})
 def _flash_attention_op(ins, attrs, device):
-    """The IR op.  ``scale`` 0.0 means 1/sqrt(D).  The tile sizes and the
-    gspmd axes are the JAX package's and change nothing on one card.
-    With tracing on, the entry is a device-trace annotation site."""
+    """The IR op.  ``scale`` 0.0 means 1/sqrt(D).  The tile sizes are the
+    JAX package's and change nothing here.  The gspmd axes are read by the
+    layout engine of a sharded plan (``core/sharding.py``): where q, k and
+    v are split over the tagged head (and batch) axes, this compute runs
+    on this rank's heads and rows, the same kernel entry on the local
+    shard; otherwise they are gathered first.  With tracing on, the entry
+    is a device-trace annotation site."""
     if _obs_trace._tracer is not None:
         with _obs_device.annotate("flash_attention"):
             return _flash_attention_entry(ins, attrs)

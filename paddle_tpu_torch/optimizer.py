@@ -58,6 +58,12 @@ class Optimizer:
         block = param.block.program.global_block()
         v = block.create_var(name=var_name, shape=shape, dtype=dtype,
                              persistable=True, stop_gradient=True)
+        # a same-shaped accumulator shards as its parameter does (ZeRO's
+        # optimizer state lives with the parameter's block); a [1]
+        # accumulator keeps its own shape and stays replicated
+        if getattr(param, "sharding", None) is not None and \
+                list(shape) == list(param.shape or ()):
+            v.set_sharding(param.sharding)
         sb = default_startup_program().global_block()
         sv = sb.create_var(name=var_name, shape=shape, dtype=dtype,
                            persistable=True)

@@ -32,8 +32,10 @@ parallelism over ``axis``: batch-reducing ops (``batch_norm``,
 whose adjoints are collectives too, so the grad ops' recomputed forwards
 and their backwards issue the same collectives on every rank.
 
-``make_hybrid_mesh`` and ``shard_map`` wait for the ``gspmd`` item
-(ROADMAP Queue 1 item 5).
+``make_hybrid_mesh`` lays the dcn axes outermost over the ranks, and
+``shard_map`` runs a function on this rank's blocks of its inputs and
+all-gathers its outputs by their specs (``local_block``,
+``gather_block``, on the differentiable gathers here).
 """
 
 from __future__ import annotations
@@ -433,20 +435,89 @@ def all_reduce_sum(t, group, size):
 
 def all_gather_stacked(t, group, size):
     """Differentiable [size, ...] stack of the ranks' ``t``."""
-    index = dist.get_group_rank(group, dist.get_rank()) \
-        if group is not dist.group.WORLD else dist.get_rank()
-    return _AllGatherStacked.apply(t, group, size, index)
+    return _AllGatherStacked.apply(t, group, size, _axis_rank(group))
 
 
 def make_hybrid_mesh(dcn_axes, ici_axes, devices=None):
-    raise NotImplementedError(
-        "parallel.env.make_hybrid_mesh is not ported yet (ROADMAP Queue 1 "
-        "item 5, parallel/gspmd.py)")
+    """A mesh over the world's ranks whose outer axes are ``dcn_axes`` and
+    inner ones ``ici_axes`` ({name: size}, in order), as the JAX package
+    lays a multi-slice mesh out: data parallelism on the slow outer axes,
+    tensor axes within a host.  Ranks are numbered host-major by the
+    launcher, so the inner axes' lines stay on one host when their sizes
+    divide the ranks a host."""
+    names = tuple(dcn_axes) + tuple(ici_axes)
+    shape = tuple(int(s) for s in dcn_axes.values()) + tuple(
+        int(s) for s in ici_axes.values())
+    need = int(np.prod(shape, dtype=np.int64))
+    have = world_size() if devices is None else len(devices)
+    if need != have:
+        raise ValueError("hybrid mesh %s x %s needs %d devices, have %d"
+                         % (dict(dcn_axes), dict(ici_axes), need, have))
+    return make_mesh(shape=shape, axis_names=names, devices=devices)
+
+
+def _entry_axes(entry):
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (list, tuple)) else (entry,)
+
+
+def _axis_rank(group):
+    return dist.get_group_rank(group, dist.get_rank()) \
+        if group is not dist.group.WORLD else dist.get_rank()
+
+
+def local_block(t, spec, mesh):
+    """This rank's block of the global ``t`` under ``spec`` (an entry a
+    dim: None, an axis or a tuple of axes, major first)."""
+    for d, entry in enumerate(spec or ()):
+        for a in _entry_axes(entry):
+            n = mesh.shape[a]
+            if n == 1:
+                continue
+            k = t.shape[d] // n
+            t = t.narrow(d, mesh.axis_index(a) * k, k)
+    return t
+
+
+def gather_block(t, spec, mesh):
+    """The global tensor from every rank's block ``t`` under ``spec``;
+    differentiable (``all_gather_stacked``: the adjoint of a rank's block
+    is its part of the cotangent, summed over the axis)."""
+    for d, entry in enumerate(spec or ()):
+        for a in reversed(_entry_axes(entry)):
+            n, group = mesh.shape[a], mesh.group(a)
+            if n == 1 or group is None:
+                continue
+            got = all_gather_stacked(t, group, n)
+            t = torch.cat(got.unbind(0), dim=d)
+    return t
 
 
 def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-    raise NotImplementedError(
-        "parallel.env.shard_map is not ported yet (ROADMAP Queue 1 item 5, "
-        "parallel/gspmd.py): one process drives one device, and a "
-        "program's collectives run over the mesh's process groups")
+    """The port's local-compute wrapper: ``g(*args)`` takes this rank's
+    block of each (global) input by its spec, runs ``f`` on the blocks
+    (where it may issue collectives over ``mesh``'s groups), and
+    all-gathers each output along the dims its out spec names.  A dim its
+    spec leaves None is taken as this rank holds it: equal on every rank,
+    which nothing checks (``check_rep`` is the JAX package's and changes
+    nothing).  One ``PartitionSpec`` stands for every input or output, a
+    sequence gives one each."""
 
+    from paddle_tpu_torch.parallel.zero import PartitionSpec
+
+    def specs_for(specs, n):
+        if specs is None or isinstance(specs, PartitionSpec):
+            return [specs] * n
+        return list(specs)
+
+    def wrapped(*args):
+        ins = specs_for(in_specs, len(args))
+        outs = f(*[local_block(a, s, mesh) for a, s in zip(args, ins)])
+        single = not isinstance(outs, (tuple, list))
+        seq = [outs] if single else list(outs)
+        ospecs = [out_specs] if single else specs_for(out_specs, len(seq))
+        got = [gather_block(o, s, mesh) for o, s in zip(seq, ospecs)]
+        return got[0] if single else type(outs)(got)
+
+    return wrapped

@@ -5,16 +5,15 @@ Counterpart of ``paddle_tpu/parallel/zero.py``: the same rule builder
 (``collect_optimizer_state``) and name-marker fallback.  The JAX package
 hands the rule to ``CompiledProgram.with_sharding_rules`` and XLA's SPMD
 partitioner emits the reduce-scatter/all-gather pattern.  Here the
-compiled program does it by hand (``core/compiler.py``): each rank holds
-and updates dim-0 rows of every sharded accumulator and of its
-parameter, the gradients are reduce-scattered into those rows, and the
-updated parameter rows are all-gathered.
-
-Stages 1 and 2 take the same rule, as in the JAX package (stage 2's
-gradient sharding is the reduce-scatter).  Stage 3 shards the
-parameters themselves, which waits for ``parallel/gspmd.py`` (ROADMAP
-Queue 1 item 5): the compiled program refuses a rule that shards a
-parameter, and any spec but dim 0 over the data axis.
+compiled program's layout engine does it by hand (``core/sharding.py``):
+each rank holds and updates dim-0 rows of every sharded accumulator and
+of its parameter, the gradients are reduce-scattered into those rows,
+and the updated parameter rows are all-gathered (stages 1 and 2, one
+rule as in the JAX package: stage 2's gradient sharding is the
+reduce-scatter).  Stage 3 shards the parameters themselves, which stay
+sharded between steps and are gathered where they are used: the same
+layouts ``transpiler.shard_program``'s ZeRO-3 annotations give, so the
+two train alike.
 
 ``PartitionSpec`` is the port's own (``jax.sharding.PartitionSpec``'s
 shape: one mesh axis or None a dim).
@@ -117,11 +116,3 @@ def zero_sharding_rules(stage: int = 1, axis: str = "dp",
         return P(axis, *([None] * (len(shape) - 1)))
 
     return rule
-
-
-def is_dim0_spec(spec, axis) -> bool:
-    """Whether ``spec`` is ZeRO's shape: dim 0 over ``axis``, the rest
-    replicated."""
-    parts = tuple(spec)
-    return bool(parts) and parts[0] == axis and \
-        all(p is None for p in parts[1:])

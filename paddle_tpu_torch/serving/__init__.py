@@ -43,7 +43,8 @@ Counterpart of ``paddle_tpu/serving``.  Ported:
 ``ModelRegistry(configure=lambda c: c.disable_gpu())``) runs on the
 CPU.  Not ported yet, each raising ``NotImplementedError`` that names
 its ROADMAP Queue 1 item: mesh-sliced replicas and
-``replicate_predictor_params`` (item 5); the fleet collector of both
+``replicate_predictor_params`` (item 5.2; ``Predictor.shard`` itself is
+ported); the fleet collector of both
 servers (``collector``, item 4.3).  ``metrics_port`` mounts the ``/metrics``
 exporter on either server.
 """

@@ -7,7 +7,7 @@ they share it: each has its own CompiledProgram (its own scope, graphs
 and graph pool), and the compiled path's per-device lock orders one
 replica's warm-up and capture against the other's replays
 (``core/compiler.py``).  Mesh slices (``mesh_plan``, ``devices``) and
-``replicate_predictor_params`` are not ported (ROADMAP Queue 1 item 5).
+``replicate_predictor_params`` are not ported (ROADMAP Queue 1 item 5.2).
 
 Every failure mode is driven through ``distributed/faultinject.py``
 so it is a seeded, replayable test: replicas consult the installed
@@ -65,7 +65,7 @@ __all__ = ["MSG_INFER", "MSG_HEALTH", "ReplicaKilled", "ReplyLost",
            "Replica", "ReplicaPool", "replicate_predictor_params"]
 
 _NO_MESH = ("{}: mesh-sliced serving is not ported yet (ROADMAP Queue "
-            "1 item 5, parallelism on torch.distributed)")
+            "1 item 5.2, the serving tier's mesh options)")
 
 MSG_INFER = faultinject.register_msg_type("serving_infer")
 MSG_HEALTH = faultinject.register_msg_type("serving_health")
@@ -269,7 +269,7 @@ class ReplicaPool:
         probe must not kill a healthy replica).
 
         ``mesh_plan`` and ``devices`` (mesh-sliced replicas) raise
-        ``NotImplementedError`` (ROADMAP Queue 1 item 5)."""
+        ``NotImplementedError`` (ROADMAP Queue 1 item 5.2)."""
         import os
 
         if mesh_plan is not None or devices is not None:
@@ -353,7 +353,7 @@ class ReplicaPool:
     # -- mesh slices: not ported ------------------------------------------
     def mesh_stats(self):
         """Slice-carving summary of a mesh-sliced pool: not ported,
-        raises (ROADMAP Queue 1 item 5)."""
+        raises (ROADMAP Queue 1 item 5.2)."""
         raise NotImplementedError(_NO_MESH.format("ReplicaPool.mesh_stats"))
 
     # -- fleet operations ---------------------------------------------------
@@ -623,5 +623,5 @@ class ReplicaPool:
 def replicate_predictor_params(predictor, mesh=None):
     """Placing a Predictor's parameters replicated over a device mesh (N
     replicas reading one device copy): not ported, raises (ROADMAP Queue
-    1 item 5)."""
+    1 item 5.2)."""
     raise NotImplementedError(_NO_MESH.format("replicate_predictor_params"))

@@ -8,7 +8,7 @@ that card.  ``metrics_port`` (or ``PADDLE_TPU_METRICS_PORT``) mounts the
 ``stop()``, and ``collector`` (or ``PADDLE_TPU_COLLECTOR``) runs a fleet
 ``CollectorPusher`` over the same span (``observability/collector.py``).
 Mesh slices (``mesh_plan``, ``devices``) raise ``NotImplementedError``
-(ROADMAP Queue 1 item 5).
+(ROADMAP Queue 1 item 5.2).
 
 Pipeline: submit() -> AdmissionController (bounded queue, typed
 shedding) -> ShapeBucketBatcher (pad-to-bucket, max-wait timer) ->
@@ -54,7 +54,7 @@ __all__ = ["ServingConfig", "InferenceServer"]
 
 _NOT_PORTED = ("{} is not ported yet: it waits for ROADMAP Queue 1 item "
                "{}")
-_MESH = "5 (parallelism on torch.distributed)"
+_MESH = "5.2 (the serving tier's mesh options)"
 
 
 class ServingConfig:

@@ -12,3 +12,5 @@ from paddle_tpu_torch.transpiler.layout_transpiler import (  # noqa: F401
     nhwc_transpile, space_to_depth_stem)
 from paddle_tpu_torch.transpiler.ps_dispatcher import (  # noqa: F401
     HashName, PSDispatcher, RoundRobin)
+from paddle_tpu_torch.transpiler.sharding_transpiler import (  # noqa: F401
+    ShardingTranspiler, shard_program)

@@ -519,19 +519,16 @@ def test_refusals():
                            match="paddle_tpu_torch.launch --nproc_per_node"):
             prog.with_data_parallel(
                 loss_name=loss, places=[pt.CUDAPlace(0), pt.CUDAPlace(1)])
-        # ZeRO's rules are taken; a parameter sharded (stage 3) or another
-        # partition spec waits for the gspmd item
+        # any rule is taken, a parameter sharded (ZeRO stage 3) too; a
+        # spec naming an axis the mesh has not raises, as in the JAX
+        # package
         from paddle_tpu_torch.parallel.zero import (PartitionSpec,
                                                     zero_sharding_rules)
         assert prog.with_sharding_rules(lambda name, shape: None) is prog
-        with pytest.raises(NotImplementedError,
-                           match="gspmd.py, ROADMAP Queue 1 item 5"):
-            prog.with_sharding_rules(
-                zero_sharding_rules(stage=3, min_size=1, program=main))
+        assert prog.with_sharding_rules(
+            zero_sharding_rules(stage=3, min_size=1, program=main)) is prog
         params = {v.name for v in main.all_parameters()}
-        with pytest.raises(NotImplementedError,
-                           match="other partition specs wait for "
-                           "parallel/gspmd.py"):
+        with pytest.raises(ValueError, match="unknown mesh axis 'tp'"):
             prog.with_sharding_rules(
                 lambda name, shape: PartitionSpec("tp")
                 if name not in params and len(shape) == 1 else None)

@@ -302,7 +302,9 @@ for zero in (0, 1):
         "differing_across_ranks": same_across({**aparams, **scaling})}
 out["amp_zero"] = amp_runs
 
-# any other optimize op that reads a sharded gradient is refused
+# any other optimize op that reads a sharded gradient reads it gathered:
+# a scale op copies W's gradient into a persistable, which the fetch
+# returns as it is, under ZeRO-1 and under replicated data parallelism
 rmain, rstart = pt.Program(), pt.Program()
 with pt.program_guard(rmain, rstart), pt.unique_name.guard():
     x = L.data("x", shape=[32], dtype="float32")
@@ -312,21 +314,30 @@ with pt.program_guard(rmain, rstart), pt.unique_name.guard():
     pt.optimizer.Adam(0.01).minimize(rloss)
     blk = rmain.global_block()
     wg = rmain.all_parameters()[0].name + "@GRAD"
-    blk.append_op(type="scale", inputs={"X": wg},
-                  outputs={"Out": blk.create_var(name="wg_seen",
-                                                 dtype="float32")},
+    seen = blk.create_var(name="wg_seen", shape=[32, 256], dtype="float32",
+                          persistable=True)
+    rstart.global_block().create_var(name="wg_seen", shape=[32, 256],
+                                     dtype="float32", persistable=True)
+    rstart.global_block().append_op(
+        type="fill_constant", outputs={"Out": ["wg_seen"]},
+        attrs={"shape": [32, 256], "dtype": "float32", "value": 0.0})
+    blk.append_op(type="scale", inputs={"X": wg}, outputs={"Out": seen},
                   attrs={"scale": 1.0}, op_role="optimize")
-sc = pt.Scope()
-exe.run(rstart, scope=sc)
-prog = pt.CompiledProgram(rmain).with_data_parallel(
-    loss_name=rloss.name).with_sharding_rules(zero_sharding_rules(
-        stage=1, program=rmain))
-try:
-    exe.run(prog, feed={"x": mine(zfeeds[0][0]), "y": mine(zfeeds[0][1])},
-            fetch_list=[rloss], scope=sc)
-    out["zero_stray_reader"] = "no-error"
-except NotImplementedError as e:
-    out["zero_stray_reader"] = str(e)
+stray = {}
+for zero in (0, 1):
+    sc = pt.Scope()
+    np.random.seed(3)
+    exe.run(rstart, scope=sc)
+    prog = pt.CompiledProgram(rmain).with_data_parallel(loss_name=rloss.name)
+    if zero:
+        prog = prog.with_sharding_rules(zero_sharding_rules(
+            stage=1, program=rmain))
+    got = exe.run(prog, feed={"x": mine(zfeeds[0][0]),
+                              "y": mine(zfeeds[0][1])},
+                  fetch_list=[rloss, "wg_seen"], scope=sc)
+    stray[zero] = {"seen": lst(got[1]), "sharded": sorted(
+        prog.sharded_state())}
+out["zero_stray_reader"] = stray
 
 # GradAllReduce at world 2 against one process on the global batch
 gmain, gstart = pt.Program(), pt.Program()
@@ -557,12 +568,16 @@ def test_amp_with_zero1_keeps_the_ranks_together(mlp_cluster):
 
 def test_zero_refuses_other_readers_of_sharded_gradients(mlp_cluster):
     """An optimize op other than the parameter's update (or AMP's check)
-    that reads a sharded gradient would see one rank's rows: refused,
-    naming the gspmd item."""
+    that reads a sharded gradient reads it whole, gathered from the ranks'
+    rows, as XLA gives it in the JAX package: no longer refused.  It sees
+    the gradient replicated data parallelism gives it."""
     for r in mlp_cluster["ranks"]:
-        msg = r["zero_stray_reader"]
-        assert "'scale' reads the ZeRO-sharded gradients" in msg, msg
-        assert "gspmd" in msg
+        plain, zero = r["zero_stray_reader"]["0"], r["zero_stray_reader"]["1"]
+        assert plain["sharded"] == [] and zero["sharded"], zero["sharded"]
+        seen = np.asarray(zero["seen"])
+        assert seen.shape == (32, 256) and np.abs(seen).max() > 0
+        np.testing.assert_allclose(seen, plain["seen"], rtol=1e-5,
+                                   atol=1e-7)
 
 
 def test_grad_allreduce_transpiled_equals_one_process(mlp_cluster):

@@ -413,29 +413,32 @@ def test_health_interval_env_knob_consumed_by_pool(tmp_path,
 
 
 # ---------------------------------------------------------------------------
-# mesh-sliced serving: not ported, typed
+# mesh-sliced serving: the tier's options not ported, typed
 # ---------------------------------------------------------------------------
 
 def test_replicate_predictor_params_raises_typed(tmp_path):
     """The JAX package places the weights replicated over a device mesh
-    (NamedSharding); the port has no mesh yet and says which ROADMAP
-    item it waits for, as do the other mesh options."""
+    (NamedSharding); the serving tier's mesh options are not ported yet and
+    say which ROADMAP item they wait for.  ``Predictor.shard`` is ported
+    (``tests/test_torch_sharded_predictor.py``): with the
+    ``serving_sharded`` flag off it is a no-op, and an unsharded
+    Predictor's ``sharding_info`` is empty."""
     d, _, _ = _save_model(tmp_path)
     p = _predictor(d)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
         serving.replicate_predictor_params(p)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        p.shard(None)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        p.sharding_info()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    before = p._program.to_bytes()
+    assert p.shard(None) is None
+    assert p._program.to_bytes() == before
+    assert p.sharding_info() == {}
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
         serving.ServingConfig(mesh_plan=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
         serving.ServingConfig(devices=["cuda:0"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
         serving.ReplicaPool(_factory(d), n_replicas=1, mesh_plan=object())
     pool = serving.ReplicaPool(_factory(d), n_replicas=1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5.2"):
         pool.mesh_stats()
 
 
